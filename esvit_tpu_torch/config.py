@@ -1,10 +1,16 @@
 """Configuration tree for the port: a torch mirror of esvit_tpu/config.py.
 
 Same dataclasses, field names and defaults as the reference
-(``esvit_tpu/config.py:49-412``) minus the TPU tiling knobs (packed_*,
-fused_tw_mm / fused_hg_max / fused_g_step, fused_block_interpret and
-sub-fp32 score storage): the Hopper kernels choose their own tiling, and
-attention scores are always fp32.
+(``esvit_tpu/config.py:49-412``) minus the TPU tuning knobs (packed_*,
+fused_tw_mm / fused_hg_max / fused_g_step, fused_block_interpret,
+sub-fp32 score storage and the subwindow_ratio crossover): the Hopper
+kernels choose their own tiling, attention scores are always fp32, and a
+single padded window always takes the sub-window route, as the
+reference's default ratio of 1.0 has it. The routing knobs keep the
+reference's defaults: Swin stages 0-2 run block-fused
+(``fused_block_stages``), and a single-padded-window stage among them runs
+the fused kernel on its augmented window (``subwindow_fused_stages=None``
+follows ``fused_block_stages``).
 
 Fields whose reference behaviour the port does not run yet keep their
 names and are refused by :func:`check_supported`, which names the ROADMAP
@@ -48,12 +54,16 @@ class SwinConfig:
     # partition copies become one index gather per layout change.
     layout_opt: bool = True
     remat: str = "none"
-    # Stages run through the block-fused kernel (esvit_tpu/ops/
-    # fused_block.py). Not ported yet, so the port's default is ().
-    fused_block_stages: tuple[int, ...] = ()
+    # Stages whose blocks each run as one call of the block-fused kernel
+    # pair (ops/fused_block.py, csrc/fused_block.cu) where its shape rule
+    # takes them; other stages run block by block. () disables.
+    fused_block_stages: tuple[int, ...] = (0, 1, 2)
     # Virtual-pad-column path for single-padded-window shapes
     # (SwinBlock._subwindow).
     subwindow_opt: bool = True
+    # Stages whose single-padded-window shapes run the fused kernel on the
+    # augmented window (H*W real tokens + 1 virtual pad token,
+    # SwinStage._forward_fused_subwindow). None follows fused_block_stages.
     subwindow_fused_stages: tuple[int, ...] | None = None
     name: str = "swin"
 
@@ -173,8 +183,6 @@ def check_supported(cfg: TrainConfig) -> None:
                 "queue 1 items 9 and 11")
     if m.attention_impl not in ("packed", "xla"):
         _refuse(f"attention_impl={m.attention_impl!r}", "queue 2 item 7")
-    if m.fused_block_stages or m.subwindow_fused_stages:
-        _refuse("the block-fused Swin kernel", "queue 2 items 1-3")
     if m.remat != "none":
         _refuse(f"remat={m.remat!r}", "queue 1 item 12")
     if m.drop_rate or m.attn_drop_rate:

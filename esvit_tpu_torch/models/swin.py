@@ -2,16 +2,29 @@
 
 NHWC inputs, reference checkpoint names (``patch_embed.proj``,
 ``layers.{i}.blocks.{j}.attn.qkv``, ``layers.{i}.downsample.reduction``,
-``norm``), and the JAX package's stage routing with no block-fused stages:
+``norm``), and the JAX package's stage routing
+(esvit_tpu/models/swin.py:677-691, :745-799), chosen per stage by
+:meth:`SwinStage.route`:
 
 - a stage whose tokens form one spatially padded window per image
-  (Hp == Wp == ws > H) runs each block's virtual-pad-column math
-  (``SwinBlock._subwindow``), in plain torch;
+  (Hp == Wp == ws > H) takes the sub-window route: on the augmented window
+  (H*W real tokens + 1 virtual pad token) through the block-fused kernel
+  when the stage is in ``subwindow_fused_stages`` (None: follow
+  ``fused_block_stages``) and the kernel takes the shape
+  (``SwinStage._forward_fused_subwindow``), else each block's
+  virtual-pad-column math in plain torch (``SwinBlock._subwindow``);
+- a stage in ``fused_block_stages`` whose shape the kernel takes runs each
+  block as one call of ``ops/fused_block.py`` in window-major order
+  (``SwinStage._forward_fused``);
 - every other stage runs window-major (``SwinStage._forward_window_major``,
   or the classic per-block partition with ``layout_opt=False``), and its
   windowed attention goes through ``ops/window_attention.py``: the CUDA
   kernel pair when ``attention_impl='packed'`` and the tensors are on the
   card, the plain torch version when ``attention_impl='xla'``.
+
+The fused kernel pair runs for CUDA tensors and its plain version for CPU
+tensors; which route a stage takes depends on shapes alone, never on the
+device.
 
 The per-stage effective window follows the reference
 (swin_transformer.py:206-210): if the construction-time resolution is at
@@ -31,6 +44,7 @@ from torch import nn
 from esvit_tpu_torch.config import SwinConfig
 from esvit_tpu_torch.models.common import (Dense, DropPath, LayerNorm, Mlp,
                                            softmax_fp32, trunc_normal_)
+from esvit_tpu_torch.ops import fused_block as fb
 from esvit_tpu_torch.ops import window as wops
 from esvit_tpu_torch.ops.window_attention import (window_attention,
                                                   window_attention_plain)
@@ -86,6 +100,15 @@ def _subwindow_bias_parts(table, H, W, ws, ss):
         parts.append(table[idx] + mask[..., None])
     bias_real, bias_pad = parts
     return bias_real, torch.logsumexp(bias_pad, dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _augmented_pad(L):
+    """(L+1,) row multiplier of the augmented window: 1 for the L real
+    tokens, 0 for the virtual pad token."""
+    pad = np.ones(L + 1, np.float32)
+    pad[L] = 0.0
+    return pad
 
 
 class WindowAttention(nn.Module):
@@ -147,6 +170,40 @@ class SwinBlock(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, norm_eps, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator)
+
+    def _keep_scale(self, B, deterministic, generator, device):
+        """(B,) fp32 drop-path scales {0, 1/keep}, drawn as DropPath draws
+        its mask, or None when stochastic depth is off."""
+        dp = self.drop_path
+        if dp.rate == 0.0 or deterministic:
+            return None
+        keep = dp.keep_mask(B, generator, device)
+        return keep.float() / (1.0 - dp.rate)
+
+    def fused(self, x, bias, N, nW, region, pad, deterministic, generator):
+        """The block as one call of the fused kernel pair on window-major
+        rows (B, nW*N, C). The two drop-path masks are drawn in the classic
+        path's order (attention branch, then MLP branch), so the route
+        does not shift the random stream."""
+        B, _, C = x.shape
+        keep1 = self._keep_scale(B, deterministic, generator, x.device)
+        keep2 = self._keep_scale(B, deterministic, generator, x.device)
+        attn = self.attn
+        w = attn.qkv.weight
+        bqkv = (attn.qkv.bias if attn.qkv.bias is not None
+                else torch.zeros(3 * C, device=x.device))
+        params = dict(
+            g1=self.norm1.weight, be1=self.norm1.bias,
+            wq=w[:C].t(), bq=bqkv[:C], wk=w[C:2 * C].t(), bk=bqkv[C:2 * C],
+            wv=w[2 * C:].t(), bv=bqkv[2 * C:], bias=bias,
+            wp=attn.proj.weight.t(), bp=attn.proj.bias,
+            g2=self.norm2.weight, be2=self.norm2.bias,
+            w1=self.mlp.fc1.weight.t(), b1=self.mlp.fc1.bias,
+            w2=self.mlp.fc2.weight.t(), b2=self.mlp.fc2.bias)
+        return fb.fused_swin_block(x.to(self.dtype), params, keep1, keep2,
+                                   N=N, nH=self.num_heads, nW=nW,
+                                   scale=attn.scale, region=region, pad=pad,
+                                   eps=self.norm1.eps)
 
     def _ffn(self, x, deterministic, generator):
         y = self.mlp(self.norm2(x))
@@ -297,9 +354,15 @@ class SwinStage(nn.Module):
     def __init__(self, dim, depth, num_heads, window_size, shift_enabled,
                  mlp_ratio, qkv_bias, qk_scale, drop_path, norm_eps,
                  downsample, attention_impl="packed", subwindow_opt=True,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, fused=False,
+                 subwindow_fused=False):
         super().__init__()
         self.window_size = window_size
+        self.dim = dim
+        self.num_heads = num_heads
+        self.hidden = int(dim * mlp_ratio)
+        self.fused = fused
+        self.subwindow_fused = subwindow_fused
         self.blocks = nn.ModuleList([
             SwinBlock(dim, num_heads, window_size,
                       window_size // 2 if (i % 2 == 1 and shift_enabled) else 0,
@@ -309,21 +372,86 @@ class SwinStage(nn.Module):
         self.downsample = (PatchMerging(dim, norm_eps, dtype, generator)
                            if downsample else None)
 
+    def _fused_ok(self) -> bool:
+        """Whether the fused kernel takes this stage's full windows."""
+        return fb.supports(self.window_size ** 2, self.dim, self.num_heads,
+                           self.hidden)
+
+    def _subwindow_fused_ok(self, L: int) -> bool:
+        """Whether the fused kernel takes the augmented window (L + 1)."""
+        return fb.supports(L + 1, self.dim, self.num_heads, self.hidden)
+
     def subwindow_ok(self, L: int) -> bool:
-        """Whether an input of L tokens takes the virtual-pad-column
-        block path (esvit_tpu SwinStage._subwindow_ok, no fused stages)."""
+        """Whether an input of L tokens takes the sub-window route
+        (esvit_tpu SwinStage._subwindow_ok at its default ratio of 1.0):
+        one spatially padded window per image."""
         blk = self.blocks[0]
         return blk.subwindow_opt and blk.is_subwindow(L)
 
+    def route(self, L: int, layout_opt: bool = True) -> str:
+        """The path an input of L tokens takes: 'fused_subwindow',
+        'fused', 'window_major' or 'classic' (block by block, each block
+        choosing its sub-window or partitioned attention)."""
+        if not layout_opt or len(self.blocks) == 0:
+            return "classic"
+        if self.subwindow_ok(L):
+            if self.subwindow_fused and self._subwindow_fused_ok(L):
+                return "fused_subwindow"
+            return "classic"
+        if self.fused and self._fused_ok():
+            return "fused"
+        return "window_major"
+
     def forward(self, x, deterministic=True, generator=None, layout_opt=True):
-        if layout_opt and len(self.blocks) > 0 and not self.subwindow_ok(x.shape[1]):
+        route = self.route(x.shape[1], layout_opt)
+        if route == "fused_subwindow":
+            x = self._forward_fused_subwindow(x, deterministic, generator)
+        elif route == "fused":
+            x = self._forward_fused(x, deterministic, generator)
+        elif route == "window_major":
             x = self._forward_window_major(x, deterministic, generator)
         else:
             for blk in self.blocks:
                 x = blk(x, deterministic, generator)
         return self.downsample(x) if self.downsample is not None else x
 
+    def _forward_fused_subwindow(self, x, deterministic, generator):
+        """Each image is one augmented window of N = H*W + 1 tokens: the
+        real tokens and one virtual token standing for every pad position
+        (JAX SwinStage._forward_fused_subwindow). The kernel's pad
+        multiplier zeroes the virtual row after LN1, so its key and value
+        are the qkv biases; its bias column holds the pad columns'
+        logsumexp, and the shift rides the bias (no region)."""
+        B, L, C = x.shape
+        H = W = math.isqrt(L)
+        ws, N = self.window_size, L + 1
+        x = F.pad(x, (0, 0, 0, 1))
+        pad = wops.device_table(_augmented_pad, (L,), x.device)
+        for blk in self.blocks:
+            bias_real, log_s = _subwindow_bias_parts(
+                blk.attn.relative_position_bias_table, H, W, ws,
+                blk.shift_size)
+            top = torch.cat([bias_real.permute(2, 0, 1),
+                             log_s.t()[:, :, None]], dim=2)  # (nH, L, N)
+            bias = F.pad(top, (0, 0, 0, 1))                  # (nH, N, N)
+            x = blk.fused(x, bias, N, 1, None, pad, deterministic, generator)
+        return x[:, :L]
+
+    def _forward_fused(self, x, deterministic, generator):
+        """The stage in window-major order (ops/window.py), each block one
+        call of the fused kernel pair (JAX SwinStage._forward_fused, on the
+        port's unpadded window-major layout)."""
+        return self._window_major(x, lambda blk, x, wm: blk.fused(
+            x, blk.attn.rel_bias(), self.window_size ** 2, wm["n_windows"],
+            wm["region"], wm["pad_mask"], deterministic, generator))
+
     def _forward_window_major(self, x, deterministic, generator):
+        return self._window_major(
+            x, lambda blk, x, wm: blk(x, deterministic, generator, wm))
+
+    def _window_major(self, x, run_block):
+        """Pad to whole windows, run each block in its window-major layout
+        (one index gather per layout change), and undo both."""
         B, L, C = x.shape
         H = W = math.isqrt(L)
         ws = self.window_size
@@ -350,7 +478,7 @@ class SwinStage(nn.Module):
                              if padded else None),
                 "n_windows": (Hp // ws) * (Wp // ws),
             }
-            x = blk(x, deterministic, generator, wm)
+            x = run_block(blk, x, wm)
         x = wops.from_window_major(x, Hp, Wp, ws, cur)
         if padded:
             x = x.reshape(B, Hp, Wp, C)[:, :H, :W, :].reshape(B, L, C)
@@ -375,6 +503,9 @@ class SwinTransformer(nn.Module):
                 torch.empty(1, base_res * base_res, c.embed_dim),
                 generator=generator))
         dpr = np.linspace(0, c.drop_path_rate, sum(c.depths))
+        sub_fused = (c.subwindow_fused_stages
+                     if c.subwindow_fused_stages is not None
+                     else c.fused_block_stages)
         nstages = len(c.depths)
         stages = []
         for i in range(nstages):
@@ -386,7 +517,8 @@ class SwinTransformer(nn.Module):
                 eff_ws, res > eff_ws, c.mlp_ratio, c.qkv_bias, c.qk_scale,
                 tuple(float(d) for d in dpr[lo:hi]), c.norm_eps,
                 i < nstages - 1, c.attention_impl, c.subwindow_opt, dtype,
-                generator))
+                generator, fused=i in c.fused_block_stages,
+                subwindow_fused=i in sub_fused))
         self.layers = nn.ModuleList(stages)
         self.norm = LayerNorm(c.num_features, c.norm_eps, dtype)
 
@@ -399,19 +531,36 @@ class SwinTransformer(nn.Module):
         region = self.norm(x)                                # (B, L, C)
         return region.mean(dim=1), region
 
-    def window_attention_calls(self, img_size: int) -> int:
-        """WindowAttention calls in one forward of an img_size input, by
-        the same routing rule as the forward: every block of a stage that
-        is not a sub-window stage (each is a kernel launch under
-        attention_impl='packed' on the card)."""
+    def _stage_routes(self, img_size: int):
+        """(stage, tokens, route) for an img_size input, by the forward's
+        rule."""
         H = img_size // self.cfg.patch_size
-        calls = 0
         for stage in self.layers:
-            if not stage.subwindow_ok(H * H):
-                calls += len(stage.blocks)
+            yield stage, H * H, stage.route(H * H, self.cfg.layout_opt)
             if stage.downsample is not None:
                 H = (H + 1) // 2
+
+    def window_attention_calls(self, img_size: int) -> int:
+        """WindowAttention calls in one forward of an img_size input: every
+        block of a stage on the window-major route, or on the classic route
+        where the block does not take its sub-window path (each is a kernel
+        launch under attention_impl='packed' on the card)."""
+        calls = 0
+        for stage, L, route in self._stage_routes(img_size):
+            blk = stage.blocks[0] if len(stage.blocks) else None
+            if route == "window_major" or (
+                    route == "classic" and blk is not None
+                    and not (blk.subwindow_opt and blk.is_subwindow(L))):
+                calls += len(stage.blocks)
         return calls
+
+    def fused_block_calls(self, img_size: int) -> int:
+        """Fused-block calls in one forward of an img_size input: every
+        block of a stage on a fused route (each is a kernel launch on the
+        card)."""
+        return sum(len(stage.blocks)
+                   for stage, _, route in self._stage_routes(img_size)
+                   if route in ("fused", "fused_subwindow"))
 
 
 def build_swin(cfg: SwinConfig, dtype=torch.float32, generator=None):

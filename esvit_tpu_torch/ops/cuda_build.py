@@ -37,23 +37,40 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
+def _library(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src, BUILD / f"lib{name}_{digest}.so"
+
+
 def build(name: str) -> tuple[Path, str]:
     """Compile csrc/<name>.cu (if not built yet) and return the library's
     path and the compiler's report ('' when it was already built)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD / f"lib{name}_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """Compile every csrc/<name>.cu not built yet, one nvcc process each,
+    all running at once; {name: (library path, compiler report)}."""
+    out, running = {}, {}
+    for name in names:
+        src, lib = _library(name)
+        if lib.exists():
+            out[name] = (lib, "")
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        running[name] = (src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports = {name: run[3].communicate()[0] for name, run in running.items()}
+    for name, (src, lib, tmp, proc) in running.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
+                               f"{reports[name]}")
+        os.replace(tmp, lib)
+        out[name] = (lib, reports[name])
+    return out
 
 
 @functools.cache

@@ -176,9 +176,3 @@ class _WindowAttention(torch.autograd.Function):
         dq, dk, dv, dbias = _bwd(q2, k2, v2, bias, region, do, N, nH, scale)
         return dq, dk, dv, dbias, None, None, None, None
 
-
-def build() -> str:
-    """Build (if needed) and load the kernels; returns nvcc's report."""
-    _, log = cuda_build.build("window_attention")
-    _lib()
-    return log

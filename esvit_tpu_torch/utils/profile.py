@@ -33,6 +33,8 @@ def _kernel_group(name: str) -> str:
     n = name.lower()
     if "window_attention" in n or "dbias_reduce" in n:
         return "window attention (this repo's CUDA)"
+    if any(k in n for k in ("fused_block", "wgrad_kernel", "sum_rows")):
+        return "fused block (this repo's CUDA)"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMM (cuBLAS)"
     if "reduce" in n or "norm" in n or "softmax" in n:

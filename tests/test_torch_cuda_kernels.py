@@ -72,3 +72,137 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(49 * 2, 192, device=cuda)[:, ::2]
     with pytest.raises(ValueError):
         wa.window_attention(q, q, q, bias, None, 49, 3, 0.17)
+
+
+# The block-fused kernel pair (ops/fused_block.py) against its plain
+# version: (B, H, ws, C, nH, shifted, spatially padded, drop-path). C and nH
+# keep the head dim at 32 as in Swin-T; the last case is a stage-2 width.
+FUSED_CASES = [
+    (2, 14, 7, 64, 2, False, False, False),
+    (2, 14, 7, 64, 2, True, False, True),
+    (2, 12, 7, 64, 2, True, True, False),
+    (2, 7, 7, 384, 12, False, False, True),
+]
+
+
+def _fused_inputs(cuda, B, H, ws, C, nH, shifted, padded, dp, seed=0):
+    rng = np.random.RandomState(seed)
+    Hp = -(-H // ws) * ws
+    N, nW, M = ws * ws, (Hp // ws) ** 2, 4 * C
+    ss = ws // 2 if shifted else 0
+    x = (0.5 * rng.randn(B, nW * N, C)).astype(np.float32)
+    p = _fused_params(rng, C, M, nH, N)
+    keep = None
+    if dp:
+        keep = [np.where(np.arange(B) == i, 0.0, 1 / 0.9).astype(np.float32)
+                for i in (0, B - 1)]
+    region = (torch.as_tensor(wops.window_region_ids(H, H, ws, ss),
+                              device=cuda) if shifted else None)
+    pad = (torch.as_tensor(wops.pad_token_mask(H, H, Hp, Hp, ws, ss),
+                           device=cuda) if padded else None)
+    kw = dict(N=N, nH=nH, nW=nW, scale=(C // nH) ** -0.5, region=region,
+              pad=pad, eps=1e-6)
+    return x, p, keep, kw
+
+
+def _fused_params(rng, C, M, nH, N):
+    return {k: v.astype(np.float32) for k, v in dict(
+        g1=1 + 0.1 * rng.randn(C), be1=0.1 * rng.randn(C),
+        wq=rng.randn(C, C) * C ** -0.5, bq=0.02 * rng.randn(C),
+        wk=rng.randn(C, C) * C ** -0.5, bk=0.02 * rng.randn(C),
+        wv=rng.randn(C, C) * C ** -0.5, bv=0.02 * rng.randn(C),
+        bias=0.05 * rng.randn(nH, N, N),
+        wp=rng.randn(C, C) * C ** -0.5, bp=0.02 * rng.randn(C),
+        g2=1 + 0.1 * rng.randn(C), be2=0.1 * rng.randn(C),
+        w1=rng.randn(C, M) * C ** -0.5, b1=0.02 * rng.randn(M),
+        w2=rng.randn(M, C) * M ** -0.5, b2=0.02 * rng.randn(C)).items()}
+
+
+def _fused_scale(ref, name):
+    """What a result is normalised by: its own max-abs, except dbk. The key
+    bias adds the same q.b_k to every score of a row, which softmax
+    ignores, so its exact gradient is 0 and both sides are rounding noise:
+    it is held at the scale of the largest gradient, as
+    tests/test_fused_block.py:156 holds every gradient."""
+    if name == "dbk":
+        return max(v.abs().max().item() for k, v in ref.items() if k != "out")
+    return max(ref[name].abs().max().item(), 1e-6)
+
+
+def _fused_run(fn, cuda, dtype, x, p, keep, kw, dout):
+    xt = torch.tensor(x, device=cuda, dtype=dtype).requires_grad_()
+    pt = {k: torch.tensor(v, device=cuda).requires_grad_() for k, v in p.items()}
+    k1, k2 = ((None, None) if keep is None
+              else [torch.tensor(k, device=cuda) for k in keep])
+    out = fn(xt, pt, k1, k2, **kw)
+    out.backward(torch.tensor(dout, device=cuda, dtype=dtype))
+    grads = {"out": out.detach(), "dx": xt.grad}
+    grads.update({f"d{k}": t.grad for k, t in pt.items()})
+    return {k: v.float().cpu() for k, v in grads.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_cuda_fused_block_matches_plain(cuda, case, dtype, tol):
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    x, p, keep, kw = _fused_inputs(cuda, *case)
+    dout = np.random.RandomState(1).randn(*x.shape).astype(np.float32)
+    before = dict(fb.launches)
+    got = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
+    assert fb.launches == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    again = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
+    ref = _fused_run(fb.fused_swin_block_plain, cuda, dtype, x, p, keep, kw,
+                     dout)
+    for name, a in got.items():
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, again[name], rtol=0, atol=0, msg=name)
+        s = _fused_scale(ref, name)
+        torch.testing.assert_close(a / s, ref[name] / s, rtol=tol, atol=tol,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_fused_block_augmented_window(cuda, dtype, tol):
+    """The 96px stage-2 route: one augmented window of 6x6 real tokens plus
+    the virtual pad token (pad multiplier 0 on its row), N = 37."""
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    B, C, nH, N = 4, 384, 12, 37
+    rng = np.random.RandomState(2)
+    x = (0.5 * rng.randn(B, N, C)).astype(np.float32)
+    x[:, -1] = 0.0
+    p = _fused_params(rng, C, 4 * C, nH, N)
+    p["bias"][:, -1, :] = 0.0
+    pad = torch.ones(N, device=cuda)
+    pad[-1] = 0.0
+    kw = dict(N=N, nH=nH, nW=1, scale=(C // nH) ** -0.5, region=None,
+              pad=pad, eps=1e-6)
+    dout = rng.randn(*x.shape).astype(np.float32)
+    dout[:, -1] = 0.0
+    keep = [np.array([1 / 0.9, 0.0, 1 / 0.9, 1 / 0.9], np.float32)] * 2
+    got = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
+    ref = _fused_run(fb.fused_swin_block_plain, cuda, dtype, x, p, keep, kw,
+                     dout)
+    for name, a in got.items():
+        s = _fused_scale(ref, name)
+        torch.testing.assert_close(a / s, ref[name] / s, rtol=tol, atol=tol,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_block_refuses_what_the_kernel_does_not_take(cuda):
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    x, p, keep, kw = _fused_inputs(cuda, 2, 14, 7, 64, 2, False, False, False)
+    pt = {k: torch.tensor(v, device=cuda) for k, v in p.items()}
+    with pytest.raises(TypeError):
+        fb.fused_swin_block(torch.tensor(x, device=cuda, dtype=torch.float16),
+                            pt, None, None, **kw)
+    with pytest.raises(ValueError):
+        fb.fused_swin_block(torch.tensor(x, device=cuda), pt, None, None,
+                            **dict(kw, nH=8))

@@ -177,9 +177,13 @@ def test_schedules_match_jax(warmup):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue 2 items 1-3"):
+    for stages in ((0, 1, 2), (0,), ()):
         tcfg.check_supported(tcfg.TrainConfig(
-            model=tcfg.swin_tiny(fused_block_stages=(0,))))
+            model=tcfg.swin_tiny(fused_block_stages=stages,
+                                 subwindow_fused_stages=stages)))
+    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
+        tcfg.check_supported(tcfg.TrainConfig(
+            model=tcfg.swin_tiny(attention_impl="pallas")))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         build_backbone(type("ViL", (), {"name": "vil"})())
     tcfg.check_supported(tcfg.TrainConfig())
