@@ -8,38 +8,50 @@ so the script exits non-zero and prints no result line:
 
 1. Device: require CUDA, print the card's name and power limit and the
    torch/CUDA versions; TF32 off for the parity checks.
-2. Build both kernel libraries from esvit_tpu_torch/csrc/ (one nvcc each,
-   started together) and print nvcc's -Xptxas -v report.
+2. Build the three kernel libraries from esvit_tpu_torch/csrc/ (one nvcc
+   each, started together) and print nvcc's -Xptxas -v report.
 3. Window attention vs plain PyTorch on the card at every full-window
    shape of the Swin-T W=7 B=32 multi-crop step (bf16, plus one fp32
    case): forward output and the q/k/v/bias gradients within 3e-2 (bf16)
    or 2e-5 (fp32) after normalising each by its max-abs; dbias
-   bit-identical on repeat; median times over 20 reps of kernel and
-   plain.
+   bit-identical on repeat; median times over 20 reps of kernel, plain
+   and the library call (scaled_dot_product_attention).
 4. The block-fused kernel pair vs its plain version at every block shape
    the default (fused) route gives it, shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
    output, dx and all 17 parameter gradients within the same tolerances
    (dbk, whose exact value is 0, at the scale of the largest gradient);
    every gradient bit-identical on repeat; median times over 20 reps.
-5. Forward parity, fp32, 224 and 96 px, same weights: the default fused
-   route, the window-attention route (fused_block_stages=()) and the
-   plain route (attention_impl='xla', no fused stages) agree within 1e-4
-   relative.
-6. The slice: esvit_tpu_torch.train.train.train() runs 5 steps of Swin-T
+5. The sliding-chunk kernel pair vs its plain version at the four shapes
+   of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case): the
+   output and the five gradients within the same tolerances, every one
+   bit-identical on repeat; median times over 20 reps of kernel, plain
+   and the library call (scaled_dot_product_attention with the
+   neighbourhood as a boolean mask, whose output is first held to the
+   plain one).
+6. Forward parity, fp32, 224 and 96 px, same weights: the Swin-T default
+   fused route, the window-attention route (fused_block_stages=()) and
+   the plain route (attention_impl='xla', no fused stages) agree within
+   1e-4 relative; so do ViL-T's kernel route and its plain route
+   (fused_sc='off').
+7. The slices: esvit_tpu_torch.train.train.train() runs 5 steps of Swin-T
    W=7, B=32, 2x224 + 8x96 crops, out_dim 65536, DDINO, bf16, on-device
    synthetic data, on the default fused route; then 3 steps of the
-   window-attention route in the same process. Losses must be finite;
-   student, teacher and both centers must change; each route's launch
-   counts of both kernel pairs must equal the per-step counts derived
+   window-attention route, then 5 steps of ViL-T on the same crops, in
+   the same process. Losses must be finite; student, teacher and both
+   centers must change (default route and ViL-T); each run's launch
+   counts of every kernel pair must equal the per-step counts derived
    from the model times the steps.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
-the default route's 5 steps; ``max_abs_err`` the largest max-abs
-difference from the plain version over the checked shapes, each divided
-by its normaliser (the quantity held to the tolerance); ``ms`` /
-``plain_ms`` the per-step time of the default route at the slice shapes
-(calls per step x median per call). The last line is
+the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk);
+``max_abs_err`` the largest max-abs difference from the plain version
+over the checked shapes, each divided by its normaliser (the quantity
+held to the tolerance); ``ms`` /
+``plain_ms`` / ``library_ms`` the per-step time of the default route at
+the slice shapes (calls per step x median per call); ``bound_ms`` the
+larger of the bytes over HBM bandwidth and the operations over the bf16
+peak, summed the same way. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -63,7 +75,13 @@ KERNELS = {
     "fused_block": ("esvit_tpu_torch/csrc/fused_block.cu", {
         "fwd": "esvit_tpu/ops/fused_block.py:459",
         "bwd": "esvit_tpu/ops/fused_block.py:475"}),
+    "sliding_chunk": ("esvit_tpu_torch/csrc/sliding_chunk.cu", {
+        "fwd": "esvit_tpu/ops/sliding_chunk_fused.py:116",
+        "bwd": "esvit_tpu/ops/sliding_chunk_fused.py:132"}),
 }
+# H100 SXM peaks for the roofline bound (NVIDIA data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 
 # Window attention: (label, windows B_, C, nH, stage resolution H, shifted,
 # dtype name, calls per step on the default route: forward, backward).
@@ -106,6 +124,19 @@ FUSED_SHAPES = [
 ]
 FUSED_GRADS = ("x", "g1", "be1", "wq", "bq", "wk", "bk", "wv", "bv", "bias",
                "wp", "bp", "g2", "be2", "w1", "b1", "w2", "b2")
+# Sliding-chunk kernel: (label, BH, grid side nx = ny, head dim M, dtype
+# name, calls per step: forward, backward). ViL-T's sparse stages have
+# W=7 and one global token; stage 0 has 1 head of 48, stage 1 3 of 32;
+# the 224 crops are 2B images through teacher and student, the 96 crops
+# 8B images through the student.
+SC_SHAPES = [
+    ("224 s0", 64, 56, 48, "bf16", 2, 1),
+    ("224 s1", 192, 28, 32, "bf16", 2, 1),
+    ("96 s0 padded", 256, 24, 48, "bf16", 1, 1),
+    ("96 s1 padded", 768, 12, 32, "bf16", 1, 1),
+    ("224 s1 fp32", 192, 28, 32, "fp32", 0, 0),
+]
+SC_GRADS = ("q", "k", "v", "k_glo", "v_glo")
 TOL = {"bf16": 3e-2, "fp32": 2e-5}
 
 
@@ -138,6 +169,35 @@ def phase_build(cuda_build):
     log(f"build: {time.perf_counter() - t0:.2f} s")
 
 
+class Tally:
+    """One kernel's per-step sums over the shapes of its path: calls x
+    median ms of the kernel, its plain version and the library call (if
+    any), and calls x the bytes and operations of its bound; the largest
+    normalised error over every checked shape."""
+
+    def __init__(self, library: bool = False):
+        self.err = 0.0
+        self.ms = self.plain_ms = 0.0
+        self.library_ms = 0.0 if library else None
+        self.nbytes = self.flops = 0.0
+
+    def add(self, calls, ms, plain_ms, nbytes, flops, library_ms=None):
+        self.ms += calls * ms
+        self.plain_ms += calls * plain_ms
+        self.nbytes += calls * nbytes
+        self.flops += calls * flops
+        if self.library_ms is not None:
+            self.library_ms += calls * library_ms
+
+    def record(self):
+        t_bytes = self.nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = self.flops / BF16_FLOP_PER_S * 1e3
+        return {"max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": self.library_ms}
+
+
 def _median_ms(torch, fn):
     for _ in range(3):
         fn()
@@ -152,13 +212,14 @@ def _median_ms(torch, fn):
 
 
 def phase_window_attention(torch, wa, wops):
-    """Kernel vs plain at the slice's shapes. Returns per-kernel max error
-    and the per-step kernel/plain milliseconds (sum over shapes of calls
-    per step x median time)."""
+    """Kernel vs plain at the slice's shapes, and the library call
+    (scaled_dot_product_attention, the bias + shift mask as its float
+    attn_mask; its backward gives dq, dk, dv, not dbias). Returns a Tally
+    per kernel."""
+    F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    per_step = {k: {"ms": 0.0, "plain_ms": 0.0} for k in ("fwd", "bwd")}
+    tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
     scale = 32 ** -0.5
     for label, B_, C, nH, H, shifted, dt, n_fwd, n_bwd in SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -188,8 +249,8 @@ def phase_window_attention(torch, wa, wops):
             errs.append((a.float() - b.float()).abs().max().item() / s)
         if max(errs) > TOL[dt]:
             raise AssertionError(f"{label}: errors {errs} above {TOL[dt]}")
-        worst["fwd"] = max(worst["fwd"], errs[0])
-        worst["bwd"] = max(worst["bwd"], *errs[1:])
+        tally["fwd"].err = max(tally["fwd"].err, errs[0])
+        tally["bwd"].err = max(tally["bwd"].err, *errs[1:])
 
         with torch.no_grad():
             t_fwd = _median_ms(torch, lambda: wa._fwd(q, k, v, bias, region,
@@ -203,18 +264,44 @@ def phase_window_attention(torch, wa, wops):
         p_bwd = _median_ms(torch, lambda: torch.autograd.grad(
             out, ts, do, retain_graph=True))
         del out, ts
-        for key, t, p, n in (("fwd", t_fwd, p_fwd, n_fwd),
-                             ("bwd", t_bwd, p_bwd, n_bwd)):
-            per_step[key]["ms"] += n * t
-            per_step[key]["plain_ms"] += n * p
+
+        # The library call on (B, nW*nH, N, hd) heads, mask (nW*nH, N, N).
+        nW = region.shape[0] if shifted else 1
+        mask = bias[None]
+        if shifted:
+            differ = region[:, :, None] != region[:, None, :]
+            mask = mask + torch.where(differ, -100.0, 0.0)[:, None]
+        mask = mask.reshape(nW * nH, N, N).to(dtype)
+
+        def heads(t):
+            return (t.reshape(B_ // nW, nW, N, nH, C // nH).permute(0, 1, 3, 2, 4)
+                    .reshape(B_ // nW, nW * nH, N, C // nH).contiguous())
+
+        q4, k4, v4, do4 = (heads(t) for t in (q, k, v, do))
+        with torch.no_grad():
+            l_fwd = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=scale))
+        ts = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+        out = F.scaled_dot_product_attention(*ts, attn_mask=mask, scale=scale)
+        l_bwd = _median_ms(torch, lambda: torch.autograd.grad(
+            out, ts, do4, retain_graph=True))
+        del out, ts, q4, k4, v4, do4
+
+        isz = q.element_size()
+        rows = B_ * N * C * isz
+        tables = nH * N * N * 4 + (region.numel() * 4 if shifted else 0)
+        tally["fwd"].add(n_fwd, t_fwd, p_fwd, 4 * rows + tables,
+                         4 * B_ * N * N * C, l_fwd)
+        tally["bwd"].add(n_bwd, t_bwd, p_bwd, 7 * rows + tables + nH * N * N * 4,
+                         10 * B_ * N * N * C, l_bwd)
         log(f"kernel-vs-plain {label:20s} B_={B_:5d} C={C:3d} nH={nH:2d} "
             f"{dt}: max err out {errs[0]:.2e} dq {errs[1]:.2e} "
             f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} "
             f"(tol {TOL[dt]:.0e}); dbias bit-identical on repeat")
         log(f"  time {label:20s} fwd kernel {t_fwd:.4f} ms plain "
-            f"{p_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms plain "
-            f"{p_bwd:.4f} ms")
-    return worst, per_step
+            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms "
+            f"plain {p_bwd:.4f} ms sdpa {l_bwd:.4f} ms")
+    return tally
 
 
 def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen):
@@ -286,8 +373,7 @@ def phase_fused(torch, fb, wops):
                             f"{itemsize}-byte block needs {need} bytes of "
                             f"shared memory (card: {limit})")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    per_step = {k: {"ms": 0.0, "plain_ms": 0.0} for k in ("fwd", "bwd")}
+    tally = {"fwd": Tally(), "bwd": Tally()}
     for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd in FUSED_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, params, k1, k2, region, pad, geo, do = _fused_case(
@@ -320,8 +406,9 @@ def phase_fused(torch, fb, wops):
         bad = {n: e for n, e in errs.items() if e > TOL[dt]}
         if bad:
             raise AssertionError(f"fused {label}: errors {bad} above {TOL[dt]}")
-        worst["fwd"] = max(worst["fwd"], errs["out"])
-        worst["bwd"] = max(worst["bwd"], *(errs[n] for n in FUSED_GRADS))
+        tally["fwd"].err = max(tally["fwd"].err, errs["out"])
+        tally["bwd"].err = max(tally["bwd"].err,
+                               *(errs[n] for n in FUSED_GRADS))
         del got, again, ref
 
         with torch.no_grad():
@@ -337,10 +424,20 @@ def phase_fused(torch, fb, wops):
         p_bwd = _median_ms(torch, lambda: torch.autograd.grad(
             out, [xs, *ps.values()], do, retain_graph=True))
         del out, xs, ps
-        for key, t, p, n in (("fwd", t_fwd, p_fwd, n_fwd),
-                             ("bwd", t_bwd, p_bwd, n_bwd)):
-            per_step[key]["ms"] += n * t
-            per_step[key]["plain_ms"] += n * p
+        # Bound: the block's products (q/k/v, proj, fc1, fc2: 24 C^2 per
+        # token; attention 4 N C per token), 3x in the backward (the
+        # recompute and two transposed products per layer), on x, the
+        # output (gradient) rows and the fp32 parameters.
+        T = x.shape[0] * x.shape[1]
+        rows = T * C * x.element_size()
+        pbytes = 4 * sum(t.numel() for t in params.values())
+        tables = sum(4 * t.numel() for t in (region, pad, k1, k2)
+                     if t is not None)
+        flops = 2 * T * 12 * C * C + 4 * T * N * C
+        tally["fwd"].add(n_fwd, t_fwd, p_fwd, 2 * rows + pbytes + tables,
+                         flops)
+        tally["bwd"].add(n_bwd, t_bwd, p_bwd, 3 * rows + 2 * pbytes + tables,
+                         3 * flops)
         top = sorted(((n if n == "out" else f"d{n}", e)
                       for n, e in errs.items()), key=lambda kv: -kv[1])[:3]
         log(f"fused-vs-plain {label:22s} B={B:3d} N={N} nW={nW:2d} C={C:3d} "
@@ -350,7 +447,7 @@ def phase_fused(torch, fb, wops):
         log(f"  time {label:22s} fwd kernel {t_fwd:.4f} ms plain "
             f"{p_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms plain "
             f"{p_bwd:.4f} ms")
-    return worst, per_step
+    return tally
 
 
 def phase_forward_parity(torch, C, fb):
@@ -395,27 +492,207 @@ def phase_forward_parity(torch, C, fb):
                 f"plain rel err {err:.2e} (tol 1e-4), shape {tuple(a.shape)}")
 
 
-def _derived_launches(C, cfg, steps):
-    """Per-kernel launches of `steps` train steps, from the model's routing:
-    the teacher runs the 224 crops forward, the student all crops forward
-    and backward."""
-    from esvit_tpu_torch.models.swin import SwinTransformer
+def _sc_keys(n: int, W: int, nglo: int) -> int:
+    """Keys summed over the n x n queries of one (image, head) of a
+    sliding-chunk call: the globals and the real tokens of each query's
+    in-grid 3 x 3 chunk neighbourhood (what this data needs, not the
+    padded 9 W^2)."""
+    m = -(-n // W)
+    real = [min(W, n - W * c) for c in range(m)]
+    near = [sum(real[max(c - 1, 0):c + 2]) for c in range(m)]
+    return sum(real[i] * real[j] * (nglo + near[i] * near[j])
+               for i in range(m) for j in range(m))
 
-    probe = SwinTransformer(cfg.model)
+
+def _sc_library_mask(torch, n: int, W: int, nglo: int, dev):
+    """(n*n, nglo + n*n) bool, True where a query of the n x n grid may
+    attend: the globals, and the tokens of the in-grid 3 x 3 chunk
+    neighbourhood of its own W x W chunk."""
+    c = torch.arange(n, device=dev) // W
+    near = (c[:, None] - c[None, :]).abs() <= 1
+    local = (near[:, None, :, None] & near[None, :, None, :]).reshape(
+        n * n, n * n)
+    return torch.cat([torch.ones(n * n, nglo, dtype=torch.bool, device=dev),
+                      local], 1)
+
+
+def phase_sliding_chunk(torch, sc):
+    """The sliding-chunk pair vs its plain version at the ViL-T slice's
+    shapes, and the library call (scaled_dot_product_attention with the
+    neighbourhood as a boolean attn_mask; its backward gives all five
+    gradients). Returns a Tally per kernel."""
+    F = torch.nn.functional
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = sc._lib()
+    for W in range(1, 9):
+        for M in range(8, 65, 8):
+            for nglo in range(9):
+                need = lib.esvit_sliding_chunk_smem_bytes(W, M, nglo)
+                if sc.supports(W, M, nglo) and need > limit:
+                    raise AssertionError(
+                        f"supports() admits W={W} M={M} nglo={nglo}, whose "
+                        f"blocks need {need} bytes of shared memory (card: "
+                        f"{limit})")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
+    W, nglo = 7, 1
+    for label, BH, n, M, dt, n_fwd, n_bwd in SC_SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+
+        def r(*shape, s=1.0):
+            return (s * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+        inputs = (r(BH, n, n, M, s=M ** -0.5), r(BH, n, n, M),
+                  r(BH, n, n, M), r(BH, nglo, M), r(BH, nglo, M))
+        do = r(BH, n, n, M)
+        kw = dict(nx=n, ny=n, W=W)
+
+        def kernel(*ts, nx, ny, W):
+            return sc._SlidingChunk.apply(*ts, nx, ny, W)
+
+        def grads(fn):
+            ts = [t.clone().requires_grad_() for t in inputs]
+            out = fn(*ts, **kw)
+            return [out.detach()] + list(torch.autograd.grad(out, ts, do))
+
+        got, again, ref = (grads(kernel), grads(kernel),
+                           grads(sc.sliding_chunk_attention_plain))
+        errs = {}
+        for name, a, b, c in zip(("out",) + SC_GRADS, got, again, ref):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"sliding chunk {label}: kernel {name} "
+                                     "not finite")
+            if not torch.equal(a, b):
+                raise AssertionError(f"sliding chunk {label}: {name} differs "
+                                     "between two runs")
+            s = max(c.float().abs().max().item(), 1e-6)
+            errs[name] = (a.float() - c.float()).abs().max().item() / s
+        bad = {n_: e for n_, e in errs.items() if e > TOL[dt]}
+        if bad:
+            raise AssertionError(f"sliding chunk {label}: errors {bad} above "
+                                 f"{TOL[dt]}")
+        tally["fwd"].err = max(tally["fwd"].err, errs["out"])
+        tally["bwd"].err = max(tally["bwd"].err, *(errs[g] for g in SC_GRADS))
+        del got, again, ref
+
+        with torch.no_grad():
+            t_fwd = _median_ms(torch, lambda: sc._fwd(*inputs, n, n, W))
+            p_fwd = _median_ms(torch, lambda: sc.sliding_chunk_attention_plain(
+                *inputs, **kw))
+            _, stats = sc._fwd(*inputs, n, n, W)
+        t_bwd = _median_ms(torch, lambda: sc._bwd(*inputs, stats, do, n, n, W))
+        ts = [t.clone().requires_grad_() for t in inputs]
+        out = sc.sliding_chunk_attention_plain(*ts, **kw)
+        p_bwd = _median_ms(torch, lambda: torch.autograd.grad(
+            out, ts, do, retain_graph=True))
+        del out, ts
+
+        # The library call: SDPA over the flattened grid, keys [globals |
+        # grid], with the neighbourhood as a boolean mask (q is pre-scaled,
+        # so scale 1). Its output is held to the plain one before timing.
+        q3, k3, v3, do3 = (t.reshape(BH, n * n, M)
+                           for t in (*inputs[:3], do))
+        kk, vv = (torch.cat([g, t], 1).contiguous()
+                  for g, t in ((inputs[3], k3), (inputs[4], v3)))
+        mask = _sc_library_mask(torch, n, W, nglo, dev)
+        with torch.no_grad():
+            lib_out = F.scaled_dot_product_attention(q3, kk, vv,
+                                                     attn_mask=mask, scale=1.0)
+            plain_out = sc.sliding_chunk_attention_plain(*inputs, **kw)
+            s = max(plain_out.float().abs().max().item(), 1e-6)
+            lib_err = (lib_out.reshape(plain_out.shape).float()
+                       - plain_out.float()).abs().max().item() / s
+            if lib_err > TOL[dt]:
+                raise AssertionError(f"sliding chunk {label}: the library "
+                                     f"call is {lib_err:.2e} from plain")
+            del lib_out, plain_out
+            l_fwd = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q3, kk, vv, attn_mask=mask, scale=1.0))
+        ts = [t.clone().requires_grad_() for t in (q3, kk, vv)]
+        out = F.scaled_dot_product_attention(*ts, attn_mask=mask, scale=1.0)
+        l_bwd = _median_ms(torch, lambda: torch.autograd.grad(
+            out, ts, do3, retain_graph=True))
+        del out, ts, kk, vv, mask
+
+        # Bound: q k^T and p v over the valid keys (4 M flops per key), 10 M
+        # in the backward (s and dp recomputed, dv, dq, dk); the grids and
+        # globals read once, the outputs written once.
+        keys = BH * _sc_keys(n, W, nglo)
+        grid = BH * n * n * M * inputs[0].element_size()
+        glo = 2 * BH * nglo * M * inputs[0].element_size()
+        tally["fwd"].add(n_fwd, t_fwd, p_fwd, 4 * grid + glo, 4 * M * keys,
+                         l_fwd)
+        tally["bwd"].add(n_bwd, t_bwd, p_bwd, 7 * grid + 2 * glo,
+                         10 * M * keys, l_bwd)
+        log(f"sliding-chunk-vs-plain {label:14s} BH={BH:3d} {n}x{n} W={W} "
+            f"M={M} nglo={nglo} {dt}: max err "
+            + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items())
+            + f" (tol {TOL[dt]:.0e}); all 6 results bit-identical on repeat; "
+            f"sdpa out vs plain {lib_err:.2e}")
+        log(f"  time {label:14s} fwd kernel {t_fwd:.4f} ms plain "
+            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms "
+            f"plain {p_bwd:.4f} ms sdpa {l_bwd:.4f} ms")
+    return tally
+
+
+def phase_vil_forward_parity(torch, C, sc):
+    """The ViL-T backbone on the kernel route and the plain route
+    (fused_sc='off'), fp32, same weights, 2 images at 224 and 96 px:
+    relative error <= 1e-4."""
+    from esvit_tpu_torch.models.vil import MsViT
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    kernel = MsViT(C.vil_tiny(), generator=gen).to(dev)
+    plain = MsViT(C.vil_tiny(fused_sc="off")).to(dev)
+    plain.load_state_dict(kernel.state_dict())
+    for size in (224, 96):
+        x = torch.randn(2, size, size, 3, generator=gen).to(dev)
+        sc.launches["fwd"] = 0
+        with torch.no_grad():
+            a = kernel.forward_features(x)[1]
+            if sc.launches["fwd"] != kernel.sliding_chunk_calls(size):
+                raise AssertionError(
+                    f"vil forward {size}px: {sc.launches['fwd']} launches, "
+                    f"model-derived {kernel.sliding_chunk_calls(size)}")
+            b = plain.forward_features(x)[1]
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        if not (torch.isfinite(a).all() and err <= 1e-4):
+            raise AssertionError(f"vil forward {size}px: kernel route vs "
+                                 f"plain {err:.2e}")
+        log(f"vil-t forward_features {size}px fp32: kernel route vs plain "
+            f"rel err {err:.2e} (tol 1e-4), shape {tuple(a.shape)}")
+
+
+def _derived_launches(cfg, steps):
+    """Per-kernel launches of `steps` train steps, from the model's routing
+    (its ``<kernel>_calls``; 0 for a kernel the backbone never calls): the
+    teacher runs the 224 crops forward, the student all crops forward and
+    backward."""
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    probe = build_backbone(cfg.model)
     g, l = cfg.crops.global_size, cfg.crops.local_size
     want = {}
-    for name, calls in (("window_attention", probe.window_attention_calls),
-                        ("fused_block", probe.fused_block_calls)):
+    for name in KERNELS:
+        calls = getattr(probe, f"{name}_calls", lambda size: 0)
         want[name] = {"fwd": (2 * calls(g) + calls(l)) * steps,
                       "bwd": (calls(g) + calls(l)) * steps}
     return want
 
 
-def _train_route(torch, cfg, steps, counters, label, card):
+def _slice(torch, cfg, steps, counters, label, card, check_state):
     """train() for `steps` steps with every launch count set to 0 just
-    before; returns (state, history, counts read just after)."""
+    before and read just after: finite losses, the launch counts of every
+    kernel pair equal to the model's, and (check_state) student, teacher
+    and both centers changed. Returns the counts."""
+    import gc
+
     from esvit_tpu_torch.train.train import train
 
+    want = _derived_launches(cfg, steps)
+    init = _initial_weights(torch, cfg) if check_state else None
     for launches in counters.values():
         launches["fwd"] = launches["bwd"] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -429,61 +706,57 @@ def _train_route(torch, cfg, steps, counters, label, card):
     ips = cfg.crops.ncrops * BATCH / (ms / 1e3)
     log(f"slice {label}: losses {losses}")
     log(f"slice {label}: launches {got}")
-    log(f"slice {label}: Swin-T W=7 B={BATCH} 2x224+8x96 DDINO out_dim 65536 "
+    log(f"slice {label}: W=7 B={BATCH} 2x224+8x96 DDINO out_dim 65536 "
         f"bf16: {ms:.1f} ms/step, {ips:.1f} img/s over steps 2-{steps}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB [{card}]")
-    return state, got
-
-
-def phase_slice(torch, C, counters, card, out_dir):
-    """The default (fused) route for STEPS steps, then the window-attention
-    route for 3, each with its launch counts held to the model's."""
-    import gc
-
-    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
-    want = _derived_launches(C, cfg, STEPS)
-    init = _initial_weights(torch, cfg)
-    state, got = _train_route(torch, cfg, STEPS, counters, "fused route", card)
     if got != want:
-        raise AssertionError(f"fused route: launches {got}, model-derived "
-                             f"{want}")
-    moved = {
-        "student": _max_change(torch, state.student, init),
-        "teacher": _max_change(torch, state.teacher, init),
-        "center": state.centers.center.abs().max().item(),
-        "center_grid": state.centers.center_grid.abs().max().item(),
-    }
-    if not all(v > 0 for v in moved.values()):
-        raise AssertionError(f"state did not change: {moved}")
-    log(f"slice fused route: max change {moved}")
+        raise AssertionError(f"{label}: launches {got}, model-derived {want}")
+    if check_state:
+        moved = {
+            "student": _max_change(torch, state.student, init),
+            "teacher": _max_change(torch, state.teacher, init),
+            "center": state.centers.center.abs().max().item(),
+            "center_grid": state.centers.center_grid.abs().max().item(),
+        }
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"{label}: state did not change: {moved}")
+        log(f"slice {label}: max change {moved}")
     del state
     gc.collect()
     torch.cuda.empty_cache()
-
-    wa_cfg = cfg.replace(model=C.swin_tiny(fused_block_stages=()))
-    wa_want = _derived_launches(C, wa_cfg, 3)
-    state, wa_got = _train_route(torch, wa_cfg, 3, counters,
-                                 "window-attention route", card)
-    if wa_got != wa_want:
-        raise AssertionError(f"window-attention route: launches {wa_got}, "
-                             f"model-derived {wa_want}")
-    del state
     return got
+
+
+def phase_slice(torch, C, counters, card, out_dir):
+    """Swin-T on the default (fused) route for STEPS steps, then on the
+    window-attention route for 3."""
+    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
+    got = _slice(torch, cfg, STEPS, counters, "Swin-T fused route", card,
+                 True)
+    _slice(torch, cfg.replace(model=C.swin_tiny(fused_block_stages=())), 3,
+           counters, "Swin-T window-attention route", card, False)
+    return got
+
+
+def phase_vil_slice(torch, C, counters, card, out_dir):
+    """ViL-T for STEPS steps."""
+    cfg = C.vil_tiny_multicrop(BATCH, output_dir=out_dir)
+    return _slice(torch, cfg, STEPS, counters, "ViL-T", card, True)
 
 
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
 
-    model = EsViTTrainer(cfg).build_model(
+    model = EsViTTrainer(cfg, device="cpu").build_model(
         torch.Generator().manual_seed(cfg.seed))
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
 def _max_change(torch, model, init):
     return max((p.detach().cpu() - init[n]).abs().max().item()
-               for n, p in model.state_dict().items())
+               for n, p in model.state_dict().items() if p.numel())
 
 
 def main():
@@ -497,22 +770,28 @@ def main():
     from esvit_tpu_torch import config as C
     from esvit_tpu_torch.ops import cuda_build
     from esvit_tpu_torch.ops import fused_block as fb
+    from esvit_tpu_torch.ops import sliding_chunk as sc
     from esvit_tpu_torch.ops import window as wops
     from esvit_tpu_torch.ops import window_attention as wa
 
     phase_build(cuda_build)
     results = {"window_attention": phase_window_attention(torch, wa, wops),
-               "fused_block": phase_fused(torch, fb, wops)}
+               "fused_block": phase_fused(torch, fb, wops),
+               "sliding_chunk": phase_sliding_chunk(torch, sc)}
     phase_forward_parity(torch, C, fb)
-    counters = {"window_attention": wa.launches, "fused_block": fb.launches}
+    phase_vil_forward_parity(torch, C, sc)
+    counters = {"window_attention": wa.launches, "fused_block": fb.launches,
+                "sliding_chunk": sc.launches}
     with tempfile.TemporaryDirectory() as out_dir:
-        launches = phase_slice(torch, C, counters, card, out_dir)
+        swin = phase_slice(torch, C, counters, card, out_dir)
+        vil = phase_vil_slice(torch, C, counters, card, out_dir)
+    launches = {name: (vil if name == "sliding_chunk" else swin)[name]
+                for name in KERNELS}
     record = {"kernels": [
         {"name": f"{name}_{k}", "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1][k], "launches": launches[name][k],
-         "max_abs_err": worst[k], "ms": per_step[k]["ms"],
-         "plain_ms": per_step[k]["plain_ms"]}
-        for name, (worst, per_step) in results.items() for k in ("fwd", "bwd")]}
+         **tally[k].record()}
+        for name, tally in results.items() for k in ("fwd", "bwd")]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,14 @@ reference's defaults: Swin stages 0-2 run block-fused
 the fused kernel on its augmented window (``subwindow_fused_stages=None``
 follows ``fused_block_stages``).
 
+The ViL (Vision Longformer) configs mirror ``esvit_tpu/config.py:233-279,
+464-491`` with the reference arch-string parser
+(``esvit_tpu/models/vil.py:47-59``). ``fused_sc`` keeps two of the
+reference's values: 'auto' sends every sparse stage that the sliding-chunk
+kernel's shape rule takes to it (ops/sliding_chunk.py, the CUDA kernel
+for tensors on the card), 'off' runs the plain stacked-neighbourhood
+version everywhere; the TPU's 'interpret' and 'on' are not ported.
+
 Fields whose reference behaviour the port does not run yet keep their
 names and are refused by :func:`check_supported`, which names the ROADMAP
 item that ports them.
@@ -70,6 +78,51 @@ class SwinConfig:
     @property
     def num_features(self) -> int:
         return int(self.embed_dim * 2 ** (len(self.depths) - 1))
+
+
+@dataclass(frozen=True)
+class ViLStageConfig:
+    """One Vision-Longformer stage, decoded from the reference arch string
+    'l1,h3,d96,n2,s1,g1,p4,f7,a1' (ref: models/vision_longformer.py:474-482)."""
+
+    num_heads: int = 3
+    embed_dim: int = 96
+    depth: int = 2
+    is_sparse: bool = True          # s: sliding-chunk attention vs full
+    num_global: int = 1             # g: global CLS tokens
+    patch_size: int = 4             # p: downsample factor entering the stage
+    window_size: int = 7            # f: chunk/window size
+    ape: bool = False               # a: absolute (factorized x/y) pos embed
+
+
+@dataclass(frozen=True)
+class ViLConfig:
+    """MsViT / Vision Longformer backbone spec (ref:
+    models/vision_longformer.py)."""
+
+    img_size: int = 224
+    in_chans: int = 3
+    stages: tuple[ViLStageConfig, ...] = ()
+    attn_type: str = "longformer"   # longformer | full | performer | ...
+    # Sliding-chunk neighbour sampling (ref longformer2d.py:135-155);
+    # only mode 0 (all 8 neighbours) is ported.
+    mode: int = 0
+    per_layer_mode: bool = False
+    # 'auto': sparse stages the kernel's shape rule takes go through
+    # ops/sliding_chunk.py (the CUDA kernel for tensors on the card);
+    # 'off': the plain stacked-neighbourhood version everywhere.
+    fused_sc: str = "auto"
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    norm_eps: float = 1e-6
+    name: str = "vil"
+
+    @property
+    def num_features(self) -> int:
+        return self.stages[-1].embed_dim
 
 
 @dataclass(frozen=True)
@@ -171,6 +224,55 @@ def swin_tiny_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
                        steps_per_epoch=1251, dtype=torch.bfloat16, **kw)
 
 
+def parse_vil_arch(arch: str) -> tuple[ViLStageConfig, ...]:
+    """'l1,h3,d96,n2,s1,g1,p4,f7,a1_l2,...' -> stage configs (ref
+    vision_longformer.py:474-482; attributes left out take the reference's
+    defaults)."""
+    stages = []
+    for layer in arch.split("_"):
+        cfg = {"l": 1, "h": 3, "d": 192, "n": 1, "s": 1, "g": 1,
+               "p": 2, "f": 7, "a": 1, "r": 0}
+        for attr in layer.split(","):
+            cfg[attr[0]] = int(attr[1:])
+        stages.append(ViLStageConfig(
+            num_heads=cfg["h"], embed_dim=cfg["d"], depth=cfg["n"],
+            is_sparse=bool(cfg["s"]), num_global=cfg["g"],
+            patch_size=cfg["p"], window_size=cfg["f"], ape=bool(cfg["a"])))
+    return tuple(stages)
+
+
+def vil_from_arch(arch: str, **kw) -> ViLConfig:
+    """Build from the reference MSVIT.ARCH string."""
+    return ViLConfig(stages=parse_vil_arch(arch), **kw)
+
+
+VIL_TINY_ARCH = ("l1,h1,d48,n1,s1,g1,p4,f7_l2,h3,d96,n1,s1,g1,p2,f7_"
+                 "l3,h3,d192,n9,s0,g1,p2,f7_l4,h6,d384,n1,s0,g0,p2,f7")
+
+
+def vil_tiny(**kw) -> ViLConfig:
+    """experiments/imagenet/vil/vil_tiny/base.yaml MSVIT.ARCH."""
+    return vil_from_arch(VIL_TINY_ARCH, **kw)
+
+
+def vil_femto(**kw) -> ViLConfig:
+    """Tiny CPU-testable ViL: a sparse stage and a full stage with global
+    tokens, 32px native."""
+    kw.setdefault("img_size", 32)
+    return vil_from_arch("l1,h2,d16,n1,s1,g1,p4,f2_l2,h2,d32,n1,s0,g1,p2,f2",
+                         **kw)
+
+
+def vil_tiny_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
+    """The ViL-T step bench.py's vil_tiny preset times: 2x224 + 8x96
+    crops, DINO heads of 65536 outputs, DDINO, bf16, at the Swin cell's
+    per-card batch (the reference's V+R recipe is 16 GPUs x 64)."""
+    return TrainConfig(model=vil_tiny(), head=HeadConfig(),
+                       loss=LossConfig(),
+                       optim=OptimConfig(batch_size_per_device=batch_size),
+                       steps_per_epoch=1251, dtype=torch.bfloat16, **kw)
+
+
 def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -178,13 +280,16 @@ def _refuse(what: str, item: str):
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for reference options the port lacks."""
     m = cfg.model
-    if getattr(m, "name", None) != "swin":
-        _refuse(f"backbone {getattr(m, 'name', m)!r}",
-                "queue 1 items 9 and 11")
-    if m.attention_impl not in ("packed", "xla"):
-        _refuse(f"attention_impl={m.attention_impl!r}", "queue 2 item 7")
-    if m.remat != "none":
-        _refuse(f"remat={m.remat!r}", "queue 1 item 12")
+    name = getattr(m, "name", None)
+    if name == "swin":
+        if m.attention_impl not in ("packed", "xla"):
+            _refuse(f"attention_impl={m.attention_impl!r}", "queue 2 item 7")
+        if m.remat != "none":
+            _refuse(f"remat={m.remat!r}", "queue 1 item 12")
+    elif name == "vil":
+        _check_vil(m)
+    else:
+        _refuse(f"backbone {getattr(m, 'name', m)!r}", "queue 1 item 11")
     if m.drop_rate or m.attn_drop_rate:
         _refuse("dropout inside the backbone", "queue 1 item 12")
     if cfg.head.use_bn:
@@ -195,3 +300,19 @@ def check_supported(cfg: TrainConfig) -> None:
         _refuse(f"optimizer={cfg.optim.optimizer!r}", "queue 1 item 11")
     if cfg.optim.frozen_layers:
         _refuse("frozen_layers", "queue 1 item 12")
+
+
+def _check_vil(m: ViLConfig) -> None:
+    """The port runs the canonical EsViT ViL: mode 0, the longformer
+    attention family, absolute position embeddings everywhere."""
+    if m.mode != 0 or m.per_layer_mode:
+        _refuse(f"ViL neighbour sampling (mode={m.mode}, per_layer_mode="
+                f"{m.per_layer_mode})", "queue 1 item 9b")
+    if m.attn_type not in ("longformer", "longformerhand", "longformerauto"):
+        _refuse(f"ViL attn_type={m.attn_type!r}", "queue 1 item 9b")
+    if not all(st.ape for st in m.stages):
+        _refuse("ViL relative position bias (a stage with ape=False)",
+                "queue 1 item 9b")
+    if m.fused_sc not in ("auto", "off"):
+        _refuse(f"fused_sc={m.fused_sc!r} (the port has 'auto' and 'off')",
+                "queue 1 item 9b")

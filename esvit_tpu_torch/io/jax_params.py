@@ -11,6 +11,9 @@ is exactly the inverse of esvit_tpu/io/torch_import.py
 - ``layers_i/blocks_j`` -> ``layers.i.blocks.j``, ``norm_final`` -> ``norm``,
   head ``mlp_k`` -> ``mlp.{2k}`` (the GELUs sit between), or ``mlp``
   for a one-layer head; the ``backbone`` level is dropped.
+- ViL (the inverse of ``import_vil_backbone``): ``embed_i`` ->
+  ``layer{i+1}.0``, ``stage{i}_attn{j}`` -> ``layer{i+1}.{2j+1}``,
+  ``stage{i}_mlp{j}`` -> ``layer{i+1}.{2j+2}``.
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the flax
 tree); nothing here imports jax.
@@ -53,6 +56,11 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int
     for p in parts:
         if m := re.fullmatch(r"(layers|blocks)_(\d+)", p):
             names += [m.group(1), m.group(2)]
+        elif m := re.fullmatch(r"embed_(\d+)", p):
+            names += [f"layer{int(m.group(1)) + 1}", "0"]
+        elif m := re.fullmatch(r"stage(\d+)_(attn|mlp)(\d+)", p):
+            j = 2 * int(m.group(3)) + (1 if m.group(2) == "attn" else 2)
+            names += [f"layer{int(m.group(1)) + 1}", str(j)]
         elif m := re.fullmatch(r"mlp_(\d+)", p):
             names += ["mlp"] if n_head_mlps == 1 else ["mlp", str(2 * int(m.group(1)))]
         elif p == "norm_final":

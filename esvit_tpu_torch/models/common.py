@@ -56,6 +56,32 @@ class Dense(nn.Module):
         return y
 
 
+class PatchConv(nn.Module):
+    """Non-overlapping conv patch projection on NHWC input: flax
+    ``nn.Conv`` with stride == kernel, as one product of each flattened
+    patch with the flattened kernel in the compute dtype. The weight is
+    stored OIHW like ``torch.nn.Conv2d``. Returns (B, H/p, W/p, dout)."""
+
+    def __init__(self, din: int, dout: int, patch_size: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.weight = nn.Parameter(trunc_normal_(
+            torch.empty(dout, din, patch_size, patch_size), generator=generator))
+        self.bias = nn.Parameter(torch.zeros(dout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, Cin = x.shape
+        ps = self.patch_size
+        Hp, Wp = H // ps, W // ps
+        x = x[:, :Hp * ps, :Wp * ps, :].reshape(B, Hp, ps, Wp, ps, Cin)
+        x = x.permute(0, 1, 3, 5, 2, 4).reshape(B, Hp, Wp, Cin * ps * ps)
+        w = self.weight.reshape(self.weight.shape[0], -1)
+        return F.linear(x.to(self.dtype), w.to(self.dtype)) + self.bias.to(self.dtype)
+
+
 class LayerNorm(nn.Module):
     """fp32 LayerNorm that casts its result to ``dtype``."""
 

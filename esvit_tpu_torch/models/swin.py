@@ -43,7 +43,8 @@ from torch import nn
 
 from esvit_tpu_torch.config import SwinConfig
 from esvit_tpu_torch.models.common import (Dense, DropPath, LayerNorm, Mlp,
-                                           softmax_fp32, trunc_normal_)
+                                           PatchConv, softmax_fp32,
+                                           trunc_normal_)
 from esvit_tpu_torch.ops import fused_block as fb
 from esvit_tpu_torch.ops import window as wops
 from esvit_tpu_torch.ops.window_attention import (window_attention,
@@ -318,32 +319,19 @@ class PatchMerging(nn.Module):
 
 class PatchEmbed(nn.Module):
     """Non-overlapping conv patch embedding (ref: swin_transformer.py:
-    514-547). The conv weight is stored OIHW; with stride == kernel the
-    conv is one product of each flattened patch with the flattened kernel,
-    computed in the compute dtype like flax ``nn.Conv``."""
+    514-547), then LayerNorm."""
 
     def __init__(self, patch_size, in_chans, embed_dim, patch_norm=True,
                  norm_eps=1e-6, dtype=torch.float32, generator=None):
         super().__init__()
-        self.patch_size = patch_size
-        self.dtype = dtype
-        self.proj = nn.Module()
-        self.proj.weight = nn.Parameter(trunc_normal_(
-            torch.empty(embed_dim, in_chans, patch_size, patch_size),
-            generator=generator))
-        self.proj.bias = nn.Parameter(torch.zeros(embed_dim))
+        self.proj = PatchConv(in_chans, embed_dim, patch_size, dtype,
+                              generator)
         self.norm = (LayerNorm(embed_dim, norm_eps, dtype) if patch_norm
                      else None)
 
     def forward(self, x):
-        B, H, W, Cin = x.shape                                   # NHWC
-        ps = self.patch_size
-        Hp, Wp = H // ps, W // ps
-        x = x[:, :Hp * ps, :Wp * ps, :].reshape(B, Hp, ps, Wp, ps, Cin)
-        x = x.permute(0, 1, 3, 5, 2, 4).reshape(B, Hp * Wp, Cin * ps * ps)
-        w = self.proj.weight.reshape(self.proj.weight.shape[0], -1)
-        x = F.linear(x.to(self.dtype), w.to(self.dtype))
-        x = x + self.proj.bias.to(self.dtype)
+        x = self.proj(x)                                         # NHWC
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
         return self.norm(x) if self.norm is not None else x
 
 

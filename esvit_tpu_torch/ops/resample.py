@@ -1,0 +1,65 @@
+"""Bicubic resampling with torch's scale-factor semantics (port of
+esvit_tpu/ops/resample.py ``torch_interpolate_scale``).
+
+The semantics are ``F.interpolate(mode='bicubic', align_corners=False,
+scale_factor=s)``: cubic convolution with A = -0.75, taps clamped at the
+edges, and the *given* scale maps the coordinates, src = (dst + 0.5) / s
+- 0.5, even where it disagrees with the size ratio; the output size is
+floor(size * s). The ViL patch embedding relies on that: its scale
+counts the global tokens, so its position table is resampled on every
+forward, even at the native grid (esvit_tpu/models/vil.py:105-122).
+
+``F.interpolate`` itself is not used: where the output size equals the
+input size, PyTorch's bicubic backward (and its CUDA forward) treat the
+call as a copy, which is not the resample the reference computes. As in
+the JAX module, the taps and weights are static numpy; here each axis
+becomes one (out, in) interpolation matrix, and the resample is two
+products in fp32, so the table stays differentiable and its gradient
+deterministic.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from esvit_tpu_torch.ops.window import device_table
+
+_A = -0.75  # torch's cubic convolution alpha
+
+
+def _cubic_kernel(x: np.ndarray) -> np.ndarray:
+    ax = np.abs(x)
+    return np.where(
+        ax <= 1,
+        (_A + 2) * ax ** 3 - (_A + 3) * ax ** 2 + 1,
+        np.where(ax < 2, _A * ax ** 3 - 5 * _A * ax ** 2 + 8 * _A * ax - 4 * _A,
+                 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """(out_size, in_size) fp32: row o holds the 4 cubic weights of output
+    o at its (clamped) source taps."""
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) / scale - 0.5
+    base = np.floor(src).astype(np.int64)
+    offs = np.arange(-1, 3)
+    idx = np.clip(base[:, None] + offs[None, :], 0, in_size - 1)
+    w = _cubic_kernel(offs[None, :] - (src - base)[:, None])
+    mat = np.zeros((out_size, in_size))
+    np.add.at(mat, (np.arange(out_size)[:, None].repeat(4, 1), idx), w)
+    return mat.astype(np.float32)
+
+
+def torch_interpolate_scale(grid: torch.Tensor, scale: float) -> torch.Tensor:
+    """grid (..., H, W, C) -> (..., floor(H*scale), floor(W*scale), C) in
+    fp32, cast back to the input dtype."""
+    H, W = grid.shape[-3], grid.shape[-2]
+    out_h, out_w = int(math.floor(H * scale)), int(math.floor(W * scale))
+    mh = device_table(_axis_matrix, (H, out_h, scale), grid.device)
+    mw = device_table(_axis_matrix, (W, out_w, scale), grid.device)
+    out = torch.einsum("hi,...ijc,wj->...hwc", mh, grid.float(), mw)
+    return out.to(grid.dtype)

@@ -48,7 +48,7 @@ class EsViTTrainer:
     """Builds the model, schedules and the step function."""
 
     def __init__(self, cfg: TrainConfig, total_batch_size: int | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)

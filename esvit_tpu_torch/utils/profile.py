@@ -1,10 +1,10 @@
 """Where the port's train step spends its time on the card.
 
-    python -m esvit_tpu_torch.utils.profile [--batch 32] [--steps 3]
-        [--trace step_trace.json]
+    python -m esvit_tpu_torch.utils.profile [--model swin_tiny|vil_tiny]
+        [--batch 32] [--steps 3] [--trace step_trace.json]
 
-Runs the Swin-T W=7 multi-crop DDINO step (config.swin_tiny_multicrop):
-two warm-up steps, ``--steps`` timed steps without the profiler (host
+Runs the Swin-T W=7 (config.swin_tiny_multicrop) or the ViL-T
+(config.vil_tiny_multicrop) multi-crop DDINO step: two warm-up steps, ``--steps`` timed steps without the profiler (host
 clock, each ending in a loss fetch), then ``--steps`` steps under
 torch.profiler. Prints, per step: the untraced step time; the kernels'
 summed device time and the device idle share against the untraced step
@@ -29,8 +29,14 @@ from esvit_tpu_torch.data.loader import synthetic_batches
 from esvit_tpu_torch.train.step import EsViTTrainer
 
 
+MODELS = {"swin_tiny": (config_lib.swin_tiny_multicrop, "Swin-T W=7"),
+          "vil_tiny": (config_lib.vil_tiny_multicrop, "ViL-T")}
+
+
 def _kernel_group(name: str) -> str:
     n = name.lower()
+    if "sliding_chunk" in n or "glo_reduce" in n:
+        return "sliding chunk (this repo's CUDA)"
     if "window_attention" in n or "dbias_reduce" in n:
         return "window attention (this repo's CUDA)"
     if any(k in n for k in ("fused_block", "wgrad_kernel", "sum_rows")):
@@ -44,6 +50,7 @@ def _kernel_group(name: str) -> str:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="swin_tiny", choices=sorted(MODELS))
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--trace", default="")
@@ -53,7 +60,8 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = config_lib.swin_tiny_multicrop(args.batch)
+    make_cfg, label = MODELS[args.model]
+    cfg = make_cfg(args.batch)
     dev = torch.device("cuda")
     trainer = EsViTTrainer(cfg, total_batch_size=args.batch, device=dev)
     state = trainer.init_state(torch.Generator().manual_seed(0))
@@ -86,7 +94,7 @@ def main(argv=None):
         raise RuntimeError("the profiler recorded no device activity")
     per_step = lambda us: us / 1e3 / args.steps          # noqa: E731
     busy_ms = per_step(sum(k.device_time_total for k in kernels))
-    print(f"[{card}] Swin-T W=7 B={args.batch} multi-crop DDINO bf16")
+    print(f"[{card}] {label} B={args.batch} multi-crop DDINO bf16")
     print(f"step {step_ms:.2f} ms untraced ({traced_ms:.2f} traced); "
           f"kernels {busy_ms:.2f} ms; device idle share "
           f"{1 - busy_ms / step_ms:.3f}")

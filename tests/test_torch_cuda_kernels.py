@@ -206,3 +206,88 @@ def test_cuda_fused_block_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fb.fused_swin_block(torch.tensor(x, device=cuda), pt, None, None,
                             **dict(kw, nH=8))
+
+
+# The sliding-chunk kernel pair (ops/sliding_chunk.py) against its plain
+# version: (BH, nx, ny, nglo, W, M). The ViL-T shapes at a small BH (224
+# and 96 px, stages 0-1: 8x8, 4x4, 4x4 padded and 2x2 padded chunks),
+# then a rectangular grid, no globals, 8 globals and the largest tile
+# the shape rule admits.
+SC_CASES = [
+    (2, 56, 56, 1, 7, 48),
+    (3, 28, 28, 1, 7, 32),
+    (2, 24, 24, 1, 7, 48),
+    (3, 12, 12, 1, 7, 32),
+    (2, 21, 10, 1, 7, 16),
+    (2, 14, 14, 0, 7, 32),
+    (2, 16, 16, 8, 4, 24),
+    (1, 20, 20, 3, 8, 64),
+]
+
+
+def _sc_run(fn, cuda, dtype, arrays, dout, nx, ny, W):
+    ts = [torch.tensor(a, device=cuda, dtype=dtype).requires_grad_()
+          for a in arrays]
+    out = fn(*ts, nx=nx, ny=ny, W=W)
+    out.backward(torch.tensor(dout, device=cuda, dtype=dtype))
+    return [out.detach().float().cpu()] + [t.grad.float().cpu() for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", SC_CASES)
+def test_cuda_sliding_chunk_matches_plain(cuda, case, dtype, tol):
+    from esvit_tpu_torch.ops import sliding_chunk as sc
+
+    BH, nx, ny, nglo, W, M = case
+    rng = np.random.RandomState(0)
+    grid = (BH, nx, ny, M)
+    arrays = [rng.randn(*grid).astype(np.float32) * M ** -0.5,
+              rng.randn(*grid).astype(np.float32),
+              rng.randn(*grid).astype(np.float32),
+              rng.randn(BH, nglo, M).astype(np.float32),
+              rng.randn(BH, nglo, M).astype(np.float32)]
+    dout = rng.randn(*grid).astype(np.float32)
+    before = dict(sc.launches)
+    got = _sc_run(sc.sliding_chunk_attention, cuda, dtype, arrays, dout, nx,
+                  ny, W)
+    assert sc.launches == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    again = _sc_run(sc.sliding_chunk_attention, cuda, dtype, arrays, dout,
+                    nx, ny, W)
+    ref = _sc_run(sc.sliding_chunk_attention_plain, cuda, dtype, arrays, dout,
+                  nx, ny, W)
+    for name, a, b, c in zip(["out", "dq", "dk", "dv", "dkg", "dvg"], got,
+                             again, ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+        s = max(c.abs().max().item(), 1e-6) if c.numel() else 1.0
+        torch.testing.assert_close(a / s, c / s, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_sliding_chunk_refuses_what_the_kernel_does_not_take(cuda):
+    from esvit_tpu_torch.ops import sliding_chunk as sc
+
+    q = torch.zeros(2, 14, 14, 32, device=cuda, dtype=torch.float16)
+    g = torch.zeros(2, 1, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        sc.sliding_chunk_attention(q, q, q, g, g, nx=14, ny=14, W=7)
+    q = torch.zeros(2, 14, 14, 36, device=cuda)
+    g = torch.zeros(2, 1, 36, device=cuda)
+    with pytest.raises(ValueError):
+        sc.sliding_chunk_attention(q, q, q, g, g, nx=14, ny=14, W=7)
+
+
+@pytest.mark.cuda
+def test_cuda_sliding_chunk_shape_rule_fits_the_card(cuda):
+    """Every shape supports() admits fits a block's shared memory."""
+    from esvit_tpu_torch.ops import sliding_chunk as sc
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = sc._lib()
+    for W in range(1, 9):
+        for M in range(8, 65, 8):
+            for nglo in range(9):
+                assert sc.supports(W, M, nglo)
+                assert lib.esvit_sliding_chunk_smem_bytes(W, M, nglo) <= limit

@@ -330,7 +330,7 @@ def test_fused_train_step_matches_unfused_route():
             optim=tcfg.OptimConfig(lr=1e-3, epochs=4, warmup_epochs=0,
                                    freeze_last_layer_epochs=0),
             dtype=torch.float32, steps_per_epoch=2)
-        trainer = EsViTTrainer(cfg, total_batch_size=256)
+        trainer = EsViTTrainer(cfg, total_batch_size=256, device="cpu")
         state = trainer.init_state(torch.Generator().manual_seed(0))
         rng = np.random.default_rng(0)
         batch = (torch.from_numpy(rng.normal(size=(4, 56, 56, 3))

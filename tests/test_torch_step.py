@@ -79,7 +79,7 @@ def run_both():
     jb = tuple(map(jnp.asarray, batch))
     state = jt.init_state(jax.random.PRNGKey(0), jb)
     step = jax.jit(jt.train_step)
-    tt = TTrainer(tc, total_batch_size=TOTAL_BATCH)
+    tt = TTrainer(tc, total_batch_size=TOTAL_BATCH, device="cpu")
     tstate = train_state_from_jax(jax.device_get(state), tt)
     tb = tuple(map(torch.from_numpy, batch))
     jax_hist, port_hist = [], []

@@ -184,6 +184,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 2 item 7"):
         tcfg.check_supported(tcfg.TrainConfig(
             model=tcfg.swin_tiny(attention_impl="pallas")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        build_backbone(type("ViL", (), {"name": "vil"})())
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        build_backbone(type("CvT", (), {"name": "cvt"})())
     tcfg.check_supported(tcfg.TrainConfig())
