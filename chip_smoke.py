@@ -8,7 +8,7 @@ so the script exits non-zero and prints no result line:
 
 1. Device: require CUDA, print the card's name and power limit and the
    torch/CUDA versions; TF32 off for the parity checks.
-2. Build the three kernel libraries from esvit_tpu_torch/csrc/ (one nvcc
+2. Build the four kernel libraries from esvit_tpu_torch/csrc/ (one nvcc
    each, started together) and print nvcc's -Xptxas -v report.
 3. Window attention vs plain PyTorch on the card at every full-window
    shape of the Swin-T W=7 B=32 multi-crop step (bf16, plus one fp32
@@ -29,30 +29,50 @@ so the script exits non-zero and prints no result line:
    and the library call (scaled_dot_product_attention with the
    neighbourhood as a boolean mask, whose output is first held to the
    plain one).
-6. Forward parity, fp32, 224 and 96 px, same weights: the Swin-T default
-   fused route, the window-attention route (fused_block_stages=()) and
-   the plain route (attention_impl='xla', no fused stages) agree within
-   1e-4 relative; so do ViL-T's kernel route and its plain route
-   (fused_sc='off').
-7. The slices: esvit_tpu_torch.train.train.train() runs 5 steps of Swin-T
+6. The forward-only qkv-layout window attention (row 7) vs plain PyTorch
+   on the card at every shape of the eval slice (fp32, B=64 at 224 px,
+   shifted and unshifted) and of its train route (bf16, the 224 and 96 px
+   shapes): the output within the same tolerances and bit-identical on
+   repeat; d(qkv) and d(bias) through the autograd wrapper equal to the
+   plain version's; median times over 20 reps of kernel, plain and the
+   library call (scaled_dot_product_attention, the dense bias as its
+   float attn_mask, its output first held to the plain one).
+7. Forward parity, fp32, 224 and 96 px, same weights: the Swin-T default
+   fused route, the window-attention route (fused_block_stages=()), the
+   qkv-layout route (attention_impl='pallas', no fused stages) and the
+   plain route (attention_impl='xla', no fused stages) agree within 1e-4
+   relative, and so does forward_return_n_last_blocks(x, 4) on each of
+   them; each kernel's launches equal the model-derived counts; so do
+   ViL-T's kernel route and its plain route (fused_sc='off').
+8. The slices: esvit_tpu_torch.train.train.train() runs 5 steps of Swin-T
    W=7, B=32, 2x224 + 8x96 crops, out_dim 65536, DDINO, bf16, on-device
    synthetic data, on the default fused route; then 3 steps of the
-   window-attention route, then 5 steps of ViL-T on the same crops, in
-   the same process. Losses must be finite; student, teacher and both
-   centers must change (default route and ViL-T); each run's launch
-   counts of every kernel pair must equal the per-step counts derived
-   from the model times the steps.
+   window-attention route and 3 of the qkv-layout route, then 5 steps of
+   ViL-T on the same crops, in the same process. Losses must be finite;
+   student, teacher and both centers must change (default route and
+   ViL-T); each run's launch counts of every kernel must equal the
+   per-step counts derived from the model times the steps.
+9. The eval slice: Swin-T on the qkv-layout route, fp32, random weights
+   from seed 0, batch 64, on synthetic 256 px images (PIL decode
+   and transform on the host; 2048 train, 512 val, 10 classes):
+   esvit_tpu_torch.evals.knn.run_knn_eval at k 10/20/100/200, then
+   esvit_tpu_torch.evals.linear.run_linear_eval with cached 4-last-block
+   features. Features finite and unit-norm, accuracies in [0, 100], and
+   the kernel's launches equal to the model-derived count per batch
+   times the batches.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
-the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk);
+the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
+slice for pallas_window_attention);
 ``max_abs_err`` the largest max-abs difference from the plain version
 over the checked shapes, each divided by its normaliser (the quantity
 held to the tolerance); ``ms`` /
 ``plain_ms`` / ``library_ms`` the per-step time of the default route at
-the slice shapes (calls per step x median per call); ``bound_ms`` the
-larger of the bytes over HBM bandwidth and the operations over the bf16
-peak, summed the same way. The last line is
-{"ok": true, "device": {...}}.
+the slice shapes (calls per step x median per call; per eval forward
+batch for pallas_window_attention); ``bound_ms`` the larger of the bytes
+over HBM bandwidth and the operations over the peak of their type (bf16
+tensor cores; fp32 CUDA cores for the fp32 eval), summed the same way.
+The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -78,10 +98,17 @@ KERNELS = {
     "sliding_chunk": ("esvit_tpu_torch/csrc/sliding_chunk.cu", {
         "fwd": "esvit_tpu/ops/sliding_chunk_fused.py:116",
         "bwd": "esvit_tpu/ops/sliding_chunk_fused.py:132"}),
+    # Forward only: the TPU kernel has no backward (autodiff of its plain
+    # reference), and neither has the port.
+    "pallas_window_attention": (
+        "esvit_tpu_torch/csrc/pallas_window_attention.cu", {
+            "fwd": "esvit_tpu/ops/pallas_window_attention.py:36"}),
 }
-# H100 SXM peaks for the roofline bound (NVIDIA data sheet, dense).
+# H100 SXM peaks for the roofline bound (NVIDIA data sheet, dense; fp32
+# outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 
 # Window attention: (label, windows B_, C, nH, stage resolution H, shifted,
 # dtype name, calls per step on the default route: forward, backward).
@@ -137,7 +164,35 @@ SC_SHAPES = [
     ("224 s1 fp32", 192, 28, 32, "fp32", 0, 0),
 ]
 SC_GRADS = ("q", "k", "v", "k_glo", "v_glo")
+# Row 7, the qkv-layout window attention: (label, windows B_, C, nH,
+# stage resolution H, shifted, dtype name, calls per eval forward batch).
+# fp32: the eval slice, B=64 images at 224 px (12 calls per forward);
+# bf16: the qkv-layout train route's shapes, the 224 crops (2B images)
+# and the 96 crops (8B images; stages 2-3 take the sub-window path).
+PWA_SHAPES = [
+    ("224 s0", 4096, 96, 3, 56, False, "fp32", 1),
+    ("224 s0 shifted", 4096, 96, 3, 56, True, "fp32", 1),
+    ("224 s1", 1024, 192, 6, 28, False, "fp32", 1),
+    ("224 s1 shifted", 1024, 192, 6, 28, True, "fp32", 1),
+    ("224 s2", 256, 384, 12, 14, False, "fp32", 3),
+    ("224 s2 shifted", 256, 384, 12, 14, True, "fp32", 3),
+    ("224 s3", 64, 768, 24, 7, False, "fp32", 2),
+    ("224 s0", 4096, 96, 3, 56, False, "bf16", 0),
+    ("224 s0 shifted", 4096, 96, 3, 56, True, "bf16", 0),
+    ("224 s1", 1024, 192, 6, 28, False, "bf16", 0),
+    ("224 s1 shifted", 1024, 192, 6, 28, True, "bf16", 0),
+    ("224 s2", 256, 384, 12, 14, False, "bf16", 0),
+    ("224 s2 shifted", 256, 384, 12, 14, True, "bf16", 0),
+    ("224 s3", 64, 768, 24, 7, False, "bf16", 0),
+    ("96 s0", 4096, 96, 3, 24, False, "bf16", 0),
+    ("96 s0 shifted", 4096, 96, 3, 24, True, "bf16", 0),
+    ("96 s1", 1024, 192, 6, 12, False, "bf16", 0),
+    ("96 s1 shifted", 1024, 192, 6, 12, True, "bf16", 0),
+]
 TOL = {"bf16": 3e-2, "fp32": 2e-5}
+# The eval slice: batch, synthetic train / val images, image side, classes.
+EVAL_BATCH = 64
+EVAL_TRAIN, EVAL_VAL, EVAL_SIZE, EVAL_CLASSES = 2048, 512, 256, 10
 
 
 def log(*a):
@@ -175,11 +230,12 @@ class Tally:
     any), and calls x the bytes and operations of its bound; the largest
     normalised error over every checked shape."""
 
-    def __init__(self, library: bool = False):
+    def __init__(self, library: bool = False, flop_rate=BF16_FLOP_PER_S):
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = 0.0 if library else None
         self.nbytes = self.flops = 0.0
+        self.flop_rate = flop_rate
 
     def add(self, calls, ms, plain_ms, nbytes, flops, library_ms=None):
         self.ms += calls * ms
@@ -191,7 +247,7 @@ class Tally:
 
     def record(self):
         t_bytes = self.nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = self.flops / BF16_FLOP_PER_S * 1e3
+        t_ops = self.flops / self.flop_rate * 1e3
         return {"max_abs_err": self.err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -450,10 +506,106 @@ def phase_fused(torch, fb, wops):
     return tally
 
 
-def phase_forward_parity(torch, C, fb):
+def phase_pallas_window_attention(torch, pwa, wops):
+    """Row 7 vs its plain version at the eval slice's and the train
+    route's shapes, and the library call (scaled_dot_product_attention,
+    the dense bias as its float attn_mask). Returns the Tally of the
+    forward, summed per eval forward batch (fp32 peak for the bound)."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tally = Tally(library=True, flop_rate=FP32_FLOP_PER_S)
+    N = 49
+    for label, B_, C, nH, H, shifted, dt, calls in PWA_SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        hd, scale = C // nH, (C // nH) ** -0.5
+        qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
+        do = torch.randn(B_, N, C, generator=gen, device=dev).to(dtype)
+        bias = 0.3 * torch.randn(1, nH, N, N, generator=gen, device=dev)
+        if shifted:
+            mask = torch.as_tensor(wops.shifted_window_mask(H, H, 7, 3),
+                                   device=dev)
+            bias = (bias + mask[:, None]).contiguous()
+        nWm = bias.shape[0]
+
+        def grads(fn):
+            q, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+            out = fn(q, b, nH, scale)
+            return [out.detach(), *torch.autograd.grad(out, (q, b), do)]
+
+        got, again, ref = (grads(pwa._PallasWindowAttention.apply),
+                           grads(pwa._PallasWindowAttention.apply),
+                           grads(pwa.pallas_window_attention_plain))
+        if not torch.isfinite(got[0]).all():
+            raise AssertionError(f"pallas {label} {dt}: kernel out not finite")
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError(f"pallas {label} {dt}: out differs between "
+                                 "two runs")
+        for name, a, b in zip(("dqkv", "dbias"), got[1:], ref[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"pallas {label} {dt}: {name} is not the "
+                                     "plain version's")
+        s_ = max(ref[0].float().abs().max().item(), 1e-6)
+        err = (got[0].float() - ref[0].float()).abs().max().item() / s_
+        if err > TOL[dt]:
+            raise AssertionError(f"pallas {label} {dt}: error {err:.2e} above "
+                                 f"{TOL[dt]}")
+        tally.err = max(tally.err, err)
+        plain_out = ref[0]
+        del got, again, ref
+
+        # The library call on (B_/nWm, nWm*nH, N, hd) heads, mask
+        # (nWm*nH, N, N); its output is held to the plain one first.
+        def heads(t):
+            return (t.reshape(B_ // nWm, nWm, N, nH, hd).permute(0, 1, 3, 2, 4)
+                    .reshape(B_ // nWm, nWm * nH, N, hd).contiguous())
+
+        q4, k4, v4 = (heads(t) for t in qkv.reshape(B_, N, 3, C).unbind(2))
+        lmask = bias.reshape(nWm * nH, N, N).to(dtype)
+        with torch.no_grad():
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     attn_mask=lmask,
+                                                     scale=scale)
+            lib_out = (lib_out.reshape(B_ // nWm, nWm, nH, N, hd)
+                       .permute(0, 1, 3, 2, 4).reshape(B_, N, C))
+            lib_err = (lib_out.float() - plain_out.float()).abs().max().item() / s_
+            if lib_err > TOL[dt]:
+                raise AssertionError(f"pallas {label} {dt}: the library call "
+                                     f"is {lib_err:.2e} from plain")
+            del lib_out, plain_out
+            t_fwd = _median_ms(torch, lambda: pwa._fwd(qkv, bias, nH, scale))
+            p_fwd = _median_ms(torch, lambda: pwa.pallas_window_attention_plain(
+                qkv, bias, nH, scale))
+            l_fwd = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=lmask, scale=scale))
+        del q4, k4, v4, lmask
+
+        # Bound: qkv read once, the dense bias once, the output written
+        # once; q k^T and p v, 4 hd flops per (query, key) pair.
+        isz = qkv.element_size()
+        nbytes = 4 * B_ * N * C * isz + bias.numel() * 4
+        flops = 4 * B_ * nH * N * N * hd
+        tally.add(calls, t_fwd, p_fwd, nbytes, flops, l_fwd)
+        rate = FP32_FLOP_PER_S if dt == "fp32" else BF16_FLOP_PER_S
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
+        log(f"pallas-vs-plain {label:16s} B_={B_:5d} C={C:3d} nH={nH:2d} "
+            f"nWm={nWm:2d} {dt}: max err out {err:.2e} (tol {TOL[dt]:.0e}); "
+            f"out bit-identical on repeat; dqkv, dbias equal to plain; sdpa "
+            f"out vs plain {lib_err:.2e}")
+        log(f"  time {label:16s} {dt} kernel {t_fwd:.4f} ms plain "
+            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms bound {bound:.4f} ms "
+            f"(calls per eval batch {calls})")
+    return tally
+
+
+def phase_forward_parity(torch, C, fb, wa, pwa):
     """The Swin-T backbone on the default fused route, on the
-    window-attention route and on the plain route, fp32, same weights,
-    2 images at 224 and 96 px: relative error <= 1e-4 to the plain one."""
+    window-attention route, on the qkv-layout route and on the plain
+    route, fp32, same weights, 2 images at 224 and 96 px: relative error
+    <= 1e-4 to the plain one, for forward_features and for
+    forward_return_n_last_blocks(x, 4) (the probe's features, which every
+    route computes in its classic block loop); each kernel's launches
+    equal to the model-derived count."""
     from esvit_tpu_torch.models.swin import SwinTransformer
 
     dev = torch.device("cuda")
@@ -464,32 +616,57 @@ def phase_forward_parity(torch, C, fb):
         "fused": fused,
         "window-attention": SwinTransformer(C.swin_tiny(
             drop_path_rate=0.0, fused_block_stages=())).to(dev),
+        "qkv-layout": SwinTransformer(C.swin_tiny(
+            drop_path_rate=0.0, attention_impl="pallas",
+            fused_block_stages=())).to(dev),
         "plain": SwinTransformer(C.swin_tiny(
             drop_path_rate=0.0, attention_impl="xla",
             fused_block_stages=())).to(dev),
     }
     for model in routes.values():
         model.load_state_dict(fused.state_dict())
+    kernel_routes = ("fused", "window-attention", "qkv-layout")
+
+    def check(what, a, b):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        if not (torch.isfinite(a).all() and err <= 1e-4):
+            raise AssertionError(f"{what}: {err:.2e} from plain")
+        log(f"swin-t {what} fp32: rel err vs plain {err:.2e} (tol 1e-4), "
+            f"shape {tuple(a.shape)}")
+
+    def run(what, fn, size, capture):
+        """fn on every route with the launch counts set to 0 just before;
+        each kernel's forward launches equal to the sum of the routes'
+        model-derived counts (capturing calls no fused block)."""
+        for counter in (fb, wa, pwa):
+            counter.launches["fwd"] = 0
+        with torch.no_grad():
+            out = {name: fn(model) for name, model in routes.items()}
+        want = {
+            "fused_block": 0 if capture else sum(
+                m.fused_block_calls(size) for m in routes.values()),
+            "window_attention": sum(m.window_attention_calls(size, capture)
+                                    for m in routes.values()),
+            "pallas_window_attention": sum(
+                m.pallas_window_attention_calls(size, capture)
+                for m in routes.values()),
+        }
+        got = {"fused_block": fb.launches["fwd"],
+               "window_attention": wa.launches["fwd"],
+               "pallas_window_attention": pwa.launches["fwd"]}
+        if got != want:
+            raise AssertionError(f"{what} {size}px: launches {got}, "
+                                 f"model-derived {want}")
+        for name in kernel_routes:
+            check(f"{what} {size}px: {name} route", out[name], out["plain"])
+        log(f"swin-t {what} {size}px: forward launches {got}")
+
     for size in (224, 96):
         x = torch.randn(2, size, size, 3, generator=gen).to(dev)
-        out = {}
-        fb.launches["fwd"] = 0
-        with torch.no_grad():
-            for name, model in routes.items():
-                out[name] = model.forward_features(x)[1]
-        if fb.launches["fwd"] != fused.fused_block_calls(size):
-            raise AssertionError(f"forward {size}px: {fb.launches['fwd']} "
-                                 "fused launches, model-derived "
-                                 f"{fused.fused_block_calls(size)}")
-        b = out["plain"]
-        for name in ("fused", "window-attention"):
-            a = out[name]
-            err = ((a - b).abs().max() / b.abs().max()).item()
-            if not (torch.isfinite(a).all() and err <= 1e-4):
-                raise AssertionError(f"forward {size}px: {name} route vs "
-                                     f"plain {err:.2e}")
-            log(f"swin-t forward_features {size}px fp32: {name} route vs "
-                f"plain rel err {err:.2e} (tol 1e-4), shape {tuple(a.shape)}")
+        run("forward_features", lambda m: m.forward_features(x)[1], size,
+            False)
+        run("forward_return_n_last_blocks(x, 4)",
+            lambda m: m.forward_return_n_last_blocks(x, 4), size, True)
 
 
 def _sc_keys(n: int, W: int, nglo: int) -> int:
@@ -675,17 +852,17 @@ def _derived_launches(cfg, steps):
     probe = build_backbone(cfg.model)
     g, l = cfg.crops.global_size, cfg.crops.local_size
     want = {}
-    for name in KERNELS:
+    for name, (_, kinds) in KERNELS.items():
         calls = getattr(probe, f"{name}_calls", lambda size: 0)
-        want[name] = {"fwd": (2 * calls(g) + calls(l)) * steps,
-                      "bwd": (calls(g) + calls(l)) * steps}
+        per_step = {"fwd": 2 * calls(g) + calls(l), "bwd": calls(g) + calls(l)}
+        want[name] = {k: per_step[k] * steps for k in kinds}
     return want
 
 
 def _slice(torch, cfg, steps, counters, label, card, check_state):
     """train() for `steps` steps with every launch count set to 0 just
     before and read just after: finite losses, the launch counts of every
-    kernel pair equal to the model's, and (check_state) student, teacher
+    kernel equal to the model's, and (check_state) student, teacher
     and both centers changed. Returns the counts."""
     import gc
 
@@ -694,7 +871,8 @@ def _slice(torch, cfg, steps, counters, label, card, check_state):
     want = _derived_launches(cfg, steps)
     init = _initial_weights(torch, cfg) if check_state else None
     for launches in counters.values():
-        launches["fwd"] = launches["bwd"] = 0
+        for k in launches:
+            launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
     state, history = train(cfg, max_steps=steps, device="cuda")
     torch.cuda.synchronize()
@@ -730,12 +908,16 @@ def _slice(torch, cfg, steps, counters, label, card, check_state):
 
 def phase_slice(torch, C, counters, card, out_dir):
     """Swin-T on the default (fused) route for STEPS steps, then on the
-    window-attention route for 3."""
+    window-attention route for 3 and on the qkv-layout route for 3 (its
+    backward is autograd of the plain version: forward launches only)."""
     cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
     got = _slice(torch, cfg, STEPS, counters, "Swin-T fused route", card,
                  True)
     _slice(torch, cfg.replace(model=C.swin_tiny(fused_block_stages=())), 3,
            counters, "Swin-T window-attention route", card, False)
+    _slice(torch, cfg.replace(model=C.swin_tiny(attention_impl="pallas",
+                                                fused_block_stages=())), 3,
+           counters, "Swin-T qkv-layout route", card, False)
     return got
 
 
@@ -743,6 +925,85 @@ def phase_vil_slice(torch, C, counters, card, out_dir):
     """ViL-T for STEPS steps."""
     cfg = C.vil_tiny_multicrop(BATCH, output_dir=out_dir)
     return _slice(torch, cfg, STEPS, counters, "ViL-T", card, True)
+
+
+def phase_eval(torch, C, pwa, card, out_dir):
+    """The eval slice: Swin-T on the qkv-layout route, fp32, random
+    weights (seed 0), batch EVAL_BATCH, synthetic images through the PIL
+    transforms: k-NN at k 10/20/100/200, then the linear probe on cached
+    4-last-block features. Checks the features, the accuracies and the
+    kernel's launches against the model-derived count; returns them."""
+    import numpy as np
+
+    from esvit_tpu_torch.data.datasets import SyntheticImages
+    from esvit_tpu_torch.evals import knn, linear
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    dev = torch.device("cuda")
+    cfg = C.swin_tiny(attention_impl="pallas", fused_block_stages=())
+    backbone = build_backbone(
+        cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    train_ds = SyntheticImages(EVAL_TRAIN, EVAL_SIZE, EVAL_CLASSES, seed=0)
+    val_ds = SyntheticImages(EVAL_VAL, EVAL_SIZE, EVAL_CLASSES, seed=1)
+    images = EVAL_TRAIN + EVAL_VAL
+    batches = -(-EVAL_TRAIN // EVAL_BATCH) + -(-EVAL_VAL // EVAL_BATCH)
+
+    def run(label, fn, per_batch):
+        pwa.launches["fwd"] = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, want = pwa.launches["fwd"], per_batch * batches
+        if got != want:
+            raise AssertionError(f"eval {label}: {got} launches, "
+                                 f"model-derived {want}")
+        log(f"eval {label}: {images} images in {seconds:.2f} s, "
+            f"{images / seconds:.1f} img/s, {seconds * 1e3 / batches:.1f} ms "
+            f"per batch of {EVAL_BATCH} (host PIL transform included); "
+            f"launches {got} = {per_batch} x {batches} batches [{card}]")
+        return result, got
+
+    res, knn_launches = run("k-NN", lambda: knn.run_knn_eval(
+        backbone, train_ds, val_ds, batch_size=EVAL_BATCH, dump_dir=out_dir,
+        device=dev), backbone.pallas_window_attention_calls(224))
+    for name, n in (("train", EVAL_TRAIN), ("test", EVAL_VAL)):
+        f = np.load(os.path.join(out_dir, f"{name}feat.npy"))
+        norm_err = np.abs(np.linalg.norm(f, axis=1) - 1).max()
+        if f.shape != (n, cfg.num_features) or not (
+                np.isfinite(f).all() and norm_err < 1e-5):
+            raise AssertionError(f"eval k-NN {name} features {f.shape}, "
+                                 f"|norm - 1| up to {norm_err:.2e}")
+    if sorted(res) != [10, 20, 100, 200] or not all(
+            0.0 <= a <= 100.0 for acc in res.values() for a in acc):
+        raise AssertionError(f"eval k-NN results {res}")
+    log(f"eval k-NN (random weights, {EVAL_CLASSES} classes): {res}")
+
+    acc, probe_launches = run("linear probe", lambda: linear.run_linear_eval(
+        backbone, train_ds, val_ds, n_last_blocks=4, epochs=5,
+        feat_batch=EVAL_BATCH, cached_features=True, device=dev),
+        backbone.pallas_window_attention_calls(224, capture=True))
+    if not all(0.0 <= a <= 100.0 for a in acc):
+        raise AssertionError(f"eval linear probe accuracies {acc}")
+    log(f"eval linear probe (random weights, cached features, 5 epochs): "
+        f"top1 {acc[0]:.2f} top5 {acc[1]:.2f}")
+
+    x = torch.randn(EVAL_BATCH, 224, 224, 3, device=dev)
+    with torch.inference_mode():
+        feats = backbone.forward_return_n_last_blocks(x, 4)
+        dim = linear.feature_dim_for(cfg, 4)
+        if feats.shape != (EVAL_BATCH, dim) or not torch.isfinite(feats).all():
+            raise AssertionError(f"eval probe features {tuple(feats.shape)}, "
+                                 f"want ({EVAL_BATCH}, {dim})")
+        t_knn = _median_ms(torch, lambda: backbone.forward_features(x))
+        t_probe = _median_ms(torch, lambda: backbone.forward_return_n_last_blocks(
+            x, 4))
+    log(f"eval device forward, batch {EVAL_BATCH} fp32: forward_features "
+        f"{t_knn:.2f} ms ({EVAL_BATCH / t_knn * 1e3:.1f} img/s), "
+        f"forward_return_n_last_blocks {t_probe:.2f} ms "
+        f"({EVAL_BATCH / t_probe * 1e3:.1f} img/s), {dim}-dim probe "
+        f"features [{card}]")
+    return {"fwd": knn_launches + probe_launches}
 
 
 def _initial_weights(torch, cfg):
@@ -770,6 +1031,7 @@ def main():
     from esvit_tpu_torch import config as C
     from esvit_tpu_torch.ops import cuda_build
     from esvit_tpu_torch.ops import fused_block as fb
+    from esvit_tpu_torch.ops import pallas_window_attention as pwa
     from esvit_tpu_torch.ops import sliding_chunk as sc
     from esvit_tpu_torch.ops import window as wops
     from esvit_tpu_torch.ops import window_attention as wa
@@ -777,21 +1039,26 @@ def main():
     phase_build(cuda_build)
     results = {"window_attention": phase_window_attention(torch, wa, wops),
                "fused_block": phase_fused(torch, fb, wops),
-               "sliding_chunk": phase_sliding_chunk(torch, sc)}
-    phase_forward_parity(torch, C, fb)
+               "sliding_chunk": phase_sliding_chunk(torch, sc),
+               "pallas_window_attention": {
+                   "fwd": phase_pallas_window_attention(torch, pwa, wops)}}
+    phase_forward_parity(torch, C, fb, wa, pwa)
     phase_vil_forward_parity(torch, C, sc)
     counters = {"window_attention": wa.launches, "fused_block": fb.launches,
-                "sliding_chunk": sc.launches}
+                "sliding_chunk": sc.launches,
+                "pallas_window_attention": pwa.launches}
     with tempfile.TemporaryDirectory() as out_dir:
         swin = phase_slice(torch, C, counters, card, out_dir)
         vil = phase_vil_slice(torch, C, counters, card, out_dir)
-    launches = {name: (vil if name == "sliding_chunk" else swin)[name]
-                for name in KERNELS}
+    with tempfile.TemporaryDirectory() as out_dir:
+        evals = phase_eval(torch, C, pwa, card, out_dir)
+    launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
+                    pallas_window_attention=evals)
     record = {"kernels": [
         {"name": f"{name}_{k}", "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1][k], "launches": launches[name][k],
          **tally[k].record()}
-        for name, tally in results.items() for k in ("fwd", "bwd")]}
+        for name, tally in results.items() for k in KERNELS[name][1]]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,10 @@ class SwinConfig:
     norm_eps: float = 1e-6
     # 'packed' (default): windowed attention through the hand-written CUDA
     # kernel pair (ops/window_attention.py) on every full-window call.
-    # 'xla': the plain torch path. Both are explicit; neither falls back.
+    # 'pallas': the forward-only CUDA kernel on the qkv layout with a dense
+    # bias + shift-mask operand (ops/pallas_window_attention.py; backward
+    # by autograd of its plain version). 'xla': the plain torch path. All
+    # are explicit; none falls back.
     attention_impl: str = "packed"
     # Window-major stage layout (ops/window.py): per-block pad/roll/
     # partition copies become one index gather per layout change.
@@ -204,6 +207,16 @@ def swin_tiny(window_size: int = 7, **kw) -> SwinConfig:
                       num_heads=(3, 6, 12, 24), window_size=window_size, **kw)
 
 
+def swin_small(window_size: int = 7, **kw) -> SwinConfig:
+    return SwinConfig(embed_dim=96, depths=(2, 2, 18, 2),
+                      num_heads=(3, 6, 12, 24), window_size=window_size, **kw)
+
+
+def swin_base(window_size: int = 7, **kw) -> SwinConfig:
+    return SwinConfig(embed_dim=128, depths=(2, 2, 18, 2),
+                      num_heads=(4, 8, 16, 32), window_size=window_size, **kw)
+
+
 def swin_femto(**kw) -> SwinConfig:
     """Tiny CPU-testable Swin: 2 stages, dim 16, 32px native."""
     kw.setdefault("img_size", 32)
@@ -248,11 +261,18 @@ def vil_from_arch(arch: str, **kw) -> ViLConfig:
 
 VIL_TINY_ARCH = ("l1,h1,d48,n1,s1,g1,p4,f7_l2,h3,d96,n1,s1,g1,p2,f7_"
                  "l3,h3,d192,n9,s0,g1,p2,f7_l4,h6,d384,n1,s0,g0,p2,f7")
+VIL_SMALL_ARCH = ("l1,h3,d96,n2,s1,g1,p4,f7_l2,h3,d192,n2,s1,g1,p2,f7_"
+                  "l3,h6,d384,n8,s0,g1,p2,f7_l4,h12,d768,n1,s0,g0,p2,f7")
 
 
 def vil_tiny(**kw) -> ViLConfig:
     """experiments/imagenet/vil/vil_tiny/base.yaml MSVIT.ARCH."""
     return vil_from_arch(VIL_TINY_ARCH, **kw)
+
+
+def vil_small(**kw) -> ViLConfig:
+    """experiments/imagenet/vil/vil_small/base.yaml MSVIT.ARCH."""
+    return vil_from_arch(VIL_SMALL_ARCH, **kw)
 
 
 def vil_femto(**kw) -> ViLConfig:
@@ -273,6 +293,31 @@ def vil_tiny_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
                        steps_per_epoch=1251, dtype=torch.bfloat16, **kw)
 
 
+PRESETS = {
+    "swin_femto": swin_femto,
+    "swin_tiny": swin_tiny,
+    "swin_small": swin_small,
+    "swin_base": swin_base,
+    "vil_femto": vil_femto,
+    "vil_tiny": vil_tiny,
+    "vil_small": vil_small,
+}
+# The reference's other presets (esvit_tpu/config.py:505-518): families the
+# port does not build yet.
+_NOT_PORTED_PRESETS = ("cvt_femto", "cvt_tiny", "deit_tiny", "deit_small",
+                       "vit_base")
+
+
+def get_model_config(name: str, **kw):
+    """The backbone config of a preset name (esvit_tpu/config.py:521)."""
+    if name in _NOT_PORTED_PRESETS:
+        _refuse(f"model preset {name!r}", "queue 1 item 11")
+    if name not in PRESETS:
+        raise ValueError(f"unknown model preset {name!r}; have "
+                         f"{sorted(PRESETS)}")
+    return PRESETS[name](**kw)
+
+
 def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -282,8 +327,8 @@ def check_supported(cfg: TrainConfig) -> None:
     m = cfg.model
     name = getattr(m, "name", None)
     if name == "swin":
-        if m.attention_impl not in ("packed", "xla"):
-            _refuse(f"attention_impl={m.attention_impl!r}", "queue 2 item 7")
+        if m.attention_impl not in ("packed", "pallas", "xla"):
+            raise ValueError(f"unknown attention_impl {m.attention_impl!r}")
         if m.remat != "none":
             _refuse(f"remat={m.remat!r}", "queue 1 item 12")
     elif name == "vil":

@@ -18,9 +18,18 @@ NHWC inputs, reference checkpoint names (``patch_embed.proj``,
   (``SwinStage._forward_fused``);
 - every other stage runs window-major (``SwinStage._forward_window_major``,
   or the classic per-block partition with ``layout_opt=False``), and its
-  windowed attention goes through ``ops/window_attention.py``: the CUDA
-  kernel pair when ``attention_impl='packed'`` and the tensors are on the
-  card, the plain torch version when ``attention_impl='xla'``.
+  windowed attention goes through ``ops/window_attention.py`` (the CUDA
+  kernel pair for tensors on the card) when ``attention_impl='packed'``,
+  through ``ops/pallas_window_attention.py`` (the forward-only kernel on
+  the qkv layout with a dense bias + shift-mask operand) when
+  ``attention_impl='pallas'``, and through the plain torch version when
+  ``attention_impl='xla'``.
+
+Capturing per-block outputs or attention maps (``SwinStage.forward``'s
+``capture``, used by ``forward_return_n_last_blocks`` and
+``forward_selfattention``) runs every stage block by block, as the
+reference does (esvit_tpu/models/swin.py:667-702); an attention map is
+computed on the plain path.
 
 The fused kernel pair runs for CUDA tensors and its plain version for CPU
 tensors; which route a stage takes depends on shapes alone, never on the
@@ -47,8 +56,11 @@ from esvit_tpu_torch.models.common import (Dense, DropPath, LayerNorm, Mlp,
                                            trunc_normal_)
 from esvit_tpu_torch.ops import fused_block as fb
 from esvit_tpu_torch.ops import window as wops
+from esvit_tpu_torch.ops.pallas_window_attention import fused_window_attention
 from esvit_tpu_torch.ops.window_attention import (window_attention,
                                                   window_attention_plain)
+
+CAPTURES = (None, "features", "attention")
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +127,8 @@ def _augmented_pad(L):
 class WindowAttention(nn.Module):
     """W-MSA / SW-MSA with relative position bias
     (ref: models/swin_transformer.py:72-152). Input ``(B_, N, C)`` windows;
-    ``region`` is the (nW, N) int32 shift-region table or None."""
+    ``shift`` is ``(H, W, shift_size)`` of a shifted block's token grid, or
+    None when unshifted."""
 
     def __init__(self, dim, window_size, num_heads, qkv_bias=True,
                  qk_scale=None, attention_impl="packed",
@@ -139,16 +152,49 @@ class WindowAttention(nn.Module):
                                 table.device).long()
         return table[idx].permute(2, 0, 1).contiguous()
 
-    def forward(self, x, region=None):
+    def dense_bias(self, shift, device) -> torch.Tensor:
+        """(nWm, nH, N, N) fp32: the rel-pos bias plus, when shifted, the
+        (nW, N, N) -100 shift mask (esvit_tpu/models/swin.py:252-255)."""
+        bias = self.rel_bias()[None]
+        if shift is None:
+            return bias
+        H, W, ss = shift
+        mask = wops.device_table(wops.shifted_window_mask,
+                                 (H, W, self.window_size, ss), device)
+        return bias + mask[:, None]
+
+    def forward(self, x, shift=None, return_attention=False):
+        """The projected attention output; with ``return_attention`` also
+        the (B_, nH, N, N) fp32 probabilities, from the plain path."""
         B_, N, C = x.shape
-        qkv = self.qkv(x).reshape(B_ * N, 3 * C)
+        qkv = self.qkv(x)
+        if self.attention_impl == "pallas" and not return_attention:
+            out = fused_window_attention(qkv, self.dense_bias(shift, x.device),
+                                         self.num_heads, self.scale)
+            return self.proj(out)
+        qkv = qkv.reshape(B_ * N, 3 * C)
         q2, k2, v2 = (qkv[:, i * C:(i + 1) * C].contiguous() for i in range(3))
+        if return_attention:
+            out, probs = window_attention_plain(
+                q2, k2, v2, self.dense_bias(shift, x.device), None, N,
+                self.num_heads, self.scale, return_probs=True)
+            return self.proj(out.reshape(B_, N, C)), probs
         use_kernel = (self.attention_impl == "packed"
                       and N == self.window_size ** 2)
         attend = window_attention if use_kernel else window_attention_plain
-        out = attend(q2, k2, v2, self.rel_bias(), region, N, self.num_heads,
-                     self.scale)
+        out = attend(q2, k2, v2, self.rel_bias(),
+                     shift_region(shift, self.window_size, x.device), N,
+                     self.num_heads, self.scale)
         return self.proj(out.reshape(B_, N, C))
+
+
+def shift_region(shift, ws, device):
+    """(nW, N) region ids of a shifted block's windows, ``shift`` being
+    (H, W, shift_size); None when unshifted."""
+    if shift is None:
+        return None
+    H, W, ss = shift
+    return wops.device_table(wops.window_region_ids, (H, W, ws, ss), device)
 
 
 class SwinBlock(nn.Module):
@@ -253,10 +299,12 @@ class SwinBlock(nn.Module):
         return self._ffn(x, deterministic, generator)
 
     def forward(self, x, deterministic=True, generator=None,
-                window_major: dict | None = None):
+                window_major: dict | None = None, return_attention=False):
         """Classic path: x is (B, H*W, C) spatial tokens. Window-major path
-        (window_major = {'region', 'pad_mask', 'n_windows'}): x is already
-        in this block's window-major layout."""
+        (window_major = {'shift', 'pad_mask', 'n_windows', ...}): x is
+        already in this block's window-major layout. With
+        ``return_attention`` (classic path only) returns (x, attention
+        probabilities); the sub-window path is then skipped, as in JAX."""
         B, L, C = x.shape
         ws, ss = self.window_size, self.shift_size
         if window_major is not None:
@@ -265,13 +313,14 @@ class SwinBlock(nn.Module):
             if window_major["pad_mask"] is not None:
                 y = y * window_major["pad_mask"].to(y.dtype)[None, :, None]
             windows = y.reshape(B * window_major["n_windows"], ws * ws, C)
-            out = self.attn(windows, window_major["region"])
+            out = self.attn(windows, window_major["shift"])
             x = shortcut + self.drop_path(out.reshape(B, L, C), deterministic,
                                           generator)
             return self._ffn(x, deterministic, generator)
 
         H = W = math.isqrt(L)
-        if self.subwindow_opt and self.is_subwindow(L):
+        if (self.subwindow_opt and self.is_subwindow(L)
+                and not return_attention):
             return self._subwindow(x, H, W, deterministic, generator)
 
         shortcut = x
@@ -279,18 +328,20 @@ class SwinBlock(nn.Module):
         Hp, Wp = wops.pad_to_window_multiple(H, W, ws)
         if (Hp, Wp) != (H, W):
             x = F.pad(x, (0, 0, 0, Wp - W, 0, Hp - H))
-        region = None
+        shift = None
         if ss > 0:
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
-            region = wops.device_table(wops.window_region_ids, (H, W, ws, ss),
-                                       x.device)
-        out = self.attn(wops.window_partition(x, ws), region)
+            shift = (H, W, ss)
+        out = self.attn(wops.window_partition(x, ws), shift, return_attention)
+        if return_attention:
+            out, probs = out
         x = wops.window_reverse(out, ws, Hp, Wp)
         if ss > 0:
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         x = x[:, :H, :W, :].reshape(B, L, C)
         x = shortcut + self.drop_path(x, deterministic, generator)
-        return self._ffn(x, deterministic, generator)
+        x = self._ffn(x, deterministic, generator)
+        return (x, probs) if return_attention else x
 
 
 class PatchMerging(nn.Module):
@@ -390,7 +441,26 @@ class SwinStage(nn.Module):
             return "fused"
         return "window_major"
 
-    def forward(self, x, deterministic=True, generator=None, layout_opt=True):
+    def forward(self, x, deterministic=True, generator=None, layout_opt=True,
+                capture=None):
+        """The stage's output; with ``capture`` ('features' or
+        'attention') the pair (output, one entry per block: its output or
+        its attention probabilities), from the classic block loop."""
+        if capture not in CAPTURES:
+            raise ValueError(f"capture must be one of {CAPTURES}, got "
+                             f"{capture!r}")
+        if capture is not None:
+            aux = []
+            for blk in self.blocks:
+                if capture == "attention":
+                    x, attn = blk(x, deterministic, generator,
+                                  return_attention=True)
+                    aux.append(attn)
+                else:
+                    x = blk(x, deterministic, generator)
+                    aux.append(x)
+            x = self.downsample(x) if self.downsample is not None else x
+            return x, aux
         route = self.route(x.shape[1], layout_opt)
         if route == "fused_subwindow":
             x = self._forward_fused_subwindow(x, deterministic, generator)
@@ -431,7 +501,8 @@ class SwinStage(nn.Module):
         port's unpadded window-major layout)."""
         return self._window_major(x, lambda blk, x, wm: blk.fused(
             x, blk.attn.rel_bias(), self.window_size ** 2, wm["n_windows"],
-            wm["region"], wm["pad_mask"], deterministic, generator))
+            shift_region(wm["shift"], self.window_size, x.device),
+            wm["pad_mask"], deterministic, generator))
 
     def _forward_window_major(self, x, deterministic, generator):
         return self._window_major(
@@ -458,9 +529,7 @@ class SwinStage(nn.Module):
                 x = wops.transition_window_major(x, Hp, Wp, ws, cur, t)
             cur = t
             wm = {
-                "region": (wops.device_table(wops.window_region_ids,
-                                             (H, W, ws, t), dev)
-                           if t > 0 else None),
+                "shift": (H, W, t) if t > 0 else None,
                 "pad_mask": (wops.device_table(wops.pad_token_mask,
                                                (H, W, Hp, Wp, ws, t), dev)
                              if padded else None),
@@ -510,14 +579,52 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(stages)
         self.norm = LayerNorm(c.num_features, c.norm_eps, dtype)
 
-    def forward_features(self, x, deterministic=True, generator=None):
+    def _embed(self, x):
         x = self.patch_embed(x)
         if self.cfg.ape:
             x = x + self.absolute_pos_embed.to(x.dtype)
+        return x
+
+    def forward_features(self, x, deterministic=True, generator=None):
+        x = self._embed(x)
         for stage in self.layers:
             x = stage(x, deterministic, generator, self.cfg.layout_opt)
         region = self.norm(x)                                # (B, L, C)
         return region.mean(dim=1), region
+
+    def forward_selfattention(self, x, n: int = 1, deterministic=True,
+                              generator=None):
+        """n=1: the last block's attention probabilities (B*nW, nH, N, N);
+        otherwise every block's, in order (ref: swin_transformer.py:
+        766-796; esvit_tpu/models/swin.py:962-973)."""
+        x = self._embed(x)
+        attns = []
+        for i, stage in enumerate(self.layers):
+            if n != 1 or i == len(self.layers) - 1:
+                x, aux = stage(x, deterministic, generator, capture="attention")
+                attns.extend(aux)
+            else:
+                x = stage(x, deterministic, generator, self.cfg.layout_opt)
+        return attns[-1] if n == 1 else attns
+
+    def forward_return_n_last_blocks(self, x, n: int = 4, deterministic=True,
+                                     generator=None):
+        """Concat of the avg-pooled outputs of the n last blocks across
+        stages, the final stage's through the last norm (ref:
+        swin_transformer.py:799-837; esvit_tpu/models/swin.py:975-995).
+        Every stage runs its classic block loop."""
+        start = sum(self.cfg.depths) - n
+        out, blk_id = [], 0
+        x = self._embed(x)
+        for i, stage in enumerate(self.layers):
+            x, feats = stage(x, deterministic, generator, capture="features")
+            for f in feats:
+                if blk_id >= start:
+                    if i == len(self.layers) - 1:
+                        f = self.norm(f)
+                    out.append(f.mean(dim=1))
+                blk_id += 1
+        return torch.cat(out, dim=-1)
 
     def _stage_routes(self, img_size: int):
         """(stage, tokens, route) for an img_size input, by the forward's
@@ -528,19 +635,39 @@ class SwinTransformer(nn.Module):
             if stage.downsample is not None:
                 H = (H + 1) // 2
 
-    def window_attention_calls(self, img_size: int) -> int:
+    def _attention_calls(self, img_size: int, capture: bool) -> int:
         """WindowAttention calls in one forward of an img_size input: every
         block of a stage on the window-major route, or on the classic route
-        where the block does not take its sub-window path (each is a kernel
-        launch under attention_impl='packed' on the card)."""
+        (every stage's, when capturing features) where the block does not
+        take its sub-window path."""
         calls = 0
         for stage, L, route in self._stage_routes(img_size):
             blk = stage.blocks[0] if len(stage.blocks) else None
             if route == "window_major" or (
-                    route == "classic" and blk is not None
+                    (capture or route == "classic") and blk is not None
                     and not (blk.subwindow_opt and blk.is_subwindow(L))):
                 calls += len(stage.blocks)
         return calls
+
+    def window_attention_calls(self, img_size: int,
+                               capture: bool = False) -> int:
+        """Launches of the window-attention kernel pair's forward in one
+        forward of an img_size input on the card (its calls under
+        attention_impl='packed'): ``forward_features``, or with ``capture``
+        ``forward_return_n_last_blocks``."""
+        if self.cfg.attention_impl != "packed":
+            return 0
+        return self._attention_calls(img_size, capture)
+
+    def pallas_window_attention_calls(self, img_size: int,
+                                      capture: bool = False) -> int:
+        """Launches of the forward-only qkv-layout kernel in one forward of
+        an img_size input on the card (its calls under
+        attention_impl='pallas'): ``forward_features``, or with ``capture``
+        ``forward_return_n_last_blocks``."""
+        if self.cfg.attention_impl != "pallas":
+            return 0
+        return self._attention_calls(img_size, capture)
 
     def fused_block_calls(self, img_size: int) -> int:
         """Fused-block calls in one forward of an img_size input: every

@@ -54,12 +54,24 @@ def _axis_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
     return mat.astype(np.float32)
 
 
-def torch_interpolate_scale(grid: torch.Tensor, scale: float) -> torch.Tensor:
-    """grid (..., H, W, C) -> (..., floor(H*scale), floor(W*scale), C) in
-    fp32, cast back to the input dtype."""
+def bicubic_resize(grid: torch.Tensor, out_h: int, out_w: int,
+                   scale_h: float | None = None,
+                   scale_w: float | None = None) -> torch.Tensor:
+    """grid (..., H, W, C) -> (..., out_h, out_w, C) in fp32, cast back to
+    the input dtype (esvit_tpu ``torch_bicubic_resize``). A given scale
+    maps the coordinates (torch's scale_factor semantics); otherwise the
+    size ratio does."""
     H, W = grid.shape[-3], grid.shape[-2]
-    out_h, out_w = int(math.floor(H * scale)), int(math.floor(W * scale))
-    mh = device_table(_axis_matrix, (H, out_h, scale), grid.device)
-    mw = device_table(_axis_matrix, (W, out_w, scale), grid.device)
+    sh = scale_h if scale_h is not None else out_h / H
+    sw = scale_w if scale_w is not None else out_w / W
+    mh = device_table(_axis_matrix, (H, out_h, sh), grid.device)
+    mw = device_table(_axis_matrix, (W, out_w, sw), grid.device)
     out = torch.einsum("hi,...ijc,wj->...hwc", mh, grid.float(), mw)
     return out.to(grid.dtype)
+
+
+def torch_interpolate_scale(grid: torch.Tensor, scale: float) -> torch.Tensor:
+    """grid (..., H, W, C) -> (..., floor(H*scale), floor(W*scale), C)."""
+    H, W = grid.shape[-3], grid.shape[-2]
+    return bicubic_resize(grid, int(math.floor(H * scale)),
+                          int(math.floor(W * scale)), scale, scale)

@@ -141,8 +141,12 @@ def pad_token_mask(H: int, W: int, Hp: int, Wp: int, window_size: int,
 @functools.lru_cache(maxsize=None)
 def device_table(table_fn, args: tuple, device: torch.device) -> torch.Tensor:
     """``table_fn(*args)`` as a tensor on ``device``, made once per device.
-    Callers only read it."""
-    return torch.as_tensor(np.ascontiguousarray(table_fn(*args)), device=device)
+    Callers only read it. It is made outside inference mode even when the
+    first caller runs in it (the evals), so that a later training forward
+    may save it for backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.ascontiguousarray(table_fn(*args)),
+                               device=device)
 
 
 def _gather(x: torch.Tensor, table_fn, args: tuple) -> torch.Tensor:

@@ -34,10 +34,15 @@ _TARGET_BWD_BLOCKS = 1024
 
 
 def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
-                           scale: float) -> torch.Tensor:
+                           scale: float, return_probs: bool = False):
     """The kernels' function in plain PyTorch (einsum, fp32 softmax,
     autograd), with the same roundings: q*scale and the probabilities are
-    rounded to the input dtype, products accumulate in fp32."""
+    rounded to the input dtype, products accumulate in fp32.
+
+    bias is the (nH, N, N) table, shifted by ``region``'s -100 mask when
+    that is given, or a dense (nWm, nH, N, N) bias that already holds the
+    mask (``region`` None). With ``return_probs`` also returns the fp32
+    probabilities (B_, nH, N, N)."""
     dtype = q2.dtype
     C = q2.shape[-1]
     B_ = q2.shape[0] // N
@@ -47,7 +52,7 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
     v = v2.reshape(B_, N, nH, hd)
     qs = q * torch.tensor(scale, dtype=dtype)
     attn = torch.einsum("bnhd,bmhd->bhnm", qs.float(), k.float())
-    full = bias.float()[None]                                   # (1, nH, N, N)
+    full = bias.float() if bias.dim() == 4 else bias.float()[None]
     if region is not None:
         differ = region[:, :, None] != region[:, None, :]       # (nW, N, N)
         full = full + torch.where(differ, -100.0, 0.0)[:, None]
@@ -55,7 +60,8 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
     attn = (attn.reshape(B_ // nWm, nWm, nH, N, N) + full).reshape(B_, nH, N, N)
     probs = torch.softmax(attn, dim=-1)
     out = torch.einsum("bhnm,bmhd->bnhd", probs.to(dtype).float(), v.float())
-    return out.to(dtype).reshape(B_ * N, C)
+    out = out.to(dtype).reshape(B_ * N, C)
+    return (out, probs) if return_probs else out
 
 
 def window_attention(q2, k2, v2, bias, region, N: int, nH: int,

@@ -291,3 +291,76 @@ def test_cuda_sliding_chunk_shape_rule_fits_the_card(cuda):
             for nglo in range(9):
                 assert sc.supports(W, M, nglo)
                 assert lib.esvit_sliding_chunk_smem_bytes(W, M, nglo) <= limit
+
+
+# The forward-only window attention over the qkv layout
+# (ops/pallas_window_attention.py) against its plain version: (B_, N, C,
+# nH, nWm). Swin-T's head dim 32 shifted (nWm > 1) and unshifted, a
+# stage-3 width, a head dim of 8 with N=37, and the largest shape
+# supports() admits (N=64, head dim 64: the opt-in shared-memory path).
+PWA_CASES = [
+    (16, 49, 96, 3, 4),
+    (8, 49, 96, 3, 1),
+    (4, 49, 768, 24, 1),
+    (6, 37, 40, 5, 2),
+    (2, 64, 128, 2, 1),
+]
+
+
+def _pwa_run(fn, cuda, dtype, qkv, bias, dout, nH):
+    qt = torch.tensor(qkv, device=cuda, dtype=dtype).requires_grad_()
+    bt = torch.tensor(bias, device=cuda).requires_grad_()
+    out = fn(qt, bt, nH, (qkv.shape[2] // 3 // nH) ** -0.5)
+    out.backward(torch.tensor(dout, device=cuda, dtype=dtype))
+    return [t.float().cpu() for t in (out.detach(), qt.grad, bt.grad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", PWA_CASES)
+def test_cuda_pallas_window_attention_matches_plain(cuda, case, dtype, tol):
+    """The output within tol of the plain one (normalised by its max-abs)
+    and bit-identical on repeat; d(qkv) and d(bias) are the plain
+    version's own (the backward recomputes it), so they are equal."""
+    from esvit_tpu_torch.ops import pallas_window_attention as pwa
+
+    B_, N, C, nH, nWm = case
+    rng = np.random.RandomState(0)
+    qkv = rng.randn(B_, N, 3 * C).astype(np.float32)
+    bias = (0.3 * rng.randn(nWm, nH, N, N)).astype(np.float32)
+    if nWm > 1:
+        bias[1:, :, : N // 2, N // 2:] -= 100.0
+    dout = rng.randn(B_, N, C).astype(np.float32)
+    before = pwa.launches["fwd"]
+    got = _pwa_run(pwa.fused_window_attention, cuda, dtype, qkv, bias, dout,
+                   nH)
+    assert pwa.launches["fwd"] == before + 1
+    again = _pwa_run(pwa.fused_window_attention, cuda, dtype, qkv, bias,
+                     dout, nH)
+    ref = _pwa_run(pwa.pallas_window_attention_plain, cuda, dtype, qkv, bias,
+                   dout, nH)
+    assert torch.isfinite(got[0]).all()
+    torch.testing.assert_close(got[0], again[0], rtol=0, atol=0)
+    s = ref[0].abs().max().item()
+    torch.testing.assert_close(got[0] / s, ref[0] / s, rtol=tol, atol=tol)
+    for name, a, b in zip(("dqkv", "dbias"), got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_pallas_window_attention_refuses_what_the_kernel_does_not_take(
+        cuda):
+    from esvit_tpu_torch.ops import pallas_window_attention as pwa
+
+    bias = torch.zeros(1, 3, 49, 49, device=cuda)
+    qkv = torch.zeros(2, 49, 288, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        pwa.fused_window_attention(qkv, bias, 3, 0.17)
+    qkv = torch.zeros(2, 49, 576, device=cuda)[..., ::2]
+    with pytest.raises(ValueError):
+        pwa.fused_window_attention(qkv, bias, 3, 0.17)
+    qkv = torch.zeros(3, 49, 288, device=cuda)
+    with pytest.raises(ValueError):
+        pwa.fused_window_attention(qkv, bias.expand(2, 3, 49, 49).contiguous(),
+                                   3, 0.17)

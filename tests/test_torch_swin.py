@@ -181,9 +181,40 @@ def test_unported_options_raise():
         tcfg.check_supported(tcfg.TrainConfig(
             model=tcfg.swin_tiny(fused_block_stages=stages,
                                  subwindow_fused_stages=stages)))
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
+    tcfg.check_supported(tcfg.TrainConfig(
+        model=tcfg.swin_tiny(attention_impl="pallas", fused_block_stages=())))
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         tcfg.check_supported(tcfg.TrainConfig(
-            model=tcfg.swin_tiny(attention_impl="pallas")))
+            model=tcfg.swin_tiny(remat="block")))
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         build_backbone(type("CvT", (), {"name": "cvt"})())
     tcfg.check_supported(tcfg.TrainConfig())
+
+
+@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("size", [32, 24])
+@pytest.mark.parametrize("attention_impl,wrapper,calls", [
+    ("packed", "window_attention", "window_attention_calls"),
+    ("pallas", "fused_window_attention", "pallas_window_attention_calls"),
+])
+def test_attention_calls_match_the_forward(monkeypatch, attention_impl,
+                                           wrapper, calls, size, capture):
+    """The model-derived call counts, which the card run holds the kernels'
+    launches to, equal the calls of each route's kernel wrapper in
+    forward_features and (capture) forward_return_n_last_blocks."""
+    from esvit_tpu_torch.models import swin as tswin
+
+    model = TSwin(tcfg.swin_femto(attention_impl=attention_impl,
+                                  fused_block_stages=()),
+                  generator=torch.Generator().manual_seed(0))
+    seen = []
+    real = getattr(tswin, wrapper)
+    monkeypatch.setattr(tswin, wrapper,
+                        lambda *a: seen.append(1) or real(*a))
+    x = torch.from_numpy(_crops()[0 if size == 32 else 1][:B])
+    with torch.no_grad():
+        if capture:
+            model.forward_return_n_last_blocks(x, 2)
+        else:
+            model.forward_features(x)
+    assert len(seen) == getattr(model, calls)(size, capture) > 0
