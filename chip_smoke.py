@@ -15,7 +15,10 @@ so the script exits non-zero and prints no result line:
    case): forward output and the q/k/v/bias gradients within 3e-2 (bf16)
    or 2e-5 (fp32) after normalising each by its max-abs; dbias
    bit-identical on repeat; median times over 20 reps of kernel, plain
-   and the library call (scaled_dot_product_attention).
+   and the library call (scaled_dot_product_attention), with each
+   shape's bound. First, the forward tile kernel's shared memory as the
+   wrapper counts it equals the kernel's own count at every N, head dim
+   and dtype, and fits a block.
 4. The block-fused kernel pair vs its plain version at every block shape
    the default (fused) route gives it, shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
@@ -273,6 +276,22 @@ def phase_window_attention(torch, wa, wops):
     attn_mask; its backward gives dq, dk, dv, not dbias). Returns a Tally
     per kernel."""
     F = torch.nn.functional
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = wa._lib()
+    for N in range(1, 65):
+        for hd in range(1, 65):
+            for itemsize in (2, 4):
+                for warps in range(1, 9):
+                    want = lib.esvit_window_attention_tile_smem_bytes(
+                        N, hd, itemsize, warps)
+                    if want != wa.tile_smem_bytes(N, hd, itemsize, warps):
+                        raise AssertionError(
+                            f"tile_smem_bytes({N}, {hd}, {itemsize}, {warps})"
+                            f" is not the kernel's {want}")
+                plan = wa.tile_plan(64, N, hd, 3, 1, itemsize)
+                if plan.smem > limit:
+                    raise AssertionError(f"tile plan {plan} at N={N} hd={hd} "
+                                         f"needs more than {limit} bytes")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
@@ -346,17 +365,22 @@ def phase_window_attention(torch, wa, wops):
         isz = q.element_size()
         rows = B_ * N * C * isz
         tables = nH * N * N * 4 + (region.numel() * 4 if shifted else 0)
-        tally["fwd"].add(n_fwd, t_fwd, p_fwd, 4 * rows + tables,
-                         4 * B_ * N * N * C, l_fwd)
-        tally["bwd"].add(n_bwd, t_bwd, p_bwd, 7 * rows + tables + nH * N * N * 4,
-                         10 * B_ * N * N * C, l_bwd)
+        work = {"fwd": (4 * rows + tables, 4 * B_ * N * N * C),
+                "bwd": (7 * rows + tables + nH * N * N * 4,
+                        10 * B_ * N * N * C)}
+        tally["fwd"].add(n_fwd, t_fwd, p_fwd, *work["fwd"], l_fwd)
+        tally["bwd"].add(n_bwd, t_bwd, p_bwd, *work["bwd"], l_bwd)
+        rate = FP32_FLOP_PER_S if dt == "fp32" else BF16_FLOP_PER_S
+        bound = {k: max(b / HBM_BYTES_PER_S, f / rate) * 1e3
+                 for k, (b, f) in work.items()}
         log(f"kernel-vs-plain {label:20s} B_={B_:5d} C={C:3d} nH={nH:2d} "
             f"{dt}: max err out {errs[0]:.2e} dq {errs[1]:.2e} "
             f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} "
             f"(tol {TOL[dt]:.0e}); dbias bit-identical on repeat")
         log(f"  time {label:20s} fwd kernel {t_fwd:.4f} ms plain "
-            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms "
-            f"plain {p_bwd:.4f} ms sdpa {l_bwd:.4f} ms")
+            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms bound {bound['fwd']:.4f} ms "
+            f"| bwd kernel {t_bwd:.4f} ms plain {p_bwd:.4f} ms sdpa "
+            f"{l_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
     return tally
 
 

@@ -15,14 +15,19 @@
 //   dq = round(ds) . k * scale,  dk = round(ds)^T . qs,
 //   dbias[h] = sum over windows of ds (fp32).
 //
-// What bounds it on Hopper: at Swin's N=49, hd=32 a (window, head) pair is
-// ~0.15 MFLOP on 12 KB of bf16 operands, so the work is small dense
-// products over data that fits a block's shared memory many times over.
-// This first version runs them on the CUDA cores out of shared memory
-// (stride hd+1 keeps the column reads free of bank conflicts), so it is
-// bound by shared-memory bandwidth, not by HBM: each operand is read from
-// device memory once and the (N, N) scores never leave the SM. Tensor-core
-// (wgmma) tiles that pack several windows per block are later work.
+// The forward runs on the tile machinery of window_attention_tile.cuh (what
+// bounds it, the layout, the fp32 and bf16 paths). This file's policy: the
+// bf16 A operand is qs = bf16(q * bf16(scale)), formed from the staged q
+// after ldmatrix; p is rounded to bf16 as P.V's A operand (the round(p)
+// above); the output is rounded once; the bias slice of (window type, head)
+// is the (nH, N, N) table plus -100 where the type's region ids differ,
+// staged once per block.
+//
+// The backward runs on the CUDA cores: at Swin's N=49, hd=32 a (window, head) is
+// ~0.15 MFLOP on 12 KB of bf16 operands, multiplied out of shared memory (stride hd+1 keeps the column reads free of bank
+// conflicts), so it is bound by shared-memory bandwidth, not by HBM; each
+// operand is read from device memory once and the (N, N) scores never
+// leave the SM.
 //
 // The TPU kernel's carry of dbias across its sequential grid has no
 // counterpart here (blocks run in any order), and fp32 atomics would sum
@@ -35,7 +40,7 @@
 // The TPU-only machinery of the Pallas kernel (zero-expanded head packing,
 // block-diagonal window packing with the -1e9 cross-window mask, 0/1
 // selector matmuls, iota masks, 8-row padding, TW/HG tiling) has no
-// counterpart here: one block simply owns one (window, head).
+// counterpart here.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, every
 // entry point returns cudaGetLastError() after its launches.
@@ -45,6 +50,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include "window_attention_tile.cuh"
 
 namespace {
 
@@ -142,47 +149,6 @@ __device__ void softmax_row(const float* sq, const float* sk, const float* bias_
   const float inv = 1.f / warp_sum(e[0] + e[1]);
   p[0] = e[0] * inv;
   p[1] = e[1] * inv;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const float* __restrict__ bias,
-                            const int* __restrict__ region, T* __restrict__ out,
-                            Geometry g) {
-  extern __shared__ float smem[];
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int N = g.N, ld = g.hd + 1;
-  float* sq = smem;
-  float* sk = sq + tile_floats(N, g.hd);
-  float* sv = sk + tile_floats(N, g.hd);
-  float* sp = sv + tile_floats(N, g.hd);
-  int* sreg = reinterpret_cast<int*>(sp + (size_t)N * N);
-
-  load_window<T>(q, k, v, nullptr, region, g, w, h, round_to<T>(g.scale),
-                 sq, sk, sv, nullptr, sreg);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* bias_h = bias + (size_t)h * N * N;
-  for (int i = warp; i < N; i += kWarps) {
-    float p[2];
-    softmax_row(sq, sk, bias_h, sreg, region != nullptr, g, i, lane, p);
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) sp[i * N + j] = round_to<T>(p[t]);
-    }
-  }
-  __syncthreads();
-
-  const size_t row0 = (size_t)w * N;
-  for (int e = threadIdx.x; e < N * g.hd; e += blockDim.x) {
-    const int i = e / g.hd, d = e - i * g.hd;
-    float acc = 0.f;
-    for (int j = 0; j < N; ++j) acc = fmaf(sp[i * N + j], sv[j * ld + d], acc);
-    out[(row0 + i) * g.C + (size_t)h * g.hd + d] = from_f<T>(acc);
-  }
 }
 
 // Block (chunk c, head h) runs windows [c*run, min((c+1)*run, B_)) and
@@ -301,10 +267,6 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial,
   dbias[idx] = acc;
 }
 
-size_t fwd_smem_bytes(int N, int hd) {
-  return (3 * tile_floats(N, hd) + (size_t)N * N) * sizeof(float) + N * sizeof(int);
-}
-
 size_t bwd_smem_bytes(int N, int hd) {
   return (4 * tile_floats(N, hd) + 2 * (size_t)N * N) * sizeof(float) + N * sizeof(int);
 }
@@ -316,18 +278,37 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The forward's policy (window_attention_tile.cuh): the packed kernel's
+// roundings and the table + region-mask bias.
+struct TableBias {
+  static constexpr bool kRoundQ = true;
+  static constexpr bool kSplitP = false;
+  const float* table;  // (nH, N, N)
+  const int* region;   // (types, N) or null
+
+  __device__ void stage_bias(float* dst, int bs, const wtile::Geometry& g, int t, int h) const {
+    wtile::stage_bias(dst, bs, table + (size_t)h * g.N * g.N,
+                      region != nullptr ? region + (size_t)t * g.N : nullptr, g.N);
+  }
+};
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
-               const int* region, void* out, const Geometry& g, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(g.N, g.hd);
-  auto kernel = window_attention_fwd_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(g.B_, g.nH);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, region, static_cast<T*>(out), g);
-  return (int)cudaGetLastError();
+               const int* region, void* out, const Geometry& g, int warps, int run,
+               cudaStream_t stream) {
+  const wtile::Operands<T> op{static_cast<const T*>(q), static_cast<const T*>(k),
+                              static_cast<const T*>(v), static_cast<T*>(out)};
+  wtile::Geometry tg{};
+  tg.B_ = g.B_;
+  tg.N = g.N;
+  tg.hd = g.hd;
+  tg.nH = g.nH;
+  tg.types = g.nW;
+  tg.ld_in = g.C;
+  tg.ld_out = g.C;
+  tg.run = run;
+  tg.scale = g.scale;
+  return wtile::launch<T>(op, TableBias{bias, region}, tg, warps, stream);
 }
 
 template <typename T>
@@ -370,17 +351,27 @@ Geometry make_geometry(int B_, int N, int C, int nH, int nW, float scale) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. region may be null (unshifted).
+// dtype: 0 = float32, 1 = bfloat16. region may be null (unshifted); nW is
+// then 1. `warps` per block and `run` windows per warp:
+// ops/window_attention.py tile_plan.
 int esvit_window_attention_fwd(const void* q, const void* k, const void* v,
                                const void* bias, const void* region, void* out,
                                int B_, int N, int C, int nH, int nW, float scale,
-                               int dtype, void* stream) {
+                               int dtype, int warps, int run, void* stream) {
   const Geometry g = make_geometry(B_, N, C, nH, nW, scale);
   const auto* b = static_cast<const float*>(bias);
   const auto* r = static_cast<const int*>(region);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(q, k, v, b, r, out, g, s);
-  return launch_fwd<float>(q, k, v, b, r, out, g, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16>(q, k, v, b, r, out, g, warps, run, s);
+  return launch_fwd<float>(q, k, v, b, r, out, g, warps, run, s);
+}
+
+// Dynamic shared memory of a forward block (the tile kernels of both
+// window-attention forwards), to hold ops/window_attention.py
+// tile_smem_bytes to.
+long long esvit_window_attention_tile_smem_bytes(int N, int hd, int itemsize, int warps) {
+  if (itemsize == 2) return (long long)wtile::smem_bytes<__nv_bfloat16>(N, hd, warps);
+  return (long long)wtile::smem_bytes<float>(N, hd, warps);
 }
 
 // partial: (nH, ceil(B_/run), N, N) fp32 scratch; dbias: (nH, N, N) fp32.

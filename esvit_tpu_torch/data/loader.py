@@ -13,7 +13,7 @@ from esvit_tpu_torch.config import CropConfig
 
 
 def synthetic_batches(crops: CropConfig, batch_size: int, *, steps: int,
-                      seed: int = 0, device: torch.device | str = "cpu",
+                      seed: int = 0, device: torch.device | str = "cuda",
                       dtype=torch.float32):
     """``steps`` random (global, local) NHWC batches drawn on ``device``
     from a generator seeded with ``seed``."""

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with nvcc for sm_90a into ``esvit_tpu_torch/_build/``, under a
-file name that carries a hash of the source, and loaded with ctypes. No
-PyTorch header is compiled, so a build takes seconds. Nothing here runs
-at import time.
+file name that carries a hash of the source and of every header in
+``csrc/`` (so an edit to a shared ``.cuh`` rebuilds its users), and loaded
+with ctypes. No PyTorch header is compiled, so a build takes seconds.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -37,10 +38,16 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
-def _library(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD / f"lib{name}_{digest}.so"
+def _library(name: str, csrc: Path = CSRC,
+             build: Path = BUILD) -> tuple[Path, Path]:
+    """csrc/<name>.cu and its library's path, named by the hash of the
+    source and of every csrc/*.cuh (in name order)."""
+    src = csrc / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return src, build / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -60,7 +67,7 @@ def build_all(names) -> dict[str, tuple[Path, str]]:
             continue
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
         running[name] = (src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports = {name: run[3].communicate()[0] for name, run in running.items()}

@@ -2,9 +2,11 @@
 its plain twin.
 
 Replaces esvit_tpu/ops/pallas_window_attention.py ``_attention_kernel``
-(via ``fused_window_attention``) with ``csrc/pallas_window_attention.cu``:
-one thread block per (window, head), reading q, k and v straight out of
-the ``(B_, N, 3C)`` qkv rows. The source notes what bounds it on Hopper.
+(via ``fused_window_attention``) with ``csrc/pallas_window_attention.cu``,
+the tile kernel of ``csrc/window_attention_tile.cuh`` (bf16 on the tensor
+cores, fp32 as register-tiled FMAs) reading q, k and v straight out of the
+``(B_, N, 3C)`` qkv rows, launched as :func:`window_attention.tile_plan`
+says. The sources note what bounds it on Hopper.
 
 Layouts are the JAX ones: qkv ``(B_, N, 3C)`` (windows batch-major, window
 type minor), bias ``(nWm, nH, N, N)`` fp32 with the shift mask (-100)
@@ -28,6 +30,7 @@ import functools
 import torch
 
 from esvit_tpu_torch.ops import cuda_build
+from esvit_tpu_torch.ops.window_attention import _sm_count, tile_plan
 
 launches = {"fwd": 0}
 
@@ -96,13 +99,17 @@ def _fwd(qkv, bias, nH, scale):
     _check(qkv, bias, nH)
     lib = _lib()
     B_, N, C3 = qkv.shape
-    out = torch.empty((B_, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    C, nWm = C3 // 3, bias.shape[0]
+    out = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
+    plan = tile_plan(B_, N, C // nH, nH, nWm, qkv.element_size(),
+                     _sm_count(qkv.device.index))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.esvit_pallas_window_attention_fwd(
             ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(bias.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), B_, N, C3 // 3, nH, bias.shape[0],
-            ctypes.c_float(scale), _DTYPES[qkv.dtype], ctypes.c_void_p(stream))
+            ctypes.c_void_p(out.data_ptr()), B_, N, C, nH, nWm,
+            ctypes.c_float(scale), _DTYPES[qkv.dtype], plan.warps, plan.run,
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"pallas_window_attention kernel failed: CUDA error {rc}")
     launches["fwd"] += 1
@@ -115,7 +122,7 @@ def _lib():
     declared (pointers as void*, so ctypes never truncates them)."""
     lib = cuda_build.load("pallas_window_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.esvit_pallas_window_attention_fwd.argtypes = [P] * 3 + [I] * 5 + [F, I, P]
+    lib.esvit_pallas_window_attention_fwd.argtypes = [P] * 3 + [I] * 5 + [F] + [I] * 3 + [P]
     lib.esvit_pallas_window_attention_fwd.restype = I
     return lib
 

@@ -2,10 +2,14 @@
 
 Replaces esvit_tpu/ops/packed_window_attention.py ``_fwd_kernel`` and
 ``_bwd_kernel`` (via ``packed_window_attention``) with
-``csrc/window_attention.cu``: one thread block per (window, head) in the
-forward; in the backward one block per (head, run of windows), whose
-dbias partials a second kernel sums in a fixed order, so dbias is
-deterministic. The source notes what bounds the kernels on Hopper.
+``csrc/window_attention.cu``. The forward runs on the tile kernel of
+``csrc/window_attention_tile.cuh`` (bf16 on the tensor cores, fp32 as
+register-tiled FMAs): one warp per (window, head) at a time, several warps
+per block on windows of one (head, window type); :func:`tile_plan` picks
+the block's warps and the windows per warp. In the backward one block per
+(head, run of windows), whose dbias partials a second kernel sums in a
+fixed order, so dbias is deterministic. The sources note what bounds the
+kernels on Hopper.
 
 Layouts are the JAX ones: q2/k2/v2 ``(B_*N, C)`` window-major rows
 (windows batch-major, window type minor), bias ``(nH, N, N)`` fp32,
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +36,86 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Backward blocks each own one head and `run` windows; about this many
 # blocks per call keep the card's 132 SMs busy.
 _TARGET_BWD_BLOCKS = 1024
+
+# The forward tile kernel's launch plan (csrc/window_attention_tile.cuh),
+# from an H100 SM's limits: 228 KB of shared memory, 1 KB of it reserved
+# per block, at most 227 KB for one block; at most 32 blocks; 65536
+# registers. By itemsize: the warps an SM holds at the tile kernel's
+# registers (nvcc -Xptxas -v: at most 120 a thread in bf16, 254 in fp32),
+# and the longest run of windows per warp (the run that timed best on an
+# H100 at Swin-T's 224 px shapes, among runs of 1, 2 and 4).
+_SM_SMEM = 233472
+_BLOCK_RESERVED = 1024
+_BLOCK_SMEM_MAX = 232448
+_SM_BLOCKS_MAX = 32
+_SM_WARPS_MAX = {2: 16, 4: 8}
+_MAX_RUN = {2: 2, 4: 4}
+_TILE_WARPS = (8, 7, 6, 5, 4, 3, 2, 1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int) -> int:
+    """Dynamic shared memory of a forward tile block (wtile::smem_bytes):
+    the (N, N) fp32 bias slice at an odd number of 16-byte units per row,
+    then per warp its q, k, v tiles (bf16: N rows each at head_pad(hd) + 8;
+    fp32: N, N and round_up(N, 4) rows at head_pad(hd) + 4, q and k
+    sharing their room with the (N, 8 ceil(N / 8) + 4) p tile), each part
+    rounded up to 128 bytes."""
+    r4 = _round_up(N, 4)
+    bias_ld = r4 if (r4 // 4) % 2 else r4 + 4
+    hdp = _round_up(hd, 16)
+    if itemsize == 2:
+        tiles = 3 * N * (hdp + 8) * 2
+    else:
+        ld = hdp + 4
+        tiles = (max(2 * N * ld, N * _round_up(N, 8) + 4 * N) + r4 * ld) * 4
+    return (_round_up(N * bias_ld * 4, 128)
+            + warps * _round_up(tiles, 128))
+
+
+class TilePlan(NamedTuple):
+    warps: int    # warps per block
+    run: int      # windows per warp
+    chunks: int   # blocks per (head, window type): the grid is (chunks, nH * types)
+    smem: int     # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(B_: int, N: int, hd: int, nH: int, types: int, itemsize: int,
+              sms: int = 132) -> TilePlan:
+    """The forward's launch geometry. Warps per block: the count that keeps
+    the most warps resident on an SM (ties: more warps, so a bias slice
+    serves more windows). Windows per warp: the longest run up to
+    _MAX_RUN that still gives half a wave of blocks or more, else 1. Short
+    runs let the block scheduler even out the SMs' loads."""
+    per_type = B_ // types
+
+    def resident(w):
+        smem = tile_smem_bytes(N, hd, itemsize, w)
+        if smem > _BLOCK_SMEM_MAX:
+            return 0
+        return min(_SM_SMEM // (smem + _BLOCK_RESERVED),
+                   _SM_WARPS_MAX[itemsize] // w, _SM_BLOCKS_MAX)
+
+    warps = max(_TILE_WARPS, key=lambda w: (resident(w) * w, w))
+
+    def chunks(run):
+        return -(-per_type // (warps * run))
+
+    slots = resident(warps) * sms
+    run = _MAX_RUN[itemsize]
+    while run > 1 and 2 * chunks(run) * nH * types < slots:
+        run //= 2
+    return TilePlan(warps, run, chunks(run),
+                    tile_smem_bytes(N, hd, itemsize, warps))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
@@ -116,12 +201,14 @@ def _fwd(q2, k2, v2, bias, region, N, nH, scale):
     out = torch.empty_like(q2)
     rows, C = q2.shape
     nW = region.shape[0] if region is not None else 1
+    plan = tile_plan(rows // N, N, C // nH, nH, nW, q2.element_size(),
+                     _sm_count(q2.device.index))
     with torch.cuda.device(q2.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.esvit_window_attention_fwd(
             _ptr(q2), _ptr(k2), _ptr(v2), _ptr(bias), _ptr(region), _ptr(out),
             rows // N, N, C, nH, nW, ctypes.c_float(scale), _DTYPES[q2.dtype],
-            ctypes.c_void_p(stream))
+            plan.warps, plan.run, ctypes.c_void_p(stream))
     _raise_on(rc, "forward")
     launches["fwd"] += 1
     return out
@@ -159,10 +246,12 @@ def _lib():
     declared (pointers as void*, so ctypes never truncates them)."""
     lib = cuda_build.load("window_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.esvit_window_attention_fwd.argtypes = [P] * 6 + [I] * 5 + [F, I, P]
+    lib.esvit_window_attention_fwd.argtypes = [P] * 6 + [I] * 5 + [F] + [I] * 3 + [P]
     lib.esvit_window_attention_fwd.restype = I
     lib.esvit_window_attention_bwd.argtypes = [P] * 11 + [I] * 5 + [F, I, I, P]
     lib.esvit_window_attention_bwd.restype = I
+    lib.esvit_window_attention_tile_smem_bytes.argtypes = [I] * 4
+    lib.esvit_window_attention_tile_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -63,6 +63,84 @@ def test_cuda_kernel_matches_plain(cuda, case, dtype, tol):
         torch.testing.assert_close(a / s, b / s, rtol=tol, atol=tol, msg=name)
 
 
+# Shapes the forward's tiles can get wrong: (N, C, nH, windows B_, window
+# types nW (0: unshifted), element offset of q/k/v's base). N below 49
+# (16, 36) and N = 64 (the largest tile); a head dim not a multiple of 16
+# (24 zero-filled to 32; 10, whose 40-byte rows take the narrow loads);
+# window counts that are not a multiple of a block's windows; a base 2 or
+# 4 bytes off 16-byte alignment. Region ids are random per window type.
+TILE_CASES = [
+    (16, 64, 2, 12, 4, 0),
+    (36, 48, 2, 8, 2, 0),
+    (64, 128, 2, 3, 0, 0),
+    (49, 96, 3, 37, 0, 0),
+    (49, 96, 3, 40, 8, 0),
+    (49, 20, 2, 6, 2, 0),
+    (49, 96, 3, 8, 0, 1),
+]
+
+
+def _offset_tensor(a, dtype, cuda, offset):
+    """a on the card, contiguous, its data `offset` elements past an
+    allocation's (16-byte aligned) start."""
+    flat = torch.empty(a.size + offset, device=cuda, dtype=dtype)
+    t = flat[offset:].view(a.shape)
+    t.copy_(torch.as_tensor(a))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_cuda_kernel_tile_shapes_match_plain(cuda, case, dtype, tol):
+    N, C, nH, B_, nW, offset = case
+    rng = np.random.RandomState(1)
+    q, k, v, do = (rng.randn(B_ * N, C).astype(np.float32) for _ in range(4))
+    bias = (0.3 * rng.randn(nH, N, N)).astype(np.float32)
+    region = (torch.as_tensor(rng.randint(0, 3, size=(nW, N)).astype(np.int32),
+                              device=cuda) if nW else None)
+    scale = (C // nH) ** -0.5
+
+    def run(fn):
+        ts = [_offset_tensor(a, dtype, cuda, offset).requires_grad_()
+              for a in (q, k, v)]
+        b = torch.tensor(bias, device=cuda).requires_grad_()
+        out = fn(*ts, b, region, N, nH, scale)
+        out.backward(torch.tensor(do, device=cuda, dtype=dtype))
+        return [out.detach().float().cpu()] + [t.grad.float().cpu()
+                                               for t in (*ts, b)]
+
+    before = dict(wa.launches)
+    got = run(wa._WindowAttention.apply)
+    assert wa.launches == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    again = run(wa._WindowAttention.apply)
+    ref = run(wa.window_attention_plain)
+    for name, a, b, c in zip(["out", "dq", "dk", "dv", "dbias"], got, again,
+                             ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+        s = max(c.abs().max().item(), 1e-6)
+        torch.testing.assert_close(a / s, c / s, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_plan_fits_the_card(cuda):
+    """tile_smem_bytes is the kernel's own count (wtile::smem_bytes), and
+    every plan of a shape supports() admits fits a block."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = wa._lib()
+    for N in range(1, 65):
+        for hd in range(1, 65):
+            for itemsize in (2, 4):
+                for warps in range(1, 9):
+                    assert (lib.esvit_window_attention_tile_smem_bytes(
+                        N, hd, itemsize, warps)
+                        == wa.tile_smem_bytes(N, hd, itemsize, warps))
+                plan = wa.tile_plan(8, N, hd, 1, 1, itemsize)
+                assert plan.smem <= limit, (N, hd, itemsize, plan)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(49 * 2, 96, device=cuda, dtype=torch.float16)
@@ -304,11 +382,20 @@ PWA_CASES = [
     (4, 49, 768, 24, 1),
     (6, 37, 40, 5, 2),
     (2, 64, 128, 2, 1),
+    # the tiles' edges, as TILE_CASES: N 16 and 36, head dims 24 and 10 (qkv
+    # rows of 120 bytes in bf16: the narrow loads), window counts that are
+    # not a multiple of a block's windows, and a head dim of 5
+    (12, 16, 64, 2, 4),
+    (8, 36, 48, 2, 2),
+    (37, 49, 96, 3, 1),
+    (40, 49, 96, 3, 8),
+    (6, 49, 20, 2, 2),
+    (6, 9, 15, 3, 3),
 ]
 
 
-def _pwa_run(fn, cuda, dtype, qkv, bias, dout, nH):
-    qt = torch.tensor(qkv, device=cuda, dtype=dtype).requires_grad_()
+def _pwa_run(fn, cuda, dtype, qkv, bias, dout, nH, offset=0):
+    qt = _offset_tensor(qkv, dtype, cuda, offset).requires_grad_()
     bt = torch.tensor(bias, device=cuda).requires_grad_()
     out = fn(qt, bt, nH, (qkv.shape[2] // 3 // nH) ** -0.5)
     out.backward(torch.tensor(dout, device=cuda, dtype=dtype))
@@ -346,6 +433,29 @@ def test_cuda_pallas_window_attention_matches_plain(cuda, case, dtype, tol):
     torch.testing.assert_close(got[0] / s, ref[0] / s, rtol=tol, atol=tol)
     for name, a, b in zip(("dqkv", "dbias"), got[1:], ref[1:]):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_pallas_window_attention_unaligned_base(cuda, dtype, tol):
+    """qkv whose data starts one element past 16-byte alignment takes the
+    narrow loads and gives the same result as an aligned copy."""
+    from esvit_tpu_torch.ops import pallas_window_attention as pwa
+
+    rng = np.random.RandomState(4)
+    qkv = rng.randn(8, 49, 288).astype(np.float32)
+    bias = (0.3 * rng.randn(2, 3, 49, 49)).astype(np.float32)
+    dout = rng.randn(8, 49, 96).astype(np.float32)
+    got = _pwa_run(pwa.fused_window_attention, cuda, dtype, qkv, bias, dout,
+                   3, offset=1)
+    aligned = _pwa_run(pwa.fused_window_attention, cuda, dtype, qkv, bias,
+                       dout, 3)
+    ref = _pwa_run(pwa.pallas_window_attention_plain, cuda, dtype, qkv, bias,
+                   dout, 3)
+    torch.testing.assert_close(got[0], aligned[0], rtol=0, atol=0)
+    s = ref[0].abs().max().item()
+    torch.testing.assert_close(got[0] / s, ref[0] / s, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
