@@ -9,22 +9,28 @@ so the script exits non-zero and prints no result line:
 1. Device: require CUDA, print the card's name and power limit and the
    torch/CUDA versions; TF32 off for the parity checks.
 2. Build the four kernel libraries from esvit_tpu_torch/csrc/ (one nvcc
-   each, started together) and print nvcc's -Xptxas -v report.
+   each, started together) and print nvcc's -Xptxas -v report; fail if a
+   window-attention tile kernel's registers hold fewer warps per SM than
+   ops/window_attention.py tile_plan assumes.
 3. Window attention vs plain PyTorch on the card at every full-window
    shape of the Swin-T W=7 B=32 multi-crop step (bf16, plus one fp32
    case): forward output and the q/k/v/bias gradients within 3e-2 (bf16)
    or 2e-5 (fp32) after normalising each by its max-abs; dbias
    bit-identical on repeat; median times over 20 reps of kernel, plain
    and the library call (scaled_dot_product_attention), with each
-   shape's bound. First, the forward tile kernel's shared memory as the
-   wrapper counts it equals the kernel's own count at every N, head dim
-   and dtype, and fits a block.
+   shape's bound. First, the tile kernels' shared memory (forward and
+   backward) as the wrapper counts it equals the kernels' own count at
+   every N, head dim and dtype, and fits a block.
 4. The block-fused kernel pair vs its plain version at every block shape
    the default (fused) route gives it, shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
    output, dx and all 17 parameter gradients within the same tolerances
    (dbk, whose exact value is 0, at the scale of the largest gradient);
-   every gradient bit-identical on repeat; median times over 20 reps.
+   every gradient bit-identical on repeat; each backward stage kernel (T1,
+   A1, T2, A2, T3) within the same tolerance of its plain twin on its own
+   inputs; median times over 20 reps; the backward's device time split by
+   kernel (torch.profiler), per shape and per default step. First, the
+   backward's token-tile blocks fit the card at every admitted width.
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
    of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case): the
    output and the five gradients within the same tolerances, every one
@@ -81,6 +87,7 @@ The last line is {"ok": true, "device": {...}}.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -217,14 +224,61 @@ def phase_device(torch):
     return card
 
 
-def phase_build(cuda_build):
+def ptxas_registers(report):
+    """{mangled kernel name: registers} from nvcc's -Xptxas -v report."""
+    regs, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+            entry = None
+    return regs
+
+
+def check_tile_registers(wa, regs):
+    """Every window-attention tile kernel's registers against what
+    ops/window_attention.py tile_plan assumes: the warps an SM holds at
+    the kernel's registers (allocated in units of 8 a thread) must be at
+    least the plan's _SM_WARPS_MAX / _SM_WARPS_MAX_BWD. Returns the lines
+    it checked."""
+    checked = []
+    for name, n in regs.items():
+        if "window_attention_bwd_tile_kernel" in name:
+            cap = wa._SM_WARPS_MAX_BWD[2 if "bfloat16" in name else 4]
+        elif "window_attention_tile_kernel" in name:
+            cap = wa._SM_WARPS_MAX[2 if "bfloat16" in name else 4]
+        else:
+            continue
+        fits = wa._SM_REGS // (-(-n // 8) * 8 * 32)
+        if fits < cap:
+            raise AssertionError(
+                f"{name}: {n} registers hold {fits} warps per SM, but "
+                f"tile_plan assumes {cap}")
+        checked.append(f"{name[:60]} {n} regs: {fits} warps/SM >= plan {cap}")
+    return checked
+
+
+def phase_build(cuda_build, wa):
+    """Build every library; hold the tile kernels' registers to the plan
+    (a library built before this run has no report and is not checked)."""
     t0 = time.perf_counter()
+    regs = {}
     for name, (lib, report) in cuda_build.build_all(KERNELS).items():
         log(f"built {lib.name}")
         for line in report.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  " + line.strip())
+        regs.update(ptxas_registers(report))
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    lines = check_tile_registers(wa, regs)
+    if regs and len(lines) < 10:
+        raise AssertionError(f"found {len(lines)} tile kernels in the "
+                             "ptxas report, expected 10")
+    for line in lines:
+        log(f"registers {line}")
 
 
 class Tally:
@@ -270,6 +324,47 @@ def _median_ms(torch, fn):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def kernel_split(torch, fn, reps=REPS):
+    """Device ms per call of fn by kernel name: torch.profiler's CUDA
+    kernel events over `reps` calls (after a warm-up), each kernel's summed
+    duration divided by reps, largest first. Raises if the profiler saw no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
+            split[evt.name] = split.get(evt.name, 0.0) + us / 1e3 / reps
+    if not split:
+        raise RuntimeError("the profiler recorded no device time")
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def _kernel_key(name):
+    """A kernel's bare name: no return type, namespaces, template arguments
+    or parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    return re.split(r"[(<]", name, maxsplit=1)[0].split()[-1].split("::")[-1]
+
+
+def _split_line(split, top=8):
+    """`name ms` of the largest entries of a kernel_split, by bare name."""
+    short = {}
+    for name, ms in split.items():
+        short[_kernel_key(name)] = short.get(_kernel_key(name), 0.0) + ms
+    items = sorted(short.items(), key=lambda kv: -kv[1])[:top]
+    return ", ".join(f"{n} {ms:.4f}" for n, ms in items)
+
+
 def phase_window_attention(torch, wa, wops):
     """Kernel vs plain at the slice's shapes, and the library call
     (scaled_dot_product_attention, the bias + shift mask as its float
@@ -281,17 +376,24 @@ def phase_window_attention(torch, wa, wops):
     for N in range(1, 65):
         for hd in range(1, 65):
             for itemsize in (2, 4):
-                for warps in range(1, 9):
-                    want = lib.esvit_window_attention_tile_smem_bytes(
-                        N, hd, itemsize, warps)
-                    if want != wa.tile_smem_bytes(N, hd, itemsize, warps):
+                for backward in (False, True):
+                    count = (lib.esvit_window_attention_bwd_smem_bytes
+                             if backward else
+                             lib.esvit_window_attention_tile_smem_bytes)
+                    for warps in range(1, 9):
+                        want = count(N, hd, itemsize, warps)
+                        if want != wa.tile_smem_bytes(N, hd, itemsize, warps,
+                                                      backward):
+                            raise AssertionError(
+                                f"tile_smem_bytes({N}, {hd}, {itemsize}, "
+                                f"{warps}, {backward}) is not the kernel's "
+                                f"{want}")
+                    plan = wa.tile_plan(64, N, hd, 3, 1, itemsize,
+                                        backward=backward)
+                    if plan.smem > limit:
                         raise AssertionError(
-                            f"tile_smem_bytes({N}, {hd}, {itemsize}, {warps})"
-                            f" is not the kernel's {want}")
-                plan = wa.tile_plan(64, N, hd, 3, 1, itemsize)
-                if plan.smem > limit:
-                    raise AssertionError(f"tile plan {plan} at N={N} hd={hd} "
-                                         f"needs more than {limit} bytes")
+                            f"tile plan {plan} at N={N} hd={hd} (backward "
+                            f"{backward}) needs more than {limit} bytes")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
@@ -434,7 +536,7 @@ def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen):
             do.to(dtype))
 
 
-def phase_fused(torch, fb, wops):
+def phase_fused(torch, fb, wa, wops):
     """The block-fused pair vs its plain version at the default route's
     block shapes. Returns per-kernel max error and the per-step
     kernel/plain milliseconds."""
@@ -452,8 +554,17 @@ def phase_fused(torch, fb, wops):
                             f"supports() admits N={N} C={C} nH={nH}, whose "
                             f"{itemsize}-byte block needs {need} bytes of "
                             f"shared memory (card: {limit})")
+    for C in range(32, fb._MAX_C + 1, 32):
+        for itemsize in (2, 4):
+            need = lib.esvit_fused_block_bwd_smem_bytes(
+                C, fb.token_rows(C, itemsize), itemsize)
+            if need > limit:
+                raise AssertionError(
+                    f"the backward's token tiles at C={C} need {need} bytes "
+                    f"of shared memory (card: {limit})")
     gen = torch.Generator(device="cuda").manual_seed(1)
     tally = {"fwd": Tally(), "bwd": Tally()}
+    split_step = {}
     for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd in FUSED_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, params, k1, k2, region, pad, geo, do = _fused_case(
@@ -490,6 +601,13 @@ def phase_fused(torch, fb, wops):
         tally["bwd"].err = max(tally["bwd"].err,
                                *(errs[n] for n in FUSED_GRADS))
         del got, again, ref
+        stages = fb.bwd_stage_errors(x, params, k1, k2, do, **kw)
+        bad = {n: e for n, e in stages.items() if e > TOL[dt]}
+        if bad:
+            raise AssertionError(f"fused {label}: stage errors {bad} above "
+                                 f"{TOL[dt]}")
+        log(f"fused-stages {label:22s} {dt}: " + ", ".join(
+            f"{n} {e:.2e}" for n, e in stages.items()) + f" (tol {TOL[dt]:.0e})")
 
         with torch.no_grad():
             t_fwd = _median_ms(torch, lambda: fb._fwd(
@@ -498,6 +616,11 @@ def phase_fused(torch, fb, wops):
                 x, params, k1, k2, **kw))
         t_bwd = _median_ms(torch, lambda: fb._bwd(
             x, params, k1, k2, region, pad, do, geo))
+        split = kernel_split(torch, lambda: fb._bwd(
+            x, params, k1, k2, region, pad, do, geo))
+        for name, ms in split.items():
+            key = _kernel_key(name)
+            split_step[key] = split_step.get(key, 0.0) + n_bwd * ms
         xs = x.clone().requires_grad_()
         ps = {n: t.clone().requires_grad_() for n, t in params.items()}
         out = fb.fused_swin_block_plain(xs, ps, k1, k2, **kw)
@@ -524,9 +647,19 @@ def phase_fused(torch, fb, wops):
             f"nH={nH:2d} {dt}: max err out {errs['out']:.2e} dx "
             f"{errs['x']:.2e}, largest {', '.join(f'{n} {e:.2e}' for n, e in top)}"
             f" (tol {TOL[dt]:.0e}); all 19 results bit-identical on repeat")
+        bound = {k: max(b / HBM_BYTES_PER_S, f / BF16_FLOP_PER_S
+                        if dt == "bf16" else f / FP32_FLOP_PER_S) * 1e3
+                 for k, (b, f) in (("fwd", (2 * rows + pbytes + tables, flops)),
+                                   ("bwd", (3 * rows + 2 * pbytes + tables,
+                                            3 * flops)))}
         log(f"  time {label:22s} fwd kernel {t_fwd:.4f} ms plain "
-            f"{p_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms plain "
-            f"{p_bwd:.4f} ms")
+            f"{p_fwd:.4f} ms bound {bound['fwd']:.4f} ms | bwd kernel "
+            f"{t_bwd:.4f} ms plain {p_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
+        log(f"  split {label:22s} bwd {sum(split.values()):.4f} ms: "
+            f"{_split_line(split)}")
+    log("fused bwd split per default step (ms, torch.profiler): " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(split_step.items(),
+                                            key=lambda kv: -kv[1])}))
     return tally
 
 
@@ -1060,9 +1193,11 @@ def main():
     from esvit_tpu_torch.ops import window as wops
     from esvit_tpu_torch.ops import window_attention as wa
 
-    phase_build(cuda_build)
+    phase_build(cuda_build, wa)
+    if sys.argv[1:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}")
     results = {"window_attention": phase_window_attention(torch, wa, wops),
-               "fused_block": phase_fused(torch, fb, wops),
+               "fused_block": phase_fused(torch, fb, wa, wops),
                "sliding_chunk": phase_sliding_chunk(torch, sc),
                "pallas_window_attention": {
                    "fwd": phase_pallas_window_attention(torch, pwa, wops)}}

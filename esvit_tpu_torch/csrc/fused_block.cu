@@ -4,8 +4,9 @@
 // _fwd_kernel (launched by _run, kind "fwd") and _bwd_kernel (kind "bwd"),
 // reached through fused_swin_block.
 //
-// One thread block owns one window of N <= 64 tokens (rows of x, in the
-// unpadded window-major order of ops/window.py) and runs, all heads:
+// The forward: one thread block owns one window of N <= 64 tokens (rows of
+// x, in the unpadded window-major order of ops/window.py) and runs, all
+// heads:
 //   y   = round(LN1(x)) * pad                 fp32 LN, E[x^2] - mu^2 variance
 //   q,k,v = round(round(y Wq) + round(bq))    (bf16 operands, fp32 sums)
 //   s   = round(q round(scale)) k^T + bias[h] - 100 [region_i != region_j]
@@ -32,27 +33,28 @@
 // For fp32 inputs (the parity checks) the same tiles run on the CUDA cores
 // with bounds-checked scalar loads.
 //
-// The backward recomputes the forward from the block input (the TPU
-// kernel's rematerialisation), writes dx, and stores the per-row operands
-// of the weight gradients (y, dq|dk|dv, a, do1, y2, do2, g, dh) to a
-// workspace in the input dtype, plus per-window fp32 partials of every bias
-// and LayerNorm gradient and of dbias. A second kernel forms each weight
-// gradient as a sum over all rows: each block owns one 64x64 output tile
-// and one fixed run of rows; the runs' partials, like the per-window ones,
-// are summed in a fixed order by sum_rows_kernel. No atomics: every
-// gradient is bit-identical run to run. The TPU kernel gets the same from
-// its sequential grid (fused_block.py:501-508).
+// What bounds the forward on Hopper: a window is ~0.23 GFLOP at C=384 on
+// 3.5 MB of bf16 weights that every window reads again from L2, and the
+// block's shared memory (up to ~160 KB at C=384) allows one or two blocks
+// per SM, so eight or sixteen warps run the block's long chain of small
+// phases (products, epilogues, LayerNorms, softmax), each ended by a
+// barrier: the kernel is bound by latency at low occupancy, not by HBM, L2
+// or the tensor cores. Measured on an H100: a build that skipped every
+// weight load was only ~7% faster, and staging the weights through a
+// cp.async ring gained nothing.
 //
-// What bounds it on Hopper: a window is ~0.23 GFLOP at C=384 on 3.5 MB of
-// bf16 weights that every window reads again from L2, and the block's
-// shared memory (up to ~190 KB at C=384) allows one or two blocks per SM,
-// so eight or sixteen warps run the block's long chain of small phases
-// (products, epilogues, LayerNorms, softmax), each ended by a barrier: the
-// kernel is bound by latency at low occupancy, not by HBM, L2 or the
-// tensor cores. Measured on an H100: a build that skipped every weight
-// load was only ~7% faster, and staging the weights through a cp.async
-// ring gained nothing. More warps per window, or several windows per
-// block with fewer barriers, is the later work.
+// The backward recomputes the forward from the block input (the TPU
+// kernel's rematerialisation), but not as one kernel per window: what is
+// per token runs on token tiles and only attention stays per window (the
+// section "The backward" below). It writes dx and stores the per-row
+// operands of the weight gradients (y, dq|dk|dv, a, do1, y2, do2, g, dh)
+// to a workspace in the input dtype, plus per-tile fp32 partials of every
+// bias and LayerNorm gradient and per-block partials of dbias. A last
+// kernel forms each weight gradient as a sum over all rows: each block owns
+// one output tile and one fixed run of rows; the runs' partials, like the
+// per-tile ones, are summed in a fixed order by sum_rows_kernel. No
+// atomics: every gradient is bit-identical run to run. The TPU kernel gets
+// the same from its sequential grid (fused_block.py:501-508).
 //
 // Left behind from the TPU kernel, as Mosaic workarounds: the 8-row Np
 // padding, G_step/TW_mm/HG tiling and its VMEM model, lane-split head
@@ -70,13 +72,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "window_attention_tile.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
-constexpr size_t kSmemPerSM = 233472;   // H100: 228 KB of shared memory per SM
-constexpr size_t kSmemReserved = 1024;  // the runtime's share of each block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMc = 128;            // MLP hidden-dimension chunk
 constexpr int kMaxN = 64;           // tokens per window
@@ -92,18 +94,22 @@ constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
 // Pointer table: the wrapper passes them in this order. WQKV_F holds the
 // q/k/v weights [out][in] with the outputs head-major (head h's q, k and v
-// rows are rows h*3hd .. h*3hd+3hd); WQKV_B holds them [in][out] with the
-// same head-major column order.
+// rows are rows h*3hd .. h*3hd+3hd); WQKV_B holds them [in][out] as
+// [Wq | Wk | Wv] (the backward's dqkv column order). QKV (rows, 3C) and DA
+// (rows, C) are the backward's scratch in the compute dtype.
 enum Ptr {
   X, OUT, G1, BE1, BQKV, BP, G2, BE2, B1, B2, BIAS, PAD, KEEP1, KEEP2, REGION,
   WQKV_F, WP_F, W1_F, W2_F,          // [out][in] (torch Linear layout)
   WQKV_B, WP_B, W1_B, W2_B,          // [in][out] (the JAX layout)
-  DOUT, DX, DX32, WS, VPART, BPART, WPART, TMP,
+  DOUT, DX, DX32, WS, VPART, BPART, WPART, TMP, QKV, DA,
   D_WQKV, D_WP, D_W1, D_W2, D_VEC, D_BIAS, kNumPtrs
 };
-// Dims: windows, tokens, channels, heads, MLP hidden, window types,
-// row chunks of the weight-gradient kernel.
-enum Dim { D_B, D_N, D_C, D_H, D_M, D_NW, D_CHUNKS, kNumDims };
+// Dims: windows, tokens, channels, heads, MLP hidden, window types, row
+// chunks of the weight-gradient kernel; the backward's plan: rows of a
+// token tile, and the attention tiles' warps per block and windows per
+// warp (forward recompute, backward).
+enum Dim { D_B, D_N, D_C, D_H, D_M, D_NW, D_CHUNKS, D_ROWS, D_FWARPS, D_FRUN, D_BWARPS,
+           D_BRUN, kNumDims };
 
 // The table travels by value as a kernel argument.
 struct Table {
@@ -274,6 +280,42 @@ __device__ __forceinline__ void mma_block(float (&acc)[MT][NT][4], const OA<bf16
   }
 }
 
+// mma_block with the B fragments of kPf k16 steps loaded before their
+// mmas: the token kernels' weights come from L2 with 32-bit loads, and one
+// step's loads alone leave a warp waiting on each. The same sums in the
+// same order as mma_block.
+constexpr int kPf = 4;
+template <int MT, int NT, template <class> class OA>
+__device__ __forceinline__ void mma_block_pf(float (&acc)[MT][NT][4], const OA<bf16>& A, int m0,
+                                             int mt, const GRow<bf16>& B, int n0, int K) {
+  for (int k0 = 0; k0 < K; k0 += 16 * kPf) {
+    uint32_t b[kPf][NT][2];
+#pragma unroll
+    for (int st = 0; st < kPf; ++st)
+      if (k0 + 16 * st < K)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) frag_b(b[st][j], B, n0 + 8 * j, k0 + 16 * st);
+#pragma unroll
+    for (int st = 0; st < kPf; ++st) {
+      if (k0 + 16 * st >= K) continue;
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (i < mt) frag_a(a[i], A, m0 + 16 * i, k0 + 16 * st);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (i < mt)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[st][j]);
+    }
+  }
+}
+template <int MT, int NT, template <class> class OA>
+__device__ __forceinline__ void mma_block_pf(float (&acc)[MT][NT][4], const OA<float>& A, int m0,
+                                             int mt, const GRow<float>& B, int n0, int K) {
+  mma_block(acc, A, m0, mt, B, n0, K);
+}
+
 // The same tile in fp32 on the CUDA cores, with the same ownership.
 template <int MT, int NT, template <class> class OA, template <class> class OB>
 __device__ __forceinline__ void mma_block(float (&acc)[MT][NT][4], const OA<float>& A, int m0,
@@ -338,6 +380,11 @@ __device__ __forceinline__ void for_tiles(int M, int Nc, Body body, Epi epi) {
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
+// Two read-only fp32 values (a bias, through the read-only path, so the
+// compiler may load them ahead of the epilogue's stores).
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -356,6 +403,8 @@ __device__ __forceinline__ void add2(float* p, float a, float b) {
 
 struct Geo {
   int B_, N, C, nH, hd, M, nW, Rp, chunks;
+  int R;                        // backward: rows of a token tile
+  int fwarps, frun, bwarps, brun;  // backward: the attention tiles' plans
   int S;     // workspace row stride: 8C + 2M
   int V;     // per-window vector partials: 9C + M
   float scale, eps;
@@ -375,13 +424,14 @@ enum VecSlot { V_DG1 = 0, V_DBE1 = 1, V_DBQKV = 2, V_DBP = 5, V_DG2 = 6, V_DBE2 
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
 
-// Shared memory: c0 holds y or y2; o holds a (T) in the attention phase and
-// an fp32 (N x ldO) accumulator (o2, dy2, dy) later; the head buffers and
-// the MLP chunk buffers share one region. Tiles of T have `rows` rows: Rp
-// for bf16 (the tensor-core path reads whole 16-row tiles), N for fp32.
+// The forward's shared memory: c0 holds y or y2; o holds a (T) in the
+// attention phase and the fp32 (N x ldO) fc2 accumulator later; the head
+// buffers (q, k, v, scores s, p) and the MLP chunk buffer h share one
+// region. Tiles of T have `rows` rows: Rp for bf16 (the tensor-core path
+// reads whole 16-row tiles), N for fp32.
 struct Layout {
   int rows, ldC, ldH, ldS, ldP, ldM, ldO;
-  size_t c0, o, q, k, v, da, dv, s, dp, p, h, dh, stats, reg, bytes;
+  size_t c0, o, q, k, v, s, p, h, stats, reg, bytes;
 };
 
 __host__ __device__ inline Layout make_layout(int N, int C, int hd, int Rp, int es) {
@@ -404,22 +454,19 @@ __host__ __device__ inline Layout make_layout(int N, int C, int hd, int Rp, int 
   L.q = heads;
   L.k = L.q + hT;
   L.v = L.k + hT;
-  L.da = L.v + hT;
-  L.dv = L.da + hT;
-  L.s = L.dv + hT;
-  L.dp = L.s + sF;
-  L.p = L.dp + sF;
+  L.s = L.v + hT;
+  L.p = L.s + sF;
   L.h = heads;
-  L.dh = L.h + mT;
-  const size_t end_attn = L.p + pT, end_mlp = L.dh + mT;
+  const size_t end_attn = L.p + pT, end_mlp = L.h + mT;
   L.stats = end_attn > end_mlp ? end_attn : end_mlp;
-  L.reg = L.stats + 6 * kMaxN * sizeof(float);
+  L.reg = L.stats + 4 * kMaxN * sizeof(float);
   L.bytes = L.reg + kMaxN * sizeof(int);
   return L;
 }
 
-// Row statistics slots in shared memory.
-enum Stat { MU1 = 0, RS1 = 1, MU2 = 2, RS2 = 3, M1 = 4, M2 = 5 };
+// Row statistics slots in shared memory (a token tile uses the first two,
+// for its LayerNorm's mean and 1/std).
+enum Stat { MU1 = 0, RS1 = 1, MU2 = 2, RS2 = 3 };
 
 template <typename T> struct Block {
   void* const* P;
@@ -438,7 +485,6 @@ template <typename T> struct Block {
   }
   template <typename U> __device__ U* ptr(int i) const { return static_cast<U*>(P[i]); }
   __device__ float* stat(int s) const { return at<float>(L.stats) + s * kMaxN; }
-  __device__ T* ws_row(int r) const { return ptr<T>(WS) + (row0 + r) * (size_t)g.S; }
   // A shared-memory tile of T at `off` with row stride ld, as an operand
   // (nr rows, nk columns).
   __device__ SRow<T> tile(size_t off, int ld, int nr, int nk) const {
@@ -589,9 +635,9 @@ template <typename T> __device__ void head_softmax(const Block<T>& b, int h) {
   }
 }
 
-// The forward up to x2 (written to x2_out) and y2 (into c0, and to the
-// workspace when bwd). Leaves LN2's mean and 1/std in the stats.
-template <typename T> __device__ void forward_to_y2(const Block<T>& b, T* x2_out, bool bwd) {
+// The forward up to x2 (written to x2_out) and y2 (into c0). Leaves LN2's
+// mean and 1/std in the stats.
+template <typename T> __device__ void forward_to_y2(const Block<T>& b, T* x2_out) {
   const Geo& g = b.g;
   const Layout& L = b.L;
   const int N = g.N, C = g.C;
@@ -601,9 +647,6 @@ template <typename T> __device__ void forward_to_y2(const Block<T>& b, T* x2_out
 
   layer_norm(b, x, b.template ptr<float>(G1), b.template ptr<float>(BE1), b.pad, sY, MU1, RS1);
   __syncthreads();
-  if (bwd)
-    for (int e = threadIdx.x; e < N * C; e += kThreads)
-      b.ws_row(e / C)[ws_y(g) + e % C] = sY[(e / C) * L.ldC + e % C];
 
   for (int h = 0; h < g.nH; ++h) {
     head_qkv(b, h);
@@ -615,10 +658,7 @@ template <typename T> __device__ void forward_to_y2(const Block<T>& b, T* x2_out
     for_tiles<1, 2>(
         g.Rp, g.hd,
         [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, Pm, m0, mt, V, n0, g.Rp); },
-        [&](int r, int c, float v0, float v1) {
-          if (put2(b, sA + h * g.hd, L.ldC, r, c, v0, v1) && bwd)
-            store2(b.ws_row(r) + ws_a(g) + h * g.hd + c, v0, v1);
-        });
+        [&](int r, int c, float v0, float v1) { put2(b, sA + h * g.hd, L.ldC, r, c, v0, v1); });
     __syncthreads();
   }
 
@@ -645,9 +685,6 @@ template <typename T> __device__ void forward_to_y2(const Block<T>& b, T* x2_out
   layer_norm(b, x2_out, b.template ptr<float>(G2), b.template ptr<float>(BE2), nullptr, sY, MU2,
              RS2);
   __syncthreads();
-  if (bwd)
-    for (int e = threadIdx.x; e < N * C; e += kThreads)
-      b.ws_row(e / C)[ws_y2(g) + e % C] = sY[(e / C) * L.ldC + e % C];
 }
 
 // h = round(round(y2 W1[chunk]) + round(b1)) into sH (the MLP chunk at m0);
@@ -701,7 +738,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_fwd_kernel(Table tab, Ge
   const Layout& L = b.L;
   const int N = g.N, C = g.C;
   T* out = b.template ptr<T>(OUT) + b.row0 * C;
-  forward_to_y2(b, out, false);
+  forward_to_y2(b, out);
 
   float* sO = b.template at<float>(L.o);
   T* sH = b.template at<T>(L.h);
@@ -742,297 +779,578 @@ __global__ void __launch_bounds__(kThreads) fused_block_fwd_kernel(Table tab, Ge
   }
 }
 
-// LayerNorm backward of the window (dy in sDY, fp32, times pm): the
-// per-row means m1 = mean(dy g), m2 = mean(dy g xhat) into the stats.
+// ---------------------------------------------------------------------------
+// The backward: what is per token runs on token tiles, and only attention
+// stays per window. Five kernels in a row, then the weight gradients:
+//   T1 (token tiles): y = round(LN1(x)) * pad to the workspace, qkv =
+//      round(round(y Wqkv) + round(bqkv)) to QKV ([q | k | v], head-major
+//      columns within each);
+//   A1 (windows): a = round(round(p) v), the forward tile of
+//      window_attention_tile.cuh on QKV with TableBias (the table plus the
+//      -100 region mask), into the workspace's a column;
+//   T2 (token tiles): x2 = x + round(round(round(a Wp) + round(bp)) keep1)
+//      (kept in DX until T3), y2 = round(LN2(x2)), do2 = round(do keep2),
+//      then per MLP chunk h, dh = round(round(do2 W2^T) gelu'(h)), g =
+//      round(gelu(h)) and dy2 += dh W1^T; the LN2 backward gives dx2 =
+//      do + dLN2 (fp32, DX32) and do1 = dx2 keep1; da = round(do1 Wp^T)
+//      to DA;
+//   A2 (windows): dq, dk, dv from QKV and DA on the backward tile of
+//      window_attention_tile.cuh, into the workspace's dqkv columns, and
+//      the dbias partials, summed in a fixed order into D_BIAS;
+//   T3 (token tiles): dy = dq Wq^T + dk Wk^T + dv Wv^T (one product over
+//      the 3C columns), the LN1 backward with the pad rows' dy masked, dx
+//      = round(dx2 + dLN1);
+// each token tile writes one row of fixed-order vector partials (VPART:
+// the bias and LayerNorm gradients). A token tile of R rows (64, or 32 at
+// C=384; the wrapper's plan) crosses window and image boundaries: a row's
+// image is row / (nW N) and its pad multiplier pad[row % (nW N)].
+//
+// Why: a per-window row kernel (the earlier design) ran every C-wide product at the
+// window's 49 rows (64 padded), fetched each weight fragment from L2 again
+// for every window, and chained ~100 barriers through one ~190 KB block
+// per SM. Token tiles give each weight fragment up to 64 rows, take less
+// shared memory (up to three blocks per SM), and leave the window-local
+// part, softmax(q k^T + bias) v and its backward, to the warp-level tiles.
+// The intermediates (qkv, a, da, dqkv, x2, dx2) go through device memory,
+// ~0.85 GB of traffic per call at Swin-T's 224 px stage 0.
+// ---------------------------------------------------------------------------
+
+// A token tile's shared memory: y (or y2, x2) in T at stride ldC (T1,
+// T2), two MLP chunk tiles h and dh at ldM (T2), the fp32 dy accumulator
+// at ldO (T2, T3), the staged A operand `a` of the products whose rows
+// come from device memory (a, do2, do1 in T2; a third of dq | dk | dv in
+// T3) at ldC, T2's output gradient `d` at ldC, T1's qkv output `o` at
+// ld3, and two fp32 statistics per row
+// (the LayerNorm's mean and 1/std). y, h and dh are adjacent: T2 reuses
+// them for its column partials once the MLP is done. Results leave shared
+// memory by tok_store's 16-byte rows, not from the products' epilogues.
+struct TokLayout {
+  int ldC, ldM, ldO, ld3;
+  size_t y, h, dh, dy, a, d, o, stats, bytes;
+};
+
+__host__ __device__ inline TokLayout tok_layout(int kernel, int R, int C, int es) {
+  TokLayout L;
+  const int pad = 16 / es;
+  L.ldC = C + pad;
+  L.ldM = kMc + pad;
+  L.ldO = C + 4;
+  L.ld3 = 3 * C + pad;
+  size_t off = 0;
+  L.y = off;
+  if (kernel != 3) off += align16((size_t)R * L.ldC * es);
+  L.h = off;
+  if (kernel == 2) off += align16((size_t)R * L.ldM * es);
+  L.dh = off;
+  if (kernel == 2) off += align16((size_t)R * L.ldM * es);
+  L.dy = off;
+  if (kernel != 1) off += align16((size_t)R * L.ldO * 4);
+  L.a = off;
+  if (kernel != 1) off += align16((size_t)R * L.ldC * es);
+  L.d = off;
+  if (kernel == 2) off += align16((size_t)R * L.ldC * es);
+  L.o = off;
+  if (kernel == 1) off += align16((size_t)R * L.ld3 * es);
+  L.stats = off;
+  L.bytes = off + (size_t)2 * R * sizeof(float);
+  return L;
+}
+
+template <typename T> struct Tok {
+  void* const* P;
+  Geo g;
+  TokLayout L;
+  char* smem;
+  size_t row0;  // first row of the tile
+  int n, Rp;    // rows, and rows rounded up to 16
+  int per_img;  // rows of one image: nW N
+
+  template <typename U> __device__ U* at(size_t off) const {
+    return reinterpret_cast<U*>(smem + off);
+  }
+  template <typename U> __device__ U* ptr(int i) const { return static_cast<U*>(P[i]); }
+  __device__ T* ws_row(int r) const { return ptr<T>(WS) + (row0 + r) * (size_t)g.S; }
+  __device__ float* stat(int s) const { return at<float>(L.stats) + s * g.R; }
+  __device__ float pad(int r) const {
+    const float* p = ptr<float>(PAD);
+    return p != nullptr ? p[(row0 + r) % per_img] : 1.f;
+  }
+  __device__ float keep(int which, int r) const {
+    const float* k = ptr<float>(which);
+    return k != nullptr ? k[(row0 + r) / per_img] : 1.f;
+  }
+};
+
+template <typename T> __device__ Tok<T> make_tok(void* const* P, const Geo& g, int kernel,
+                                                 char* smem) {
+  Tok<T> b;
+  b.P = P;
+  b.g = g;
+  b.L = tok_layout(kernel, g.R, g.C, sizeof(T));
+  b.smem = smem;
+  // The count from plain ints: written as min(g.R, g.B_ * g.N - (int)row0)
+  // with a size_t row0, ptxas (CUDA 12.9, -O3) folded the subtraction and
+  // the min of T2 alone into one VIADDMNMX that dropped the negation,
+  // min(row0 + rows, R), so T2's ragged last tile took R rows; the PTX
+  // (sub.s32, min.s32) was right, and so was ptxas -O0.
+  const int row0 = blockIdx.x * g.R, left = g.B_ * g.N - row0;
+  b.row0 = (size_t)row0;
+  b.n = left < g.R ? left : g.R;
+  b.Rp = (b.n + 15) / 16 * 16;
+  b.per_img = g.nW * g.N;
+  return b;
+}
+
+// LayerNorm statistics of the tile's rows of src (row stride ld_src; warp
+// per row, the row read once into registers) into the MU/RS slots; with
+// dst, round(LN(x)) (times the pad multiplier if use_pad) at stride ldC,
+// rows n..Rp zeroed (dst may be src: a warp reads its row before writing
+// it). The arithmetic of layer_norm above.
 template <typename T>
-__device__ void ln_bwd_rows(const Block<T>& b, const T* xsrc, const float* sDY, const float* gam,
-                            const float* pad, int smu, int srs) {
+__device__ void tok_layer_norm(const Tok<T>& b, const T* src, int ld_src, const float* gam,
+                               const float* bet, bool use_pad, T* dst) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, C = b.g.C;
-  for (int r = warp; r < b.g.N; r += kWarps) {
-    const float mu = b.stat(smu)[r], rs = b.stat(srs)[r];
-    const float pm = pad != nullptr ? pad[r] : 1.f;
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dxh = sDY[r * b.L.ldO + c] * pm * gam[c];
-      s1 += dxh;
-      s2 += dxh * (to_f(xsrc[(size_t)r * C + c]) - mu) * rs;
+  for (int r = warp; r < b.n; r += kWarps) {
+    const T* x = src + (size_t)r * ld_src;
+    float v[kMaxC / 32];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxC / 32; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C ? to_f(x[c]) : 0.f;
+      if (c < C) {
+        s += v[i];
+        ss += v[i] * v[i];
+      }
     }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / C;
+    const float rs = rsqrtf(ss / C - mu * mu + b.g.eps);
+    if (dst != nullptr) {
+      const float pm = use_pad ? b.pad(r) : 1.f;
+#pragma unroll
+      for (int i = 0; i < kMaxC / 32; ++i) {
+        const int c = lane + 32 * i;
+        if (c < C)
+          dst[r * b.L.ldC + c] = from_f<T>(rnd<T>((v[i] - mu) * rs * gam[c] + bet[c]) * pm);
+      }
+    }
     if (lane == 0) {
-      b.stat(M1)[r] = s1 / C;
-      b.stat(M2)[r] = s2 / C;
+      b.stat(MU1)[r] = mu;
+      b.stat(RS1)[r] = rs;
     }
+  }
+  if (dst != nullptr)
+    for (int e = threadIdx.x; e < (b.Rp - b.n) * C; e += kThreads)
+      dst[(b.n + e / C) * b.L.ldC + e % C] = from_f<T>(0.f);
+}
+
+// Row-parallel element loops: a warp per row, each lane on the column
+// pairs c = 64 i + 2 lane (i < kPairs), the row read once into registers.
+// Column sums (the bias and LayerNorm gradients) accumulate per lane over
+// the warp's rows and go to `part` ([kWarps][ld] fp32, shared); then
+// warp_partials_sum adds the warps in order. Fixed order: bit-identical.
+constexpr int kPairs = kMaxC / 64;
+
+__device__ __forceinline__ float2 add_f2(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+// out[c] = sum over warps w (in order) of part[w * ld + c], c < ncol.
+__device__ void warp_partials_sum(const float* part, int ld, int ncol, float* out) {
+  for (int c = threadIdx.x; c < ncol; c += kThreads) {
+    float acc = 0.f;
+    for (int w = 0; w < kWarps; ++w) acc += part[w * ld + c];
+    out[c] = acc;
   }
 }
 
-// MinBlocks 2 caps the registers at 128 (a few spill) so that two blocks
-// share an SM where their shared memory fits (C=96); 1 lets the compiler
-// use ~200 and is faster where only one block fits anyway.
-template <typename T, int MinBlocks>
-__global__ void __launch_bounds__(kThreads, MinBlocks) fused_block_bwd_kernel(Table tab, Geo g) {
-  extern __shared__ __align__(16) char smem[];
-  const Block<T> b = make_block<T>(tab.p, g, smem);
-  const Layout& L = b.L;
-  const int N = g.N, C = g.C, hd = g.hd;
-  T* dx = b.template ptr<T>(DX) + b.row0 * C;        // holds x2 until the end
-  const T* x = b.template ptr<T>(X) + b.row0 * C;
-  const T* dout = b.template ptr<T>(DOUT) + b.row0 * C;
-  float* dx32 = b.template ptr<float>(DX32) + b.row0 * C;
-  float* vp = b.template ptr<float>(VPART) + (size_t)b.w * g.V;
-  forward_to_y2(b, dx, true);
-
-  // --- MLP branch: do2 = round(do * keep2); db2 = sum(do * keep2) ---
-  const float d2 = b.keep2 != nullptr ? b.keep2[b.img] : 1.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float acc = 0.f;
-    for (int r0 = 0; r0 < N; r0 += kRB) {
-      float v[kRB];
+// The LayerNorm backward of one row held in registers: x (the LN input)
+// and dy (fp32, already times the pad multiplier) at the lane's column
+// pairs, the row's mean and 1/std; returns dLN in dy's place and adds
+// dy * xhat and dy into dg and dbe.
+__device__ __forceinline__ void ln_bwd_row(float2 (&x)[kPairs], float2 (&dy)[kPairs],
+                                           const float* gam, int C, float mu, float rs,
+                                           float2 (&dg)[kPairs], float2 (&dbe)[kPairs]) {
+  const int lane = threadIdx.x & 31;
+  float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int u = 0; u < kRB; ++u) {
-        v[u] = r0 + u < N ? to_f(dout[(size_t)(r0 + u) * C + c]) : 0.f;
-        if (b.keep2 != nullptr) v[u] *= d2;
-      }
-#pragma unroll
-      for (int u = 0; u < kRB; ++u) {
-        if (r0 + u >= N) continue;
-        acc += v[u];
-        b.ws_row(r0 + u)[ws_do2(g) + c] = from_f<T>(v[u]);
-      }
-    }
-    vp[V_DB2 * C + c] = acc;
+  for (int i = 0; i < kPairs; ++i) {
+    const int c = 64 * i + 2 * lane;
+    if (c >= C) continue;
+    const float2 gg = load2(gam + c);
+    x[i] = make_float2((x[i].x - mu) * rs, (x[i].y - mu) * rs);  // xhat
+    s1 += dy[i].x * gg.x + dy[i].y * gg.y;
+    s2 += dy[i].x * gg.x * x[i].x + dy[i].y * gg.y * x[i].y;
   }
-  float* sDY = b.template at<float>(L.o);            // dy2, later dy
-  for (int e = threadIdx.x; e < N * L.ldO; e += kThreads) sDY[e] = 0.f;
+  const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int c = 64 * i + 2 * lane;
+    if (c >= C) continue;
+    const float2 gg = load2(gam + c);
+    dg[i] = add_f2(dg[i], make_float2(dy[i].x * x[i].x, dy[i].y * x[i].y));
+    dbe[i] = add_f2(dbe[i], dy[i]);
+    dy[i] = make_float2(rs * (dy[i].x * gg.x - m1 - x[i].x * m2),
+                        rs * (dy[i].y * gg.y - m1 - x[i].y * m2));
+  }
+}
+
+// Stores a lane's column-pair sums into its warp's row of `part`.
+__device__ __forceinline__ void put_partial(float* part, int ld, int C, const float2 (&v)[kPairs]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int c = 64 * i + 2 * lane;
+    if (c < C) store2(part + warp * ld + c, v[i].x, v[i].y);
+  }
+}
+
+// Starts copying the tile's rows (`cols` columns of src, row 0 at src,
+// stride ld_src) into a shared tile of stride ld with 16-byte cp.async;
+// tok_wait() waits for this thread's copies (a barrier then publishes
+// them).
+template <typename T>
+__device__ void tok_stage(const Tok<T>& b, const T* src, size_t ld_src, int cols, T* dst,
+                          int ld) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int cpr = cols / kPer;
+  for (int e = threadIdx.x; e < b.n * cpr; e += kThreads) {
+    const int r = e / cpr, c = (e - r * cpr) * kPer;
+    wtile::cp_async16(dst + r * ld + c, src + r * ld_src + c);
+  }
+}
+
+__device__ __forceinline__ void tok_wait() {
+  wtile::cp_async_commit();
+  wtile::cp_async_wait<0>();
+}
+
+// Copies the tile's rows of a shared tile (`cols` columns, stride ld) to
+// dst (row 0 of the tile, stride ld_dst), 16 bytes a thread at a time.
+template <typename T>
+__device__ void tok_store(const Tok<T>& b, const T* src, int ld, int cols, T* dst,
+                          size_t ld_dst) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int cpr = cols / kPer;
+  for (int e = threadIdx.x; e < b.n * cpr; e += kThreads) {
+    const int r = e / cpr, c = (e - r * cpr) * kPer;
+    *reinterpret_cast<uint4*>(dst + r * ld_dst + c) =
+        *reinterpret_cast<const uint4*>(src + r * ld + c);
+  }
+}
+
+// The token kernels ask for two blocks per SM (at most 128 registers a
+// thread): their shared memory allows two or more in bf16.
+
+// T1: y and qkv.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) fused_bwd_t1_kernel(Table tab, Geo g) {
+  extern __shared__ __align__(16) char smem[];
+  const Tok<T> b = make_tok<T>(tab.p, g, 1, smem);
+  const int C = g.C, hd = g.hd;
+  T* sY = b.template at<T>(b.L.y);
+  tok_layer_norm(b, b.template ptr<T>(X) + b.row0 * C, C, b.template ptr<float>(G1),
+                 b.template ptr<float>(BE1), true, sY);
+  __syncthreads();
+  tok_store(b, sY, b.L.ldC, C, b.ws_row(0) + ws_y(g), g.S);
+  const SRow<T> Y{sY, b.L.ldC, b.n, C};
+  const GRow<T> W{b.template ptr<T>(WQKV_F), C, 3 * C, C};
+  const float* bqkv = b.template ptr<float>(BQKV);
+  T* sO = b.template at<T>(b.L.o);
+  for_tiles<4, 2>(
+      b.Rp, 3 * C,
+      [&](auto& acc, int m0, int mt, int n0) { mma_block_pf(acc, Y, m0, mt, W, n0, C); },
+      [&](int r, int c, float v0, float v1) {
+        if (r >= b.n) return;
+        // WQKV_F's rows are head-major: row c is head h's q, k or v column cc
+        const int h = c / (3 * hd), rem = c - h * 3 * hd, part = rem / hd;
+        const int col = part * C + h * hd + (rem - part * hd);
+        const float2 bb = ldg2(bqkv + col);
+        store2(sO + r * b.L.ld3 + col, rnd<T>(rnd<T>(v0) + rnd<T>(bb.x)),
+               rnd<T>(rnd<T>(v1) + rnd<T>(bb.y)));
+      });
+  __syncthreads();
+  tok_store(b, sO, b.L.ld3, 3 * C, b.template ptr<T>(QKV) + b.row0 * 3 * C, (size_t)3 * C);
+}
+
+// T2: the proj residual, LN2, the MLP backward, the LN2 backward and da.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) fused_bwd_t2_kernel(Table tab, Geo g) {
+  extern __shared__ __align__(16) char smem[];
+  const Tok<T> b = make_tok<T>(tab.p, g, 2, smem);
+  const TokLayout& L = b.L;
+  const int C = g.C, n = b.n;
+  const T* x = b.template ptr<T>(X) + b.row0 * C;
+  T* x2 = b.template ptr<T>(DX) + b.row0 * C;  // x2 until T3 writes dx
+  const T* dout = b.template ptr<T>(DOUT) + b.row0 * C;
+  float* vp = b.template ptr<float>(VPART) + (size_t)blockIdx.x * g.V;
+  T* sY = b.template at<T>(L.y);
   T* sH = b.template at<T>(L.h);
   T* sDH = b.template at<T>(L.dh);
+  float* sDY = b.template at<float>(L.dy);
+  T* sA = b.template at<T>(L.a);  // a, then do2, then do1
+  T* sD = b.template at<T>(L.d);  // the output gradient
+  const SRow<T> A{sA, L.ldC, n, C};
+
+  // x2 = x + round(round(round(a Wp) + round(bp)) * keep1), into DX and
+  // sY; x comes in through sDY's room
+  T* sX = reinterpret_cast<T*>(sDY);
+  tok_stage(b, b.ws_row(0) + ws_a(g), g.S, C, sA, L.ldC);
+  tok_stage(b, x, C, C, sX, L.ldC);
+  tok_stage(b, dout, C, C, sD, L.ldC);
+  tok_wait();
   __syncthreads();
-  const GRow<T> DO2{b.ws_row(0) + ws_do2(g), g.S, N, C};
-  for (int m0 = 0; m0 < g.M; m0 += kMc) {
-    mlp_hidden(b, m0, sH, false);
-    __syncthreads();
-    const GRow<T> W2b{b.template ptr<T>(W2_B) + (size_t)m0 * C, C, kMc, C};
-    for_tiles<2, 4>(
-        g.Rp, kMc,
-        [&](auto& acc, int m, int mt, int n0) { mma_block(acc, DO2, m, mt, W2b, n0, C); },
+  {
+    const GRow<T> Wp{b.template ptr<T>(WP_F), C, C, C};
+    const float* bp = b.template ptr<float>(BP);
+    const bool k1 = b.template ptr<float>(KEEP1) != nullptr;
+    for_tiles<4, 2>(
+        b.Rp, C,
+        [&](auto& acc, int m0, int mt, int n0) { mma_block_pf(acc, A, m0, mt, Wp, n0, C); },
         [&](int r, int c, float v0, float v1) {
-          const float2 hv = r < N ? load2(sH + r * L.ldM + c) : make_float2(0.f, 0.f);
-          const float dh0 = rnd<T>(rnd<T>(v0) * dgelu(hv.x));
-          const float dh1 = rnd<T>(rnd<T>(v1) * dgelu(hv.y));
-          if (put2(b, sDH, L.ldM, r, c, dh0, dh1)) {
-            T* row = b.ws_row(r);
-            store2(row + ws_dh(g) + m0 + c, dh0, dh1);
-            store2(row + ws_g(g) + m0 + c, gelu(hv.x), gelu(hv.y));
+          if (r >= n) return;
+          const float2 bb = ldg2(bp + c);
+          float o0 = rnd<T>(rnd<T>(v0) + rnd<T>(bb.x)), o1 = rnd<T>(rnd<T>(v1) + rnd<T>(bb.y));
+          if (k1) {
+            const float d1 = b.keep(KEEP1, r);
+            o0 = rnd<T>(o0 * d1);
+            o1 = rnd<T>(o1 * d1);
           }
+          const float2 xv = load2(sX + r * L.ldC + c);
+          store2(sY + r * L.ldC + c, xv.x + o0, xv.y + o1);
+        });
+  }
+  __syncthreads();
+  tok_store(b, sY, L.ldC, C, x2, (size_t)C);
+  __syncthreads();  // x2 is out before LN2 overwrites it
+  // y2 = round(LN2(x2)) in place
+  tok_layer_norm(b, sY, L.ldC, b.template ptr<float>(G2), b.template ptr<float>(BE2), false,
+                 sY);
+
+  // do2 = round(do * keep2) into the workspace and sA; db2 = sum(do *
+  // keep2), through sDY's room
+  {
+    float2 db2[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) db2[i] = make_float2(0.f, 0.f);
+    const int lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < n; r += kWarps) {
+      const float k2 = b.keep(KEEP2, r);
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int c = 64 * i + 2 * lane;
+        if (c >= C) continue;
+        float2 v = load2(sD + r * L.ldC + c);
+        v = make_float2(v.x * k2, v.y * k2);
+        db2[i] = add_f2(db2[i], v);
+        store2(sA + r * L.ldC + c, v.x, v.y);
+      }
+    }
+    put_partial(sDY, C, C, db2);
+  }
+  __syncthreads();
+  warp_partials_sum(sDY, C, C, vp + V_DB2 * C);
+  tok_store(b, sA, L.ldC, C, b.ws_row(0) + ws_do2(g), g.S);
+  tok_store(b, sY, L.ldC, C, b.ws_row(0) + ws_y2(g), g.S);
+  __syncthreads();
+  for (int e = threadIdx.x; e < g.R * L.ldO; e += kThreads) sDY[e] = 0.f;
+  __syncthreads();
+
+  const SRow<T> Y2{sY, L.ldC, n, C};
+  for (int m0 = 0; m0 < g.M; m0 += kMc) {
+    // h = round(y2 W1[chunk]) + round(b1)
+    const GRow<T> W1{b.template ptr<T>(W1_F) + (size_t)m0 * C, C, kMc, C};
+    const float* b1 = b.template ptr<float>(B1) + m0;
+    for_tiles<4, 2>(
+        b.Rp, kMc,
+        [&](auto& acc, int mm, int mt, int n0) { mma_block_pf(acc, Y2, mm, mt, W1, n0, C); },
+        [&](int r, int c, float v0, float v1) {
+          const float2 bb = ldg2(b1 + c);
+          store2(sH + r * L.ldM + c, r < n ? rnd<T>(v0) + rnd<T>(bb.x) : 0.f,
+                 r < n ? rnd<T>(v1) + rnd<T>(bb.y) : 0.f);
         });
     __syncthreads();
+    // dh = round(round(do2 W2[chunk]^T) gelu'(h)); g = round(gelu(h)), over h
+    const GRow<T> W2b{b.template ptr<T>(W2_B) + (size_t)m0 * C, C, kMc, C};
+    for_tiles<4, 2>(
+        b.Rp, kMc,
+        [&](auto& acc, int mm, int mt, int n0) { mma_block_pf(acc, A, mm, mt, W2b, n0, C); },
+        [&](int r, int c, float v0, float v1) {
+          if (r >= n) {
+            store2(sDH + r * L.ldM + c, 0.f, 0.f);
+            return;
+          }
+          const float2 hv = load2(sH + r * L.ldM + c);
+          store2(sDH + r * L.ldM + c, rnd<T>(rnd<T>(v0) * dgelu(hv.x)),
+                 rnd<T>(rnd<T>(v1) * dgelu(hv.y)));
+          store2(sH + r * L.ldM + c, gelu(hv.x), gelu(hv.y));  // g over h
+        });
+    __syncthreads();
+    tok_store(b, sDH, L.ldM, kMc, b.ws_row(0) + ws_dh(g) + m0, g.S);
+    tok_store(b, sH, L.ldM, kMc, b.ws_row(0) + ws_g(g) + m0, g.S);
     for (int c = threadIdx.x; c < kMc; c += kThreads) {
       float acc = 0.f;
-      for (int r = 0; r < N; ++r) acc += to_f(sDH[r * L.ldM + c]);
+      for (int r = 0; r < n; ++r) acc += to_f(sDH[r * L.ldM + c]);
       vp[V_DB1 * C + m0 + c] = acc;
     }
-    const SRow<T> DH = b.tile(L.dh, L.ldM, N, kMc);
+    // dy2 += dh W1[chunk]^T
+    const SRow<T> DH{sDH, L.ldM, n, kMc};
     const GRow<T> W1b{b.template ptr<T>(W1_B) + m0, g.M, C, kMc};
-    for_tiles<2, 4>(
-        g.Rp, C,
-        [&](auto& acc, int m, int mt, int n0) { mma_block(acc, DH, m, mt, W1b, n0, kMc); },
+    for_tiles<4, 2>(
+        b.Rp, C,
+        [&](auto& acc, int mm, int mt, int n0) { mma_block_pf(acc, DH, mm, mt, W1b, n0, kMc); },
         [&](int r, int c, float v0, float v1) {
-          if (r < N) add2(sDY + r * L.ldO + c, v0, v1);
+          if (r < n) add2(sDY + r * L.ldO + c, v0, v1);
         });
     __syncthreads();
   }
 
-  // --- LN2 backward; dx2 = do + dLN2; do1 = dx2 * keep1 ---
-  const float* g2 = b.template ptr<float>(G2);
-  ln_bwd_rows(b, dx, sDY, g2, nullptr, MU2, RS2);
+  // LN2 backward; dx2 = do + dLN2; do1 = dx2 * keep1; dg2, dbe2, dbp
+  // partials through the room of y2, h and dh (spent); x2 back in sY
+  tok_stage(b, x2, C, C, sY, L.ldC);
+  tok_wait();
   __syncthreads();
-  const float d1 = b.keep1 != nullptr ? b.keep1[b.img] : 1.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float dg = 0.f, dbe = 0.f, dbp = 0.f;
-    const float gc = g2[c];
-    for (int r0 = 0; r0 < N; r0 += kRB) {
-      float xv[kRB], dov[kRB];
+  {
+    const float* g2 = b.template ptr<float>(G2);
+    float* dx32 = b.template ptr<float>(DX32) + b.row0 * C;
+    float2 dg[kPairs], dbe[kPairs], dbp[kPairs];
 #pragma unroll
-      for (int u = 0; u < kRB; ++u) {
-        const bool in = r0 + u < N;
-        xv[u] = in ? to_f(dx[(size_t)(r0 + u) * C + c]) : 0.f;
-        dov[u] = in ? to_f(dout[(size_t)(r0 + u) * C + c]) : 0.f;
+    for (int i = 0; i < kPairs; ++i) dg[i] = dbe[i] = dbp[i] = make_float2(0.f, 0.f);
+    const int lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < n; r += kWarps) {
+      float2 xv[kPairs], dy[kPairs], dov[kPairs];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int c = 64 * i + 2 * lane;
+        xv[i] = dy[i] = dov[i] = make_float2(0.f, 0.f);
+        if (c >= C) continue;
+        xv[i] = load2(sY + r * L.ldC + c);
+        dov[i] = load2(sD + r * L.ldC + c);
+        dy[i] = load2(sDY + r * L.ldO + c);
       }
+      ln_bwd_row(xv, dy, g2, C, b.stat(MU1)[r], b.stat(RS1)[r], dg, dbe);
+      const float k1 = b.keep(KEEP1, r);
 #pragma unroll
-      for (int u = 0; u < kRB; ++u) {
-        const int r = r0 + u;
-        if (r >= N) continue;
-        const float xh = (xv[u] - b.stat(MU2)[r]) * b.stat(RS2)[r];
-        const float dy = sDY[r * L.ldO + c];
-        dg += dy * xh;
-        dbe += dy;
-        const float dxl = b.stat(RS2)[r] * (dy * gc - b.stat(M1)[r] - xh * b.stat(M2)[r]);
-        const float dx2 = dov[u] + dxl;
-        dx32[(size_t)r * C + c] = dx2;
-        const float do1 = b.keep1 != nullptr ? dx2 * d1 : dx2;
-        dbp += do1;
-        b.ws_row(r)[ws_do1(g) + c] = from_f<T>(do1);
+      for (int i = 0; i < kPairs; ++i) {
+        const int c = 64 * i + 2 * lane;
+        if (c >= C) continue;
+        const float2 dx2 = add_f2(dov[i], dy[i]);
+        store2(dx32 + (size_t)r * C + c, dx2.x, dx2.y);
+        const float2 do1 = make_float2(dx2.x * k1, dx2.y * k1);
+        dbp[i] = add_f2(dbp[i], do1);
+        store2(sA + r * L.ldC + c, do1.x, do1.y);
       }
     }
-    vp[V_DG2 * C + c] = dg;
-    vp[V_DBE2 * C + c] = dbe;
-    vp[V_DBP * C + c] = dbp;
+    __syncthreads();  // every warp is done with y2, h and dh
+    float* part = b.template at<float>(L.y);
+    put_partial(part, 3 * C, C, dg);
+    put_partial(part + C, 3 * C, C, dbe);
+    put_partial(part + 2 * C, 3 * C, C, dbp);
+    __syncthreads();
+    warp_partials_sum(part, 3 * C, C, vp + V_DG2 * C);
+    warp_partials_sum(part + C, 3 * C, C, vp + V_DBE2 * C);
+    warp_partials_sum(part + 2 * C, 3 * C, C, vp + V_DBP * C);
+    tok_store(b, sA, L.ldC, C, b.ws_row(0) + ws_do1(g), g.S);
   }
   __syncthreads();
 
-  // --- attention branch, head by head ---
-  T* sY = b.template at<T>(L.c0);
-  layer_norm(b, x, b.template ptr<float>(G1), b.template ptr<float>(BE1), b.pad, sY, MU1, RS1);
-  for (int e = threadIdx.x; e < N * L.ldO; e += kThreads) sDY[e] = 0.f;
+  // da = round(do1 Wp^T), through sY's room (spent)
+  const GRow<T> WpB{b.template ptr<T>(WP_B), C, C, C};
+  for_tiles<4, 2>(
+      b.Rp, C,
+      [&](auto& acc, int m0, int mt, int n0) { mma_block_pf(acc, A, m0, mt, WpB, n0, C); },
+      [&](int r, int c, float v0, float v1) {
+        if (r < n) store2(sY + r * L.ldC + c, v0, v1);
+      });
   __syncthreads();
-  T* sV = b.template at<T>(L.v);     // v, then dq
-  T* sDA = b.template at<T>(L.da);   // da, then dk
-  T* sDV = b.template at<T>(L.dv);
-  float* sS = b.template at<float>(L.s);
-  float* sDP = b.template at<float>(L.dp);
-  T* sP = b.template at<T>(L.p);     // round(p), then round(ds)
-  const GRow<T> DO1{b.ws_row(0) + ws_do1(g), g.S, N, C};
-  const T* wpb = b.template ptr<T>(WP_B);
-  const T* wqkvb = b.template ptr<T>(WQKV_B);
-  float* bpart = b.template ptr<float>(BPART) + (size_t)b.w * g.nH * N * N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int h = 0; h < g.nH; ++h) {
-    head_qkv(b, h);
-    const GRow<T> Wp{wpb + (size_t)h * hd * C, C, hd, C};
-    for_tiles<1, 2>(
-        g.Rp, hd,
-        [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, DO1, m0, mt, Wp, n0, C); },
-        [&](int r, int c, float v0, float v1) { put2(b, sDA, L.ldH, r, c, v0, v1); });
+  tok_store(b, sY, L.ldC, C, b.template ptr<T>(DA) + b.row0 * C, (size_t)C);
+}
+
+// T3: dy, the LN1 backward, dx and the q/k/v bias gradients.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) fused_bwd_t3_kernel(Table tab, Geo g) {
+  extern __shared__ __align__(16) char smem[];
+  const Tok<T> b = make_tok<T>(tab.p, g, 3, smem);
+  const TokLayout& L = b.L;
+  const int C = g.C, n = b.n;
+  const T* x = b.template ptr<T>(X) + b.row0 * C;
+  float* vp = b.template ptr<float>(VPART) + (size_t)blockIdx.x * g.V;
+  float* sDY = b.template at<float>(L.dy);
+
+  // dy = [dq | dk | dv] [Wq | Wk | Wv]^T, a third at a time through sA;
+  // dbq | dbk | dbv, the tile's column sums of the rounded dq | dk | dv
+  T* sA = b.template at<T>(L.a);
+  const SRow<T> A{sA, L.ldC, n, C};
+  for (int part = 0; part < 3; ++part) {
+    tok_stage(b, b.ws_row(0) + ws_dqkv(g) + part * C, g.S, C, sA, L.ldC);
+    tok_wait();
     __syncthreads();
-    head_softmax(b, h);
-    __syncthreads();
-    // dv = round(p)^T da; dp = da v^T
-    const SCol<T> Pt = b.tile_t(L.p, L.ldP, N, N);
-    const SCol<T> DAt = b.tile_t(L.da, L.ldH, hd, N);
-    for_tiles<1, 2>(
-        g.Rp, hd,
-        [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, Pt, m0, mt, DAt, n0, g.Rp); },
+    const GRow<T> W{b.template ptr<T>(WQKV_B) + part * C, 3 * C, C, C};
+    for_tiles<4, 2>(
+        b.Rp, C,
+        [&](auto& acc, int m0, int mt, int n0) { mma_block_pf(acc, A, m0, mt, W, n0, C); },
         [&](int r, int c, float v0, float v1) {
-          if (put2(b, sDV, L.ldH, r, c, v0, v1))
-            store2(b.ws_row(r) + ws_dqkv(g) + 2 * C + h * hd + c, v0, v1);
+          if (r >= n) return;
+          if (part == 0)
+            store2(sDY + r * L.ldO + c, v0, v1);
+          else
+            add2(sDY + r * L.ldO + c, v0, v1);
         });
-    const SRow<T> DA = b.tile(L.da, L.ldH, N, hd);
-    const SRow<T> Vv = b.tile(L.v, L.ldH, N, hd);
-    for_tiles<2, 2>(
-        g.Rp, g.Rp,
-        [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, DA, m0, mt, Vv, n0, hd); },
-        [&](int r, int c, float v0, float v1) {
-          if (r < N) store2(sDP + r * L.ldS + c, v0, v1);
-        });
-    __syncthreads();
-    // ds = p (dp - rowsum(p dp)); dbias partial; round(ds) into sP
-    for (int r = warp; r < N; r += kWarps) {
-      float p[2], dp[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t;
-        p[t] = c < N ? sS[r * L.ldS + c] : 0.f;
-        dp[t] = c < N ? sDP[r * L.ldS + c] : 0.f;
-      }
-      const float rs = warp_sum(p[0] * dp[0] + p[1] * dp[1]);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t;
-        if (c < N) {
-          const float ds = p[t] * (dp[t] - rs);
-          bpart[((size_t)h * N + r) * N + c] = ds;
-          sP[r * L.ldP + c] = from_f<T>(ds);
-        } else if (c < g.Rp) {
-          sP[r * L.ldP + c] = from_f<T>(0.f);
-        }
-      }
-    }
-    __syncthreads();
-    // dq = round((round(ds) k) * scale) into sV; dk = round(round(ds)^T qs) into sDA
-    const SRow<T> DS = b.tile(L.p, L.ldP, N, N);
-    const SCol<T> DSt = b.tile_t(L.p, L.ldP, N, N);
-    const SCol<T> Kt = b.tile_t(L.k, L.ldH, hd, N);
-    const SCol<T> Qt = b.tile_t(L.q, L.ldH, hd, N);
-    for_tiles<1, 2>(
-        g.Rp, hd,
-        [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, DS, m0, mt, Kt, n0, g.Rp); },
-        [&](int r, int c, float v0, float v1) {
-          const float d0 = v0 * g.scale, d1 = v1 * g.scale;
-          if (put2(b, sV, L.ldH, r, c, rnd<T>(d0), rnd<T>(d1)))
-            store2(b.ws_row(r) + ws_dqkv(g) + h * hd + c, d0, d1);
-        });
-    for_tiles<1, 2>(
-        g.Rp, hd,
-        [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, DSt, m0, mt, Qt, n0, g.Rp); },
-        [&](int r, int c, float v0, float v1) {
-          if (put2(b, sDA, L.ldH, r, c, v0, v1))
-            store2(b.ws_row(r) + ws_dqkv(g) + C + h * hd + c, v0, v1);
-        });
-    __syncthreads();
-    // dbq/dbk/dbv partials; dy += dq wq^T + dk wk^T + dv wv^T (head h's
-    // columns of the head-major WQKV_B)
-    for (int j = threadIdx.x; j < 3 * hd; j += kThreads) {
-      const int part = j / hd, c = j - part * hd;
-      const T* src = part == 0 ? sV : part == 1 ? sDA : sDV;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
       float acc = 0.f;
-      for (int r = 0; r < N; ++r) acc += to_f(src[r * L.ldH + c]);
-      vp[V_DBQKV * C + part * C + h * hd + c] = acc;
+      for (int r = 0; r < n; ++r) acc += to_f(sA[r * L.ldC + c]);
+      vp[(V_DBQKV + part) * C + c] = acc;
     }
-    const SRow<T> DQ = b.tile(L.v, L.ldH, N, hd);
-    const SRow<T> DK = b.tile(L.da, L.ldH, N, hd);
-    const SRow<T> DV = b.tile(L.dv, L.ldH, N, hd);
-    const T* wh = wqkvb + (size_t)h * 3 * hd;
-    const GRow<T> Wq{wh, 3 * C, C, hd}, Wk{wh + hd, 3 * C, C, hd}, Wv{wh + 2 * hd, 3 * C, C, hd};
-    for_tiles<2, 4>(
-        g.Rp, C,
-        [&](auto& acc, int m0, int mt, int n0) {
-          mma_block(acc, DQ, m0, mt, Wq, n0, hd);
-          mma_block(acc, DK, m0, mt, Wk, n0, hd);
-          mma_block(acc, DV, m0, mt, Wv, n0, hd);
-        },
-        [&](int r, int c, float v0, float v1) {
-          if (r < N) add2(sDY + r * L.ldO + c, v0, v1);
-        });
     __syncthreads();
   }
-
-  // --- LN1 backward (pad rows' dy masked); dx = round(dx2 + dLN1) ---
   const float* g1 = b.template ptr<float>(G1);
-  ln_bwd_rows(b, x, sDY, g1, b.pad, MU1, RS1);
+  tok_layer_norm(b, x, C, g1, b.template ptr<float>(BE1), true, static_cast<T*>(nullptr));
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float dg = 0.f, dbe = 0.f;
-    const float gc = g1[c];
-    for (int r0 = 0; r0 < N; r0 += kRB) {
-      float xv[kRB], d32[kRB], pm[kRB];
+
+  // dx = round(dx2 + dLN1(dy * pad)); dg1, dbe1 partials through sDY's room
+  const float* dx32 = b.template ptr<float>(DX32) + b.row0 * C;
+  T* dx = b.template ptr<T>(DX) + b.row0 * C;
+  const int lane = threadIdx.x & 31;
+  {
+    float2 dg[kPairs], dbe[kPairs];
 #pragma unroll
-      for (int u = 0; u < kRB; ++u) {
-        const bool in = r0 + u < N;
-        xv[u] = in ? to_f(x[(size_t)(r0 + u) * C + c]) : 0.f;
-        d32[u] = in ? dx32[(size_t)(r0 + u) * C + c] : 0.f;
-        pm[u] = in && b.pad != nullptr ? b.pad[r0 + u] : 1.f;
+    for (int i = 0; i < kPairs; ++i) dg[i] = dbe[i] = make_float2(0.f, 0.f);
+    for (int r = threadIdx.x >> 5; r < n; r += kWarps) {
+      const float pm = b.pad(r);
+      float2 xv[kPairs], dy[kPairs], d32[kPairs];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int c = 64 * i + 2 * lane;
+        xv[i] = dy[i] = d32[i] = make_float2(0.f, 0.f);
+        if (c >= C) continue;
+        xv[i] = load2(x + (size_t)r * C + c);
+        d32[i] = load2(dx32 + (size_t)r * C + c);
+        const float2 d = load2(sDY + r * L.ldO + c);
+        dy[i] = make_float2(d.x * pm, d.y * pm);
       }
+      ln_bwd_row(xv, dy, g1, C, b.stat(MU1)[r], b.stat(RS1)[r], dg, dbe);
 #pragma unroll
-      for (int u = 0; u < kRB; ++u) {
-        const int r = r0 + u;
-        if (r >= N) continue;
-        const float xh = (xv[u] - b.stat(MU1)[r]) * b.stat(RS1)[r];
-        const float dy = sDY[r * L.ldO + c] * pm[u];
-        dg += dy * xh;
-        dbe += dy;
-        const float dxl = b.stat(RS1)[r] * (dy * gc - b.stat(M1)[r] - xh * b.stat(M2)[r]);
-        dx[(size_t)r * C + c] = from_f<T>(d32[u] + dxl);
+      for (int i = 0; i < kPairs; ++i) {
+        const int c = 64 * i + 2 * lane;
+        if (c < C) store2(dx + (size_t)r * C + c, d32[i].x + dy[i].x, d32[i].y + dy[i].y);
       }
     }
-    vp[V_DG1 * C + c] = dg;
-    vp[V_DBE1 * C + c] = dbe;
+    __syncthreads();  // every warp is done with sDY
+    put_partial(sDY, 2 * C, C, dg);
+    put_partial(sDY + C, 2 * C, C, dbe);
+    __syncthreads();
+    warp_partials_sum(sDY, 2 * C, C, vp + V_DG1 * C);
+    warp_partials_sum(sDY + C, 2 * C, C, vp + V_DBE1 * C);
+    __syncthreads();
   }
 }
 
 // Weight gradient partial: partial[chunk][i][j] = sum over the chunk's rows
 // r of ws[r][offA + i] * ws[r][offB + j], for the 64x64 tile (blockIdx.x,
 // blockIdx.y). Rows go through shared memory kR at a time; each warp owns
-// a 32x16 piece of the tile.
+// a 32x16 piece of the tile. The fp32 path; bf16 takes wgrad_tc_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const T* ws, int S, int rows, int offA, int Ka, int offB, int Kb,
@@ -1079,6 +1397,83 @@ wgrad_kernel(const T* ws, int S, int rows, int offA, int Ka, int offB, int Kb,
       }
 }
 
+// The bf16 weight-gradient partial on the tensor cores, 128 x 128 tiles:
+// the same partial[chunk][i][j] as wgrad_kernel. The chunk's rows come in
+// kWR at a time through a kWStages-deep cp.async ring (16-byte copies,
+// zero-filled past the chunk's rows and the operands' columns), so the
+// next rows' loads are in flight while the current ones multiply; each
+// warp owns a 64 x 32 piece (4 x 4 mma tiles: every fragment it loads
+// feeds four mmas). One barrier per kWR rows.
+constexpr int kWT = 128, kWR = 32, kWStages = 3, kWLd = kWT + 8;
+constexpr size_t kWgradSmem = (size_t)2 * kWStages * kWR * kWLd * sizeof(bf16);
+
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+wgrad_tc_kernel(const bf16* ws, int S, int rows, int offA, int Ka, int offB, int Kb,
+                int chunk_rows, float* partial) {
+  extern __shared__ __align__(16) char smem[];
+  bf16* sa = reinterpret_cast<bf16*>(smem);
+  bf16* sb = sa + kWStages * kWR * kWLd;
+  const int i0 = blockIdx.x * kWT, j0 = blockIdx.y * kWT, chunk = blockIdx.z;
+  const int r_begin = chunk * chunk_rows;
+  const int r_end = min(rows, r_begin + chunk_rows);
+  const int steps = r_end > r_begin ? (r_end - r_begin + kWR - 1) / kWR : 0;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp & 1) * 64, n0 = (warp >> 1) * 32;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  const auto load = [&](int step, int stage) {
+    const int r0 = r_begin + step * kWR;
+    for (int e = threadIdx.x; e < kWR * (kWT / 8); e += kThreads) {
+      const int rr = e / (kWT / 8), cc = (e - rr * (kWT / 8)) * 8, r = r0 + rr;
+      const bf16* row = ws + (size_t)min(r, rows - 1) * S;
+      const bool in = r < r_end;
+      cp_async16_zfill(sa + (stage * kWR + rr) * kWLd + cc, row + offA + min(i0 + cc, Ka - 8),
+                       in && i0 + cc < Ka ? 16 : 0);
+      cp_async16_zfill(sb + (stage * kWR + rr) * kWLd + cc, row + offB + min(j0 + cc, Kb - 8),
+                       in && j0 + cc < Kb ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kWStages - 1; ++st) {
+    if (st < steps) load(st, st);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int step = 0; step < steps; ++step) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kWStages - 2) : "memory");
+    __syncthreads();  // this step's rows are in; every warp is done with step - 1's
+    const int next = step + kWStages - 1;
+    if (next < steps) load(next, next % kWStages);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int stage = step % kWStages;
+    const SCol<bf16> A{sa + stage * kWR * kWLd, kWLd, kWT, kWR};
+    const SCol<bf16> B{sb + stage * kWR * kWLd, kWLd, kWT, kWR};
+    mma_block(acc, A, m0, 4, B, n0, kWR);
+  }
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = i0 + m0 + 16 * mi + g + 8 * half;
+        const int jj = j0 + n0 + 8 * j + 2 * t;   // even, and Kb is even
+        if (i < Ka && jj < Kb)
+          store2(partial + ((size_t)chunk * Ka + i) * Kb + jj, acc[mi][j][2 * half],
+                 acc[mi][j][2 * half + 1]);
+      }
+}
+
 // out[G][j] = sum over i in group G (rows [G*group, min(n, (G+1)*group)))
 // of in[i][j], in row order.
 __global__ void sum_rows_kernel(const float* in, int n, int J, int group, float* out) {
@@ -1119,6 +1514,11 @@ Geo make_geo(const int* dims, float scale, float eps) {
   g.M = dims[D_M];
   g.nW = dims[D_NW];
   g.chunks = dims[D_CHUNKS];
+  g.R = dims[D_ROWS];
+  g.fwarps = dims[D_FWARPS];
+  g.frun = dims[D_FRUN];
+  g.bwarps = dims[D_BWARPS];
+  g.brun = dims[D_BRUN];
   g.Rp = (g.N + 15) / 16 * 16;
   g.S = 8 * g.C + 2 * g.M;
   g.V = 9 * g.C + g.M;
@@ -1142,17 +1542,69 @@ template <typename T> int run_fwd(const Table& tab, const Geo& g, cudaStream_t s
   return (int)launch_rows(fused_block_fwd_kernel<T>, tab, g, L.bytes, s);
 }
 
+template <typename Kernel>
+cudaError_t launch_tok(Kernel kernel, const Table& tab, const Geo& g, int which, int es,
+                       cudaStream_t s) {
+  const size_t smem = tok_layout(which, g.R, g.C, es).bytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = g.B_ * g.N;
+  kernel<<<(rows + g.R - 1) / g.R, kThreads, smem, s>>>(tab, g);
+  return cudaGetLastError();
+}
+
+// The attention halves' bias policy: the window-attention kernel's
+// (wtile::TableBias), under a name of its own so that a profile files the
+// tile kernels it instantiates (A1, A2 and their dbias sum) under the
+// fused block and not under row 3 / 4 (esvit_tpu_torch/utils/profile.py).
+struct FusedBlockBias : wtile::TableBias {};
+
+// The attention tiles' geometry on QKV: q, k, v at columns 0, C, 2C of a
+// 3C-wide row, heads hd wide.
+wtile::Geometry attn_geometry(const Geo& g, int run) {
+  wtile::Geometry tg{};
+  tg.B_ = g.B_;
+  tg.N = g.N;
+  tg.hd = g.hd;
+  tg.nH = g.nH;
+  tg.types = g.nW;
+  tg.ld_in = 3 * g.C;
+  tg.ld_out = g.S;
+  tg.ld_do = g.C;
+  tg.ld_dx = g.S;
+  tg.run = run;
+  tg.scale = g.scale;
+  return tg;
+}
+
 template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s) {
   void* const* table = tab.p;
-  const Layout L = make_layout(g.N, g.C, g.hd, g.Rp, sizeof(T));
-  cudaError_t err = 2 * (L.bytes + kSmemReserved) <= kSmemPerSM
-                        ? launch_rows(fused_block_bwd_kernel<T, 2>, tab, g, L.bytes, s)
-                        : launch_rows(fused_block_bwd_kernel<T, 1>, tab, g, L.bytes, s);
+  if (g.R < 16 || g.R > kMaxN || g.R % 16) return (int)cudaErrorInvalidValue;
+  T* ws = static_cast<T*>(table[WS]);
+  const T* qkv = static_cast<const T*>(table[QKV]);
+  FusedBlockBias bias;
+  bias.table = static_cast<const float*>(table[BIAS]);
+  bias.region = static_cast<const int*>(table[REGION]);
+  cudaError_t err = launch_tok(fused_bwd_t1_kernel<T>, tab, g, 1, sizeof(T), s);
+  if (err != cudaSuccess) return (int)err;
+  const wtile::Operands<T> fwd{qkv, qkv + g.C, qkv + 2 * g.C, ws + ws_a(g)};
+  int rc = wtile::launch<T>(fwd, bias, attn_geometry(g, g.frun), g.fwarps, s);
+  if (rc != 0) return rc;
+  err = launch_tok(fused_bwd_t2_kernel<T>, tab, g, 2, sizeof(T), s);
+  if (err != cudaSuccess) return (int)err;
+  const wtile::BwdOperands<T> bwd{qkv, qkv + g.C, qkv + 2 * g.C,
+                                  static_cast<const T*>(table[DA]), ws + ws_dqkv(g),
+                                  ws + ws_dqkv(g) + g.C, ws + ws_dqkv(g) + 2 * g.C,
+                                  static_cast<float*>(table[BPART])};
+  rc = wtile::backward<T>(bwd, bias, attn_geometry(g, g.brun), g.bwarps,
+                          static_cast<float*>(table[D_BIAS]), s);
+  if (rc != 0) return rc;
+  err = launch_tok(fused_bwd_t3_kernel<T>, tab, g, 3, sizeof(T), s);
   if (err != cudaSuccess) return (int)err;
 
   const int rows = g.B_ * g.N, C = g.C, M = g.M;
   const int chunk_rows = ((rows + g.chunks - 1) / g.chunks + 63) / 64 * 64;
-  const T* ws = static_cast<const T*>(table[WS]);
   float* wpart = static_cast<float*>(table[WPART]);
   float* tmp = static_cast<float*>(table[TMP]);
   struct Job { int offA, Ka, offB, Kb; void* out; };
@@ -1160,20 +1612,29 @@ template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s
                        {ws_a(g), C, ws_do1(g), C, table[D_WP]},
                        {ws_y2(g), C, ws_dh(g), M, table[D_W1]},
                        {ws_g(g), M, ws_do2(g), C, table[D_W2]}};
+  if (sizeof(T) == 2) {
+    err = cudaFuncSetAttribute(wgrad_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kWgradSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
   for (const Job& j : jobs) {
-    const dim3 grid((j.Ka + 63) / 64, (j.Kb + 63) / 64, g.chunks);
-    wgrad_kernel<T><<<grid, kThreads, 0, s>>>(ws, g.S, rows, j.offA, j.Ka, j.offB, j.Kb,
-                                             chunk_rows, wpart);
+    if constexpr (sizeof(T) == 2) {
+      const dim3 grid((j.Ka + kWT - 1) / kWT, (j.Kb + kWT - 1) / kWT, g.chunks);
+      wgrad_tc_kernel<<<grid, kThreads, kWgradSmem, s>>>(ws, g.S, rows, j.offA, j.Ka, j.offB,
+                                                         j.Kb, chunk_rows, wpart);
+    } else {
+      const dim3 grid((j.Ka + 63) / 64, (j.Kb + 63) / 64, g.chunks);
+      wgrad_kernel<T><<<grid, kThreads, 0, s>>>(ws, g.S, rows, j.offA, j.Ka, j.offB, j.Kb,
+                                               chunk_rows, wpart);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = sum_rows(wpart, g.chunks, j.Ka * j.Kb, static_cast<float*>(j.out), tmp, s);
     if (err != cudaSuccess) return (int)err;
   }
-  err = sum_rows(static_cast<const float*>(table[VPART]), g.B_, g.V,
+  const int tiles = (rows + g.R - 1) / g.R;
+  err = sum_rows(static_cast<const float*>(table[VPART]), tiles, g.V,
                  static_cast<float*>(table[D_VEC]), tmp, s);
-  if (err != cudaSuccess) return (int)err;
-  err = sum_rows(static_cast<const float*>(table[BPART]), g.B_, g.nH * g.N * g.N,
-                 static_cast<float*>(table[D_BIAS]), tmp, s);
   return (int)err;
 }
 
@@ -1209,6 +1670,17 @@ int esvit_fused_block_bwd(void* const* table, const int* dims, float scale, floa
 }
 
 int esvit_fused_block_num_ptrs() { return kNumPtrs; }
+
+// Shared-memory bytes of the backward's largest token-tile block (T1, T2,
+// T3) at `rows` rows per tile (elem_size 2 or 4).
+long long esvit_fused_block_bwd_smem_bytes(int C, int rows, int elem_size) {
+  size_t most = 0;
+  for (int k = 1; k <= 3; ++k) {
+    const size_t b = tok_layout(k, rows, C, elem_size).bytes;
+    most = b > most ? b : most;
+  }
+  return (long long)most;
+}
 
 
 }  // extern "C"

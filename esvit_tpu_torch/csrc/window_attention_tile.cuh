@@ -126,6 +126,8 @@ struct Geometry {
   int run;     // windows per warp
   float scale;
   int vec;     // 1: q, k, v rows and heads are 16-byte aligned (cp.async)
+  int ld_do;   // backward: row stride of the output gradient, in elements
+  int ld_dx;   // backward: row stride of dq, dk and dv, in elements
 };
 
 // Row r of head h: q[r * ld_in + h * hd], the same for k and v;
@@ -219,6 +221,22 @@ __device__ inline void stage_bias(float* dst, int bs, const float* __restrict__ 
   }
 }
 
+// The packed kernel's policy (window_attention.cu; the fused block's
+// attention halves use it too): qs = bf16(q * bf16(scale)) and p rounded to
+// bf16 in bf16, and the bias slice of (window type t, head h) the (nH, N,
+// N) table plus -100 where the type's region ids differ.
+struct TableBias {
+  static constexpr bool kRoundQ = true;
+  static constexpr bool kSplitP = false;
+  const float* table;  // (nH, N, N)
+  const int* region;   // (types, N) or null
+
+  __device__ void stage_bias(float* dst, int bs, const Geometry& g, int t, int h) const {
+    wtile::stage_bias(dst, bs, table + (size_t)h * g.N * g.N,
+                      region != nullptr ? region + (size_t)t * g.N : nullptr, g.N);
+  }
+};
+
 // Zeroes what the loads never write and the products read in one tile:
 // head columns [hd, head_pad(hd)) of rows [0, rows) and every column of
 // rows [N, rows).
@@ -263,6 +281,12 @@ __device__ __forceinline__ void stage_window(const Operands<T>& op, const Geomet
   }
 }
 
+// A row's softmax constants: p = 2^(s log2e + off) * inv.
+struct RowStats {
+  float off0, off1;  // -max log2e of rows g and g + 8
+  float inv0, inv1;  // 1 / sum of the exponentials
+};
+
 // The softmax of one m16 tile of scores in the accumulator layout: lane
 // (g = lane / 4, t = lane % 4) holds s[nt][e] at row m0 + g and s[nt][2 + e]
 // at row m0 + g + 8, column 8 nt + 2 t + e. Adds the bias (after the scale,
@@ -270,8 +294,8 @@ __device__ __forceinline__ void stage_window(const Operands<T>& op, const Geomet
 // masked columns and in the tiles past the keys). A row's max and sum are
 // fp32, over its quad.
 template <bool kPostScale>
-__device__ __forceinline__ void softmax_tile(float (&s)[8][4], int m0, const float* sbias,
-                                             int bs, int N, float scale, int lane) {
+__device__ __forceinline__ RowStats softmax_tile(float (&s)[8][4], int m0, const float* sbias,
+                                                 int bs, int N, float scale, int lane) {
   const int gq = lane >> 2, tq = lane & 3, nn = (N + 7) / 8;
   const float* b0 = sbias + min(m0 + gq, N - 1) * bs;
   const float* b1 = sbias + min(m0 + gq + 8, N - 1) * bs;
@@ -332,6 +356,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], int m0, const flo
       s[nt][2 + e] *= inv1;
     }
   }
+  return RowStats{o0, o1, inv0, inv1};
 }
 
 // bf16: S = Q K^T and O = P V on the tensor cores, one m16 tile of query
@@ -615,6 +640,601 @@ int launch(Operands<T> op, const Policy& pol, Geometry g, int warps, cudaStream_
   const dim3 grid((per_type + chunk - 1) / chunk, g.nH * g.types);
   kernel<<<grid, warps * 32, smem, stream>>>(op, pol, g);
   return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The backward tile: the window-attention backward (row 4) and the
+// attention half of the block-fused backward, bf16 and fp32, with the
+// packed kernel's roundings (window_attention.cu's header states them):
+//   dv = round(round(p)^T do),  dp = do v^T (fp32),
+//   ds = p (dp - rowsum(p dp)),  dq = round(round(ds) k * scale),
+//   dk = round(round(ds)^T qs),  dbias = sum over windows of ds (fp32).
+//
+// What bounds it is what bounds the forward tile (a (window, head) is
+// ~0.6 MFLOP on ~16 KB of bf16 operands): the latency of its chains of
+// fragment loads, mmas and softmax steps, not bytes or the tensor cores.
+// So a (window, head) is split over a group of four warps, each taking one
+// m16 tile in each pass, which cuts a window's latency by four and lets
+// the tiles, staged once, serve four warps. Groups walk runs of windows of
+// one (head, window type); a block's groups share that type's bias slice.
+// q, k, v and do come in with cp.async, a tile per warp. Two passes; in
+// bf16 every product is an mma.sync m16n8k16 whose A operand is either a
+// staged tile (ldmatrix) or an accumulator fragment (p and ds never leave
+// the registers):
+//   pass 1, warp q on query rows 16 q..: S = qs k^T and its softmax (as the
+//     forward), dP = do v^T, rowsum(p dp) and ds in the fragments; ds adds
+//     into the group's dbias accumulator; dq = round(ds) k. Each row's
+//     softmax constants and rowsum go to shared memory (64 x 3 floats);
+//   the group meets (a named barrier);
+//   pass 2, warp q on key rows 16 q..: S^T = k qs^T and dP^T = v do^T, p^T
+//     and ds^T from the saved constants (the same formula as pass 1, so
+//     the same p to the last fp32 rounding the product's sum order
+//     allows); dv = round(p^T) do and dk = round(ds^T) qs.
+// Padded query rows are read clamped to N - 1 and never stored; in pass
+// 2 their columns get p = ds = 0, so they add nothing to dv and dk.
+//
+// fp32 (no TF32) runs the same passes, layouts and dbias order with
+// register-tiled FMAs on the CUDA cores in place of the mmas: S and dP in
+// the accumulator layout, a lane's two query rows by 16 key columns from
+// float4 reads; a product whose A operand is a fragment (dq, dv, dk) goes
+// through a 16-row fp32 scratch per warp, each lane then building two rows
+// by 16 columns of the output from float4 reads of the scratch and of the
+// B tile, as the forward's fp32 P.V does. Two rows a lane give about 7
+// FMAs per shared load at N = 49 (the forward tile's eight give 20).
+//
+// dbias without atomics: a group's accumulator (N, N) fp32 in shared
+// memory; warp q adds the ds of its rows only, so no two warps touch an
+// element; at the end the block sums its groups' accumulators in group
+// order and writes one partial; dbias_reduce_kernel sums a head's partials
+// in block order. Bit-identical on repeat.
+// ---------------------------------------------------------------------------
+
+template <typename T> struct BwdOperands {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;   // row stride ld_do
+  T* dq;           // dq, dk, dv: row stride ld_dx
+  T* dk;
+  T* dv;
+  float* partial;  // dbias partials: bwd_parts of them per head
+};
+
+constexpr int kGroupWarps = 4;       // warps per (window, head)
+constexpr int kStatFloats = 3 * 64;  // per group: off, inv, rowsum of each query row
+
+template <typename T>
+__host__ __device__ inline size_t bwd_tiles_bytes(int N, int hd) {
+  return round_up_bytes((size_t)4 * N * Layout<T>::ld(hd) * sizeof(T));
+}
+
+// fp32 only: per warp a 16-row scratch for a fragment A operand, at the
+// stride of the forward's p tile.
+template <typename T> __host__ __device__ inline size_t bwd_scratch_bytes(int N) {
+  return sizeof(T) == 2 ? 0 : (size_t)kGroupWarps * 16 * Layout<float>::p_ld(N) * sizeof(float);
+}
+
+template <typename T>
+__host__ __device__ inline size_t bwd_group_bytes(int N, int hd) {
+  return bwd_tiles_bytes<T>(N, hd) + kStatFloats * sizeof(float) + bias_bytes(N) +
+         bwd_scratch_bytes<T>(N);
+}
+
+// Dynamic shared memory of a backward block of `warps` warps (ops/
+// window_attention.py tile_smem_bytes(..., backward=True) mirrors it): the
+// bias slice, then per group of four warps its q, k, v, do tiles, its row
+// constants, its (N, N) fp32 dbias accumulator (the bias slice's layout)
+// and, in fp32, its warps' scratch.
+template <typename T>
+__host__ __device__ inline size_t bwd_smem_bytes(int N, int hd, int warps) {
+  return bias_bytes(N) + (size_t)(warps / kGroupWarps) * bwd_group_bytes<T>(N, hd);
+}
+
+// One warp copies rows [0, N), columns [0, hd) of one operand's window w,
+// head h into a tile of row stride ld.
+template <typename T>
+__device__ __forceinline__ void stage_tile(const T* src, int ld_src, size_t row0, size_t col0,
+                                           T* dst, int ld, int N, int hd, int vec, int lane) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (vec) {
+    const int cpr = hd / kPer, per = N * cpr;
+    for (int e = lane; e < per; e += 32) {
+      const int r = e / cpr, c = (e - r * cpr) * kPer;
+      cp_async16(dst + (size_t)r * ld + c, src + (row0 + r) * ld_src + col0 + c);
+    }
+  } else {
+    for (int e = lane; e < N * hd; e += 32) {
+      const int r = e / hd, c = e - r * hd;
+      dst[(size_t)r * ld + c] = src[(row0 + r) * ld_src + col0 + c];
+    }
+  }
+}
+
+// Scales the bf16 pairs of a fragment: bf16(x * qscale), the qs operand.
+__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float qscale) {
+  return pack_bf16(bf16_lo(x) * qscale, bf16_hi(x) * qscale);
+}
+
+// acc[nt] (+)= A[16 rows at arow] . B[keys 8 nt..]^T over the head dim, A
+// and B tiles stored [row][dim] (the S = Q K^T shape): A by ldmatrix x4
+// (rows clamped to N - 1), B by ldmatrix x4 (two k16 steps a load). With
+// kScaleA / kScaleB the A / B fragments become bf16(x * qscale).
+template <bool kScaleA, bool kScaleB>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const bf16* sa, int m0,
+                                             const bf16* sb, int ld, int N, int kd, int nn,
+                                             float qscale, int lane) {
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= kd) continue;
+    ldsm_x4(a[kk], sa + min(m0 + (lane & 15), N - 1) * ld + 16 * kk + ((lane >> 4) << 3));
+    if (kScaleA)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[kk][r] = scale_pair(a[kk][r], qscale);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    if (nt >= nn) continue;
+    const bf16* brow = sb + min(8 * nt + (lane & 7), N - 1) * ld + ((lane >> 3) << 3);
+#pragma unroll
+    for (int kk = 0; kk < 4; kk += 2) {
+      if (kk >= kd) continue;
+      uint32_t b[4];
+      ldsm_x4(b, brow + 16 * kk);
+      if (kScaleB)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) b[r] = scale_pair(b[r], qscale);
+      mma_bf16(acc[nt], a[kk], {b[0], b[1]});
+      if (kk + 1 < kd) mma_bf16(acc[nt], a[kk + 1], {b[2], b[3]});
+    }
+  }
+}
+
+// out = bf16(f) . B over kp k16 steps of the fragments' columns, B stored
+// [k][dim] (the P V shape; B by ldmatrix x4.trans, rows clamped to N - 1).
+// With kScaleB the B fragments become bf16(x * qscale).
+template <bool kScaleB>
+__device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&f)[8][4],
+                                              const bf16* sb, int ld, int N, int kp, int nd,
+                                              float qscale, float* /*scratch*/, int lane) {
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[dt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= kp) continue;
+    uint32_t a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[r] = pack_bf16(f[2 * kk + (r >> 1)][2 * (r & 1)], f[2 * kk + (r >> 1)][2 * (r & 1) + 1]);
+    const bf16* brow = sb + min(16 * kk + (lane & 15), N - 1) * ld + ((lane >> 4) << 3);
+#pragma unroll
+    for (int dt = 0; dt < 8; dt += 2) {
+      if (dt >= nd) continue;
+      uint32_t b[4];
+      ldsm_x4_t(b, brow + 8 * dt);
+      if (kScaleB)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) b[r] = scale_pair(b[r], qscale);
+      mma_bf16(out[dt], a, {b[0], b[1]});
+      mma_bf16(out[dt + 1], a, {b[2], b[3]});
+    }
+  }
+}
+
+// Stores rows m0 + g (+ 8) < N of an (m16, head dim) accumulator tile,
+// times `mul`, rounded to bf16, at dst[row * ld + col0 + column].
+__device__ __forceinline__ void store_rows(bf16* dst, size_t ld, size_t row0, size_t col0,
+                                           const float (&o)[8][4], int m0, int N, int hd,
+                                           int nd, float mul, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (r >= N) continue;
+    bf16* row = dst + (row0 + r) * ld + col0;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      if (dt >= nd) continue;
+      const int c = 8 * dt + 2 * tq;
+      const float a = o[dt][2 * half] * mul, b = o[dt][2 * half + 1] * mul;
+      if (c + 1 < hd && (reinterpret_cast<uintptr_t>(row + c) & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(a, b);
+      } else {
+        if (c < hd) row[c] = __float2bfloat16(a);
+        if (c + 1 < hd) row[c + 1] = __float2bfloat16(b);
+      }
+    }
+  }
+}
+
+// fp32 acc[nt] = A[16 rows at arow] . B[keys 8 nt..]^T over the head dim,
+// in the accumulator layout (lane (g, t): rows m0 + g and m0 + g + 8,
+// columns 8 nt + 2 t + {0, 1}; rows clamped to N - 1), each score summed
+// in head-dim order, so S^T (pass 2) equals S (pass 1) bit for bit. With
+// kScaleA / kScaleB the A / B values become x * qscale, in fp32.
+template <bool kScaleA, bool kScaleB>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const float* sa, int m0,
+                                             const float* sb, int ld, int N, int kd, int nn,
+                                             float qscale, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const float* a0 = sa + min(m0 + gq, N - 1) * ld;
+  const float* a1 = sa + min(m0 + gq + 8, N - 1) * ld;
+  for (int d = 0; d < 16 * kd; d += 4) {
+    float4 x0 = ld4(a0 + d), x1 = ld4(a1 + d);
+    if (kScaleA) {
+      x0 = make_float4(x0.x * qscale, x0.y * qscale, x0.z * qscale, x0.w * qscale);
+      x1 = make_float4(x1.x * qscale, x1.y * qscale, x1.z * qscale, x1.w * qscale);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= nn) continue;
+      const int c = 8 * nt + 2 * tq;
+      float4 k0 = ld4(sb + min(c, N - 1) * ld + d), k1 = ld4(sb + min(c + 1, N - 1) * ld + d);
+      if (kScaleB) {
+        k0 = make_float4(k0.x * qscale, k0.y * qscale, k0.z * qscale, k0.w * qscale);
+        k1 = make_float4(k1.x * qscale, k1.y * qscale, k1.z * qscale, k1.w * qscale);
+      }
+      acc[nt][0] = dot4(x0, k0, acc[nt][0]);
+      acc[nt][1] = dot4(x0, k1, acc[nt][1]);
+      acc[nt][2] = dot4(x1, k0, acc[nt][2]);
+      acc[nt][3] = dot4(x1, k1, acc[nt][3]);
+    }
+  }
+}
+
+// fp32 out = f . B over the fragments' key columns [0, N), B stored
+// [k][dim] (rows clamped to N - 1; f is 0 past N). f goes through the
+// warp's 16-row scratch; lane (g, t) then builds out[2 c + half][e] at row
+// m0 + g + 8 half, column 16 c + 4 t + e (c < nd / 2), from float4 reads.
+// With kScaleB the B values become x * qscale.
+template <bool kScaleB>
+__device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&f)[8][4],
+                                              const float* sb, int ld, int N, int kp, int nd,
+                                              float qscale, float* scratch, int lane) {
+  const int gq = lane >> 2, tq = lane & 3, nn = (N + 7) / 8, nc = nd / 2;
+  const int sld = Layout<float>::p_ld(N), n4 = round_up(N, 4);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    if (nt >= nn) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(scratch + (gq + 8 * half) * sld + 8 * nt + 2 * tq) =
+          make_float2(f[nt][2 * half], f[nt][2 * half + 1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[c][e] = 0.f;
+  for (int j = 0; j < n4; j += 4) {
+    const float4 p0 = ld4(scratch + gq * sld + j), p1 = ld4(scratch + (gq + 8) * sld + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* br = sb + min(j + jj, N - 1) * ld + 4 * tq;
+      const float a0 = comp(p0, jj), a1 = comp(p1, jj);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= nc) continue;
+        float4 v = ld4(br + 16 * c);
+        if (kScaleB) v = make_float4(v.x * qscale, v.y * qscale, v.z * qscale, v.w * qscale);
+        out[2 * c][0] = fmaf(a0, v.x, out[2 * c][0]);
+        out[2 * c][1] = fmaf(a0, v.y, out[2 * c][1]);
+        out[2 * c][2] = fmaf(a0, v.z, out[2 * c][2]);
+        out[2 * c][3] = fmaf(a0, v.w, out[2 * c][3]);
+        out[2 * c + 1][0] = fmaf(a1, v.x, out[2 * c + 1][0]);
+        out[2 * c + 1][1] = fmaf(a1, v.y, out[2 * c + 1][1]);
+        out[2 * c + 1][2] = fmaf(a1, v.z, out[2 * c + 1][2]);
+        out[2 * c + 1][3] = fmaf(a1, v.w, out[2 * c + 1][3]);
+      }
+    }
+  }
+  __syncwarp();  // the scratch is free for the next product
+}
+
+// Stores rows m0 + g (+ 8) < N of an fp32 frags_by_rows result, times
+// `mul`, at dst[row * ld + col0 + column].
+__device__ __forceinline__ void store_rows(float* dst, size_t ld, size_t row0, size_t col0,
+                                           const float (&o)[8][4], int m0, int N, int hd,
+                                           int nd, float mul, int lane) {
+  const int gq = lane >> 2, tq = lane & 3, nc = nd / 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (r >= N) continue;
+    float* row = dst + (row0 + r) * ld + col0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c >= nc) continue;
+      const int col = 16 * c + 4 * tq;
+      const float* v = o[2 * c + half];
+      if (col + 3 < hd && (reinterpret_cast<uintptr_t>(row + col) & 15) == 0) {
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < hd) row[col + e] = v[e] * mul;
+      }
+    }
+  }
+}
+
+// The A operand's scale: bf16(scale) in bf16 (qs = bf16(q * bf16(scale))),
+// scale itself in fp32.
+template <typename T> __device__ __forceinline__ float operand_scale(float scale) {
+  return sizeof(T) == 2 ? __bfloat162float(__float2bfloat16(scale)) : scale;
+}
+
+// Pass 1 of (window w, head h) for the query tile at m0: S, p, dP, ds; ds
+// into the group's dbias accumulator `sacc` (rows m0..m0 + 15, owned by
+// this warp); the rows' softmax constants into `stats`; dq. `scratch`:
+// the warp's (fp32 only).
+template <typename T>
+__device__ void bwd_pass1(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
+                          const float* sbias, int bs, float* stats, float* sacc, float* scratch,
+                          const Geometry& g, int w, int h, int m0, const BwdOperands<T>& op,
+                          int lane) {
+  const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
+  const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
+  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
+  const float qscale = operand_scale<T>(g.scale);
+  float s[8][4], dp[8][4];
+  rows_by_rows<true, false>(s, sq, m0, sk, ld, N, kd, nn, qscale, lane);
+  const RowStats st = softmax_tile<false>(s, m0, sbias, bs, N, g.scale, lane);
+  rows_by_rows<false, false>(dp, sdo, m0, sv, ld, N, kd, nn, qscale, lane);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    if (nt >= nn) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rs0 += s[nt][e] * dp[nt][e];
+      rs1 += s[nt][2 + e] * dp[nt][2 + e];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    rs0 += __shfl_xor_sync(kFull, rs0, o);
+    rs1 += __shfl_xor_sync(kFull, rs1, o);
+  }
+  // ds in dp's registers; the valid ones into the dbias accumulator
+  const int r0 = m0 + gq, r1 = r0 + 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    if (nt >= nn) continue;
+    const int c = 8 * nt + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dp[nt][e] = s[nt][e] * (dp[nt][e] - rs0);
+      dp[nt][2 + e] = s[nt][2 + e] * (dp[nt][2 + e] - rs1);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (r >= N || c >= N) continue;
+      float* a = sacc + r * bs + c;
+      a[0] += dp[nt][2 * half];
+      if (c + 1 < N) a[1] += dp[nt][2 * half + 1];
+    }
+  }
+  if (tq == 0) {
+    stats[r0] = st.off0;
+    stats[64 + r0] = st.inv0;
+    stats[128 + r0] = rs0;
+    if (r1 < 64) {
+      stats[r1] = st.off1;
+      stats[64 + r1] = st.inv1;
+      stats[128 + r1] = rs1;
+    }
+  }
+  // dq = round(round(ds) k * scale)
+  float o[8][4];
+  frags_by_rows<false>(o, dp, sk, ld, N, kp, nd, qscale, scratch, lane);
+  store_rows(op.dq, g.ld_dx, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, g.scale, lane);
+}
+
+// Pass 2 of (window w, head h) for the key tile at j0, from every query
+// row's constants: S^T and dP^T, p^T and ds^T (column 8 nt + 2 tq + e of a
+// fragment is query i; padded queries get p = ds = 0), dv and dk.
+template <typename T>
+__device__ void bwd_pass2(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
+                          const float* sbias, int bs, const float* stats, float* scratch,
+                          const Geometry& g, int w, int h, int j0, const BwdOperands<T>& op,
+                          int lane) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
+  const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
+  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
+  const float qscale = operand_scale<T>(g.scale);
+  const size_t row0 = (size_t)w * N, col0 = (size_t)h * hd;
+  float p[8][4], ds[8][4];
+  rows_by_rows<false, true>(p, sk, j0, sq, ld, N, kd, nn, qscale, lane);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    if (nt >= nn) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 8 * nt + 2 * tq + e;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = j0 + gq + 8 * half;
+        float x = 0.f;
+        if (i < N && j < N) {
+          x = p[nt][2 * half + e] + sbias[i * bs + j];
+          x = exp2f(fmaf(x, kLog2e, stats[i])) * stats[64 + i];
+        }
+        p[nt][2 * half + e] = x;
+      }
+    }
+  }
+  float o[8][4];
+  frags_by_rows<false>(o, p, sdo, ld, N, kp, nd, qscale, scratch, lane);  // dv = round(p^T) do
+  store_rows(op.dv, g.ld_dx, row0, col0, o, j0, N, hd, nd, 1.f, lane);
+  rows_by_rows<false, false>(ds, sv, j0, sdo, ld, N, kd, nn, qscale, lane);  // dP^T
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    if (nt >= nn) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 8 * nt + 2 * tq + e;
+      const float rs = i < N ? stats[128 + i] : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        ds[nt][2 * half + e] = i < N ? p[nt][2 * half + e] * (ds[nt][2 * half + e] - rs) : 0.f;
+    }
+  }
+  frags_by_rows<true>(o, ds, sq, ld, N, kp, nd, qscale, scratch, lane);  // dk = round(ds^T) qs
+  store_rows(op.dk, g.ld_dx, row0, col0, o, j0, N, hd, nd, 1.f, lane);
+}
+
+// The four warps of group `grp` meet (a named barrier; 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(kGroupWarps * 32) : "memory");
+}
+
+// Block (x, y = h * types + t), of blockDim.x / 128 groups of four warps:
+// group k of block x runs windows w = i * types + t of head h for i in
+// [(x * groups + k) * run, + run), one at a time. Warp q of the group
+// stages the window's q, k, v or do tile, then takes query tile 16 q in
+// pass 1 and key tile 16 q in pass 2 (N <= 64: four tiles). The group's
+// dbias accumulator collects its windows' ds (warp q owns rows 16 q..); at
+// the end the block sums its groups' accumulators in group order into
+// partial[h][t * chunks + x].
+template <typename T, class Policy>
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+window_attention_bwd_tile_kernel(BwdOperands<T> op, Policy pol, Geometry g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = g.N, bs = bias_ld(N), groups = blockDim.x / (kGroupWarps * 32);
+  const int t = blockIdx.y % g.types, h = blockIdx.y / g.types;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / kGroupWarps, q = warp % kGroupWarps;
+  float* sbias = reinterpret_cast<float*>(smem);
+  pol.stage_bias(sbias, bs, g, t, h);
+
+  const int ld = Layout<T>::ld(g.hd);
+  unsigned char* mine = smem + bias_bytes(N) + (size_t)grp * bwd_group_bytes<T>(N, g.hd);
+  T* tiles = reinterpret_cast<T*>(mine);
+  float* stats = reinterpret_cast<float*>(mine + bwd_tiles_bytes<T>(N, g.hd));
+  float* sacc = stats + kStatFloats;
+  float* scratch = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sacc) +
+                                            bias_bytes(N)) +
+                   (size_t)q * 16 * Layout<float>::p_ld(N);
+  T* const tile[4] = {tiles, tiles + (size_t)N * ld, tiles + (size_t)2 * N * ld,
+                         tiles + (size_t)3 * N * ld};
+  zero_pads(tile[q], N, ld, N, g.hd, lane);
+  for (int e = lane; e < 16 * bs; e += 32)
+    if (16 * q + e / bs < N) sacc[16 * q * bs + e] = 0.f;
+  __syncthreads();
+
+  const T* const src[4] = {op.q, op.k, op.v, op.dout};
+  const int ld_src = q == 3 ? g.ld_do : g.ld_in;
+  const int per_type = g.B_ / g.types;
+  const int i0 = (blockIdx.x * groups + grp) * g.run;
+  const int i1 = min(i0 + g.run, per_type);
+  const size_t col0 = (size_t)g.hd * h;
+  for (int i = i0; i < i1; ++i) {
+    const int w = i * g.types + t;
+    stage_tile(src[q], ld_src, (size_t)w * N, col0, tile[q], ld, N, g.hd, g.vec, lane);
+    cp_async_commit();
+    cp_async_wait<0>();
+    group_sync(grp);  // the window is staged
+    if (16 * q < N)
+      bwd_pass1(tile[0], tile[1], tile[2], tile[3], ld, sbias, bs, stats, sacc, scratch, g, w,
+                h, 16 * q, op, lane);
+    group_sync(grp);  // every query row's constants are in
+    if (16 * q < N)
+      bwd_pass2(tile[0], tile[1], tile[2], tile[3], ld, sbias, bs, stats, scratch, g, w, h,
+                16 * q, op, lane);
+    group_sync(grp);  // the tiles are free
+  }
+  __syncthreads();
+
+  // The block's partial: its groups' accumulators summed in group order.
+  float* out = op.partial +
+               (((size_t)h * g.types + t) * gridDim.x + blockIdx.x) * (size_t)N * N;
+  const size_t gb = bwd_group_bytes<T>(N, g.hd) / sizeof(float);
+  const float* acc0 = reinterpret_cast<const float*>(smem + bias_bytes(N) +
+                                                     bwd_tiles_bytes<T>(N, g.hd)) + kStatFloats;
+  for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
+    const int r = e / N, c = e - r * N;
+    float sum = 0.f;
+    for (int k = 0; k < groups; ++k) sum += acc0[k * gb + r * bs + c];
+    out[e] = sum;
+  }
+}
+
+// Launches the backward tile kernel: `warps` warps per block (a multiple
+// of four), g.run windows per group of four (ops/window_attention.py
+// tile_plan(..., backward=True)).
+template <typename T, class Policy>
+int launch_bwd(BwdOperands<T> op, const Policy& pol, Geometry g, int warps,
+               cudaStream_t stream) {
+  if (warps < kGroupWarps || warps > kMaxWarps || warps % kGroupWarps || g.run < 1 ||
+      g.types < 1 || g.B_ % g.types || g.N > 64)
+    return (int)cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  constexpr int kPer = 16 / sizeof(T);
+  g.vec = aligned(op.q) && aligned(op.k) && aligned(op.v) && aligned(op.dout) &&
+          g.ld_in % kPer == 0 && g.ld_do % kPer == 0 && g.hd % kPer == 0;
+  const size_t smem = bwd_smem_bytes<T>(g.N, g.hd, warps);
+  auto kernel = window_attention_bwd_tile_kernel<T, Policy>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int chunk = warps / kGroupWarps * g.run, per_type = g.B_ / g.types;
+  const dim3 grid((per_type + chunk - 1) / chunk, g.nH * g.types);
+  kernel<<<grid, warps * 32, smem, stream>>>(op, pol, g);
+  return (int)cudaGetLastError();
+}
+
+// dbias[h, e] = sum over parts c (in order) of partial[h, c, e]. Templated
+// on the caller's bias policy only so that a profile tells the callers'
+// launches apart (esvit_tpu_torch/utils/profile.py).
+template <class Policy>
+__global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
+                                    int nH, int parts, int NN) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nH * NN) return;
+  const int h = idx / NN, e = idx - h * NN;
+  const float* p = partial + (size_t)h * parts * NN + e;
+  float acc = 0.f;
+  for (int c = 0; c < parts; ++c) acc += p[(size_t)c * NN];
+  dbias[idx] = acc;
+}
+
+template <class Policy>
+int launch_dbias_reduce(const float* partial, float* dbias, int nH, int parts, int N,
+                        cudaStream_t stream) {
+  const int NN = N * N, total = nH * NN;
+  dbias_reduce_kernel<Policy><<<(total + 255) / 256, 256, 0, stream>>>(partial, dbias, nH, parts, NN);
+  return (int)cudaGetLastError();
+}
+
+// The backward of both dtypes: the tile kernel, then the fixed-order sum
+// of the dbias partials. `warps` and g.run from ops/window_attention.py
+// tile_plan(..., backward=True); the partials hold (nH, parts, N, N)
+// floats, one per block: parts = types * chunks, chunks = ceil(B_ / types
+// / (warps / 4 * run)).
+__host__ __device__ inline int bwd_parts(const Geometry& g, int warps) {
+  const int per_block = warps / kGroupWarps * g.run;
+  return g.types * ((g.B_ / g.types + per_block - 1) / per_block);
+}
+
+template <typename T, class Policy>
+int backward(const BwdOperands<T>& op, const Policy& pol, const Geometry& g, int warps,
+             float* dbias, cudaStream_t stream) {
+  const int rc = launch_bwd<T>(op, pol, g, warps, stream);
+  if (rc != 0) return rc;
+  return launch_dbias_reduce<Policy>(op.partial, dbias, g.nH, bwd_parts(g, warps), g.N, stream);
 }
 
 }  // namespace wtile

@@ -5,10 +5,16 @@ Replaces esvit_tpu/ops/fused_block.py ``_fwd_kernel`` and ``_bwd_kernel``
 window attention (rel-pos bias, -100 shift mask, pad-row multiplier) ->
 proj -> drop-path residual -> LN2 -> fc1 -> erf-GELU -> fc2 -> drop-path
 residual, one thread block per window. The backward recomputes the
-forward from the block input (the only tensor saved), writes dx and a
-workspace of per-row operands, and a second kernel sums every weight
-gradient over all rows in a fixed order: all 17 parameter gradients are
-bit-identical run to run.
+forward from the block input (the only tensor saved) in five kernels:
+what is per token on tiles of :func:`token_rows` rows (T1: LN1 and q/k/v;
+T2: proj, LN2, the MLP and LN2 backward; T3: the q/k/v transposes and the
+LN1 backward), and only attention per window, on the tiles of
+``csrc/window_attention_tile.cuh`` (A1: its forward recompute; A2: its
+backward). It writes dx and a workspace of per-row operands, and a last
+kernel sums every weight gradient over all rows in a fixed order: all 17
+parameter gradients are bit-identical run to run.
+:func:`fused_block_bwd_staged` is the backward's plain twin stage by
+stage, with the kernels' roundings.
 
 Layouts: x ``(B, nW*N, C)`` in the port's unpadded window-major order
 (ops/window.py); ``params`` holds the reference's names and layouts
@@ -32,6 +38,7 @@ import math
 import torch
 
 from esvit_tpu_torch.ops import cuda_build
+from esvit_tpu_torch.ops import window_attention as wa
 
 launches = {"fwd": 0, "bwd": 0}
 
@@ -41,8 +48,8 @@ PARAM_NAMES = ("g1", "be1", "wq", "bq", "wk", "bk", "wv", "bv", "bias",
 _PTRS = ("X", "OUT", "G1", "BE1", "BQKV", "BP", "G2", "BE2", "B1", "B2",
          "BIAS", "PAD", "KEEP1", "KEEP2", "REGION",
          "WQKV_F", "WP_F", "W1_F", "W2_F", "WQKV_B", "WP_B", "W1_B", "W2_B",
-         "DOUT", "DX", "DX32", "WS", "VPART", "BPART", "WPART", "TMP",
-         "D_WQKV", "D_WP", "D_W1", "D_W2", "D_VEC", "D_BIAS")
+         "DOUT", "DX", "DX32", "WS", "VPART", "BPART", "WPART", "TMP", "QKV",
+         "DA", "D_WQKV", "D_WP", "D_W1", "D_W2", "D_VEC", "D_BIAS")
 # The weight copies each kernel reads: the backward recomputes the forward
 # up to y2 (q/k/v, proj, fc1) and runs every product's transpose.
 _FWD_WEIGHTS = ("WQKV_F", "WP_F", "W1_F", "W2_F")
@@ -57,6 +64,14 @@ _SUM_GROUP = 64               # kGroup in the source
 _CHUNK_ROWS = 256
 _MAX_CHUNKS = 128
 _MAX_PARTIAL = 1 << 24
+# The backward's token tiles: rows per tile (csrc tok_layout): 64 up to
+# this width, 32 above it (a 64-row T2 block at C=128 takes 121 KB of
+# shared memory, one block per SM), 16 for fp32 above 256 (a 32-row fp32
+# T2 block at C=384 would not fit the 227 KB a block may have).
+_TOKEN_ROWS = 64
+_TOKEN_ROWS_WIDE = 32
+_TOKEN_ROWS_MAX_C = 96
+_TOKEN_ROWS_FP32_WIDE = 16
 
 
 def _ln(x, g, b, eps):
@@ -111,6 +126,175 @@ def fused_swin_block_plain(x, params, keep1, keep2, *, N: int, nH: int,
     return residual(x2, proj(g, p["w2"], p["b2"]), keep2)
 
 
+def _ln_stats(x, eps):
+    """fp32 LayerNorm mean and 1/std, the kernels' E[x^2] - mu^2 variance."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    return mu, torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mu * mu + eps)
+
+
+def _ln_bwd(x, dy, g, eps):
+    """LayerNorm backward of fp32 dy: (dLN, dg, dbe), sums over rows."""
+    mu, rs = _ln_stats(x, eps)
+    xh = (x.float() - mu) * rs
+    m1 = (dy * g).mean(-1, keepdim=True)
+    m2 = (dy * g * xh).mean(-1, keepdim=True)
+    return (rs * (dy * g - m1 - xh * m2), (dy * xh).sum(0), dy.sum(0))
+
+
+def _gelu(h):
+    return h * 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+
+
+def _dgelu(h):
+    return (0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+            + h * torch.exp(-0.5 * h * h) / math.sqrt(2.0 * math.pi))
+
+
+def _mm(a, w, dt):
+    return torch.matmul(a.float(), w.to(dt).float())
+
+
+def _proj(a, w, b, dt):
+    return _mm(a, w, dt).to(dt) + b.to(dt)
+
+
+def _per_row(t, rows, L, by_image):
+    """A per-image (``by_image``) or per-position vector as a (rows, 1)
+    fp32 column for rows of images of L tokens; 1.0 for None."""
+    if t is None:
+        return 1.0
+    r = torch.arange(rows, device=t.device)
+    return t.float()[r // L if by_image else r % L][:, None]
+
+
+def stage_t1(x, p, pad, L, eps):
+    """T1 on (rows, C) rows of images of L tokens: y = round(LN1(x)) * pad
+    and qkv = [q | k | v], each round(round(y W) + round(b))."""
+    dt = x.dtype
+    y = _ln(x, p["g1"], p["be1"], eps).to(dt)
+    if pad is not None:
+        y = y * _per_row(pad, x.shape[0], L, False).to(dt)
+    qkv = torch.cat([_proj(y, p[w], p[b], dt) for w, b in
+                     (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], dim=-1)
+    return y, qkv
+
+
+def stage_t2(x, a, do, p, keep1, keep2, L, eps):
+    """T2 on (rows, C) rows: x2, y2, do2, g, dh, dx2 (fp32), do1, da and
+    the fp32 vector gradients db1, db2, dg2, dbe2, dbp."""
+    dt = x.dtype
+    rows = x.shape[0]
+    k1 = _per_row(keep1, rows, L, True)
+    o1 = _proj(a, p["wp"], p["bp"], dt)
+    x2 = x + o1 if keep1 is None else x + (o1.float() * k1).to(dt)
+    y2 = _ln(x2, p["g2"], p["be2"], eps).to(dt)
+    do2f = do.float() * _per_row(keep2, rows, L, True)
+    do2 = do2f.to(dt)
+    h = _proj(y2, p["w1"], p["b1"], dt).float()
+    dh = (_mm(do2, p["w2"].t(), dt).to(dt).float() * _dgelu(h)).to(dt)
+    dy2 = _mm(dh, p["w1"].t(), dt)
+    dln2, dg2, dbe2 = _ln_bwd(x2, dy2, p["g2"].float(), eps)
+    dx2 = do.float() + dln2
+    do1f = dx2 * k1
+    do1 = do1f.to(dt)
+    return dict(x2=x2, y2=y2, do2=do2, g=_gelu(h).to(dt), dh=dh, dx2=dx2,
+                do1=do1, da=_mm(do1, p["wp"].t(), dt).to(dt),
+                db1=dh.float().sum(0), db2=do2f.sum(0), dg2=dg2, dbe2=dbe2,
+                dbp=do1f.sum(0))
+
+
+def stage_t3(x, dqkv, dx2, p, pad, L, eps):
+    """T3 on (rows, C) rows: dx = round(dx2 + dLN1(dy * pad)), dy = dqkv
+    [Wq | Wk | Wv]^T, and the fp32 vector gradients dg1, dbe1, dbqkv."""
+    dt = x.dtype
+    wqkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=1)
+    dy = _mm(dqkv, wqkv.t(), dt) * _per_row(pad, x.shape[0], L, False)
+    dln1, dg1, dbe1 = _ln_bwd(x, dy, p["g1"].float(), eps)
+    return dict(dx=(dx2 + dln1).to(dt), dg1=dg1, dbe1=dbe1,
+                dbqkv=dqkv.float().sum(0))
+
+
+def fused_block_bwd_staged(x, params, keep1, keep2, do, *, N: int, nH: int,
+                           nW: int, scale: float, region=None, pad=None,
+                           eps: float = 1e-6):
+    """The backward kernels' function in plain PyTorch, stage by stage,
+    rounding to x's dtype where they do (csrc/fused_block.cu): T1 (y,
+    qkv), A1 (a), T2 (x2, y2, do2, g, dh, dx2, do1, da), A2 (dqkv, dbias),
+    T3 (dx), then the weight gradients. Returns a dict of every stage's
+    outputs as (rows, width) tensors (qkv as [q | k | v], dqkv as [dq | dk
+    | dv]), dx in x's shape, and ``grads``, the 17 parameter gradients in
+    fp32 as :func:`_bwd` returns them."""
+    B, L, C = x.shape
+    p = params
+    xr, dor = x.reshape(B * L, C), do.to(x.dtype).reshape(B * L, C)
+    y, qkv = stage_t1(xr, p, pad, L, eps)
+    q2, k2, v2 = qkv.split(C, dim=-1)
+    a = wa.window_attention_plain(q2, k2, v2, p["bias"].float(), region, N,
+                                  nH, scale)
+    t2 = stage_t2(xr, a, dor, p, keep1, keep2, L, eps)
+    dq, dk, dv, dbias = wa.window_attention_bwd_plain(
+        q2, k2, v2, t2["da"], p["bias"].float(), region, N, nH, scale)
+    dqkv = torch.cat([dq, dk, dv], dim=-1)
+    t3 = stage_t3(xr, dqkv, t2["dx2"], p, pad, L, eps)
+    dbqkv = t3["dbqkv"]
+    dwqkv = y.float().t() @ dqkv.float()
+    grads = dict(
+        g1=t3["dg1"], be1=t3["dbe1"], wq=dwqkv[:, :C], bq=dbqkv[:C],
+        wk=dwqkv[:, C:2 * C], bk=dbqkv[C:2 * C], wv=dwqkv[:, 2 * C:],
+        bv=dbqkv[2 * C:], bias=dbias, wp=a.float().t() @ t2["do1"].float(),
+        bp=t2["dbp"], g2=t2["dg2"], be2=t2["dbe2"],
+        w1=t2["y2"].float().t() @ t2["dh"].float(), b1=t2["db1"],
+        w2=t2["g"].float().t() @ t2["do2"].float(), b2=t2["db2"])
+    return dict(y=y, qkv=qkv, a=a, **t2, dqkv=dqkv,
+                dx=t3["dx"].reshape(B, L, C), grads=grads)
+
+
+def bwd_stage_errors(x, params, keep1, keep2, do, *, N: int, nH: int,
+                     nW: int, scale: float, region=None, pad=None,
+                     eps: float = 1e-6) -> dict:
+    """Each backward stage kernel against its plain twin on the kernel's
+    own inputs for that stage (the scratch :func:`_bwd_buffers` returns):
+    T1 (y, qkv), A1 (a), T2 (y2, do2, g, dh, dx2, do1, da), A2 (dq|dk|dv,
+    dbias), T3 (dx). Returns each output's max-abs difference over the
+    plain one's max-abs; raises if a kernel output is not finite. CUDA
+    tensors (the kernels run)."""
+    B, L, C = x.shape
+    M = params["w1"].shape[1]
+    dx, grads, sc = _bwd_buffers(x, params, keep1, keep2, region, pad, do,
+                                 (N, nH, nW, scale, eps))
+    ws = sc["WS"]
+    col = dict(y=(0, C), dqkv=(C, 4 * C), a=(4 * C, 5 * C),
+               do1=(5 * C, 6 * C), y2=(6 * C, 7 * C), do2=(7 * C, 8 * C),
+               g=(8 * C, 8 * C + M), dh=(8 * C + M, 8 * C + 2 * M))
+    got = {n: ws[:, a:b] for n, (a, b) in col.items()}
+    got.update(qkv=sc["QKV"], da=sc["DA"], dx2=sc["DX32"],
+               dx=dx.reshape(-1, C), dbias=grads["bias"])
+    xr, dor = x.reshape(-1, C), do.to(x.dtype).reshape(-1, C)
+    want = {}
+    want["y"], want["qkv"] = stage_t1(xr, params, pad, L, eps)
+    q2, k2, v2 = (t.contiguous() for t in got["qkv"].split(C, dim=-1))
+    bias = params["bias"].float()
+    want["a"] = wa.window_attention_plain(q2, k2, v2, bias, region, N, nH,
+                                          scale)
+    t2 = stage_t2(xr, got["a"], dor, params, keep1, keep2, L, eps)
+    want.update({n: t2[n] for n in ("y2", "do2", "g", "dh", "dx2", "do1",
+                                    "da")})
+    dq, dk, dv, want["dbias"] = wa.window_attention_bwd_plain(
+        q2, k2, v2, got["da"].contiguous(), bias, region, N, nH, scale)
+    want["dqkv"] = torch.cat([dq, dk, dv], dim=-1)
+    want["dx"] = stage_t3(xr, got["dqkv"], got["dx2"], params, pad, L,
+                          eps)["dx"]
+    errs = {}
+    for name, w in want.items():
+        g = got[name].float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"backward stage output {name} not finite")
+        errs[name] = ((g - w.float()).abs().max().item()
+                      / max(w.float().abs().max().item(), 1e-6))
+    return errs
+
+
 def fused_swin_block(x, params, keep1, keep2, *, N: int, nH: int, nW: int,
                      scale: float, region=None, pad=None,
                      eps: float = 1e-6) -> torch.Tensor:
@@ -138,6 +322,17 @@ def supports(N: int, C: int, nH: int, M: int) -> bool:
     if hd % 16 or hd > 64:
         return False
     return (C <= 192) + (N <= 49) + (hd <= 32) >= 2
+
+
+def token_rows(C: int, itemsize: int = 2) -> int:
+    """Rows of one backward token tile (T1, T2, T3): 64 up to C=96, else
+    32 (16 for fp32 above C=256), so that two bf16 T2 blocks share an SM
+    up to C=256 and every block fits."""
+    if C <= _TOKEN_ROWS_MAX_C:
+        return _TOKEN_ROWS
+    if itemsize == 4 and C > 256:
+        return _TOKEN_ROWS_FP32_WIDE
+    return _TOKEN_ROWS_WIDE
 
 
 def _chunks(rows: int, C: int, M: int) -> int:
@@ -179,8 +374,9 @@ def _operands(x, ps, nH, weights):
     """Kernel operands: fp32 vectors and bias, and the weight copies named
     in ``weights`` in x's dtype (``*_F`` [out][in] for the forward
     products, ``*_B`` [in][out] for the backward's), all contiguous. The
-    q/k/v weights' outputs are head-major (head h's q, k and v columns side
-    by side), so one product per head makes all three."""
+    forward's q/k/v weight has head-major outputs (head h's q, k and v
+    columns side by side), so one product per head makes all three; the
+    backward's is [wq | wk | wv], the column order of its dq | dk | dv."""
     dt = x.dtype
     C = x.shape[-1]
     f32 = {n: ps[n].float().contiguous()
@@ -189,19 +385,23 @@ def _operands(x, ps, nH, weights):
         G1=f32["g1"], BE1=f32["be1"], BP=f32["bp"], G2=f32["g2"],
         BE2=f32["be2"], B1=f32["b1"], B2=f32["b2"], BIAS=f32["bias"],
         BQKV=torch.cat([ps["bq"], ps["bk"], ps["bv"]]).float().contiguous())
-    cast = {}                                   # [in][out] in x's dtype
     for name in weights:
         w, layout = name.split("_")
-        if w not in cast:
-            cast[w] = (torch.stack([ps["wq"], ps["wk"], ps["wv"]], dim=1)
-                       .to(dt).reshape(C, 3, nH, C // nH).transpose(1, 2)
-                       .reshape(C, 3 * C) if w == "WQKV"
-                       else ps[w.lower()].to(dt))
-        ops[name] = (cast[w].t() if layout == "F" else cast[w]).contiguous()
+        if w == "WQKV":
+            qkv = torch.stack([ps["wq"], ps["wk"], ps["wv"]], dim=1).to(dt)
+            if layout == "F":               # [out][in], outputs head-major
+                qkv = (qkv.reshape(C, 3, nH, C // nH).transpose(1, 2)
+                       .reshape(C, 3 * C).t())
+            else:                           # [in][out]: [wq | wk | wv]
+                qkv = qkv.reshape(C, 3 * C)
+            ops[name] = qkv.contiguous()
+        else:                               # ps holds [in][out]
+            cast = ps[w.lower()].to(dt)
+            ops[name] = (cast.t() if layout == "F" else cast).contiguous()
     return ops
 
 
-def _call(entry, x, tensors, geometry, chunks):
+def _call(entry, x, tensors, geometry, chunks, plan=(0, 0, 0, 0, 0)):
     N, nH, nW, scale, eps = geometry
     B, L, C = x.shape
     M = tensors["W1_F"].shape[0]
@@ -211,7 +411,7 @@ def _call(entry, x, tensors, geometry, chunks):
         raise ValueError("fused_block kernel operands must be 16-byte aligned "
                          "(the kernels load 4 and 16 bytes at a time)")
     table = (ctypes.c_void_p * len(_PTRS))(*ptrs)
-    dims = (ctypes.c_int * 7)(B * nW, N, C, nH, M, nW, chunks)
+    dims = (ctypes.c_int * 12)(B * nW, N, C, nH, M, nW, chunks, *plan)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = entry(table, dims, ctypes.c_float(scale), ctypes.c_float(eps),
@@ -234,6 +434,14 @@ def _fwd(x, ps, keep1, keep2, region, pad, geometry):
 
 def _bwd(x, ps, keep1, keep2, region, pad, do, geometry):
     """dx and the 17 parameter gradients (fp32, the params' layouts)."""
+    dx, grads, _ = _bwd_buffers(x, ps, keep1, keep2, region, pad, do, geometry)
+    return dx, grads
+
+
+def _bwd_buffers(x, ps, keep1, keep2, region, pad, do, geometry):
+    """:func:`_bwd`, and the backward's scratch as its kernels left it:
+    QKV, DA, DX32 and the workspace WS (columns y | dq dk dv | a | do1 | y2
+    | do2 | g | dh)."""
     N, nH, nW = geometry[:3]
     _check(x, ps, keep1, keep2, region, pad, N, nH, nW)
     x, do = x.contiguous(), do.to(x.dtype).contiguous()
@@ -242,13 +450,18 @@ def _bwd(x, ps, keep1, keep2, region, pad, do, geometry):
     B_, rows = B * nW, B * L
     V = 9 * C + M
     chunks = _chunks(rows, C, M)
+    R = token_rows(C, x.element_size())
+    tiles = -(-rows // R)
+    sms = wa._sm_count(x.device.index)
+    fplan = wa.tile_plan(B_, N, C // nH, nH, nW, x.element_size(), sms)
+    bplan = wa.tile_plan(B_, N, C // nH, nH, nW, x.element_size(), sms,
+                         backward=True)
     dev, f32 = x.device, torch.float32
 
     def groups(n):
         return -(-n // _SUM_GROUP) if n > _SUM_GROUP else 0
 
-    tmp = max(groups(B_) * max(V, nH * N * N),
-              groups(chunks) * max(3 * C * C, C * M), 1)
+    tmp = max(groups(tiles) * V, groups(chunks) * max(3 * C * C, C * M), 1)
     out = dict(
         D_WQKV=torch.empty(C, 3 * C, dtype=f32, device=dev),
         D_WP=torch.empty(C, C, dtype=f32, device=dev),
@@ -257,17 +470,22 @@ def _bwd(x, ps, keep1, keep2, region, pad, do, geometry):
         D_VEC=torch.empty(V, dtype=f32, device=dev),
         D_BIAS=torch.empty(nH, N, N, dtype=f32, device=dev))
     dx = torch.empty_like(x)
-    tensors = dict(
-        _operands(x, ps, nH, _BWD_WEIGHTS), **out, X=x, KEEP1=keep1,
-        KEEP2=keep2, REGION=region, PAD=pad, DOUT=do, DX=dx,
+    scratch = dict(
+        QKV=torch.empty(rows, 3 * C, dtype=x.dtype, device=dev),
+        DA=torch.empty(rows, C, dtype=x.dtype, device=dev),
         DX32=torch.empty(rows, C, dtype=f32, device=dev),
-        WS=torch.empty(rows, 8 * C + 2 * M, dtype=x.dtype, device=dev),
-        VPART=torch.empty(B_, V, dtype=f32, device=dev),
-        BPART=torch.empty(B_, nH * N * N, dtype=f32, device=dev),
+        WS=torch.empty(rows, 8 * C + 2 * M, dtype=x.dtype, device=dev))
+    tensors = dict(
+        _operands(x, ps, nH, _BWD_WEIGHTS), **out, **scratch, X=x,
+        KEEP1=keep1, KEEP2=keep2, REGION=region, PAD=pad, DOUT=do, DX=dx,
+        VPART=torch.empty(tiles, V, dtype=f32, device=dev),
+        BPART=torch.empty(nH * wa.bwd_partials(bplan, nW) * N * N, dtype=f32,
+                          device=dev),
         WPART=torch.empty(chunks * max(3 * C * C, C * M), dtype=f32,
                           device=dev),
         TMP=torch.empty(tmp, dtype=f32, device=dev))
-    _call(_lib().esvit_fused_block_bwd, x, tensors, geometry, chunks)
+    _call(_lib().esvit_fused_block_bwd, x, tensors, geometry, chunks,
+          (R, fplan.warps, fplan.run, bplan.warps, bplan.run))
     launches["bwd"] += 1
     vec = out["D_VEC"]
     dwqkv = out["D_WQKV"]
@@ -278,7 +496,7 @@ def _bwd(x, ps, keep1, keep2, region, pad, do, geometry):
         b1=vec[9 * C:], wq=dwqkv[:, :C], wk=dwqkv[:, C:2 * C],
         wv=dwqkv[:, 2 * C:], wp=out["D_WP"], w1=out["D_W1"],
         w2=out["D_W2"], bias=out["D_BIAS"])
-    return dx, grads
+    return dx, grads, scratch
 
 
 @functools.cache
@@ -295,6 +513,8 @@ def _lib():
         fn.restype = I
     lib.esvit_fused_block_smem_bytes.argtypes = [I, I, I, I]
     lib.esvit_fused_block_smem_bytes.restype = ctypes.c_longlong
+    lib.esvit_fused_block_bwd_smem_bytes.argtypes = [I, I, I]
+    lib.esvit_fused_block_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -2,13 +2,14 @@
 
 Replaces esvit_tpu/ops/packed_window_attention.py ``_fwd_kernel`` and
 ``_bwd_kernel`` (via ``packed_window_attention``) with
-``csrc/window_attention.cu``. The forward runs on the tile kernel of
-``csrc/window_attention_tile.cuh`` (bf16 on the tensor cores, fp32 as
-register-tiled FMAs): one warp per (window, head) at a time, several warps
-per block on windows of one (head, window type); :func:`tile_plan` picks
-the block's warps and the windows per warp. In the backward one block per
-(head, run of windows), whose dbias partials a second kernel sums in a
-fixed order, so dbias is deterministic. The sources note what bounds the
+``csrc/window_attention.cu``. Both run on the tile kernels of
+``csrc/window_attention_tile.cuh``: in bf16 on the tensor cores, one warp
+(forward) or a group of four (backward) per (window, head) at a time,
+several per block on windows of one (head, window type); :func:`tile_plan`
+picks the block's warps and the windows per warp. The fp32 products are
+register-tiled FMAs on the CUDA cores (no TF32). Each backward
+block writes one dbias partial, which a second kernel sums in a fixed
+order, so dbias is deterministic. The sources note what bounds the
 kernels on Hopper.
 
 Layouts are the JAX ones: q2/k2/v2 ``(B_*N, C)`` window-major rows
@@ -33,84 +34,120 @@ from esvit_tpu_torch.ops import cuda_build
 launches = {"fwd": 0, "bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Backward blocks each own one head and `run` windows; about this many
-# blocks per call keep the card's 132 SMs busy.
-_TARGET_BWD_BLOCKS = 1024
 
-# The forward tile kernel's launch plan (csrc/window_attention_tile.cuh),
-# from an H100 SM's limits: 228 KB of shared memory, 1 KB of it reserved
-# per block, at most 227 KB for one block; at most 32 blocks; 65536
-# registers. By itemsize: the warps an SM holds at the tile kernel's
-# registers (nvcc -Xptxas -v: at most 120 a thread in bf16, 254 in fp32),
-# and the longest run of windows per warp (the run that timed best on an
-# H100 at Swin-T's 224 px shapes, among runs of 1, 2 and 4).
+# The tile kernels' launch plans (csrc/window_attention_tile.cuh), from an
+# H100 SM's limits: 228 KB of shared memory, 1 KB of it reserved per
+# block, at most 227 KB for one block; at most 32 blocks; 65536 registers.
+# By itemsize: the warps an SM holds at a kernel's registers (nvcc -Xptxas
+# -v; chip_smoke.py fails if a build needs more registers than these
+# allow), and the longest run of windows per warp (forward: the run that
+# timed best on an H100 at Swin-T's 224 px shapes, among runs of 1, 2 and
+# 4).
 _SM_SMEM = 233472
 _BLOCK_RESERVED = 1024
 _BLOCK_SMEM_MAX = 232448
 _SM_BLOCKS_MAX = 32
+_SM_REGS = 65536
 _SM_WARPS_MAX = {2: 16, 4: 8}
+_SM_WARPS_MAX_BWD = {2: 16, 4: 16}
 _MAX_RUN = {2: 2, 4: 4}
+_MAX_RUN_BWD = {2: 2, 4: 2}
 _TILE_WARPS = (8, 7, 6, 5, 4, 3, 2, 1)
+_BWD_GROUP = 4          # warps per (window, head) in the backward
+_BWD_WARPS = (8, 4)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int) -> int:
-    """Dynamic shared memory of a forward tile block (wtile::smem_bytes):
-    the (N, N) fp32 bias slice at an odd number of 16-byte units per row,
-    then per warp its q, k, v tiles (bf16: N rows each at head_pad(hd) + 8;
-    fp32: N, N and round_up(N, 4) rows at head_pad(hd) + 4, q and k
-    sharing their room with the (N, 8 ceil(N / 8) + 4) p tile), each part
-    rounded up to 128 bytes."""
+def _bias_bytes(N: int) -> int:
+    """The (N, N) fp32 bias slice at an odd number of 16-byte units per row,
+    rounded up to 128 bytes (wtile::bias_bytes)."""
     r4 = _round_up(N, 4)
     bias_ld = r4 if (r4 // 4) % 2 else r4 + 4
+    return _round_up(N * bias_ld * 4, 128)
+
+
+def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
+                    backward: bool = False) -> int:
+    """Dynamic shared memory of a tile block (wtile::smem_bytes,
+    bwd_smem_bytes).
+
+    Forward: the bias slice, then per warp its q, k, v tiles (bf16: N rows
+    each at head_pad(hd) + 8; fp32: N, N and round_up(N, 4) rows at
+    head_pad(hd) + 4, q and k sharing their room with the
+    (N, 8 ceil(N / 8) + 4) p tile), each part rounded up to 128 bytes.
+    Backward: the bias slice, then per group of four warps its q, k, v, do
+    tiles (N rows each at head_pad(hd) + 8 bf16 / + 4 fp32, rounded up to
+    128 bytes), its row constants (3 x 64 floats), its (N, N) fp32 dbias
+    accumulator (the bias slice's layout) and, fp32 only, a 16-row scratch
+    per warp at the fp32 p tile's stride 8 ceil(N / 8) + 4."""
     hdp = _round_up(hd, 16)
+    if backward:
+        ld = hdp + (8 if itemsize == 2 else 4)
+        tiles = _round_up(4 * N * ld * itemsize, 128)
+        scratch = (0 if itemsize == 2 else
+                   _BWD_GROUP * 16 * (8 * -(-N // 8) + 4) * 4)
+        return _bias_bytes(N) + warps // _BWD_GROUP * (
+            tiles + 3 * 64 * 4 + _bias_bytes(N) + scratch)
     if itemsize == 2:
         tiles = 3 * N * (hdp + 8) * 2
     else:
         ld = hdp + 4
-        tiles = (max(2 * N * ld, N * _round_up(N, 8) + 4 * N) + r4 * ld) * 4
-    return (_round_up(N * bias_ld * 4, 128)
-            + warps * _round_up(tiles, 128))
+        tiles = (max(2 * N * ld, N * _round_up(N, 8) + 4 * N)
+                 + _round_up(N, 4) * ld) * 4
+    return _bias_bytes(N) + warps * _round_up(tiles, 128)
 
 
 class TilePlan(NamedTuple):
     warps: int    # warps per block
-    run: int      # windows per warp
+    run: int      # windows per warp (backward: per group of four warps)
     chunks: int   # blocks per (head, window type): the grid is (chunks, nH * types)
     smem: int     # dynamic shared memory per block, bytes
 
 
 @functools.lru_cache(maxsize=None)
 def tile_plan(B_: int, N: int, hd: int, nH: int, types: int, itemsize: int,
-              sms: int = 132) -> TilePlan:
-    """The forward's launch geometry. Warps per block: the count that keeps
-    the most warps resident on an SM (ties: more warps, so a bias slice
-    serves more windows). Windows per warp: the longest run up to
-    _MAX_RUN that still gives half a wave of blocks or more, else 1. Short
-    runs let the block scheduler even out the SMs' loads."""
+              sms: int = 132, backward: bool = False) -> TilePlan:
+    """A tile kernel's launch geometry. Warps per block: the count that
+    keeps the most warps resident on an SM (ties: more warps, so a bias
+    slice serves more windows); the backward takes 8 or 4 (groups of four
+    warps per window). Windows per warp (per group): the longest run up to
+    the kernel's maximum that still gives half a wave of blocks or more
+    (the backward: a whole wave), else 1. Short runs let the block
+    scheduler even out the SMs' loads."""
     per_type = B_ // types
+    cap = (_SM_WARPS_MAX_BWD if backward else _SM_WARPS_MAX)[itemsize]
 
     def resident(w):
-        smem = tile_smem_bytes(N, hd, itemsize, w)
+        smem = tile_smem_bytes(N, hd, itemsize, w, backward)
         if smem > _BLOCK_SMEM_MAX:
             return 0
-        return min(_SM_SMEM // (smem + _BLOCK_RESERVED),
-                   _SM_WARPS_MAX[itemsize] // w, _SM_BLOCKS_MAX)
+        return min(_SM_SMEM // (smem + _BLOCK_RESERVED), cap // w,
+                   _SM_BLOCKS_MAX)
 
-    warps = max(_TILE_WARPS, key=lambda w: (resident(w) * w, w))
+    warps = max(_BWD_WARPS if backward else _TILE_WARPS,
+                key=lambda w: (resident(w) * w, w))
+    per_run = warps // _BWD_GROUP if backward else warps
 
     def chunks(run):
-        return -(-per_type // (warps * run))
+        return -(-per_type // (per_run * run))
 
-    slots = resident(warps) * sms
-    run = _MAX_RUN[itemsize]
-    while run > 1 and 2 * chunks(run) * nH * types < slots:
+    # blocks wanted: half a wave (forward), a whole one (the backward's
+    # windows take longer, so a short last wave costs more)
+    slots = resident(warps) * sms // (1 if backward else 2)
+    run = (_MAX_RUN_BWD if backward else _MAX_RUN)[itemsize]
+    while run > 1 and chunks(run) * nH * types < slots:
         run //= 2
     return TilePlan(warps, run, chunks(run),
-                    tile_smem_bytes(N, hd, itemsize, warps))
+                    tile_smem_bytes(N, hd, itemsize, warps, backward))
+
+
+def bwd_partials(plan: TilePlan, types: int) -> int:
+    """dbias partials per head of a backward launch (wtile::bwd_parts):
+    one per block."""
+    return types * plan.chunks
 
 
 @functools.cache
@@ -147,6 +184,39 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
     out = torch.einsum("bhnm,bmhd->bnhd", probs.to(dtype).float(), v.float())
     out = out.to(dtype).reshape(B_ * N, C)
     return (out, probs) if return_probs else out
+
+
+def window_attention_bwd_plain(q2, k2, v2, do, bias, region, N: int, nH: int,
+                               scale: float):
+    """The backward kernels' function in plain PyTorch, with their
+    roundings (not autograd's): p recomputed in fp32; dv =
+    round(round(p)^T do); dp = do v^T in fp32; ds = p (dp - rowsum(p dp));
+    dq = round(round(ds) k * scale); dk = round(round(ds)^T qs), qs =
+    round(q * round(scale)); dbias = the fp32 sum of ds over windows.
+    Layouts as :func:`window_attention_plain` (bias the (nH, N, N) table);
+    returns dq, dk, dv (the inputs' layout and dtype) and dbias."""
+    dtype = q2.dtype
+    C = q2.shape[-1]
+    B_ = q2.shape[0] // N
+    hd = C // nH
+    q, k, v, g = (t.reshape(B_, N, nH, hd) for t in (q2, k2, v2, do))
+    qs = q * torch.tensor(scale, dtype=dtype)
+    s = torch.einsum("bnhd,bmhd->bhnm", qs.float(), k.float())
+    full = bias.float()[None]
+    if region is not None:
+        differ = region[:, :, None] != region[:, None, :]
+        full = full + torch.where(differ, -100.0, 0.0)[:, None]
+    nWm = full.shape[0]
+    s = (s.reshape(B_ // nWm, nWm, nH, N, N) + full).reshape(B_, nH, N, N)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(dtype).float(), g.float())
+    dp = torch.einsum("bnhd,bmhd->bhnm", g.float(), v.float())
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dsr = ds.to(dtype).float()
+    dq = torch.einsum("bhnm,bmhd->bnhd", dsr, k.float()) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", dsr, qs.float())
+    return (dq.to(dtype).reshape(B_ * N, C), dk.to(dtype).reshape(B_ * N, C),
+            dv.to(dtype).reshape(B_ * N, C), ds.sum(0))
 
 
 def window_attention(q2, k2, v2, bias, region, N: int, nH: int,
@@ -222,19 +292,19 @@ def _bwd(q2, k2, v2, bias, region, do, N, nH, scale):
     rows, C = q2.shape
     B_ = rows // N
     nW = region.shape[0] if region is not None else 1
-    run = max(1, B_ * nH // _TARGET_BWD_BLOCKS)
-    chunks = -(-B_ // run)
+    plan = tile_plan(B_, N, C // nH, nH, nW, q2.element_size(),
+                     _sm_count(q2.device.index), backward=True)
     dq, dk, dv = torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
-    partial = torch.empty((nH, chunks, N, N), dtype=torch.float32,
-                          device=q2.device)
+    partial = torch.empty((nH, bwd_partials(plan, nW), N, N),
+                          dtype=torch.float32, device=q2.device)
     dbias = torch.empty((nH, N, N), dtype=torch.float32, device=q2.device)
     with torch.cuda.device(q2.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.esvit_window_attention_bwd(
             _ptr(q2), _ptr(k2), _ptr(v2), _ptr(bias), _ptr(region), _ptr(do),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(partial), _ptr(dbias),
-            B_, N, C, nH, nW, ctypes.c_float(scale), _DTYPES[q2.dtype], run,
-            ctypes.c_void_p(stream))
+            B_, N, C, nH, nW, ctypes.c_float(scale), _DTYPES[q2.dtype],
+            plan.warps, plan.run, ctypes.c_void_p(stream))
     _raise_on(rc, "backward")
     launches["bwd"] += 1
     return dq, dk, dv, dbias
@@ -248,10 +318,12 @@ def _lib():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.esvit_window_attention_fwd.argtypes = [P] * 6 + [I] * 5 + [F] + [I] * 3 + [P]
     lib.esvit_window_attention_fwd.restype = I
-    lib.esvit_window_attention_bwd.argtypes = [P] * 11 + [I] * 5 + [F, I, I, P]
+    lib.esvit_window_attention_bwd.argtypes = [P] * 11 + [I] * 5 + [F] + [I] * 3 + [P]
     lib.esvit_window_attention_bwd.restype = I
-    lib.esvit_window_attention_tile_smem_bytes.argtypes = [I] * 4
-    lib.esvit_window_attention_tile_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.esvit_window_attention_tile_smem_bytes,
+               lib.esvit_window_attention_bwd_smem_bytes):
+        fn.argtypes = [I] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -34,13 +34,18 @@ MODELS = {"swin_tiny": (config_lib.swin_tiny_multicrop, "Swin-T W=7"),
 
 
 def _kernel_group(name: str) -> str:
+    """A kernel's group by its demangled name. The block-fused backward's
+    attention halves (A1, A2 and their dbias sum) are the window-attention
+    tile kernels instantiated with the fused block's bias policy
+    (FusedBlockBias), so they go to the fused block."""
     n = name.lower()
     if "sliding_chunk" in n or "glo_reduce" in n:
         return "sliding chunk (this repo's CUDA)"
+    if any(k in n for k in ("fusedblockbias", "fused_block", "fused_bwd",
+                            "wgrad", "sum_rows")):
+        return "fused block (this repo's CUDA)"
     if "window_attention" in n or "dbias_reduce" in n:
         return "window attention (this repo's CUDA)"
-    if any(k in n for k in ("fused_block", "wgrad_kernel", "sum_rows")):
-        return "fused block (this repo's CUDA)"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMM (cuBLAS)"
     if "reduce" in n or "norm" in n or "softmax" in n:

@@ -1,4 +1,4 @@
-"""The port's CUDA window-attention kernels against their plain version.
+"""The port's CUDA kernels against their plain versions.
 
 Needs an NVIDIA GPU with nvcc (the kernels build from csrc/ at first use);
 every test here is marked ``cuda`` and skips without a card. Run on one
@@ -77,6 +77,8 @@ TILE_CASES = [
     (49, 96, 3, 40, 8, 0),
     (49, 20, 2, 6, 2, 0),
     (49, 96, 3, 8, 0, 1),
+    (37, 64, 2, 9, 3, 0),
+    (64, 128, 4, 20, 4, 1),
 ]
 
 
@@ -126,19 +128,24 @@ def test_cuda_kernel_tile_shapes_match_plain(cuda, case, dtype, tol):
 
 @pytest.mark.cuda
 def test_cuda_tile_plan_fits_the_card(cuda):
-    """tile_smem_bytes is the kernel's own count (wtile::smem_bytes), and
-    every plan of a shape supports() admits fits a block."""
+    """tile_smem_bytes is the kernels' own count (wtile::smem_bytes, and
+    bwd_smem_bytes for the backward), and every plan
+    of a shape supports() admits fits a block."""
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = wa._lib()
+    counts = {False: lib.esvit_window_attention_tile_smem_bytes,
+              True: lib.esvit_window_attention_bwd_smem_bytes}
     for N in range(1, 65):
         for hd in range(1, 65):
             for itemsize in (2, 4):
-                for warps in range(1, 9):
-                    assert (lib.esvit_window_attention_tile_smem_bytes(
-                        N, hd, itemsize, warps)
-                        == wa.tile_smem_bytes(N, hd, itemsize, warps))
-                plan = wa.tile_plan(8, N, hd, 1, 1, itemsize)
-                assert plan.smem <= limit, (N, hd, itemsize, plan)
+                for backward, count in counts.items():
+                    for warps in range(1, 9):
+                        assert (count(N, hd, itemsize, warps)
+                                == wa.tile_smem_bytes(N, hd, itemsize, warps,
+                                                      backward))
+                    plan = wa.tile_plan(8, N, hd, 1, 1, itemsize,
+                                        backward=backward)
+                    assert plan.smem <= limit, (N, hd, itemsize, plan)
 
 
 @pytest.mark.cuda
@@ -270,6 +277,63 @@ def test_cuda_fused_block_augmented_window(cuda, dtype, tol):
         s = _fused_scale(ref, name)
         torch.testing.assert_close(a / s, ref[name] / s, rtol=tol, atol=tol,
                                    msg=name)
+
+
+# The backward's split (T1, A1, T2, A2, T3): (B, H, ws, C, nH, shifted,
+# padded, drop-path). N 16 over 9 window types with 432 rows (a ragged last
+# token tile of 48), N 64 (the largest window tile), Swin's 49 at C=384
+# (32-row token tiles, 882 rows) and a padded stage.
+FUSED_STAGE_CASES = [
+    (3, 12, 4, 64, 2, True, False, True),
+    (2, 16, 8, 128, 4, True, False, False),
+    (2, 21, 7, 384, 12, True, False, True),
+    (3, 10, 7, 96, 3, True, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", FUSED_STAGE_CASES)
+def test_cuda_fused_backward_stages_match_plain(cuda, case, dtype, tol):
+    """All 19 results within tol of the plain version and bit-identical on
+    repeat; each stage kernel within tol of its plain twin on its own
+    inputs (ops/fused_block.py bwd_stage_errors)."""
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    x, p, keep, kw = _fused_inputs(cuda, *case, seed=3)
+    dout = np.random.RandomState(4).randn(*x.shape).astype(np.float32)
+    got = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
+    again = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
+    ref = _fused_run(fb.fused_swin_block_plain, cuda, dtype, x, p, keep, kw,
+                     dout)
+    for name, a in got.items():
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, again[name], rtol=0, atol=0, msg=name)
+        s = _fused_scale(ref, name)
+        torch.testing.assert_close(a / s, ref[name] / s, rtol=tol, atol=tol,
+                                   msg=name)
+    k1, k2 = ((None, None) if keep is None
+              else [torch.tensor(k, device=cuda) for k in keep])
+    errs = fb.bwd_stage_errors(
+        torch.tensor(x, device=cuda, dtype=dtype),
+        {k: torch.tensor(v, device=cuda) for k, v in p.items()}, k1, k2,
+        torch.tensor(dout, device=cuda, dtype=dtype), **kw)
+    assert max(errs.values()) <= tol, errs
+
+
+@pytest.mark.cuda
+def test_cuda_fused_backward_token_tiles_fit_the_card(cuda):
+    """The backward's token-tile blocks (T1, T2, T3) at the rows
+    token_rows gives every admitted width fit a block."""
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = fb._lib()
+    for C in range(32, fb._MAX_C + 1, 32):
+        for itemsize in (2, 4):
+            assert lib.esvit_fused_block_bwd_smem_bytes(
+                C, fb.token_rows(C, itemsize), itemsize) <= limit, (C, itemsize)
 
 
 @pytest.mark.cuda

@@ -275,9 +275,10 @@ def test_supports_is_a_shape_rule(N, C, nH, M, ok):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_operands_are_head_major(dtype):
     """Row h*3hd + part*hd + j of the kernels' q/k/v weight (the [out][in]
-    copy) is column h*hd + j of wq, wk or wv; the [in][out] copy is its
-    transpose; every operand is contiguous in x's dtype or fp32. The
-    forward gets only the [out][in] copies."""
+    copy) is column h*hd + j of wq, wk or wv; the [in][out] copy is
+    [wq | wk | wv], the backward's dq | dk | dv column order; every operand
+    is contiguous in x's dtype or fp32. The forward gets only the
+    [out][in] copies."""
     C, nH, M = 64, 2, 128
     hd = C // nH
     rng = np.random.default_rng(3)
@@ -295,7 +296,9 @@ def test_kernel_operands_are_head_major(dtype):
             torch.testing.assert_close(
                 rows, ps[name][:, h * hd:(h + 1) * hd].t().to(dtype),
                 rtol=0, atol=0)
-    torch.testing.assert_close(ops["WQKV_B"], wf.t(), rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops["WQKV_B"], torch.cat([ps["wq"], ps["wk"], ps["wv"]], 1).to(dtype),
+        rtol=0, atol=0)
     torch.testing.assert_close(ops["W1_F"], ps["w1"].t().to(dtype), rtol=0,
                                atol=0)
     for name, t in ops.items():
