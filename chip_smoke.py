@@ -21,16 +21,19 @@ so the script exits non-zero and prints no result line:
    shape's bound. First, the tile kernels' shared memory (forward and
    backward) as the wrapper counts it equals the kernels' own count at
    every N, head dim and dtype, and fits a block.
-4. The block-fused kernel pair vs its plain version at every block shape
-   the default (fused) route gives it, shifted and unshifted, with
+4. The block-fused kernels vs their plain version at every block shape
+   the default (fused) route gives them, shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
    output, dx and all 17 parameter gradients within the same tolerances
    (dbk, whose exact value is 0, at the scale of the largest gradient);
-   every gradient bit-identical on repeat; each backward stage kernel (T1,
-   A1, T2, A2, T3) within the same tolerance of its plain twin on its own
-   inputs; median times over 20 reps; the backward's device time split by
-   kernel (torch.profiler), per shape and per default step. First, the
-   backward's token-tile blocks fit the card at every admitted width.
+   every result bit-identical on repeat; each forward stage kernel (F1,
+   A1, F2, F3, F4) and each backward stage kernel (T1, A1, T2, A2, T3)
+   within the same tolerance of its plain twin on its own inputs; median
+   times over 20 reps; both passes' device time split by kernel
+   (torch.profiler), per shape and per default step; beside the forward,
+   a yardstick: torch.matmul (cuBLAS) of the block's four products at the
+   shape, timed only. First, both passes' token-tile blocks fit the card
+   at every admitted width.
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
    of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case): the
    output and the five gradients within the same tolerances, every one
@@ -60,7 +63,10 @@ so the script exits non-zero and prints no result line:
    ViL-T on the same crops, in the same process. Losses must be finite;
    student, teacher and both centers must change (default route and
    ViL-T); each run's launch counts of every kernel must equal the
-   per-step counts derived from the model times the steps.
+   per-step counts derived from the model times the steps. Then the
+   route order: the default route and fused_block_stages=() alternate for
+   3 rounds of 3 steps each; each route's median ms per step over steps
+   2-3 of its rounds and their spread.
 9. The eval slice: Swin-T on the qkv-layout route, fp32, random weights
    from seed 0, batch 64, on synthetic 256 px images (PIL decode
    and transform on the host; 2048 train, 512 val, 10 classes):
@@ -98,6 +104,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
 STEPS = 5
 REPS = 20
+# The route order: rounds of the default route and fused_block_stages=()
+# in turns, and steps per round.
+ROUTE_ROUNDS, ROUTE_STEPS = 3, 3
 KERNELS = {
     "window_attention": ("esvit_tpu_torch/csrc/window_attention.cu", {
         "fwd": "esvit_tpu/ops/packed_window_attention.py:305",
@@ -351,8 +360,12 @@ def kernel_split(torch, fn, reps=REPS):
 
 def _kernel_key(name):
     """A kernel's bare name: no return type, namespaces, template arguments
-    or parameters."""
+    or parameters; a block-fused forward stage kernel keeps its stage
+    (fused_block_fwd_tc_kernel<WN, S> is "F<S> fused_block_fwd_tc")."""
     name = name.replace("(anonymous namespace)::", "")
+    m = re.search(r"(fused_block_fwd_\w+)_kernel<(?:\d+, )?(\d+)>", name)
+    if m:
+        return f"F{m.group(2)} {m.group(1)}"
     return re.split(r"[(<]", name, maxsplit=1)[0].split()[-1].split("::")[-1]
 
 
@@ -542,29 +555,21 @@ def phase_fused(torch, fb, wa, wops):
     kernel/plain milliseconds."""
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = fb._lib()
-    for N in range(1, 65):
-        for C in range(32, fb._MAX_C + 1, 32):
-            for nH in (n for n in range(1, C + 1) if C % n == 0):
-                if not fb.supports(N, C, nH, 4 * C):
-                    continue
-                for itemsize in (2, 4):
-                    need = lib.esvit_fused_block_smem_bytes(N, C, nH, itemsize)
-                    if need > limit:
-                        raise AssertionError(
-                            f"supports() admits N={N} C={C} nH={nH}, whose "
-                            f"{itemsize}-byte block needs {need} bytes of "
-                            f"shared memory (card: {limit})")
     for C in range(32, fb._MAX_C + 1, 32):
         for itemsize in (2, 4):
-            need = lib.esvit_fused_block_bwd_smem_bytes(
-                C, fb.token_rows(C, itemsize), itemsize)
-            if need > limit:
-                raise AssertionError(
-                    f"the backward's token tiles at C={C} need {need} bytes "
-                    f"of shared memory (card: {limit})")
+            need = {"forward": lib.esvit_fused_block_fwd_smem_bytes(
+                        C, 4 * C, itemsize),
+                    "backward": lib.esvit_fused_block_bwd_smem_bytes(
+                        C, fb.token_rows(C, itemsize), itemsize)}
+            for what, n in need.items():
+                if n > limit:
+                    raise AssertionError(
+                        f"the {what}'s token tiles at C={C} need {n} bytes "
+                        f"of shared memory (card: {limit})")
     gen = torch.Generator(device="cuda").manual_seed(1)
     tally = {"fwd": Tally(), "bwd": Tally()}
-    split_step = {}
+    split_step = {"fwd": {}, "bwd": {}}
+    cublas_step = 0.0
     for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd in FUSED_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, params, k1, k2, region, pad, geo, do = _fused_case(
@@ -601,26 +606,36 @@ def phase_fused(torch, fb, wa, wops):
         tally["bwd"].err = max(tally["bwd"].err,
                                *(errs[n] for n in FUSED_GRADS))
         del got, again, ref
-        stages = fb.bwd_stage_errors(x, params, k1, k2, do, **kw)
-        bad = {n: e for n, e in stages.items() if e > TOL[dt]}
-        if bad:
-            raise AssertionError(f"fused {label}: stage errors {bad} above "
-                                 f"{TOL[dt]}")
-        log(f"fused-stages {label:22s} {dt}: " + ", ".join(
-            f"{n} {e:.2e}" for n, e in stages.items()) + f" (tol {TOL[dt]:.0e})")
+        for what, stage_errors in (("fwd", fb.fwd_stage_errors),
+                                   ("bwd", fb.bwd_stage_errors)):
+            args = (x, params, k1, k2) + ((do,) if what == "bwd" else ())
+            stages = stage_errors(*args, **kw)
+            bad = {n: e for n, e in stages.items() if e > TOL[dt]}
+            if bad:
+                raise AssertionError(f"fused {label}: {what} stage errors "
+                                     f"{bad} above {TOL[dt]}")
+            log(f"fused-stages {label:22s} {dt} {what}: " + ", ".join(
+                f"{n} {e:.2e}" for n, e in stages.items())
+                + f" (tol {TOL[dt]:.0e})")
 
         with torch.no_grad():
             t_fwd = _median_ms(torch, lambda: fb._fwd(
                 x, params, k1, k2, region, pad, geo))
             p_fwd = _median_ms(torch, lambda: fb.fused_swin_block_plain(
                 x, params, k1, k2, **kw))
+            t_cublas = _cublas_ms(torch, x, params)
+        cublas_step += n_fwd * t_cublas
         t_bwd = _median_ms(torch, lambda: fb._bwd(
             x, params, k1, k2, region, pad, do, geo))
-        split = kernel_split(torch, lambda: fb._bwd(
-            x, params, k1, k2, region, pad, do, geo))
-        for name, ms in split.items():
-            key = _kernel_key(name)
-            split_step[key] = split_step.get(key, 0.0) + n_bwd * ms
+        splits = {"fwd": kernel_split(torch, lambda: fb._fwd(
+                      x, params, k1, k2, region, pad, geo)),
+                  "bwd": kernel_split(torch, lambda: fb._bwd(
+                      x, params, k1, k2, region, pad, do, geo))}
+        for what, calls in (("fwd", n_fwd), ("bwd", n_bwd)):
+            for name, ms in splits[what].items():
+                key = _kernel_key(name)
+                split_step[what][key] = (split_step[what].get(key, 0.0)
+                                         + calls * ms)
         xs = x.clone().requires_grad_()
         ps = {n: t.clone().requires_grad_() for n, t in params.items()}
         out = fb.fused_swin_block_plain(xs, ps, k1, k2, **kw)
@@ -653,14 +668,38 @@ def phase_fused(torch, fb, wa, wops):
                                    ("bwd", (3 * rows + 2 * pbytes + tables,
                                             3 * flops)))}
         log(f"  time {label:22s} fwd kernel {t_fwd:.4f} ms plain "
-            f"{p_fwd:.4f} ms bound {bound['fwd']:.4f} ms | bwd kernel "
-            f"{t_bwd:.4f} ms plain {p_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
-        log(f"  split {label:22s} bwd {sum(split.values()):.4f} ms: "
-            f"{_split_line(split)}")
-    log("fused bwd split per default step (ms, torch.profiler): " + json.dumps(
-        {k: round(v, 4) for k, v in sorted(split_step.items(),
-                                            key=lambda kv: -kv[1])}))
+            f"{p_fwd:.4f} ms bound {bound['fwd']:.4f} ms cublas four products "
+            f"{t_cublas:.4f} ms | bwd kernel {t_bwd:.4f} ms plain "
+            f"{p_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
+        for what in ("fwd", "bwd"):
+            log(f"  split {label:22s} {what} "
+                f"{sum(splits[what].values()):.4f} ms: "
+                f"{_split_line(splits[what])}")
+    for what in ("fwd", "bwd"):
+        log(f"fused {what} split per default step (ms, torch.profiler): "
+            + json.dumps({k: round(v, 4) for k, v in sorted(
+                split_step[what].items(), key=lambda kv: -kv[1]) if v}))
+    log(f"fused fwd per default step {tally['fwd'].ms:.4f} ms beside cublas "
+        f"four products {cublas_step:.4f} ms (timed only)")
     return tally
+
+
+def _cublas_ms(torch, x, params):
+    """The yardstick of the block-fused forward: one torch.matmul (cuBLAS)
+    per product of the block (q/k/v, proj, fc1, fc2) on rows of the
+    shape's size in x's dtype; timed only, never on the port's path."""
+    rows, C = x.shape[0] * x.shape[1], x.shape[2]
+    M = params["w1"].shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=x.device).to(x.dtype)
+
+    y, g = r(rows, C), r(rows, M)
+    ws = [torch.cat([params["wq"], params["wk"], params["wv"]], 1),
+          params["wp"], params["w1"], params["w2"]]
+    wqkv, wp, w1, w2 = (w.to(x.dtype) for w in ws)
+    return _median_ms(torch, lambda: (y @ wqkv, y @ wp, y @ w1, g @ w2))
 
 
 def phase_pallas_window_attention(torch, pwa, wops):
@@ -1078,6 +1117,39 @@ def phase_slice(torch, C, counters, card, out_dir):
     return got
 
 
+def phase_route_order(torch, C, card, out_dir):
+    """The Swin-T default route and fused_block_stages=() in turns,
+    ROUTE_ROUNDS rounds of ROUTE_STEPS steps each (the second route first
+    in odd rounds), in this process: each route's median ms per step over
+    steps 2..ROUTE_STEPS of its rounds, the spread, and which is faster."""
+    import gc
+
+    from esvit_tpu_torch.train.train import train
+
+    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
+    routes = {"default": cfg,
+              "fused_block_stages=()": cfg.replace(
+                  model=C.swin_tiny(fused_block_stages=()))}
+    ms = {name: [] for name in routes}
+    for rnd in range(ROUTE_ROUNDS):
+        for name in list(routes)[::1 if rnd % 2 == 0 else -1]:
+            _, history = train(routes[name], max_steps=ROUTE_STEPS,
+                               device="cuda")
+            torch.cuda.synchronize()
+            steps = [h["seconds"] * 1e3 for h in history[1:]]
+            ms[name] += steps
+            log(f"route order round {rnd + 1} {name}: "
+                + ", ".join(f"{t:.1f}" for t in steps) + " ms/step")
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name, steps in ms.items():
+        log(f"route order {name}: median {statistics.median(steps):.1f} "
+            f"ms/step, spread {min(steps):.1f}-{max(steps):.1f} over "
+            f"{len(steps)} steps of {ROUTE_ROUNDS} rounds [{card}]")
+    faster = min(ms, key=lambda n: statistics.median(ms[n]))
+    log(f"route order: {faster} is faster by the median")
+
+
 def phase_vil_slice(torch, C, counters, card, out_dir):
     """ViL-T for STEPS steps."""
     cfg = C.vil_tiny_multicrop(BATCH, output_dir=out_dir)
@@ -1208,6 +1280,7 @@ def main():
                 "pallas_window_attention": pwa.launches}
     with tempfile.TemporaryDirectory() as out_dir:
         swin = phase_slice(torch, C, counters, card, out_dir)
+        phase_route_order(torch, C, card, out_dir)
         vil = phase_vil_slice(torch, C, counters, card, out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         evals = phase_eval(torch, C, pwa, card, out_dir)

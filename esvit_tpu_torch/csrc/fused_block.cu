@@ -4,14 +4,12 @@
 // _fwd_kernel (launched by _run, kind "fwd") and _bwd_kernel (kind "bwd"),
 // reached through fused_swin_block.
 //
-// The forward: one thread block owns one window of N <= 64 tokens (rows of
-// x, in the unpadded window-major order of ops/window.py) and runs, all
-// heads:
+// The forward computes, for the rows of x (tokens in the unpadded
+// window-major order of ops/window.py, windows of N <= 64 tokens):
 //   y   = round(LN1(x)) * pad                 fp32 LN, E[x^2] - mu^2 variance
 //   q,k,v = round(round(y Wq) + round(bq))    (bf16 operands, fp32 sums)
 //   s   = round(q round(scale)) k^T + bias[h] - 100 [region_i != region_j]
-//   p   = softmax(s) in fp32, one max per (window, head, row); the keys the
-//         16-row tiling adds get -1e9
+//   p   = softmax(s) in fp32, one max per (window, head, row)
 //   a   = round(round(p) v)
 //   x2  = round(x + round(round(round(a Wp) + round(bp)) * keep1[image]))
 //   y2  = round(LN2(x2));  h = round(round(y2 W1) + round(b1))
@@ -20,28 +18,28 @@
 // exactly where the TPU kernel rounds (fused_block.py:395-443). Without
 // keep scales the residuals are x + o (no scaling).
 //
-// Products. For bf16 inputs every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulation). Each warp owns a tile of
-// 16*MT rows by 8*NT columns (mma_block), so a weight fragment fetched from
-// L2 feeds MT row tiles. Operands in shared memory come in with ldmatrix
-// (.trans where the operand is stored transposed); weights and the
-// workspace rows come from global memory with 32-bit loads. A window's rows
-// sit unpadded in device memory; in shared memory each bf16 tile has Rp =
-// ceil16(N) rows, and every writer zeroes rows N..Rp, so the rows the
-// 16-row tiles add contribute exactly 0 where a product contracts over
-// tokens. That takes the place of the TPU kernel's 8-row window padding.
-// For fp32 inputs (the parity checks) the same tiles run on the CUDA cores
-// with bounds-checked scalar loads.
-//
-// What bounds the forward on Hopper: a window is ~0.23 GFLOP at C=384 on
-// 3.5 MB of bf16 weights that every window reads again from L2, and the
-// block's shared memory (up to ~160 KB at C=384) allows one or two blocks
-// per SM, so eight or sixteen warps run the block's long chain of small
-// phases (products, epilogues, LayerNorms, softmax), each ended by a
-// barrier: the kernel is bound by latency at low occupancy, not by HBM, L2
-// or the tensor cores. Measured on an H100: a build that skipped every
-// weight load was only ~7% faster, and staging the weights through a
-// cp.async ring gained nothing.
+// What bounds the forward on Hopper: its four products are token-parallel
+// GEMMs (up to 200,704 rows, K and N from C to 4C, ~1.3 TFLOP per Swin-T
+// step: 1.3 ms of the tensor cores' peak); only softmax(q k^T + bias) v
+// is per window, at ~33 FLOP/byte. The TPU kernel's shape (one grid step per
+// window group, everything in VMEM) does not carry over: a thread block per
+// window of 49 rows ran every C-wide product on 64 padded rows, fetched
+// each weight fragment from L2 again per window, and chained ~50
+// barrier-separated phases at one or two blocks per SM (the design this
+// one replaced: 4% of the bf16 tensor-core peak). So the forward is five
+// kernels, each on what it needs (the section "The forward" below): four
+// token-tile GEMMs F1-F4 of 128 rows, whose products run on wgmma (two
+// warpgroups of 64 rows, B and F4's A from a cp.async ring of
+// 128-byte-swizzled tiles), with the LayerNorms as prologues and the
+// roundings, drop-path residuals and GELU as epilogues; and attention on
+// the window-attention forward tile (A1), as the backward recomputes it.
+// The intermediates (qkv, a, x2, g: 18 C bytes a row in bf16) go through
+// device memory, ~0.85 GB per call at Swin-T's 224 px stage 0, ~0.25 ms
+// at 3.35 TB/s. Measured, neither bound is reached: the epilogues (F3's
+// erf-GELU, the rows' stores) and, at C = 384, one block per SM running
+// its phases in turn hold the kernels (the section's notes). For fp32
+// inputs (the parity checks) the token kernels run register-tiled FMAs
+// on the CUDA cores (no TF32) on tiles of 32 rows.
 //
 // The backward recomputes the forward from the block input (the TPU
 // kernel's rematerialisation), but not as one kernel per window: what is
@@ -53,7 +51,7 @@
 // kernel forms each weight gradient as a sum over all rows: each block owns
 // one output tile and one fixed run of rows; the runs' partials, like the
 // per-tile ones, are summed in a fixed order by sum_rows_kernel. No
-// atomics: every gradient is bit-identical run to run. The TPU kernel gets
+// atomics: every output is bit-identical run to run. The TPU kernel gets
 // the same from its sequential grid (fused_block.py:501-508).
 //
 // Left behind from the TPU kernel, as Mosaic workarounds: the 8-row Np
@@ -72,6 +70,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 #include "window_attention_tile.cuh"
 
 namespace {
@@ -80,34 +81,31 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMc = 128;            // MLP hidden-dimension chunk
+constexpr int kMc = 128;            // the backward's MLP hidden-dimension chunk
 constexpr int kMaxN = 64;           // tokens per window
 constexpr int kMaxC = 384;          // channels (a LayerNorm row in registers)
-// The element and column loops over global memory visit kRB rows (or
-// elements) at a time and issue the batch's loads before any of its
-// stores, which the compiler may not move the next loads past.
-constexpr int kRB = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kDeadKey = -1e9f;   // keys the 16-row tiling adds
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
 // Pointer table: the wrapper passes them in this order. WQKV_F holds the
-// q/k/v weights [out][in] with the outputs head-major (head h's q, k and v
-// rows are rows h*3hd .. h*3hd+3hd); WQKV_B holds them [in][out] as
-// [Wq | Wk | Wv] (the backward's dqkv column order). QKV (rows, 3C) and DA
-// (rows, C) are the backward's scratch in the compute dtype.
+// q/k/v weights [out][in] with the outputs as [q | k | v] (QKV's columns);
+// WQKV_B holds them [in][out] as [Wq | Wk | Wv] (the backward's dqkv
+// column order). QKV (rows, 3C: [q |
+// k | v]) is scratch of both passes, DA (rows, C) the backward's; FA
+// (rows, C), FX2 (rows, C) and FG (rows, M) hold the forward's a, x2 and
+// g; all in the compute dtype.
 enum Ptr {
   X, OUT, G1, BE1, BQKV, BP, G2, BE2, B1, B2, BIAS, PAD, KEEP1, KEEP2, REGION,
   WQKV_F, WP_F, W1_F, W2_F,          // [out][in] (torch Linear layout)
   WQKV_B, WP_B, W1_B, W2_B,          // [in][out] (the JAX layout)
   DOUT, DX, DX32, WS, VPART, BPART, WPART, TMP, QKV, DA,
-  D_WQKV, D_WP, D_W1, D_W2, D_VEC, D_BIAS, kNumPtrs
+  D_WQKV, D_WP, D_W1, D_W2, D_VEC, D_BIAS, FA, FX2, FG, kNumPtrs
 };
 // Dims: windows, tokens, channels, heads, MLP hidden, window types, row
-// chunks of the weight-gradient kernel; the backward's plan: rows of a
-// token tile, and the attention tiles' warps per block and windows per
-// warp (forward recompute, backward).
+// chunks of the weight-gradient kernel; the plan: rows of a backward token
+// tile, and the attention tiles' warps per block and windows per warp
+// (the forward tile, as A1 of either pass; the backward tile).
 enum Dim { D_B, D_N, D_C, D_H, D_M, D_NW, D_CHUNKS, D_ROWS, D_FWARPS, D_FRUN, D_BWARPS,
            D_BRUN, kNumDims };
 
@@ -132,11 +130,6 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
@@ -195,13 +188,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
                : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -223,22 +209,9 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const SCol<bf16>& o, in
   const int l = threadIdx.x & 31, j = l >> 3;
   ldsm_x4_t(a, o.p + (k0 + (l & 7) + ((j >> 1) << 3)) * o.ld + m0 + ((j & 1) << 3));
 }
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const GRow<bf16>& o, int m0, int k0) {
-  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
-  const bf16* p0 = o.p + (size_t)min(m0 + g, o.nr - 1) * o.ld + k0 + 2 * t;
-  const bf16* p1 = o.p + (size_t)min(m0 + g + 8, o.nr - 1) * o.ld + k0 + 2 * t;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
-}
 
 // B fragment (columns n0..n0+7, k0..k0+15): lane holds column g, k 2t, 2t+1
 // (b[0]) and 2t+8, 2t+9 (b[1]).
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const SRow<bf16>& o, int n0, int k0) {
-  const int l = threadIdx.x & 31;
-  ldsm_x2(b, o.p + (n0 + (l & 7)) * o.ld + k0 + (((l >> 3) & 1) << 3));
-}
 __device__ __forceinline__ void frag_b(uint32_t (&b)[2], const SCol<bf16>& o, int n0, int k0) {
   const int l = threadIdx.x & 31;
   ldsm_x2_t(b, o.p + (k0 + (l & 7) + (((l >> 3) & 1) << 3)) * o.ld + n0);
@@ -402,9 +375,9 @@ __device__ __forceinline__ void add2(float* p, float a, float b) {
 }
 
 struct Geo {
-  int B_, N, C, nH, hd, M, nW, Rp, chunks;
+  int B_, N, C, nH, hd, M, nW, chunks;
   int R;                        // backward: rows of a token tile
-  int fwarps, frun, bwarps, brun;  // backward: the attention tiles' plans
+  int fwarps, frun, bwarps, brun;  // the attention tiles' plans
   int S;     // workspace row stride: 8C + 2M
   int V;     // per-window vector partials: 9C + M
   float scale, eps;
@@ -424,360 +397,9 @@ enum VecSlot { V_DG1 = 0, V_DBE1 = 1, V_DBQKV = 2, V_DBP = 5, V_DG2 = 6, V_DBE2 
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
 
-// The forward's shared memory: c0 holds y or y2; o holds a (T) in the
-// attention phase and the fp32 (N x ldO) fc2 accumulator later; the head
-// buffers (q, k, v, scores s, p) and the MLP chunk buffer h share one
-// region. Tiles of T have `rows` rows: Rp for bf16 (the tensor-core path
-// reads whole 16-row tiles), N for fp32.
-struct Layout {
-  int rows, ldC, ldH, ldS, ldP, ldM, ldO;
-  size_t c0, o, q, k, v, s, p, h, stats, reg, bytes;
-};
-
-__host__ __device__ inline Layout make_layout(int N, int C, int hd, int Rp, int es) {
-  Layout L;
-  const int pad = 16 / es;   // 16 bytes: aligned, conflict-free ldmatrix rows
-  L.rows = es == 2 ? Rp : N;
-  L.ldC = C + pad;
-  L.ldH = hd + pad;
-  L.ldS = Rp + 4;
-  L.ldP = Rp + pad;
-  L.ldM = kMc + pad;
-  L.ldO = C + 4;
-  const size_t R = L.rows;
-  const size_t cT = align16(R * L.ldC * es), cO = align16((size_t)N * L.ldO * 4);
-  const size_t hT = align16(R * L.ldH * es), sF = align16((size_t)N * L.ldS * 4);
-  const size_t pT = align16(R * L.ldP * es), mT = align16(R * L.ldM * es);
-  L.c0 = 0;
-  L.o = cT;
-  const size_t heads = L.o + (cT > cO ? cT : cO);
-  L.q = heads;
-  L.k = L.q + hT;
-  L.v = L.k + hT;
-  L.s = L.v + hT;
-  L.p = L.s + sF;
-  L.h = heads;
-  const size_t end_attn = L.p + pT, end_mlp = L.h + mT;
-  L.stats = end_attn > end_mlp ? end_attn : end_mlp;
-  L.reg = L.stats + 4 * kMaxN * sizeof(float);
-  L.bytes = L.reg + kMaxN * sizeof(int);
-  return L;
-}
-
 // Row statistics slots in shared memory (a token tile uses the first two,
 // for its LayerNorm's mean and 1/std).
 enum Stat { MU1 = 0, RS1 = 1, MU2 = 2, RS2 = 3 };
-
-template <typename T> struct Block {
-  void* const* P;
-  Geo g;
-  Layout L;
-  char* smem;
-  int w, img;
-  size_t row0;   // first row of the window
-  const int* region;
-  const float* pad;
-  const float* keep1;
-  const float* keep2;
-
-  template <typename U> __device__ U* at(size_t off) const {
-    return reinterpret_cast<U*>(smem + off);
-  }
-  template <typename U> __device__ U* ptr(int i) const { return static_cast<U*>(P[i]); }
-  __device__ float* stat(int s) const { return at<float>(L.stats) + s * kMaxN; }
-  // A shared-memory tile of T at `off` with row stride ld, as an operand
-  // (nr rows, nk columns).
-  __device__ SRow<T> tile(size_t off, int ld, int nr, int nk) const {
-    return SRow<T>{at<T>(off), ld, nr, nk};
-  }
-  __device__ SCol<T> tile_t(size_t off, int ld, int nr, int nk) const {
-    return SCol<T>{at<T>(off), ld, nr, nk};
-  }
-};
-
-// Store (v0, v1) at row r, columns c, c + 1 of a shared-memory tile of T;
-// rows N..L.rows get 0.
-template <typename T>
-__device__ __forceinline__ bool put2(const Block<T>& b, T* dst, int ld, int r, int c, float v0,
-                                     float v1) {
-  if (r < b.g.N) {
-    store2(dst + r * ld + c, v0, v1);
-    return true;
-  }
-  if (r < b.L.rows) store2(dst + r * ld + c, 0.f, 0.f);
-  return false;
-}
-
-// Zero rows N..L.rows of a shared-memory tile of T (its first `cols`
-// columns).
-template <typename T> __device__ void zero_pad_rows(const Block<T>& b, T* dst, int ld, int cols) {
-  const int n = (b.L.rows - b.g.N) * cols;
-  for (int e = threadIdx.x; e < n; e += kThreads)
-    dst[(b.g.N + e / cols) * ld + e % cols] = from_f<T>(0.f);
-}
-
-// LayerNorm of the window's rows (warp per row, the row read once into
-// registers) from src (row stride C) into dst (stride ldC, the compute
-// dtype), times the pad multiplier; mean and 1/std go to the stats slots.
-template <typename T>
-__device__ void layer_norm(const Block<T>& b, const T* src, const float* gam,
-                           const float* bet, const float* pad, T* dst, int smu, int srs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, C = b.g.C;
-  for (int r = warp; r < b.g.N; r += kWarps) {
-    const T* x = src + (size_t)r * C;
-    float v[kMaxC / 32];
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxC / 32; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < C ? to_f(x[c]) : 0.f;
-      if (c < C) {
-        s += v[i];
-        ss += v[i] * v[i];
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / C;
-    const float rs = rsqrtf(ss / C - mu * mu + b.g.eps);
-    const float pm = pad != nullptr ? pad[r] : 1.f;
-#pragma unroll
-    for (int i = 0; i < kMaxC / 32; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C)
-        dst[r * b.L.ldC + c] = from_f<T>(rnd<T>((v[i] - mu) * rs * gam[c] + bet[c]) * pm);
-    }
-    if (lane == 0) {
-      b.stat(smu)[r] = mu;
-      b.stat(srs)[r] = rs;
-    }
-  }
-  zero_pad_rows(b, dst, b.L.ldC, C);
-}
-
-// q (as round(q * round(scale))), k, v of head h from y in c0: one product
-// of 3*hd columns (head h's rows of the head-major WQKV_F).
-template <typename T> __device__ void head_qkv(const Block<T>& b, int h) {
-  const Geo& g = b.g;
-  const Layout& L = b.L;
-  const SRow<T> Y = b.tile(L.c0, L.ldC, g.N, g.C);
-  const GRow<T> W{b.template ptr<T>(WQKV_F) + (size_t)h * 3 * g.hd * g.C, g.C, 3 * g.hd, g.C};
-  const float qscale = rnd<T>(g.scale);
-  const float* bqkv = b.template ptr<float>(BQKV);
-  T* dst[3] = {b.template at<T>(L.q), b.template at<T>(L.k), b.template at<T>(L.v)};
-  for_tiles<2, 3>(
-      g.Rp, 3 * g.hd,
-      [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, Y, m0, mt, W, n0, g.C); },
-      [&](int r, int c, float v0, float v1) {
-        const int part = c / g.hd, cc = c - part * g.hd;
-        const float2 bb = load2(bqkv + part * g.C + h * g.hd + cc);
-        float a0 = rnd<T>(rnd<T>(v0) + rnd<T>(bb.x)), a1 = rnd<T>(rnd<T>(v1) + rnd<T>(bb.y));
-        if (part == 0) {
-          a0 = rnd<T>(a0 * qscale);
-          a1 = rnd<T>(a1 * qscale);
-        }
-        put2(b, dst[part], L.ldH, r, cc, a0, a1);
-      });
-}
-
-// Scores and fp32 softmax of head h: p32 into s, round(p) into p (rows
-// N..Rp of p zeroed).
-template <typename T> __device__ void head_softmax(const Block<T>& b, int h) {
-  const Geo& g = b.g;
-  const Layout& L = b.L;
-  const int N = g.N;
-  float* sS = b.template at<float>(L.s);
-  const int* sreg = b.template at<int>(L.reg);
-  const float* bias = b.template ptr<float>(BIAS) + (size_t)h * N * N;
-  const SRow<T> Q = b.tile(L.q, L.ldH, N, g.hd);
-  const SRow<T> K = b.tile(L.k, L.ldH, N, g.hd);
-  for_tiles<2, 2>(
-      g.Rp, g.Rp,
-      [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, Q, m0, mt, K, n0, g.hd); },
-      [&](int r, int c, float v0, float v1) {
-        if (r >= N) return;
-        float s0 = kDeadKey, s1 = kDeadKey;
-        if (c < N) {
-          s0 = v0 + bias[r * N + c];
-          if (b.region != nullptr && sreg[r] != sreg[c]) s0 += -100.f;
-        }
-        if (c + 1 < N) {
-          s1 = v1 + bias[r * N + c + 1];
-          if (b.region != nullptr && sreg[r] != sreg[c + 1]) s1 += -100.f;
-        }
-        store2(sS + r * L.ldS + c, s0, s1);
-      });
-  T* sP = b.template at<T>(L.p);
-  zero_pad_rows(b, sP, L.ldP, g.Rp);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < N; r += kWarps) {
-    float s[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = lane + 32 * t;
-      s[t] = c < g.Rp ? sS[r * L.ldS + c] : -INFINITY;
-    }
-    const float m = warp_max(fmaxf(s[0], s[1]));
-    float e[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) e[t] = (lane + 32 * t < g.Rp) ? expf(s[t] - m) : 0.f;
-    const float inv = 1.f / warp_sum(e[0] + e[1]);
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = lane + 32 * t;
-      if (c < g.Rp) {
-        const float p = e[t] * inv;
-        sS[r * L.ldS + c] = p;
-        sP[r * L.ldP + c] = from_f<T>(p);
-      }
-    }
-  }
-}
-
-// The forward up to x2 (written to x2_out) and y2 (into c0). Leaves LN2's
-// mean and 1/std in the stats.
-template <typename T> __device__ void forward_to_y2(const Block<T>& b, T* x2_out) {
-  const Geo& g = b.g;
-  const Layout& L = b.L;
-  const int N = g.N, C = g.C;
-  T* sY = b.template at<T>(L.c0);
-  T* sA = b.template at<T>(L.o);
-  const T* x = b.template ptr<T>(X) + b.row0 * C;
-
-  layer_norm(b, x, b.template ptr<float>(G1), b.template ptr<float>(BE1), b.pad, sY, MU1, RS1);
-  __syncthreads();
-
-  for (int h = 0; h < g.nH; ++h) {
-    head_qkv(b, h);
-    __syncthreads();
-    head_softmax(b, h);
-    __syncthreads();
-    const SRow<T> Pm = b.tile(L.p, L.ldP, N, N);
-    const SCol<T> V = b.tile_t(L.v, L.ldH, g.hd, N);
-    for_tiles<1, 2>(
-        g.Rp, g.hd,
-        [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, Pm, m0, mt, V, n0, g.Rp); },
-        [&](int r, int c, float v0, float v1) { put2(b, sA + h * g.hd, L.ldC, r, c, v0, v1); });
-    __syncthreads();
-  }
-
-  // proj, drop-path residual: x2 = x + round(o1 * keep1)
-  const SRow<T> A = b.tile(L.o, L.ldC, N, C);
-  const GRow<T> Wp{b.template ptr<T>(WP_F), C, C, C};
-  const float* bp = b.template ptr<float>(BP);
-  const float d1 = b.keep1 != nullptr ? b.keep1[b.img] : 1.f;
-  for_tiles<2, 4>(
-      g.Rp, C,
-      [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, A, m0, mt, Wp, n0, C); },
-      [&](int r, int c, float v0, float v1) {
-        if (r >= N) return;
-        const float2 bb = load2(bp + c);
-        float o0 = rnd<T>(rnd<T>(v0) + rnd<T>(bb.x)), o1 = rnd<T>(rnd<T>(v1) + rnd<T>(bb.y));
-        if (b.keep1 != nullptr) {
-          o0 = rnd<T>(o0 * d1);
-          o1 = rnd<T>(o1 * d1);
-        }
-        const float2 xv = load2(x + (size_t)r * C + c);
-        store2(x2_out + (size_t)r * C + c, xv.x + o0, xv.y + o1);
-      });
-  __syncthreads();
-  layer_norm(b, x2_out, b.template ptr<float>(G2), b.template ptr<float>(BE2), nullptr, sY, MU2,
-             RS2);
-  __syncthreads();
-}
-
-// h = round(round(y2 W1[chunk]) + round(b1)) into sH (the MLP chunk at m0);
-// with apply_gelu, round(gelu(h)) instead.
-template <typename T>
-__device__ void mlp_hidden(const Block<T>& b, int m0, T* sH, bool apply_gelu) {
-  const Geo& g = b.g;
-  const Layout& L = b.L;
-  const SRow<T> Y2 = b.tile(L.c0, L.ldC, g.N, g.C);
-  const GRow<T> W1{b.template ptr<T>(W1_F) + (size_t)m0 * g.C, g.C, kMc, g.C};
-  const float* b1 = b.template ptr<float>(B1) + m0;
-  for_tiles<2, 4>(
-      g.Rp, kMc,
-      [&](auto& acc, int mm, int mt, int n0) { mma_block(acc, Y2, mm, mt, W1, n0, g.C); },
-      [&](int r, int c, float v0, float v1) {
-        const float2 bb = load2(b1 + c);
-        float h0 = rnd<T>(v0) + rnd<T>(bb.x), h1 = rnd<T>(v1) + rnd<T>(bb.y);
-        if (apply_gelu) {
-          h0 = gelu(rnd<T>(h0));
-          h1 = gelu(rnd<T>(h1));
-        }
-        put2(b, sH, L.ldM, r, c, h0, h1);
-      });
-}
-
-template <typename T> __device__ Block<T> make_block(void* const* P, const Geo& g, char* smem) {
-  Block<T> b;
-  b.P = P;
-  b.g = g;
-  b.L = make_layout(g.N, g.C, g.hd, g.Rp, sizeof(T));
-  b.smem = smem;
-  b.w = blockIdx.x;
-  b.img = b.w / g.nW;
-  b.row0 = (size_t)b.w * g.N;
-  const int wt = b.w % g.nW;
-  b.region = static_cast<const int*>(P[REGION]);
-  b.pad = P[PAD] != nullptr ? static_cast<const float*>(P[PAD]) + (size_t)wt * g.N : nullptr;
-  b.keep1 = static_cast<const float*>(P[KEEP1]);
-  b.keep2 = static_cast<const float*>(P[KEEP2]);
-  if (b.region != nullptr) {
-    int* sreg = b.template at<int>(b.L.reg);
-    for (int j = threadIdx.x; j < g.N; j += kThreads) sreg[j] = b.region[(size_t)wt * g.N + j];
-  }
-  return b;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_block_fwd_kernel(Table tab, Geo g) {
-  extern __shared__ __align__(16) char smem[];
-  const Block<T> b = make_block<T>(tab.p, g, smem);
-  const Layout& L = b.L;
-  const int N = g.N, C = g.C;
-  T* out = b.template ptr<T>(OUT) + b.row0 * C;
-  forward_to_y2(b, out);
-
-  float* sO = b.template at<float>(L.o);
-  T* sH = b.template at<T>(L.h);
-  for (int e = threadIdx.x; e < N * L.ldO; e += kThreads) sO[e] = 0.f;
-  __syncthreads();
-  const T* w2 = b.template ptr<T>(W2_F);
-  for (int m0 = 0; m0 < g.M; m0 += kMc) {
-    mlp_hidden(b, m0, sH, true);
-    __syncthreads();
-    const SRow<T> G = b.tile(L.h, L.ldM, N, kMc);
-    const GRow<T> W2{w2 + m0, g.M, C, kMc};
-    for_tiles<2, 4>(
-        g.Rp, C,
-        [&](auto& acc, int m, int mt, int n0) { mma_block(acc, G, m, mt, W2, n0, kMc); },
-        [&](int r, int c, float v0, float v1) {
-          if (r < N) add2(sO + r * L.ldO + c, v0, v1);
-        });
-    __syncthreads();
-  }
-  const float* b2 = b.template ptr<float>(B2);
-  const float d2 = b.keep2 != nullptr ? b.keep2[b.img] : 1.f;
-  for (int e0 = threadIdx.x; e0 < N * C; e0 += kRB * kThreads) {
-    float xv[kRB];
-#pragma unroll
-    for (int u = 0; u < kRB; ++u) {
-      const int e = e0 + u * kThreads;
-      xv[u] = e < N * C ? to_f(out[e]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kRB; ++u) {
-      const int e = e0 + u * kThreads;
-      if (e >= N * C) continue;
-      const int r = e / C, c = e - r * C;
-      float o2 = rnd<T>(rnd<T>(sO[r * L.ldO + c]) + rnd<T>(b2[c]));
-      if (b.keep2 != nullptr) o2 = rnd<T>(o2 * d2);
-      out[e] = from_f<T>(xv[u] + o2);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The backward: what is per token runs on token tiles, and only attention
@@ -1049,7 +671,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) fused_bwd_t1_kernel(Table tab, Geo g) {
   extern __shared__ __align__(16) char smem[];
   const Tok<T> b = make_tok<T>(tab.p, g, 1, smem);
-  const int C = g.C, hd = g.hd;
+  const int C = g.C;
   T* sY = b.template at<T>(b.L.y);
   tok_layer_norm(b, b.template ptr<T>(X) + b.row0 * C, C, b.template ptr<float>(G1),
                  b.template ptr<float>(BE1), true, sY);
@@ -1064,11 +686,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_bwd_t1_kernel(Table tab, Ge
       [&](auto& acc, int m0, int mt, int n0) { mma_block_pf(acc, Y, m0, mt, W, n0, C); },
       [&](int r, int c, float v0, float v1) {
         if (r >= b.n) return;
-        // WQKV_F's rows are head-major: row c is head h's q, k or v column cc
-        const int h = c / (3 * hd), rem = c - h * 3 * hd, part = rem / hd;
-        const int col = part * C + h * hd + (rem - part * hd);
-        const float2 bb = ldg2(bqkv + col);
-        store2(sO + r * b.L.ld3 + col, rnd<T>(rnd<T>(v0) + rnd<T>(bb.x)),
+        const float2 bb = ldg2(bqkv + c);
+        store2(sO + r * b.L.ld3 + c, rnd<T>(rnd<T>(v0) + rnd<T>(bb.x)),
                rnd<T>(rnd<T>(v1) + rnd<T>(bb.y)));
       });
   __syncthreads();
@@ -1504,6 +1123,545 @@ cudaError_t sum_rows(const float* in, int n, int J, float* out, float* tmp, cuda
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The forward: four token-tile kernels around the attention tile.
+//   F1 (token tiles): y = round(LN1(x)) * pad into shared memory (the
+//      prologue), qkv = round(round(y Wqkv) + round(bqkv)) to QKV ([q | k
+//      | v]);
+//   A1 (windows): a = round(round(p) v), the forward tile of
+//      window_attention_tile.cuh on QKV with FusedBlockBias, to FA (the
+//      backward's A1, which recomputes the same a);
+//   F2 (token tiles): x2 = x + round(round(round(a Wp) + round(bp)) keep1),
+//      to FX2;
+//   F3 (token tiles): y2 = round(LN2(x2)) into shared memory, g =
+//      round(gelu(round(round(y2 W1) + round(b1)))) to FG;
+//   F4 (token tiles): out = x2 + round(round(round(g W2) + round(b2))
+//      keep2), the product over M streamed.
+// A token tile's rows cross window and image boundaries: a row's image is
+// row / (nW N), its pad multiplier pad[row % (nW N)].
+//
+// bf16 (the step's route): a tile of kFwdRows = 128 rows, two warpgroups
+// of 64, each computing its rows of an output tile of WN columns (96, 64
+// or 32, the largest dividing C and M) with wgmma m64nWNk16 (bf16 in,
+// fp32 accumulators). A is resident in shared memory for F1-F3 (the whole
+// C-wide rows, staged by cp.async; F1 and F3 then normalise them in
+// place) and streamed for F4; the weights' [WN x 64] tiles (and F4's
+// [128 x 64] A tiles) come through a kFwdStages-deep cp.async ring, a
+// tile ahead of the products, one barrier per 64 columns of K, one batch
+// of products left running across it (three stages: the one in use, the
+// one in flight and the one the running batch reads). K runs in whole 64-column atoms,
+// zero past K (C = 96 does a third more products than it needs). Every
+// operand tile is 128-byte swizzled (row r's 16-byte chunk c at chunk c ^
+// (r % 8)), the layout a wgmma descriptor names. A column tile's bias
+// comes in with its first weight tile; the epilogue rounds where the TPU
+// kernel does, through a staging tile per warpgroup (F2 and F4 first take
+// the residual rows into it by cp.async), then stores 16-byte rows. When a stage has fewer row tiles
+// than kFwdBlocksPerSm blocks per SM, its column tiles are split over
+// gridDim.y. What bounds it (PERF.md's findings on the block-fused
+// forward): at C = 96, F3's erf-GELU epilogue (instruction issue) and the
+// output rows' writes, each after the products of its column tile; at C =
+// 384, one 8-warp block per SM (the 96 KB resident A tile) running
+// prologue, products and epilogues in turn. fp32 (the parity checks): tiles of kFwdRows32 = 32 rows, A in
+// shared memory (F4's from global memory), the products as for_tiles'
+// register-tiled FMAs on the CUDA cores (no TF32), B from global memory.
+// Every output is written once by one thread: bit-identical on repeat.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;       // rows of a bf16 token tile (two warpgroups of 64)
+constexpr int kFwdRows32 = 32;      // rows of an fp32 token tile
+constexpr int kFwdStages = 3;       // tiles in the cp.async ring
+constexpr int kFwdAhead = kFwdStages - 2;   // tiles loaded ahead of the products
+
+// The wgmma tile's width: the largest of 96, 64, 32 that divides C and M
+// (every N and K of the four products is C, 3C or M).
+__host__ __device__ inline int fwd_wn(int C, int M) {
+  if (C % 96 == 0 && M % 96 == 0) return 96;
+  if (C % 64 == 0 && M % 64 == 0) return 64;
+  return 32;
+}
+
+// A bf16 forward block's shared memory, in bytes from a 1024-aligned base:
+// the resident A tile (F1-F3: ceil(K / 64) atoms of 128 rows x 128 bytes);
+// the ring (stages of [F4: A's 128 x 64 atom,] the weights' WN x 64 atom);
+// the bias of kFwdStages column tiles (WN fp32 each); the epilogue's
+// staging tile (128 x ldo: F2, F4's residual rows in, the results out),
+// which holds F1's and F3's LayerNorm gamma and beta (C fp32 each) during
+// the prologue.
+struct FwdSmem {
+  size_t ring, stage, b, bias, gb, out, bytes;
+  int ldo;
+};
+
+__host__ __device__ inline FwdSmem fwd_smem(int S, int C, int K, int WN) {
+  FwdSmem L;
+  const size_t atom_a = (size_t)kFwdRows * 128, atom_b = (size_t)WN * 128;
+  L.ring = S == 4 ? 0 : (size_t)((K + 63) / 64) * atom_a;
+  L.b = S == 4 ? atom_a : 0;
+  L.stage = L.b + atom_b;
+  L.bias = L.ring + kFwdStages * L.stage;
+  L.out = L.bias + (size_t)kFwdStages * WN * sizeof(float);
+  L.gb = L.out;   // the prologue is done before the first epilogue
+  L.ldo = WN + 8;
+  L.bytes = L.out + (size_t)kFwdRows * L.ldo * sizeof(bf16) + 1024;   // + the base's alignment
+  return L;
+}
+
+// A forward stage's product: out[r][c] = epilogue(sum over k < K of A[r][k]
+// W[c][k]) for c < N; A's and out's rows have strides K and N.
+struct FwdOp {
+  const void* a;
+  const void* w;
+  void* out;
+  int K, N;
+};
+
+__device__ inline FwdOp fwd_op(int stage, void* const* P, const Geo& g) {
+  switch (stage) {
+    case 1: return FwdOp{P[X], P[WQKV_F], P[QKV], g.C, 3 * g.C};
+    case 2: return FwdOp{P[FA], P[WP_F], P[FX2], g.C, g.C};
+    case 3: return FwdOp{P[FX2], P[W1_F], P[FG], g.C, g.M};
+    default: return FwdOp{P[FG], P[W2_F], P[OUT], g.M, g.C};
+  }
+}
+
+// Stage S's epilogue: the values stored at (row, col(c)) and (row, col(c)
+// + 1) for the products v0, v1 at row `row` (of all B_ N rows), columns
+// c, c + 1 (c even), in fp32 (the store rounds to T).
+template <typename T, int S> struct FwdEpi {
+  const float* bias;
+  const float* keep;   // F2, F4: the per-image drop-path scales, or null
+  const T* res;        // F2: x, F4: x2 (row stride C)
+  int C, per_img;
+
+  __device__ __forceinline__ float row_keep(size_t row) const {
+    return keep != nullptr ? keep[row / per_img] : 1.f;
+  }
+
+  // The arithmetic, given the bias pair b, the row's drop-path scale d and
+  // the residual pair x (F2, F4).
+  __device__ __forceinline__ float2 value(float v0, float v1, float2 b, float d, float2 x) const {
+    float o0 = rnd<T>(rnd<T>(v0) + rnd<T>(b.x)), o1 = rnd<T>(rnd<T>(v1) + rnd<T>(b.y));
+    if constexpr (S == 1) {
+      return make_float2(o0, o1);
+    } else if constexpr (S == 3) {
+      return make_float2(gelu(o0), gelu(o1));
+    } else {
+      if (keep != nullptr) {
+        o0 = rnd<T>(o0 * d);
+        o1 = rnd<T>(o1 * d);
+      }
+      return make_float2(x.x + o0, x.y + o1);
+    }
+  }
+
+  // The same, reading the bias, scale and residual from memory.
+  __device__ __forceinline__ float2 operator()(size_t row, int c, float v0, float v1) const {
+    const float2 x = S == 2 || S == 4 ? load2(res + row * C + c) : make_float2(0.f, 0.f);
+    return value(v0, v1, ldg2(bias + c), row_keep(row), x);
+  }
+};
+
+template <typename T, int S> __device__ FwdEpi<T, S> fwd_epi(void* const* P, const Geo& g) {
+  FwdEpi<T, S> e;
+  e.bias = static_cast<const float*>(P[S == 1 ? BQKV : S == 2 ? BP : S == 3 ? B1 : B2]);
+  e.keep = static_cast<const float*>(S == 2 ? P[KEEP1] : S == 4 ? P[KEEP2] : nullptr);
+  e.res = static_cast<const T*>(S == 2 ? P[X] : S == 4 ? P[FX2] : nullptr);
+  e.C = g.C;
+  e.per_img = g.nW * g.N;
+  return e;
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a 128-byte-swizzled
+// tile (rows of 128 bytes, 1024-aligned): chunk c ^ (r % 8) of the row.
+__device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// The wgmma descriptor of a K-major, 128-byte-swizzled operand at shared
+// address `addr`: the start address / 16; leading byte offset 16 (unused
+// by this layout); stride byte offset 1024 (8 rows of 128 bytes);
+// layout type 1 (128-byte swizzle) in bits 62-63. A k16 step is +32 bytes
+// of start address, +2 in the descriptor.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// Generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to the async proxy, which wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving uses of the accumulators across the
+// wgmma issue and wait.
+template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// A barrier of one warpgroup (128 threads; ids 1, 2: 0 is __syncthreads).
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// D = A B^T + (scale_d ? D : 0) on one warpgroup: A the 64 x 16 K-major
+// tile at descriptor a, B the WN x 16 K-major tile at b. D[i] of thread t (warp w = t / 32 % 4,
+// lane l) is row 16 w + l / 4 + 8 (i / 2 % 2), column 8 (i / 4) + 2 (l %
+// 4) + i % 2: the m16n8 accumulator layout, WN / 8 times.
+template <int WN> struct Wgmma;
+template <> struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct Wgmma<96> {
+  __device__ __forceinline__ static void mma(float (&d)[48], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ float2 bf2f(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ uint32_t f2bf(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The LayerNorm prologue of F1 (LN1, times the pad multiplier) and F3
+// (LN2), in place: the tile's rows of x, staged in the resident A tile
+// (rows n.. and the columns past C zero), become y = round(LN(x)) * pad
+// (rows n.. stay zero); gamma and beta are staged in shared memory. Two
+// threads a row, each on half of its 16-byte chunks (every lane busy at
+// any C), read twice: the sums, then the normalised values in place. The
+// variance is E[x^2] - mu^2 in fp32, as the backward's tok_layer_norm.
+__device__ void fwd_ln_tc(unsigned char* sA, const float* gam, const float* bet, int n, int C,
+                          const float* pad, size_t row0, int per_img, float eps) {
+  const int r = threadIdx.x >> 1, nq = C / 16, q0 = (threadIdx.x & 1) * nq;
+  const auto chunk = [&](int q) {
+    return reinterpret_cast<uint4*>(sA + (size_t)(q >> 3) * kFwdRows * 128 + swz(r, q & 7));
+  };
+  float s = 0.f, ss = 0.f;
+#pragma unroll 4
+  for (int q = q0; q < q0 + nq; ++q) {
+    const uint4 v = *chunk(q);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = bf2f(w[j]);
+      s += f.x + f.y;
+      ss += f.x * f.x + f.y * f.y;
+    }
+  }
+  s += __shfl_xor_sync(kFull, s, 1);
+  ss += __shfl_xor_sync(kFull, ss, 1);
+  const float mu = s / C;
+  const float rs = rsqrtf(ss / C - mu * mu + eps);
+  const float pm = r >= n ? 0.f : pad != nullptr ? pad[(row0 + r) % per_img] : 1.f;
+#pragma unroll 4
+  for (int q = q0; q < q0 + nq; ++q) {
+    uint4* p = chunk(q);
+    const uint4 v = *p;
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const float4 g0 = reinterpret_cast<const float4*>(gam)[2 * q];
+    const float4 g1 = reinterpret_cast<const float4*>(gam)[2 * q + 1];
+    const float4 b0 = reinterpret_cast<const float4*>(bet)[2 * q];
+    const float4 b1 = reinterpret_cast<const float4*>(bet)[2 * q + 1];
+    const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = bf2f(w[j]);
+      o[j] = f2bf(rnd<bf16>((f.x - mu) * rs * gg[2 * j] + bb[2 * j]) * pm,
+                  rnd<bf16>((f.y - mu) * rs * gg[2 * j + 1] + bb[2 * j + 1]) * pm);
+    }
+    *p = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Stage S of the bf16 forward: the tile of kFwdRows rows at blockIdx.x,
+// its output column tiles nt = blockIdx.y, blockIdx.y + gridDim.y, ...
+template <int WN, int S>
+__global__ void __launch_bounds__(kThreads, 2) fused_block_fwd_tc_kernel(Table tab, Geo g) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  constexpr bool kStreamA = S == 4;
+  const FwdOp op = fwd_op(S, tab.p, g);
+  const FwdSmem L = fwd_smem(S, g.C, op.K, WN);
+  const FwdEpi<bf16, S> epi = fwd_epi<bf16, S>(tab.p, g);
+  // the count from plain ints (make_tok says why)
+  const int row0 = blockIdx.x * kFwdRows, left = g.B_ * g.N - row0;
+  const int n = left < kFwdRows ? left : kFwdRows;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const bf16* A = static_cast<const bf16*>(op.a) + (size_t)row0 * op.K;
+  const bf16* W = static_cast<const bf16*>(op.w);
+  // K in whole 64-column atoms: the columns past K are zero in A and W
+  const int atoms = (op.K + 63) / 64, ny = gridDim.y;
+  const int n_tiles = (op.N / WN - (int)blockIdx.y + ny - 1) / ny, tiles = n_tiles * atoms;
+
+  float* s_bias = reinterpret_cast<float*>(smem + L.bias);
+
+  // tile t of the ring: output columns WN (blockIdx.y + ny (t / atoms)).., K
+  // columns 64 (t % atoms).. (16-byte chunks past K zero-filled); with the
+  // block's i-th column tile's first (i = t / atoms), that tile's bias,
+  // into slot i % kFwdStages: the block's column tile kFwdStages before it
+  // was stored before this load is issued
+  const auto load = [&](int t) {
+    const int i = t / atoms, nt = (int)blockIdx.y + ny * i, k0 = 64 * (t % atoms);
+    unsigned char* st = smem + L.ring + (size_t)(t % kFwdStages) * L.stage;
+    if (k0 == 0 && tid < WN / 4)
+      wtile::cp_async16(s_bias + (i % kFwdStages) * WN + 4 * tid, epi.bias + nt * WN + 4 * tid);
+    if constexpr (kStreamA) {
+      for (int e = tid; e < kFwdRows * 8; e += kThreads) {
+        const int r = e >> 3, c = e & 7;
+        cp_async16_zfill(st + swz(r, c), A + (size_t)min(r, n - 1) * op.K + k0 + 8 * c,
+                         r < n ? 16 : 0);
+      }
+    }
+    for (int e = tid; e < WN * 8; e += kThreads) {
+      const int r = e >> 3, c = e & 7, k = min(k0 + 8 * c, op.K - 8);
+      cp_async16_zfill(st + L.b + swz(r, c), W + (size_t)(nt * WN + r) * op.K + k,
+                       k0 + 8 * c < op.K ? 16 : 0);
+    }
+  };
+
+  // F1, F3: the LayerNorm's gamma and beta
+  float* s_gb = reinterpret_cast<float*>(smem + L.gb);
+  if constexpr (S == 1 || S == 3) {
+    const float* gb[2] = {static_cast<const float*>(tab.p[S == 1 ? G1 : G2]),
+                          static_cast<const float*>(tab.p[S == 1 ? BE1 : BE2])};
+    for (int e = tid; e < g.C / 2; e += kThreads) {   // 4 floats a copy, C / 4 each
+      const int which = e / (g.C / 4), c = 4 * (e - which * (g.C / 4));
+      wtile::cp_async16(s_gb + which * g.C + c, gb[which] + c);
+    }
+  }
+  if constexpr (!kStreamA) {   // A's rows into the resident tile (rows n.., columns K.. zero)
+    const int kq = 8 * atoms;
+    for (int e = tid; e < kFwdRows * kq; e += kThreads) {
+      const int r = e / kq, q = e - r * kq;
+      cp_async16_zfill(smem + (size_t)(q >> 3) * kFwdRows * 128 + swz(r, q & 7),
+                       A + (size_t)min(r, n - 1) * op.K + 8 * min(q, op.K / 8 - 1),
+                       r < n && 8 * q < op.K ? 16 : 0);
+    }
+  }
+  wtile::cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kFwdAhead; ++t) {
+    if (t < tiles) load(t);
+    wtile::cp_async_commit();
+  }
+  if constexpr (S == 1 || S == 3) {   // x's rows are in: the LayerNorm in place
+    wtile::cp_async_wait<kFwdAhead>();
+    __syncthreads();
+    fwd_ln_tc(smem, s_gb, s_gb + g.C, n, g.C,
+              static_cast<const float*>(S == 1 ? tab.p[PAD] : nullptr), (size_t)row0,
+              g.nW * g.N, g.eps);
+  }
+
+  float acc[WN / 2];
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+  const uint32_t base = smem_addr(smem);
+  const int w4 = (tid >> 5) & 3, lane = tid & 31;
+  bf16* sO = reinterpret_cast<bf16*>(smem + L.out) + (size_t)wg * 64 * L.ldo;
+  bf16* out = static_cast<bf16*>(op.out);
+  constexpr int kq = WN / 8;   // 16-byte chunks of a staging row
+  // the drop-path scales of this thread's two rows in the epilogue
+  float keep_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = 64 * wg + 16 * w4 + (lane >> 2) + 8 * h;
+    keep_r[h] = rr < n ? epi.row_keep((size_t)(row0 + rr)) : 0.f;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    // tile t is in; each warpgroup has waited for its products of tile t -
+    // 2 (below), so after the barrier tile t - 2's stage may be refilled
+    wtile::cp_async_wait<kFwdAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int ka = t % atoms, nt = (int)blockIdx.y + ny * (t / atoms);
+    if constexpr (S == 2 || S == 4)
+      if (ka == 0)   // a column tile starts: its residual rows into the staging tile
+        for (int e = tid & 127; e < 64 * kq; e += 128) {
+          const int r = e / kq, q = e - r * kq, rr = 64 * wg + r;
+          cp_async16_zfill(sO + r * L.ldo + 8 * q,
+                           epi.res + (size_t)(row0 + min(rr, n - 1)) * g.C + nt * WN + 8 * q,
+                           rr < n ? 16 : 0);
+        }
+    if (t + kFwdAhead < tiles) load(t + kFwdAhead);
+    wtile::cp_async_commit();
+    const uint32_t st = base + (uint32_t)(L.ring + (size_t)(t % kFwdStages) * L.stage);
+    const uint32_t a0 = kStreamA ? st : base + (uint32_t)ka * kFwdRows * 128;
+    const uint64_t da = wgmma_desc(a0 + wg * 64 * 128), db = wgmma_desc(st + (uint32_t)L.b);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)   // a column tile's first product starts the sums
+      Wgmma<WN>::mma(acc, da + 2 * kk, db + 2 * kk, ka > 0 || kk > 0);
+    wgmma_commit();
+    if (ka != atoms - 1) {
+      wgmma_wait<1>();   // tile t - 1's products are done; tile t's run on
+      fence_acc(acc);
+      continue;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // epilogue: the warpgroup's 64 rows x WN columns through its staging
+    // tile (F2, F4: over the residual rows, which each thread reads before
+    // it writes), then out in 16-byte rows
+    constexpr bool kResidual = S == 2 || S == 4;
+    const float* sb = s_bias + (t / atoms % kFwdStages) * WN + 2 * (lane & 3);
+    if constexpr (kResidual) {
+      wtile::cp_async_wait<0>();
+      wg_barrier(1 + wg);
+    }
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* o = sO + (16 * w4 + (lane >> 2) + 8 * h) * L.ldo + 8 * j + 2 * (lane & 3);
+        const float2 v =
+            epi.value(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1],
+                      *reinterpret_cast<const float2*>(sb + 8 * j), keep_r[h],
+                      kResidual ? load2(o) : make_float2(0.f, 0.f));
+        store2(o, v.x, v.y);
+      }
+    wg_barrier(1 + wg);
+    for (int e = tid & 127; e < 64 * kq; e += 128) {
+      const int r = e / kq, q = e - r * kq, rr = 64 * wg + r;
+      if (rr < n)
+        *reinterpret_cast<uint4*>(out + (size_t)(row0 + rr) * op.N + nt * WN + 8 * q) =
+            *reinterpret_cast<const uint4*>(sO + r * L.ldo + 8 * q);
+    }
+  }
+}
+
+// The fp32 LayerNorm prologue: y = LN(x) * pad of n rows of x (stride C)
+// into dst (stride ld), rows n..Rp zeroed; a warp per row.
+__device__ void fwd_ln_f32(float* dst, int ld, const float* x, int n, int Rp, int C,
+                           const float* gam, const float* bet, const float* pad, size_t row0,
+                           int per_img, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < Rp; r += kWarps) {
+    float v[kMaxC / 32];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxC / 32; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C && r < n ? x[(size_t)r * C + c] : 0.f;
+      s += v[i];
+      ss += v[i] * v[i];
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / C;
+    const float rs = rsqrtf(ss / C - mu * mu + eps);
+    const float pm = r >= n ? 0.f : pad != nullptr ? pad[(row0 + r) % per_img] : 1.f;
+#pragma unroll
+    for (int i = 0; i < kMaxC / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) dst[r * ld + c] = ((v[i] - mu) * rs * gam[c] + bet[c]) * pm;
+    }
+  }
+}
+
+__host__ __device__ inline size_t fwd_smem_f32(int C) {
+  return (size_t)kFwdRows32 * (C + 4) * sizeof(float);
+}
+
+// Stage S of the fp32 forward on the tile of kFwdRows32 rows at blockIdx.x.
+template <int S>
+__global__ void __launch_bounds__(kThreads) fused_block_fwd_f32_kernel(Table tab, Geo g) {
+  extern __shared__ __align__(16) char smem[];
+  const FwdOp op = fwd_op(S, tab.p, g);
+  const FwdEpi<float, S> epi = fwd_epi<float, S>(tab.p, g);
+  const int row0 = blockIdx.x * kFwdRows32, left = g.B_ * g.N - row0;
+  const int n = left < kFwdRows32 ? left : kFwdRows32, Rp = (n + 15) / 16 * 16;
+  const float* A = static_cast<const float*>(op.a) + (size_t)row0 * op.K;
+  float* sA = reinterpret_cast<float*>(smem);
+  const int ld = g.C + 4;
+  if constexpr (S == 1)
+    fwd_ln_f32(sA, ld, A, n, Rp, g.C, static_cast<const float*>(tab.p[G1]),
+               static_cast<const float*>(tab.p[BE1]), static_cast<const float*>(tab.p[PAD]),
+               (size_t)row0, g.nW * g.N, g.eps);
+  if constexpr (S == 3)
+    fwd_ln_f32(sA, ld, A, n, Rp, g.C, static_cast<const float*>(tab.p[G2]),
+               static_cast<const float*>(tab.p[BE2]), nullptr, (size_t)row0, g.nW * g.N, g.eps);
+  if constexpr (S == 2)
+    for (int e = threadIdx.x; e < Rp * op.K; e += kThreads) {
+      const int r = e / op.K, c = e - r * op.K;
+      sA[r * ld + c] = r < n ? A[(size_t)r * op.K + c] : 0.f;
+    }
+  __syncthreads();
+  const GRow<float> Wt{static_cast<const float*>(op.w), op.K, op.N, op.K};
+  float* out = static_cast<float*>(op.out);
+  const auto store = [&](int r, int c, float v0, float v1) {
+    if (r >= n) return;
+    const float2 v = epi((size_t)(row0 + r), c, v0, v1);
+    store2(out + (size_t)(row0 + r) * op.N + c, v.x, v.y);
+  };
+  if constexpr (S == 4) {
+    const GRow<float> Ag{A, op.K, n, op.K};
+    for_tiles<2, 4>(
+        Rp, op.N, [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, Ag, m0, mt, Wt, n0, op.K); },
+        store);
+  } else {
+    const SRow<float> As{sA, ld, n, op.K};
+    for_tiles<2, 4>(
+        Rp, op.N, [&](auto& acc, int m0, int mt, int n0) { mma_block(acc, As, m0, mt, Wt, n0, op.K); },
+        store);
+  }
+}
+
 Geo make_geo(const int* dims, float scale, float eps) {
   Geo g;
   g.B_ = dims[D_B];
@@ -1519,27 +1677,11 @@ Geo make_geo(const int* dims, float scale, float eps) {
   g.frun = dims[D_FRUN];
   g.bwarps = dims[D_BWARPS];
   g.brun = dims[D_BRUN];
-  g.Rp = (g.N + 15) / 16 * 16;
   g.S = 8 * g.C + 2 * g.M;
   g.V = 9 * g.C + g.M;
   g.scale = scale;
   g.eps = eps;
   return g;
-}
-
-template <typename Kernel>
-cudaError_t launch_rows(Kernel kernel, const Table& tab, const Geo& g, size_t smem,
-                        cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<g.B_, kThreads, smem, s>>>(tab, g);
-  return cudaGetLastError();
-}
-
-template <typename T> int run_fwd(const Table& tab, const Geo& g, cudaStream_t s) {
-  const Layout L = make_layout(g.N, g.C, g.hd, g.Rp, sizeof(T));
-  return (int)launch_rows(fused_block_fwd_kernel<T>, tab, g, L.bytes, s);
 }
 
 template <typename Kernel>
@@ -1561,8 +1703,9 @@ cudaError_t launch_tok(Kernel kernel, const Table& tab, const Geo& g, int which,
 struct FusedBlockBias : wtile::TableBias {};
 
 // The attention tiles' geometry on QKV: q, k, v at columns 0, C, 2C of a
-// 3C-wide row, heads hd wide.
-wtile::Geometry attn_geometry(const Geo& g, int run) {
+// 3C-wide row, heads hd wide; the output a at row stride ld_out (the
+// forward's FA: C; the backward's workspace: S).
+wtile::Geometry attn_geometry(const Geo& g, int run, int ld_out) {
   wtile::Geometry tg{};
   tg.B_ = g.B_;
   tg.N = g.N;
@@ -1570,7 +1713,7 @@ wtile::Geometry attn_geometry(const Geo& g, int run) {
   tg.nH = g.nH;
   tg.types = g.nW;
   tg.ld_in = 3 * g.C;
-  tg.ld_out = g.S;
+  tg.ld_out = ld_out;
   tg.ld_do = g.C;
   tg.ld_dx = g.S;
   tg.run = run;
@@ -1589,7 +1732,7 @@ template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s
   cudaError_t err = launch_tok(fused_bwd_t1_kernel<T>, tab, g, 1, sizeof(T), s);
   if (err != cudaSuccess) return (int)err;
   const wtile::Operands<T> fwd{qkv, qkv + g.C, qkv + 2 * g.C, ws + ws_a(g)};
-  int rc = wtile::launch<T>(fwd, bias, attn_geometry(g, g.frun), g.fwarps, s);
+  int rc = wtile::launch<T>(fwd, bias, attn_geometry(g, g.frun, g.S), g.fwarps, s);
   if (rc != 0) return rc;
   err = launch_tok(fused_bwd_t2_kernel<T>, tab, g, 2, sizeof(T), s);
   if (err != cudaSuccess) return (int)err;
@@ -1597,7 +1740,7 @@ template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s
                                   static_cast<const T*>(table[DA]), ws + ws_dqkv(g),
                                   ws + ws_dqkv(g) + g.C, ws + ws_dqkv(g) + 2 * g.C,
                                   static_cast<float*>(table[BPART])};
-  rc = wtile::backward<T>(bwd, bias, attn_geometry(g, g.brun), g.bwarps,
+  rc = wtile::backward<T>(bwd, bias, attn_geometry(g, g.brun, g.S), g.bwarps,
                           static_cast<float*>(table[D_BIAS]), s);
   if (rc != 0) return rc;
   err = launch_tok(fused_bwd_t3_kernel<T>, tab, g, 3, sizeof(T), s);
@@ -1638,13 +1781,94 @@ template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s
   return (int)err;
 }
 
+// A bf16 stage's grid: the row tiles, and its output column tiles split
+// over gridDim.y blocks when there are too few row tiles to give every SM
+// kFwdBlocksPerSm blocks (the LayerNorm prologue then runs once per block).
+constexpr int kFwdBlocksPerSm = 3;
+
+template <int WN, int S>
+cudaError_t launch_fwd_tc(const Table& tab, const Geo& g, int sms, cudaStream_t s) {
+  const size_t smem = fwd_smem(S, g.C, S == 4 ? g.M : g.C, WN).bytes;
+  auto kernel = fused_block_fwd_tc_kernel<WN, S>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int bx = (g.B_ * g.N + kFwdRows - 1) / kFwdRows;
+  const int n_tiles = (S == 1 ? 3 * g.C : S == 3 ? g.M : g.C) / WN;
+  const int by = std::min(n_tiles, std::max(1, (kFwdBlocksPerSm * sms + bx - 1) / bx));
+  kernel<<<dim3(bx, by), kThreads, smem, s>>>(tab, g);
+  return cudaGetLastError();
+}
+
+template <int S> cudaError_t launch_fwd_f32(const Table& tab, const Geo& g, cudaStream_t s) {
+  const size_t smem = fwd_smem_f32(g.C);
+  auto kernel = fused_block_fwd_f32_kernel<S>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(g.B_ * g.N + kFwdRows32 - 1) / kFwdRows32, kThreads, smem, s>>>(tab, g);
+  return cudaGetLastError();
+}
+
+// A1 of the forward: a = attention of QKV's q, k, v into FA.
+template <typename T> int fwd_attention(const Table& tab, const Geo& g, cudaStream_t s) {
+  const T* qkv = static_cast<const T*>(tab.p[QKV]);
+  FusedBlockBias bias;
+  bias.table = static_cast<const float*>(tab.p[BIAS]);
+  bias.region = static_cast<const int*>(tab.p[REGION]);
+  const wtile::Operands<T> op{qkv, qkv + g.C, qkv + 2 * g.C, static_cast<T*>(tab.p[FA])};
+  return wtile::launch<T>(op, bias, attn_geometry(g, g.frun, g.C), g.fwarps, s);
+}
+
+// F1, A1, F2, F3, F4 in a row.
+template <typename T, typename Stage>
+int run_fwd_stages(const Table& tab, const Geo& g, cudaStream_t s, Stage stage) {
+  cudaError_t err = stage(std::integral_constant<int, 1>{});
+  if (err != cudaSuccess) return (int)err;
+  const int rc = fwd_attention<T>(tab, g, s);
+  if (rc != 0) return rc;
+  err = stage(std::integral_constant<int, 2>{});
+  if (err != cudaSuccess) return (int)err;
+  err = stage(std::integral_constant<int, 3>{});
+  if (err != cudaSuccess) return (int)err;
+  return (int)stage(std::integral_constant<int, 4>{});
+}
+
+template <int WN> int run_fwd_tc(const Table& tab, const Geo& g, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  return run_fwd_stages<bf16>(
+      tab, g, s, [&](auto S) { return launch_fwd_tc<WN, decltype(S)::value>(tab, g, sms, s); });
+}
+
+int run_fwd(const Table& tab, const Geo& g, int dtype, cudaStream_t s) {
+  if (g.C % 32 || g.C > kMaxC || g.M % 32 || g.hd % 8) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return run_fwd_stages<float>(tab, g, s, [&](auto S) { return launch_fwd_f32<decltype(S)::value>(tab, g, s); });
+  switch (fwd_wn(g.C, g.M)) {
+    case 96: return run_fwd_tc<96>(tab, g, s);
+    case 64: return run_fwd_tc<64>(tab, g, s);
+    default: return run_fwd_tc<32>(tab, g, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one row-kernel block takes (elem_size 2 or 4).
-long long esvit_fused_block_smem_bytes(int N, int C, int nH, int elem_size) {
-  return (long long)make_layout(N, C, C / nH, (N + 15) / 16 * 16, elem_size).bytes;
+// Shared-memory bytes of the forward's largest token-tile block (F1-F4)
+// at width C and MLP width M (elem_size 2 or 4).
+long long esvit_fused_block_fwd_smem_bytes(int C, int M, int elem_size) {
+  if (elem_size == 4) return (long long)fwd_smem_f32(C);
+  const int wn = fwd_wn(C, M);
+  size_t most = 0;
+  for (int S = 1; S <= 4; ++S) {
+    const size_t b = fwd_smem(S, C, S == 4 ? M : C, wn).bytes;
+    most = b > most ? b : most;
+  }
+  return (long long)most;
 }
 
 // table: kNumPtrs pointers in Ptr order (null where unused); dims:
@@ -1655,8 +1879,7 @@ int esvit_fused_block_fwd(void* const* table, const int* dims, float scale, floa
   Table tab;
   for (int i = 0; i < kNumPtrs; ++i) tab.p[i] = table[i];
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return run_fwd<bf16>(tab, g, s);
-  return run_fwd<float>(tab, g, s);
+  return run_fwd(tab, g, dtype, s);
 }
 
 int esvit_fused_block_bwd(void* const* table, const int* dims, float scale, float eps,

@@ -1,20 +1,23 @@
-"""The whole Swin block in one kernel: the CUDA pair and its plain twin.
+"""The whole Swin block: the CUDA kernels and their plain twin.
 
 Replaces esvit_tpu/ops/fused_block.py ``_fwd_kernel`` and ``_bwd_kernel``
 (via ``fused_swin_block``) with ``csrc/fused_block.cu``: LN1 -> q/k/v ->
 window attention (rel-pos bias, -100 shift mask, pad-row multiplier) ->
 proj -> drop-path residual -> LN2 -> fc1 -> erf-GELU -> fc2 -> drop-path
-residual, one thread block per window. The backward recomputes the
-forward from the block input (the only tensor saved) in five kernels:
-what is per token on tiles of :func:`token_rows` rows (T1: LN1 and q/k/v;
-T2: proj, LN2, the MLP and LN2 backward; T3: the q/k/v transposes and the
-LN1 backward), and only attention per window, on the tiles of
-``csrc/window_attention_tile.cuh`` (A1: its forward recompute; A2: its
-backward). It writes dx and a workspace of per-row operands, and a last
-kernel sums every weight gradient over all rows in a fixed order: all 17
-parameter gradients are bit-identical run to run.
-:func:`fused_block_bwd_staged` is the backward's plain twin stage by
-stage, with the kernels' roundings.
+residual. The forward is five kernels: four token-tile GEMMs of
+:func:`fwd_token_rows` rows on the tensor cores (F1: LN1 and q/k/v; F2:
+proj and its residual; F3: LN2, fc1 and GELU; F4: fc2 and its residual)
+and attention per window on the tiles of ``csrc/window_attention_tile.cuh``
+(A1). The backward recomputes the forward from the block input (the only
+tensor saved) in five kernels: what is per token on tiles of
+:func:`token_rows` rows (T1: LN1 and q/k/v; T2: proj, LN2, the MLP and LN2
+backward; T3: the q/k/v transposes and the LN1 backward), and only
+attention per window (A1: the forward tile; A2: its backward). It writes
+dx and a workspace of per-row operands, and a last kernel sums every
+weight gradient over all rows in a fixed order: all 17 parameter
+gradients are bit-identical run to run. :func:`fused_block_fwd_staged`
+and :func:`fused_block_bwd_staged` are the two passes' plain twins stage
+by stage, with the kernels' roundings.
 
 Layouts: x ``(B, nW*N, C)`` in the port's unpadded window-major order
 (ops/window.py); ``params`` holds the reference's names and layouts
@@ -49,15 +52,19 @@ _PTRS = ("X", "OUT", "G1", "BE1", "BQKV", "BP", "G2", "BE2", "B1", "B2",
          "BIAS", "PAD", "KEEP1", "KEEP2", "REGION",
          "WQKV_F", "WP_F", "W1_F", "W2_F", "WQKV_B", "WP_B", "W1_B", "W2_B",
          "DOUT", "DX", "DX32", "WS", "VPART", "BPART", "WPART", "TMP", "QKV",
-         "DA", "D_WQKV", "D_WP", "D_W1", "D_W2", "D_VEC", "D_BIAS")
-# The weight copies each kernel reads: the backward recomputes the forward
-# up to y2 (q/k/v, proj, fc1) and runs every product's transpose.
+         "DA", "D_WQKV", "D_WP", "D_W1", "D_W2", "D_VEC", "D_BIAS", "FA",
+         "FX2", "FG")
+# The weight copies each pass reads: the forward's four products; the
+# backward recomputes the forward up to y2 (q/k/v, proj, fc1) and runs
+# every product's transpose.
 _FWD_WEIGHTS = ("WQKV_F", "WP_F", "W1_F", "W2_F")
 _BWD_WEIGHTS = ("WQKV_F", "WP_F", "W1_F",
                 "WQKV_B", "WP_B", "W1_B", "W2_B")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 384                  # kMaxC in the source
 _MLP_CHUNK = 128              # kMc in the source
+_FWD_ROWS = 128               # kFwdRows: a bf16 forward token tile
+_FWD_ROWS_FP32 = 32           # kFwdRows32: an fp32 forward token tile
 _SUM_GROUP = 64               # kGroup in the source
 # Weight-gradient row chunks: about this many rows each, at most this many
 # chunks, and partials of at most this many floats.
@@ -180,18 +187,72 @@ def stage_t1(x, p, pad, L, eps):
     return y, qkv
 
 
+def _proj_residual(x, a, w, b, keep, L):
+    """x + round(round(round(a W) + round(b)) * keep) on (rows, C) rows of
+    images of L tokens (x + round(round(a W) + round(b)) for keep None)."""
+    dt = x.dtype
+    o = _proj(a, w, b, dt)
+    if keep is None:
+        return x + o
+    return x + (o.float() * _per_row(keep, x.shape[0], L, True)).to(dt)
+
+
+def _fc1(x2, p, eps):
+    """y2 = round(LN2(x2)) and h = round(round(y2 W1) + round(b1)), in fp32."""
+    dt = x2.dtype
+    y2 = _ln(x2, p["g2"], p["be2"], eps).to(dt)
+    return y2, _proj(y2, p["w1"], p["b1"], dt).float()
+
+
+def stage_f2(x, a, p, keep1, L):
+    """F2 on (rows, C) rows of images of L tokens: x2 = x +
+    round(round(round(a Wp) + round(bp)) * keep1)."""
+    return _proj_residual(x, a, p["wp"], p["bp"], keep1, L)
+
+
+def stage_f3(x2, p, eps):
+    """F3 on (rows, C) rows: g = round(gelu(round(round(round(LN2(x2)) W1)
+    + round(b1))))."""
+    return _gelu(_fc1(x2, p, eps)[1]).to(x2.dtype)
+
+
+def stage_f4(x2, g, p, keep2, L):
+    """F4 on (rows, C) rows: out = x2 + round(round(round(g W2) +
+    round(b2)) * keep2)."""
+    return _proj_residual(x2, g, p["w2"], p["b2"], keep2, L)
+
+
+def fused_block_fwd_staged(x, params, keep1, keep2, *, N: int, nH: int,
+                           nW: int, scale: float, region=None, pad=None,
+                           eps: float = 1e-6):
+    """The forward kernels' function in plain PyTorch, stage by stage,
+    rounding to x's dtype where they do (csrc/fused_block.cu): F1 (qkv),
+    A1 (a), F2 (x2), F3 (g), F4 (out). Returns a dict of the stage outputs
+    as (rows, width) tensors (qkv as [q | k | v]) and ``out`` in x's
+    shape."""
+    B, L, C = x.shape
+    p = params
+    xr = x.reshape(B * L, C)
+    _, qkv = stage_t1(xr, p, pad, L, eps)
+    q, k, v = qkv.split(C, dim=-1)
+    a = wa.window_attention_plain(q, k, v, p["bias"].float(), region, N, nH,
+                                  scale)
+    x2 = stage_f2(xr, a, p, keep1, L)
+    g = stage_f3(x2, p, eps)
+    out = stage_f4(x2, g, p, keep2, L)
+    return dict(qkv=qkv, a=a, x2=x2, g=g, out=out.reshape(B, L, C))
+
+
 def stage_t2(x, a, do, p, keep1, keep2, L, eps):
     """T2 on (rows, C) rows: x2, y2, do2, g, dh, dx2 (fp32), do1, da and
     the fp32 vector gradients db1, db2, dg2, dbe2, dbp."""
     dt = x.dtype
     rows = x.shape[0]
     k1 = _per_row(keep1, rows, L, True)
-    o1 = _proj(a, p["wp"], p["bp"], dt)
-    x2 = x + o1 if keep1 is None else x + (o1.float() * k1).to(dt)
-    y2 = _ln(x2, p["g2"], p["be2"], eps).to(dt)
+    x2 = stage_f2(x, a, p, keep1, L)
+    y2, h = _fc1(x2, p, eps)
     do2f = do.float() * _per_row(keep2, rows, L, True)
     do2 = do2f.to(dt)
-    h = _proj(y2, p["w1"], p["b1"], dt).float()
     dh = (_mm(do2, p["w2"].t(), dt).to(dt).float() * _dgelu(h)).to(dt)
     dy2 = _mm(dh, p["w1"].t(), dt)
     dln2, dg2, dbe2 = _ln_bwd(x2, dy2, p["g2"].float(), eps)
@@ -285,14 +346,44 @@ def bwd_stage_errors(x, params, keep1, keep2, do, *, N: int, nH: int,
     want["dqkv"] = torch.cat([dq, dk, dv], dim=-1)
     want["dx"] = stage_t3(xr, got["dqkv"], got["dx2"], params, pad, L,
                           eps)["dx"]
+    return _stage_errors(got, want, "backward")
+
+
+def _stage_errors(got, want, what):
+    """Each stage output's max-abs difference from its twin over the
+    twin's max-abs; raises if a kernel output is not finite."""
     errs = {}
     for name, w in want.items():
         g = got[name].float()
         if not torch.isfinite(g).all():
-            raise AssertionError(f"backward stage output {name} not finite")
+            raise AssertionError(f"{what} stage output {name} not finite")
         errs[name] = ((g - w.float()).abs().max().item()
                       / max(w.float().abs().max().item(), 1e-6))
     return errs
+
+
+def fwd_stage_errors(x, params, keep1, keep2, *, N: int, nH: int, nW: int,
+                     scale: float, region=None, pad=None,
+                     eps: float = 1e-6) -> dict:
+    """Each forward stage kernel against its plain twin on the kernel's
+    own inputs for that stage (the scratch :func:`_fwd_buffers` returns):
+    F1 (qkv), A1 (a), F2 (x2), F3 (g), F4 (out). Returns each output's
+    max-abs difference over the plain one's max-abs; raises if a kernel
+    output is not finite. CUDA tensors (the kernels run)."""
+    B, L, C = x.shape
+    out, sc = _fwd_buffers(x, params, keep1, keep2, region, pad,
+                           (N, nH, nW, scale, eps))
+    got = dict(qkv=sc["QKV"], a=sc["FA"], x2=sc["FX2"], g=sc["FG"],
+               out=out.reshape(-1, C))
+    xr = x.reshape(-1, C)
+    want = {"qkv": stage_t1(xr, params, pad, L, eps)[1]}
+    q, k, v = (t.contiguous() for t in got["qkv"].split(C, dim=-1))
+    want["a"] = wa.window_attention_plain(q, k, v, params["bias"].float(),
+                                          region, N, nH, scale)
+    want["x2"] = stage_f2(xr, got["a"], params, keep1, L)
+    want["g"] = stage_f3(got["x2"], params, eps)
+    want["out"] = stage_f4(got["x2"], got["g"], params, keep2, L)
+    return _stage_errors(got, want, "forward")
 
 
 def fused_swin_block(x, params, keep1, keep2, *, N: int, nH: int, nW: int,
@@ -310,18 +401,29 @@ def fused_swin_block(x, params, keep1, keep2, *, N: int, nH: int, nW: int,
 
 def supports(N: int, C: int, nH: int, M: int) -> bool:
     """Whether the kernels take this block shape, by shape alone (the same
-    answer on every device): N <= 64, a head dim that is a multiple of 16
-    and at most 64, C a multiple of 32 and at most 384, M of 128; and, so
-    that an fp32 block fits the card's 227 KB of shared memory (bf16 needs
-    less), two of the three bounds C <= 192, N <= 49, head dim <= 32.
-    chip_smoke.py holds that rule against the kernels' own layout over
-    every shape the other bounds admit."""
+    answer on every device): N <= 64 and a head dim that is a multiple of
+    16 and at most 64 (the window-attention tiles, A1 and A2); C a
+    multiple of 32 and at most 384 (a LayerNorm row in registers, the
+    forward's wgmma widths) and M a multiple of 128 (the backward's MLP
+    chunk). The last rule, two of the three bounds C <= 192, N <= 49 and
+    head dim <= 32, sized the shared memory of the per-window forward
+    kernel that the token-tile forward replaced; no kernel needs it now
+    (the token tiles' shared memory depends on C alone, and chip_smoke.py
+    holds both passes' against the card at every admitted width). It stays
+    so that no route changes with the forward's design."""
     if not 0 < N <= 64 or C % nH or C % 32 or C > _MAX_C or M % _MLP_CHUNK:
         return False
     hd = C // nH
     if hd % 16 or hd > 64:
         return False
     return (C <= 192) + (N <= 49) + (hd <= 32) >= 2
+
+
+def fwd_token_rows(itemsize: int = 2) -> int:
+    """Rows of one forward token tile (F1-F4): 128 in bf16 (two wgmma
+    warpgroups of 64 rows), 32 in fp32. The last tile is ragged; tiles
+    cross window and image boundaries."""
+    return _FWD_ROWS if itemsize == 2 else _FWD_ROWS_FP32
 
 
 def token_rows(C: int, itemsize: int = 2) -> int:
@@ -370,34 +472,35 @@ def _check(x, ps, keep1, keep2, region, pad, N, nH, nW):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _operands(x, ps, nH, weights):
+def _operands(x, ps, weights):
     """Kernel operands: fp32 vectors and bias, and the weight copies named
     in ``weights`` in x's dtype (``*_F`` [out][in] for the forward
     products, ``*_B`` [in][out] for the backward's), all contiguous. The
-    forward's q/k/v weight has head-major outputs (head h's q, k and v
-    columns side by side), so one product per head makes all three; the
-    backward's is [wq | wk | wv], the column order of its dq | dk | dv."""
+    q/k/v weight is [wq | wk | wv]: the column order of QKV and of the
+    backward's dq | dk | dv."""
     dt = x.dtype
-    C = x.shape[-1]
     f32 = {n: ps[n].float().contiguous()
            for n in ("g1", "be1", "bp", "g2", "be2", "b1", "b2", "bias")}
     ops = dict(
         G1=f32["g1"], BE1=f32["be1"], BP=f32["bp"], G2=f32["g2"],
         BE2=f32["be2"], B1=f32["b1"], B2=f32["b2"], BIAS=f32["bias"],
         BQKV=torch.cat([ps["bq"], ps["bk"], ps["bv"]]).float().contiguous())
-    for name in weights:
+    for name in weights:                    # ps holds [in][out]
         w, layout = name.split("_")
-        if w == "WQKV":
-            qkv = torch.stack([ps["wq"], ps["wk"], ps["wv"]], dim=1).to(dt)
-            if layout == "F":               # [out][in], outputs head-major
-                qkv = (qkv.reshape(C, 3, nH, C // nH).transpose(1, 2)
-                       .reshape(C, 3 * C).t())
-            else:                           # [in][out]: [wq | wk | wv]
-                qkv = qkv.reshape(C, 3 * C)
-            ops[name] = qkv.contiguous()
-        else:                               # ps holds [in][out]
-            cast = ps[w.lower()].to(dt)
-            ops[name] = (cast.t() if layout == "F" else cast).contiguous()
+        srcs = ([ps["wq"], ps["wk"], ps["wv"]] if w == "WQKV"
+                else [ps[w.lower()]])
+        K, N = srcs[0].shape[0], sum(t.shape[1] for t in srcs)
+        out = torch.empty((N, K) if layout == "F" else (K, N), dtype=dt,
+                          device=x.device)
+        col = 0
+        for t in srcs:                      # one cast (and transpose) each
+            n = t.shape[1]
+            if layout == "F":
+                out[col:col + n].copy_(t.t())
+            else:
+                out[:, col:col + n].copy_(t)
+            col += n
+        ops[name] = out
     return ops
 
 
@@ -421,15 +524,30 @@ def _call(entry, x, tensors, geometry, chunks, plan=(0, 0, 0, 0, 0)):
 
 
 def _fwd(x, ps, keep1, keep2, region, pad, geometry):
+    return _fwd_buffers(x, ps, keep1, keep2, region, pad, geometry)[0]
+
+
+def _fwd_buffers(x, ps, keep1, keep2, region, pad, geometry):
+    """:func:`_fwd`'s output, and the forward's scratch as its kernels left
+    it: QKV ([q | k | v]), FA (a), FX2 (x2) and FG (g), (rows, width)."""
     N, nH, nW = geometry[:3]
     _check(x, ps, keep1, keep2, region, pad, N, nH, nW)
     x = x.contiguous()
+    B, L, C = x.shape
+    M = ps["w1"].shape[1]
+    rows = B * L
+    fplan = wa.tile_plan(B * nW, N, C // nH, nH, nW, x.element_size(),
+                         wa._sm_count(x.device.index))
     out = torch.empty_like(x)
-    tensors = dict(_operands(x, ps, nH, _FWD_WEIGHTS), X=x, OUT=out,
-                   KEEP1=keep1, KEEP2=keep2, REGION=region, PAD=pad)
-    _call(_lib().esvit_fused_block_fwd, x, tensors, geometry, 1)
+    scratch = {name: torch.empty(rows, width, dtype=x.dtype, device=x.device)
+               for name, width in (("QKV", 3 * C), ("FA", C), ("FX2", C),
+                                   ("FG", M))}
+    tensors = dict(_operands(x, ps, _FWD_WEIGHTS), **scratch, X=x,
+                   OUT=out, KEEP1=keep1, KEEP2=keep2, REGION=region, PAD=pad)
+    _call(_lib().esvit_fused_block_fwd, x, tensors, geometry, 1,
+          (0, fplan.warps, fplan.run, 0, 0))
     launches["fwd"] += 1
-    return out
+    return out, scratch
 
 
 def _bwd(x, ps, keep1, keep2, region, pad, do, geometry):
@@ -476,7 +594,7 @@ def _bwd_buffers(x, ps, keep1, keep2, region, pad, do, geometry):
         DX32=torch.empty(rows, C, dtype=f32, device=dev),
         WS=torch.empty(rows, 8 * C + 2 * M, dtype=x.dtype, device=dev))
     tensors = dict(
-        _operands(x, ps, nH, _BWD_WEIGHTS), **out, **scratch, X=x,
+        _operands(x, ps, _BWD_WEIGHTS), **out, **scratch, X=x,
         KEEP1=keep1, KEEP2=keep2, REGION=region, PAD=pad, DOUT=do, DX=dx,
         VPART=torch.empty(tiles, V, dtype=f32, device=dev),
         BPART=torch.empty(nH * wa.bwd_partials(bplan, nW) * N * N, dtype=f32,
@@ -511,10 +629,10 @@ def _lib():
     for fn in (lib.esvit_fused_block_fwd, lib.esvit_fused_block_bwd):
         fn.argtypes = [P, P, F, F, I, P]
         fn.restype = I
-    lib.esvit_fused_block_smem_bytes.argtypes = [I, I, I, I]
-    lib.esvit_fused_block_smem_bytes.restype = ctypes.c_longlong
-    lib.esvit_fused_block_bwd_smem_bytes.argtypes = [I, I, I]
-    lib.esvit_fused_block_bwd_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.esvit_fused_block_fwd_smem_bytes,
+               lib.esvit_fused_block_bwd_smem_bytes):
+        fn.argtypes = [I, I, I]
+        fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -34,10 +34,12 @@ MODELS = {"swin_tiny": (config_lib.swin_tiny_multicrop, "Swin-T W=7"),
 
 
 def _kernel_group(name: str) -> str:
-    """A kernel's group by its demangled name. The block-fused backward's
-    attention halves (A1, A2 and their dbias sum) are the window-attention
-    tile kernels instantiated with the fused block's bias policy
-    (FusedBlockBias), so they go to the fused block."""
+    """A kernel's group by its demangled name. The block-fused kernels
+    (fused_block_fwd_* for the forward's token tiles F1-F4, fused_bwd_*,
+    wgrad*, sum_rows for the backward) are tested before the GEMM names;
+    both passes' attention halves (A1, A2 and the dbias sum) are the
+    window-attention tile kernels instantiated with the fused block's bias
+    policy (FusedBlockBias), so they go to the fused block."""
     n = name.lower()
     if "sliding_chunk" in n or "glo_reduce" in n:
         return "sliding chunk (this repo's CUDA)"

@@ -322,6 +322,95 @@ def test_cuda_fused_backward_stages_match_plain(cuda, case, dtype, tol):
     assert max(errs.values()) <= tol, errs
 
 
+# The forward's split (F1, A1, F2, F3, F4) at the backward's stage cases
+# and three more: rows 432, 512, 882 and 588 in tiles of 128 (bf16) or 32
+# (fp32), so ragged last tiles and whole ones, tiles across windows and
+# images; then a single 7x7 window per image (3 images, one short tile),
+# a 384-wide stage whose column tiles split over the grid one per block,
+# and one with 66 row tiles, whose column tiles split over 6 blocks on a
+# 132-SM card, several a block (the epilogue's bias slots in turn).
+FUSED_FWD_CASES = FUSED_STAGE_CASES + [
+    (3, 6, 7, 96, 3, False, False, True),
+    (4, 14, 7, 384, 12, False, False, False),
+    (43, 14, 7, 384, 12, True, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", FUSED_FWD_CASES)
+def test_cuda_fused_forward_stages_match_plain(cuda, case, dtype, tol):
+    """Each forward stage kernel within tol of its plain twin on its own
+    inputs (ops/fused_block.py fwd_stage_errors); the output within tol of
+    fused_swin_block_plain and bit-identical on repeat; one launch per
+    forward call."""
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    x, p, keep, kw = _fused_inputs(cuda, *case, seed=5)
+    xt = torch.tensor(x, device=cuda, dtype=dtype)
+    pt = {k: torch.tensor(v, device=cuda) for k, v in p.items()}
+    k1, k2 = ((None, None) if keep is None
+              else [torch.tensor(k, device=cuda) for k in keep])
+    errs = fb.fwd_stage_errors(xt, pt, k1, k2, **kw)
+    assert set(errs) == {"qkv", "a", "x2", "g", "out"}
+    assert max(errs.values()) <= tol, errs
+    before = fb.launches["fwd"]
+    with torch.no_grad():
+        a = fb.fused_swin_block(xt, pt, k1, k2, **kw)
+        b = fb.fused_swin_block(xt, pt, k1, k2, **kw)
+        ref = fb.fused_swin_block_plain(xt, pt, k1, k2, **kw)
+    assert fb.launches["fwd"] == before + 2
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    s = ref.float().abs().max()
+    torch.testing.assert_close(a.float() / s, ref.float() / s, rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_forward_refuses_what_the_kernels_do_not_take(cuda):
+    """The forward wrapper refuses CPU tensors, a dtype the kernels have no
+    instantiation for, and widths the token tiles do not take (C not a
+    multiple of 32, M not of 128)."""
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    x, p, keep, kw = _fused_inputs(cuda, 2, 14, 7, 64, 2, False, False, False)
+    pt = {k: torch.tensor(v, device=cuda) for k, v in p.items()}
+    geo = (kw["N"], kw["nH"], kw["nW"], kw["scale"], kw["eps"])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fb._fwd(torch.tensor(x), {k: v.cpu() for k, v in pt.items()}, None,
+                None, None, None, geo)
+    with pytest.raises(TypeError):
+        fb._fwd(torch.tensor(x, device=cuda, dtype=torch.float16), pt, None,
+                None, None, None, geo)
+    x48, p48, _, kw48 = _fused_inputs(cuda, 2, 14, 7, 48, 2, False, False,
+                                      False)
+    with pytest.raises(ValueError, match="unsupported block shape"):
+        fb._fwd(torch.tensor(x48, device=cuda),
+                {k: torch.tensor(v, device=cuda) for k, v in p48.items()},
+                None, None, None, None,
+                (kw48["N"], 2, kw48["nW"], kw48["scale"], 1e-6))
+    p_m = dict(pt, w1=pt["w1"][:, :192], b1=pt["b1"][:192],
+               w2=pt["w2"][:192])
+    with pytest.raises(ValueError, match="unsupported block shape"):
+        fb._fwd(torch.tensor(x, device=cuda), p_m, None, None, None, None,
+                geo)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_forward_token_tiles_fit_the_card(cuda):
+    """The forward's token-tile blocks (F1-F4) fit a block at every
+    admitted width, bf16 and fp32."""
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = fb._lib()
+    for C in range(32, fb._MAX_C + 1, 32):
+        for itemsize in (2, 4):
+            assert lib.esvit_fused_block_fwd_smem_bytes(
+                C, 4 * C, itemsize) <= limit, (C, itemsize)
+
+
 @pytest.mark.cuda
 def test_cuda_fused_backward_token_tiles_fit_the_card(cuda):
     """The backward's token-tile blocks (T1, T2, T3) at the rows

@@ -22,7 +22,7 @@ Three levels, fp32, inputs from ``np.random.default_rng``:
 
 Beside them, what the wrapper decides on the host: Swin-T's routes and
 kernel calls per forward at 224 and 96 px, the sub-window priority, the
-shape rule, the head-major weight operands, and that no tensor but a CPU
+shape rule, the weight operands' layouts, and that no tensor but a CPU
 one takes the plain version.
 """
 
@@ -274,31 +274,34 @@ def test_supports_is_a_shape_rule(N, C, nH, M, ok):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_operands_are_head_major(dtype):
-    """Row h*3hd + part*hd + j of the kernels' q/k/v weight (the [out][in]
-    copy) is column h*hd + j of wq, wk or wv; the [in][out] copy is
-    [wq | wk | wv], the backward's dq | dk | dv column order; every operand
-    is contiguous in x's dtype or fp32. The forward gets only the
-    [out][in] copies."""
+    """The kernels' q/k/v weights: the [in][out] copy is [wq | wk | wv]
+    (QKV's and the backward's dq | dk | dv column order, heads hd wide in
+    each third) and the [out][in] copy its transpose, so row part*C + h*hd
+    + j of it is column h*hd + j of wq, wk or wv; every operand is
+    contiguous in x's dtype or fp32. The forward gets only the [out][in]
+    copies."""
     C, nH, M = 64, 2, 128
     hd = C // nH
     rng = np.random.default_rng(3)
     ps = {k: torch.from_numpy(v)
           for k, v in _params(rng, C, M, nH, 49).items()}
     x = torch.zeros(1, 49, C, dtype=dtype)
-    fwd = tfb._operands(x, ps, nH, tfb._FWD_WEIGHTS)
+    fwd = tfb._operands(x, ps, tfb._FWD_WEIGHTS)
     assert {n for n in fwd if n[0] == "W"} == {"WQKV_F", "WP_F", "W1_F",
                                                "W2_F"}
-    ops = tfb._operands(x, ps, nH, tfb._FWD_WEIGHTS + tfb._BWD_WEIGHTS)
+    ops = tfb._operands(x, ps, tfb._FWD_WEIGHTS + tfb._BWD_WEIGHTS)
     wf = ops["WQKV_F"]
     for h in range(nH):
         for part, name in enumerate(("wq", "wk", "wv")):
-            rows = wf[h * 3 * hd + part * hd:h * 3 * hd + (part + 1) * hd]
+            rows = wf[part * C + h * hd:part * C + (h + 1) * hd]
             torch.testing.assert_close(
                 rows, ps[name][:, h * hd:(h + 1) * hd].t().to(dtype),
                 rtol=0, atol=0)
     torch.testing.assert_close(
         ops["WQKV_B"], torch.cat([ps["wq"], ps["wk"], ps["wv"]], 1).to(dtype),
         rtol=0, atol=0)
+    torch.testing.assert_close(ops["WQKV_F"], ops["WQKV_B"].t(), rtol=0,
+                               atol=0)
     torch.testing.assert_close(ops["W1_F"], ps["w1"].t().to(dtype), rtol=0,
                                atol=0)
     for name, t in ops.items():

@@ -1,8 +1,10 @@
 """esvit_tpu_torch.utils.profile files each kernel of a traced step under
-one group by its demangled name. The block-fused backward's attention
-halves are the window-attention tile kernels instantiated with the fused
-block's bias policy (csrc/fused_block.cu FusedBlockBias): they belong to
-the fused block, not to the window-attention kernels (rows 3 and 4)."""
+one group by its demangled name. The block-fused forward's token-tile
+GEMMs (F1-F4: fused_block_fwd_tc_kernel, fused_block_fwd_f32_kernel) are
+the fused block's, not cuBLAS's. Both passes' attention halves are the
+window-attention tile kernels instantiated with the fused block's bias
+policy (csrc/fused_block.cu FusedBlockBias): they belong to the fused
+block, not to the window-attention kernels (rows 3 and 4)."""
 
 import pytest
 
@@ -24,6 +26,14 @@ WINDOW = "window attention (this repo's CUDA)"
     ("void (anonymous namespace)::fused_bwd_t2_kernel<__nv_bfloat16>"
      "((anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
     ("(anonymous namespace)::wgrad_tc_kernel(__nv_bfloat16 const*, int)", FUSED),
+    ("void (anonymous namespace)::fused_block_fwd_tc_kernel<96, 1>("
+     "(anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
+    ("void (anonymous namespace)::fused_block_fwd_tc_kernel<96, 3>("
+     "(anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
+    ("void (anonymous namespace)::fused_block_fwd_tc_kernel<64, 4>("
+     "(anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
+    ("void (anonymous namespace)::fused_block_fwd_f32_kernel<2>("
+     "(anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
     ("void wtile::window_attention_bwd_tile_kernel<__nv_bfloat16, "
      "wtile::TableBias>(wtile::BwdOperands<__nv_bfloat16>, wtile::TableBias, "
      "wtile::Geometry)", WINDOW),
