@@ -11,7 +11,8 @@ so the script exits non-zero and prints no result line:
 2. Build the four kernel libraries from esvit_tpu_torch/csrc/ (one nvcc
    each, started together) and print nvcc's -Xptxas -v report; fail if a
    window-attention tile kernel's registers hold fewer warps per SM than
-   ops/window_attention.py tile_plan assumes.
+   ops/window_attention.py tile_plan assumes; print the sliding-chunk
+   tensor-core kernels' registers, spills and blocks per SM.
 3. Window attention vs plain PyTorch on the card at every full-window
    shape of the Swin-T W=7 B=32 multi-crop step (bf16, plus one fp32
    case): forward output and the q/k/v/bias gradients within 3e-2 (bf16)
@@ -37,10 +38,16 @@ so the script exits non-zero and prints no result line:
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
    of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case): the
    output and the five gradients within the same tolerances, every one
-   bit-identical on repeat; median times over 20 reps of kernel, plain
-   and the library call (scaled_dot_product_attention with the
-   neighbourhood as a boolean mask, whose output is first held to the
-   plain one).
+   bit-identical on repeat; each kernel (forward, bwd_q, bwd_k, the
+   globals' reduce) within the same tolerance of its staged twin on its
+   own inputs; median times over 20 reps of kernel, plain and the library
+   call (scaled_dot_product_attention with the neighbourhood as a boolean
+   mask, whose output is first held to the plain one); both passes'
+   device time split by kernel (torch.profiler), per shape and per ViL-T
+   step, and beside it the device time of the layout copies around each
+   call (models/vil_layers.py). First, every admitted shape's blocks fit
+   the card, and ops/sliding_chunk.py kernel_smem_bytes equals the
+   kernels' own count.
 6. The forward-only qkv-layout window attention (row 7) vs plain PyTorch
    on the card at every shape of the eval slice (fp32, B=64 at 224 px,
    shifted and unshifted) and of its train route (bf16, the 224 and 96 px
@@ -126,6 +133,8 @@ KERNELS = {
 # H100 SXM peaks for the roofline bound (NVIDIA data sheet, dense; fp32
 # outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
+# An H100 SM's shared memory (228 KB, 1 KB of it reserved per block).
+SM_SMEM_BYTES = 233472
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 
@@ -183,6 +192,9 @@ SC_SHAPES = [
     ("224 s1 fp32", 192, 28, 32, "fp32", 0, 0),
 ]
 SC_GRADS = ("q", "k", "v", "k_glo", "v_glo")
+# Heads of the ViL-T stage of each head dim (stage 0: 48 = 1 x 48; stage
+# 1: 96 = 3 x 32), for the layout copies around a call.
+SC_HEADS = {48: 1, 32: 3}
 # Row 7, the qkv-layout window attention: (label, windows B_, C, nH,
 # stage resolution H, shifted, dtype name, calls per eval forward batch).
 # fp32: the eval slice, B=64 images at 224 px (12 calls per forward);
@@ -270,7 +282,28 @@ def check_tile_registers(wa, regs):
     return checked
 
 
-def phase_build(cuda_build, wa):
+def sliding_chunk_registers(sc, wa, regs):
+    """Lines for the sliding-chunk tensor-core kernels of nvcc's report,
+    each instantiation (KD = round16(M) / 16 head-dim steps): registers,
+    and the blocks an SM holds by registers (allocated in units of 8 a
+    thread) and by shared memory at W=7, M=16 KD, one global."""
+    threads = 32 * -(-49 // 16)
+    lines = []
+    for name, n in regs.items():
+        m = re.search(r"sliding_chunk_(fwd|bwd_q|bwd_k)_tc_kernelILi(\d)E",
+                      name)
+        if m:
+            kernel, kd = m.group(1), int(m.group(2))
+            smem = sc.kernel_smem_bytes(7, 16 * kd, 1, 2)[kernel]
+            by_regs = wa._SM_REGS // (-(-n // 8) * 8 * threads)
+            by_smem = SM_SMEM_BYTES // (smem + 1024)
+            lines.append(f"sliding_chunk_{kernel}_tc_kernel<{kd}> {n} regs: "
+                         f"{by_regs} blocks/SM by registers, {by_smem} by "
+                         f"shared memory ({smem} bytes at W=7 M={16 * kd})")
+    return sorted(lines)
+
+
+def phase_build(cuda_build, wa, sc):
     """Build every library; hold the tile kernels' registers to the plan
     (a library built before this run has no report and is not checked)."""
     t0 = time.perf_counter()
@@ -287,6 +320,13 @@ def phase_build(cuda_build, wa):
         raise AssertionError(f"found {len(lines)} tile kernels in the "
                              "ptxas report, expected 10")
     for line in lines:
+        log(f"registers {line}")
+    sc_lines = sliding_chunk_registers(sc, wa, regs)
+    if regs and len(sc_lines) != 12:
+        raise AssertionError(f"found {len(sc_lines)} sliding-chunk "
+                             "tensor-core kernels in the ptxas report, "
+                             "expected 12")
+    for line in sc_lines:
         log(f"registers {line}")
 
 
@@ -333,29 +373,44 @@ def _median_ms(torch, fn):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def kernel_split(torch, fn, reps=REPS):
+# kernel_split's one entry when no profiler session recorded device time.
+EVENTS_TOTAL = "all-kernels-cuda-events"
+
+
+def kernel_split(torch, fn, reps=REPS, sessions=3):
     """Device ms per call of fn by kernel name: torch.profiler's CUDA
     kernel events over `reps` calls (after a warm-up), each kernel's summed
-    duration divided by reps, largest first. Raises if the profiler saw no
-    device time."""
+    duration divided by reps, largest first.
+
+    A profiler session has come back with no device events at all on the
+    H100, midway through this script after two dozen sessions that recorded
+    them, so an empty session is retried, up to `sessions` in all. If every one is empty, fn is timed with CUDA events
+    instead (_median_ms), and the split is that one total under
+    EVENTS_TOTAL, with a line saying so. The split is a measurement only:
+    nothing it returns decides whether the run passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            us = evt.time_range.elapsed_us()
-            split[evt.name] = split.get(evt.name, 0.0) + us / 1e3 / reps
-    if not split:
-        raise RuntimeError("the profiler recorded no device time")
-    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                us = evt.time_range.elapsed_us()
+                split[evt.name] = split.get(evt.name, 0.0) + us / 1e3 / reps
+        if split:
+            return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+        log(f"kernel_split: profiler session {session} of {sessions} "
+            "recorded no device time")
+    log(f"kernel_split: timed with CUDA events instead, as one entry "
+        f"({EVENTS_TOTAL})")
+    return {EVENTS_TOTAL: _median_ms(torch, fn)}
 
 
 def _kernel_key(name):
@@ -889,11 +944,70 @@ def _sc_library_mask(torch, n: int, W: int, nglo: int, dev):
                       local], 1)
 
 
+def _stand_in(torch):
+    """A stand-in for the sliding-chunk call in :func:`_sc_layout_split`:
+    the output is q itself, and each input's gradient is a tensor of its
+    shape made in the forward (no kernel), so only the layout copies
+    around the call reach the device."""
+
+    class StandIn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, kg, vg):
+            ctx.grads = [torch.empty_like(t) for t in (k, v, kg, vg)]
+            return q.view_as(q)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (g, *ctx.grads)
+
+    return StandIn
+
+
+def _sc_layout_split(torch, BH, n, M, nglo, dtype, gen):
+    """Device ms per call of the layout copies around one sliding-chunk
+    call, (forward, backward): models/vil_layers.py Long2DSCAttention's
+    permutes of q, k, v and the globals into (BH, nx, ny, M) grids and of
+    the output back to tokens, and their gradients' copies in autograd,
+    with the call itself a stand-in (_stand_in). torch.profiler over REPS
+    calls, as kernel_split; timed only."""
+    H = SC_HEADS[M]
+    B, C, N = BH // H, H * M, nglo + n * n
+    call = _stand_in(torch)
+    dev = torch.device("cuda")
+    q_lin = torch.randn(B, n * n, C, generator=gen, device=dev).to(dtype)
+    kv_lin = torch.randn(B, N, 2 * C, generator=gen, device=dev).to(dtype)
+    g_out = torch.randn(B, n * n, C, generator=gen, device=dev).to(dtype)
+
+    def around(q_lin, kv_lin):
+        q = q_lin.reshape(B, n * n, H, M)
+        kv = kv_lin.reshape(B, N, 2, H, M)
+        grid = (BH, n, n, M)
+        q = q.permute(0, 2, 1, 3).reshape(grid)
+        k, v = (kv[:, nglo:, i].permute(0, 2, 1, 3).reshape(grid)
+                for i in (0, 1))
+        kg, vg = (kv[:, :nglo, i].permute(0, 2, 1, 3).reshape(BH, nglo, M)
+                  for i in (0, 1))
+        x1 = call.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                           kg.contiguous(), vg.contiguous())
+        return x1.reshape(B, H, n * n, M).permute(0, 2, 1, 3).reshape(
+            B, n * n, C)
+
+    def both():
+        ins = [t.requires_grad_() for t in (q_lin.detach(), kv_lin.detach())]
+        torch.autograd.grad(around(*ins), ins, g_out)
+
+    with torch.no_grad():
+        fwd = sum(kernel_split(torch, lambda: around(q_lin, kv_lin)).values())
+    return fwd, sum(kernel_split(torch, both).values()) - fwd
+
+
 def phase_sliding_chunk(torch, sc):
     """The sliding-chunk pair vs its plain version at the ViL-T slice's
-    shapes, and the library call (scaled_dot_product_attention with the
-    neighbourhood as a boolean attn_mask; its backward gives all five
-    gradients). Returns a Tally per kernel."""
+    shapes, each kernel vs its staged twin, and the library call
+    (scaled_dot_product_attention with the neighbourhood as a boolean
+    attn_mask; its backward gives all five gradients); the pair's device
+    time by kernel and the layout copies around it. Returns a Tally per
+    kernel."""
     F = torch.nn.functional
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = sc._lib()
@@ -906,9 +1020,20 @@ def phase_sliding_chunk(torch, sc):
                         f"supports() admits W={W} M={M} nglo={nglo}, whose "
                         f"blocks need {need} bytes of shared memory (card: "
                         f"{limit})")
+                for dtype, itemsize in ((0, 4), (1, 2)):
+                    mirror = sc.kernel_smem_bytes(W, M, nglo, itemsize)
+                    for which, name in enumerate(("fwd", "bwd_q", "bwd_k")):
+                        own = lib.esvit_sliding_chunk_kernel_smem_bytes(
+                            W, M, nglo, dtype, which)
+                        if own != mirror[name]:
+                            raise AssertionError(
+                                f"kernel_smem_bytes({W}, {M}, {nglo}, "
+                                f"{itemsize})[{name}] = {mirror[name]}, the "
+                                f"kernel's own count {own}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
+    split_step = {"fwd": {}, "bwd": {}, "layout fwd": 0.0, "layout bwd": 0.0}
     W, nglo = 7, 1
     for label, BH, n, M, dt, n_fwd, n_bwd in SC_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -948,6 +1073,14 @@ def phase_sliding_chunk(torch, sc):
         tally["fwd"].err = max(tally["fwd"].err, errs["out"])
         tally["bwd"].err = max(tally["bwd"].err, *(errs[g] for g in SC_GRADS))
         del got, again, ref
+        stages = sc.stage_errors(*inputs, do, **kw)
+        bad = {n_: e for n_, e in stages.items() if e > TOL[dt]}
+        if bad:
+            raise AssertionError(f"sliding chunk {label}: kernel vs twin "
+                                 f"errors {bad} above {TOL[dt]}")
+        log(f"sliding-chunk-stages {label:14s} {dt}: " + ", ".join(
+            f"{n_} {e:.2e}" for n_, e in stages.items())
+            + f" (tol {TOL[dt]:.0e})")
 
         with torch.no_grad():
             t_fwd = _median_ms(torch, lambda: sc._fwd(*inputs, n, n, W))
@@ -1003,9 +1136,39 @@ def phase_sliding_chunk(torch, sc):
             + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items())
             + f" (tol {TOL[dt]:.0e}); all 6 results bit-identical on repeat; "
             f"sdpa out vs plain {lib_err:.2e}")
+        rate = BF16_FLOP_PER_S if dt == "bf16" else FP32_FLOP_PER_S
+        bound = {k: max(b / HBM_BYTES_PER_S, f / rate) * 1e3
+                 for k, (b, f) in (("fwd", (4 * grid + glo, 4 * M * keys)),
+                                   ("bwd", (7 * grid + 2 * glo,
+                                            10 * M * keys)))}
         log(f"  time {label:14s} fwd kernel {t_fwd:.4f} ms plain "
-            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms | bwd kernel {t_bwd:.4f} ms "
-            f"plain {p_bwd:.4f} ms sdpa {l_bwd:.4f} ms")
+            f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms bound {bound['fwd']:.4f} ms "
+            f"| bwd kernel {t_bwd:.4f} ms plain {p_bwd:.4f} ms sdpa "
+            f"{l_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
+        splits = {"fwd": kernel_split(torch, lambda: sc._fwd(*inputs, n, n,
+                                                             W)),
+                  "bwd": kernel_split(torch, lambda: sc._bwd(
+                      *inputs, stats, do, n, n, W))}
+        layout = _sc_layout_split(torch, BH, n, M, nglo, dtype, gen)
+        for what, calls in (("fwd", n_fwd), ("bwd", n_bwd)):
+            for name, ms in splits[what].items():
+                key = _kernel_key(name)
+                split_step[what][key] = (split_step[what].get(key, 0.0)
+                                         + calls * ms)
+            log(f"  split {label:14s} {what} "
+                f"{sum(splits[what].values()):.4f} ms: "
+                f"{_split_line(splits[what])}")
+        split_step["layout fwd"] += n_fwd * layout[0]
+        split_step["layout bwd"] += n_bwd * layout[1]
+        log(f"  layout copies {label:14s} (models/vil_layers.py, around one "
+            f"call): fwd {layout[0]:.4f} ms bwd {layout[1]:.4f} ms")
+    for what in ("fwd", "bwd"):
+        log(f"sliding chunk {what} split per ViL-T step (ms, torch.profiler): "
+            + json.dumps({k: round(v, 4) for k, v in sorted(
+                split_step[what].items(), key=lambda kv: -kv[1]) if v}))
+    log(f"sliding chunk layout copies per ViL-T step (ms, torch.profiler): "
+        f"fwd {split_step['layout fwd']:.4f} bwd "
+        f"{split_step['layout bwd']:.4f}")
     return tally
 
 
@@ -1265,7 +1428,7 @@ def main():
     from esvit_tpu_torch.ops import window as wops
     from esvit_tpu_torch.ops import window_attention as wa
 
-    phase_build(cuda_build, wa)
+    phase_build(cuda_build, wa, sc)
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
     results = {"window_attention": phase_window_attention(torch, wa, wops),

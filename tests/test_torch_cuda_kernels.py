@@ -497,6 +497,61 @@ def test_cuda_sliding_chunk_matches_plain(cuda, case, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", SC_CASES)
+def test_cuda_sliding_chunk_kernels_match_their_twins(cuda, case, dtype, tol):
+    """Each kernel (forward, bwd_q, bwd_k, the globals' reduce) against its
+    staged twin on its own inputs, and every output and scratch buffer
+    bit-identical when the pair runs twice."""
+    from esvit_tpu_torch.ops import sliding_chunk as sc
+
+    BH, nx, ny, nglo, W, M = case
+    rng = np.random.RandomState(1)
+    grid = (BH, nx, ny, M)
+    ins = [torch.tensor(a, device=cuda, dtype=dtype) for a in (
+        rng.randn(*grid).astype(np.float32) * M ** -0.5,
+        rng.randn(*grid).astype(np.float32),
+        rng.randn(*grid).astype(np.float32),
+        rng.randn(BH, nglo, M).astype(np.float32),
+        rng.randn(BH, nglo, M).astype(np.float32))]
+    do = torch.tensor(rng.randn(*grid).astype(np.float32), device=cuda,
+                      dtype=dtype)
+    errs = sc.stage_errors(*ins, do, nx=nx, ny=ny, W=W)
+    assert len(errs) == (10 if nglo else 7)
+    assert max(errs.values()) <= tol, errs
+
+    def run():
+        out, stats = sc._fwd(*ins, nx, ny, W)
+        grads, scratch = sc._bwd_buffers(*ins, stats, do, nx, ny, W)
+        return [out, stats, *grads, scratch["rsum"], scratch["partial"]]
+
+    for a, b in zip(run(), run()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_sliding_chunk_smem_mirror(cuda):
+    """ops/sliding_chunk.py kernel_smem_bytes equals each kernel's own
+    count at every admitted shape, in both dtypes; the bf16 kernels at
+    ViL-T's shapes leave room for five blocks per SM."""
+    from esvit_tpu_torch.ops import sliding_chunk as sc
+
+    lib = sc._lib()
+    for W in range(1, 9):
+        for M in range(8, 65, 8):
+            for nglo in range(9):
+                for dtype, itemsize in ((0, 4), (1, 2)):
+                    mirror = sc.kernel_smem_bytes(W, M, nglo, itemsize)
+                    for which, name in enumerate(("fwd", "bwd_q", "bwd_k")):
+                        assert lib.esvit_sliding_chunk_kernel_smem_bytes(
+                            W, M, nglo, dtype, which) == mirror[name]
+    for M in (48, 32):
+        assert 5 * (max(sc.kernel_smem_bytes(7, M, 1, 2).values()) + 1024) \
+            <= 233472
+
+
+@pytest.mark.cuda
 def test_cuda_sliding_chunk_refuses_what_the_kernel_does_not_take(cuda):
     from esvit_tpu_torch.ops import sliding_chunk as sc
 

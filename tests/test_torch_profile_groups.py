@@ -4,7 +4,9 @@ GEMMs (F1-F4: fused_block_fwd_tc_kernel, fused_block_fwd_f32_kernel) are
 the fused block's, not cuBLAS's. Both passes' attention halves are the
 window-attention tile kernels instantiated with the fused block's bias
 policy (csrc/fused_block.cu FusedBlockBias): they belong to the fused
-block, not to the window-attention kernels (rows 3 and 4)."""
+block, not to the window-attention kernels (rows 3 and 4). The
+sliding-chunk pair's tensor-core kernels (csrc/sliding_chunk.cu tc::) and
+the globals' reduce file under "sliding chunk"."""
 
 import pytest
 
@@ -12,6 +14,7 @@ from esvit_tpu_torch.utils.profile import _kernel_group
 
 FUSED = "fused block (this repo's CUDA)"
 WINDOW = "window attention (this repo's CUDA)"
+SLIDING = "sliding chunk (this repo's CUDA)"
 
 
 @pytest.mark.parametrize("name,group", [
@@ -43,7 +46,22 @@ WINDOW = "window attention (this repo's CUDA)"
      "DenseBias>(wtile::Operands<float>, (anonymous namespace)::DenseBias, "
      "wtile::Geometry)", WINDOW),
     ("void (anonymous namespace)::sliding_chunk_fwd_kernel<float>()",
-     "sliding chunk (this repo's CUDA)"),
+     SLIDING),
+    ("void (anonymous namespace)::tc::sliding_chunk_fwd_tc_kernel<3>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, "
+     "(anonymous namespace)::Geo)", SLIDING),
+    ("void (anonymous namespace)::tc::sliding_chunk_bwd_q_tc_kernel<2>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float const*, __nv_bfloat16*, float*, float*, "
+     "(anonymous namespace)::Geo)", SLIDING),
+    ("void (anonymous namespace)::tc::sliding_chunk_bwd_k_tc_kernel<3>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, "
+     "__nv_bfloat16*, (anonymous namespace)::Geo)", SLIDING),
+    ("void (anonymous namespace)::glo_reduce_kernel<__nv_bfloat16>(float "
+     "const*, __nv_bfloat16*, __nv_bfloat16*, int, int, int)", SLIDING),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "GEMM (cuBLAS)"),
 ])
 def test_kernel_group(name, group):
