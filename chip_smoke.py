@@ -23,7 +23,9 @@ so the script exits non-zero and prints no result line:
    backward) as the wrapper counts it equals the kernels' own count at
    every N, head dim and dtype, and fits a block.
 4. The block-fused kernels vs their plain version at every block shape
-   the default (fused) route gives them, shifted and unshifted, with
+   the default (fused) route gives them (Swin-T's, and the learning
+   gate's nano Swin's at W=4: C 32/64/128, N=16 and the augmented window
+   of 5 tokens, bf16, and its fp32 eval), shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
    output, dx and all 17 parameter gradients within the same tolerances
    (dbk, whose exact value is 0, at the scale of the largest gradient);
@@ -36,7 +38,8 @@ so the script exits non-zero and prints no result line:
    shape, timed only. First, both passes' token-tile blocks fit the card
    at every admitted width.
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
-   of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case): the
+   of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case) and
+   at the learning gate's nano ViL shapes (W=4, head dim 16): the
    output and the five gradients within the same tolerances, every one
    bit-identical on repeat; each kernel (forward, bwd_q, bwd_k, the
    globals' reduce) within the same tolerance of its staged twin on its
@@ -73,7 +76,15 @@ so the script exits non-zero and prints no result line:
    per-step counts derived from the model times the steps. Then the
    route order: the default route and fused_block_stages=() alternate for
    3 rounds of 3 steps each; each route's median ms per step over steps
-   2-3 of its rounds and their spread.
+   2-3 of its rounds and their spread. Between the two, the data-fed
+   slice: 6 steps of the Swin-T default route through train() fed by
+   data/loader.py MultiCropIterator over ProceduralShapesHard (256 px,
+   8B images, 4 host threads, uint8 upload, augmentation on the card),
+   with the same checks; its ms per step (steps 2-6) beside the synthetic
+   one, the host's wait on the feed per step and peak memory; the batch
+   train() consumed at step 1 on the card, fp32, each channel's mean and
+   std in a band around the normalisation; then the feed alone: host
+   batches per second, and the upload + augmentation time per batch.
 9. The eval slice: Swin-T on the qkv-layout route, fp32, random weights
    from seed 0, batch 64, on synthetic 256 px images (PIL decode
    and transform on the host; 2048 train, 512 val, 10 classes):
@@ -82,6 +93,11 @@ so the script exits non-zero and prints no result line:
    features. Features finite and unit-norm, accuracies in [0, 100], and
    the kernel's launches equal to the model-derived count per batch
    times the batches.
+10. The learning canary: 200 steps of esvit_tpu_torch.validate_learning's
+   nano Swin leg on shapes_hard (k-NN before and after, no gain gate):
+   a finite last loss and centres, and the block-fused launches equal to
+   the model's (the steps and the two evals). The full gates are
+   ``python -m esvit_tpu_torch.validate_learning --steps 6000``.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -114,6 +130,14 @@ REPS = 20
 # The route order: rounds of the default route and fused_block_stages=()
 # in turns, and steps per round.
 ROUTE_ROUNDS, ROUTE_STEPS = 3, 3
+# The data-fed Swin-T slice: steps, images per batch of the procedural
+# dataset, host threads (train()'s feed has MultiCropIterator's default
+# 4), and the band each channel's mean and std must fall in after
+# normalisation (ProceduralShapesHard is dark, mean ~ -0.8).
+DATA_STEPS, DATA_IMAGES, NUM_THREADS = 6, 8, 4
+DATA_MEAN_BAND, DATA_STD_BAND = (-1.5, 1.5), (0.3, 1.5)
+# The nano learning canary's steps.
+CANARY_STEPS = 200
 KERNELS = {
     "window_attention": ("esvit_tpu_torch/csrc/window_attention.cu", {
         "fwd": "esvit_tpu/ops/packed_window_attention.py:305",
@@ -159,37 +183,65 @@ SHAPES = [
     ("96 s1 shifted", 1024, 192, 6, 12, True, "bf16", 0, 0),
     ("224 s1 shifted fp32", 1024, 192, 6, 28, True, "fp32", 0, 0),
 ]
-# Block-fused kernel: (label, images B, C, nH, stage resolution H (0: the
-# augmented window of 6x6 tokens + 1 virtual token), shifted, dtype name,
-# calls per step: forward, backward). Each stage alternates unshifted and
-# shifted blocks; the augmented window carries the shift in its bias.
+# Block-fused kernel: (label, images B, C, nH, stage resolution H, shifted,
+# dtype name, calls per step: forward, backward, window size ws). Each stage
+# alternates unshifted and shifted blocks. H < ws is one padded window per
+# image, run as the augmented window of H*H tokens + 1 virtual token; it
+# carries the shift in its bias. The "nano" shapes are the learning gate's
+# nano Swin (esvit_tpu_torch/validate_learning.py: W=4, C 32/64/128, B=64):
+# its 64 px global crops (2B images), its 32 px locals (4B images, stage 2
+# the augmented window of 5 tokens) and its fp32 k-NN eval (batch 32);
+# none runs in a Swin-T step.
 FUSED_SHAPES = [
-    ("224 s0", 64, 96, 3, 56, False, "bf16", 2, 1),
-    ("224 s0 shifted", 64, 96, 3, 56, True, "bf16", 2, 1),
-    ("224 s1", 64, 192, 6, 28, False, "bf16", 2, 1),
-    ("224 s1 shifted", 64, 192, 6, 28, True, "bf16", 2, 1),
-    ("224 s2", 64, 384, 12, 14, False, "bf16", 6, 3),
-    ("224 s2 shifted", 64, 384, 12, 14, True, "bf16", 6, 3),
-    ("96 s0 padded", 256, 96, 3, 24, False, "bf16", 1, 1),
-    ("96 s0 padded shifted", 256, 96, 3, 24, True, "bf16", 1, 1),
-    ("96 s1 padded", 256, 192, 6, 12, False, "bf16", 1, 1),
-    ("96 s1 padded shifted", 256, 192, 6, 12, True, "bf16", 1, 1),
-    ("96 s2 augmented", 256, 384, 12, 0, False, "bf16", 6, 6),
-    ("224 s1 shifted fp32", 64, 192, 6, 28, True, "fp32", 0, 0),
+    ("224 s0", 64, 96, 3, 56, False, "bf16", 2, 1, 7),
+    ("224 s0 shifted", 64, 96, 3, 56, True, "bf16", 2, 1, 7),
+    ("224 s1", 64, 192, 6, 28, False, "bf16", 2, 1, 7),
+    ("224 s1 shifted", 64, 192, 6, 28, True, "bf16", 2, 1, 7),
+    ("224 s2", 64, 384, 12, 14, False, "bf16", 6, 3, 7),
+    ("224 s2 shifted", 64, 384, 12, 14, True, "bf16", 6, 3, 7),
+    ("96 s0 padded", 256, 96, 3, 24, False, "bf16", 1, 1, 7),
+    ("96 s0 padded shifted", 256, 96, 3, 24, True, "bf16", 1, 1, 7),
+    ("96 s1 padded", 256, 192, 6, 12, False, "bf16", 1, 1, 7),
+    ("96 s1 padded shifted", 256, 192, 6, 12, True, "bf16", 1, 1, 7),
+    ("96 s2 augmented", 256, 384, 12, 6, False, "bf16", 6, 6, 7),
+    ("224 s1 shifted fp32", 64, 192, 6, 28, True, "fp32", 0, 0, 7),
+    ("nano 64 s0", 128, 32, 2, 16, False, "bf16", 0, 0, 4),
+    ("nano 64 s0 shifted", 128, 32, 2, 16, True, "bf16", 0, 0, 4),
+    ("nano 64 s1", 128, 64, 4, 8, False, "bf16", 0, 0, 4),
+    ("nano 64 s1 shifted", 128, 64, 4, 8, True, "bf16", 0, 0, 4),
+    ("nano 64 s2", 128, 128, 4, 4, False, "bf16", 0, 0, 4),
+    ("nano 32 s0", 256, 32, 2, 8, False, "bf16", 0, 0, 4),
+    ("nano 32 s0 shifted", 256, 32, 2, 8, True, "bf16", 0, 0, 4),
+    ("nano 32 s1", 256, 64, 4, 4, False, "bf16", 0, 0, 4),
+    ("nano 32 s1 shifted", 256, 64, 4, 4, True, "bf16", 0, 0, 4),
+    ("nano 32 s2 augmented", 256, 128, 4, 2, False, "bf16", 0, 0, 4),
+    ("nano 64 s0 fp32", 32, 32, 2, 16, False, "fp32", 0, 0, 4),
+    ("nano 64 s0 shifted fp32", 32, 32, 2, 16, True, "fp32", 0, 0, 4),
+    ("nano 64 s1 shifted fp32", 32, 64, 4, 8, True, "fp32", 0, 0, 4),
+    ("nano 64 s2 fp32", 32, 128, 4, 4, False, "fp32", 0, 0, 4),
 ]
 FUSED_GRADS = ("x", "g1", "be1", "wq", "bq", "wk", "bk", "wv", "bv", "bias",
                "wp", "bp", "g2", "be2", "w1", "b1", "w2", "b2")
 # Sliding-chunk kernel: (label, BH, grid side nx = ny, head dim M, dtype
-# name, calls per step: forward, backward). ViL-T's sparse stages have
-# W=7 and one global token; stage 0 has 1 head of 48, stage 1 3 of 32;
-# the 224 crops are 2B images through teacher and student, the 96 crops
-# 8B images through the student.
+# name, calls per step: forward, backward, chunk side W). ViL-T's sparse
+# stages have W=7 and one global token; stage 0 has 1 head of 48, stage 1
+# 3 of 32; the 224 crops are 2B images through teacher and student, the
+# 96 crops 8B images through the student. The "nano" shapes are the
+# learning gate's nano ViL (W=4, head dim 16, one global, B=64): stage 0
+# 2 heads, stage 1 4 heads, at 64 px (2B images) and 32 px (4B images;
+# its stage 0 has the shape of the 64 px stage 1), and its fp32 k-NN eval
+# (batch 32); none runs in a ViL-T step.
 SC_SHAPES = [
-    ("224 s0", 64, 56, 48, "bf16", 2, 1),
-    ("224 s1", 192, 28, 32, "bf16", 2, 1),
-    ("96 s0 padded", 256, 24, 48, "bf16", 1, 1),
-    ("96 s1 padded", 768, 12, 32, "bf16", 1, 1),
-    ("224 s1 fp32", 192, 28, 32, "fp32", 0, 0),
+    ("224 s0", 64, 56, 48, "bf16", 2, 1, 7),
+    ("224 s1", 192, 28, 32, "bf16", 2, 1, 7),
+    ("96 s0 padded", 256, 24, 48, "bf16", 1, 1, 7),
+    ("96 s1 padded", 768, 12, 32, "bf16", 1, 1, 7),
+    ("224 s1 fp32", 192, 28, 32, "fp32", 0, 0, 7),
+    ("nano 64 s0", 256, 16, 16, "bf16", 0, 0, 4),
+    ("nano 64 s1, 32 s0", 512, 8, 16, "bf16", 0, 0, 4),
+    ("nano 32 s1", 1024, 4, 16, "bf16", 0, 0, 4),
+    ("nano 64 s0 fp32", 64, 16, 16, "fp32", 0, 0, 4),
+    ("nano 64 s1 fp32", 128, 8, 16, "fp32", 0, 0, 4),
 ]
 SC_GRADS = ("q", "k", "v", "k_glo", "v_glo")
 # Heads of the ViL-T stage of each head dim (stage 0: 48 = 1 x 48; stage
@@ -554,28 +606,28 @@ def phase_window_attention(torch, wa, wops):
     return tally
 
 
-def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen):
+def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen, ws=7):
     """Inputs of one block-fused call at a slice shape, drawn on the card:
     (x, params, keep1, keep2, region, pad, geometry, output gradient).
-    H = 0 is the augmented window: 36 real tokens and the virtual token,
-    whose pad multiplier is 0 and whose bias row is 0, as the model builds
-    them. Both drop-path scales drop one image."""
+    H < ws is the augmented window: the H*H real tokens and the virtual
+    token, whose pad multiplier is 0 and whose bias row is 0, as the model
+    builds them. Both drop-path scales drop one image."""
     dev = torch.device("cuda")
     M = 4 * C
     region = pad = None
-    if H == 0:
-        N, nW = 37, 1
+    if H < ws:
+        N, nW = H * H + 1, 1
         pad = torch.ones(N, device=dev)
         pad[-1] = 0.0
     else:
-        Hp = -(-H // 7) * 7
-        N, nW = 49, (Hp // 7) ** 2
-        ss = 3 if shifted else 0
+        Hp = -(-H // ws) * ws
+        N, nW = ws * ws, (Hp // ws) ** 2
+        ss = ws // 2 if shifted else 0
         if shifted:
-            region = torch.as_tensor(wops.window_region_ids(H, H, 7, ss),
+            region = torch.as_tensor(wops.window_region_ids(H, H, ws, ss),
                                      device=dev)
         if Hp != H:
-            pad = torch.as_tensor(wops.pad_token_mask(H, H, Hp, Hp, 7, ss),
+            pad = torch.as_tensor(wops.pad_token_mask(H, H, Hp, Hp, ws, ss),
                                   device=dev)
 
     def r(*shape, s=1.0):
@@ -592,7 +644,7 @@ def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen):
         w1=r(C, M, s=C ** -0.5), b1=r(M, s=0.02),
         w2=r(M, C, s=M ** -0.5), b2=r(C, s=0.02))
     x, do = r(B, nW * N, C, s=0.5), r(B, nW * N, C)
-    if H == 0:
+    if H < ws:
         params["bias"][:, -1] = 0.0
         x[:, -1] = 0.0
         do[:, -1] = 0.0
@@ -625,10 +677,10 @@ def phase_fused(torch, fb, wa, wops):
     tally = {"fwd": Tally(), "bwd": Tally()}
     split_step = {"fwd": {}, "bwd": {}}
     cublas_step = 0.0
-    for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd in FUSED_SHAPES:
+    for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd, ws in FUSED_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, params, k1, k2, region, pad, geo, do = _fused_case(
-            torch, wops, B, C, nH, H, shifted, dtype, gen)
+            torch, wops, B, C, nH, H, shifted, dtype, gen, ws)
         N, _, nW, scale, eps = geo
         kw = dict(N=N, nH=nH, nW=nW, scale=scale, region=region, pad=pad,
                   eps=eps)
@@ -713,8 +765,8 @@ def phase_fused(torch, fb, wa, wops):
                          3 * flops)
         top = sorted(((n if n == "out" else f"d{n}", e)
                       for n, e in errs.items()), key=lambda kv: -kv[1])[:3]
-        log(f"fused-vs-plain {label:22s} B={B:3d} N={N} nW={nW:2d} C={C:3d} "
-            f"nH={nH:2d} {dt}: max err out {errs['out']:.2e} dx "
+        log(f"fused-vs-plain {label:22s} B={B:3d} W={ws} N={N} nW={nW:2d} "
+            f"C={C:3d} nH={nH:2d} {dt}: max err out {errs['out']:.2e} dx "
             f"{errs['x']:.2e}, largest {', '.join(f'{n} {e:.2e}' for n, e in top)}"
             f" (tol {TOL[dt]:.0e}); all 19 results bit-identical on repeat")
         bound = {k: max(b / HBM_BYTES_PER_S, f / BF16_FLOP_PER_S
@@ -1034,8 +1086,8 @@ def phase_sliding_chunk(torch, sc):
     gen = torch.Generator(device=dev).manual_seed(2)
     tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
     split_step = {"fwd": {}, "bwd": {}, "layout fwd": 0.0, "layout bwd": 0.0}
-    W, nglo = 7, 1
-    for label, BH, n, M, dt, n_fwd, n_bwd in SC_SHAPES:
+    nglo = 1
+    for label, BH, n, M, dt, n_fwd, n_bwd, W in SC_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
 
         def r(*shape, s=1.0):
@@ -1149,7 +1201,10 @@ def phase_sliding_chunk(torch, sc):
                                                              W)),
                   "bwd": kernel_split(torch, lambda: sc._bwd(
                       *inputs, stats, do, n, n, W))}
-        layout = _sc_layout_split(torch, BH, n, M, nglo, dtype, gen)
+        # The layout copies are timed at ViL-T's shapes (their heads in
+        # SC_HEADS).
+        layout = (_sc_layout_split(torch, BH, n, M, nglo, dtype, gen)
+                  if W == 7 else (0.0, 0.0))
         for what, calls in (("fwd", n_fwd), ("bwd", n_bwd)):
             for name, ms in splits[what].items():
                 key = _kernel_key(name)
@@ -1160,8 +1215,9 @@ def phase_sliding_chunk(torch, sc):
                 f"{_split_line(splits[what])}")
         split_step["layout fwd"] += n_fwd * layout[0]
         split_step["layout bwd"] += n_bwd * layout[1]
-        log(f"  layout copies {label:14s} (models/vil_layers.py, around one "
-            f"call): fwd {layout[0]:.4f} ms bwd {layout[1]:.4f} ms")
+        if W == 7:
+            log(f"  layout copies {label:14s} (models/vil_layers.py, around "
+                f"one call): fwd {layout[0]:.4f} ms bwd {layout[1]:.4f} ms")
     for what in ("fwd", "bwd"):
         log(f"sliding chunk {what} split per ViL-T step (ms, torch.profiler): "
             + json.dumps({k: round(v, 4) for k, v in sorted(
@@ -1218,11 +1274,13 @@ def _derived_launches(cfg, steps):
     return want
 
 
-def _slice(torch, cfg, steps, counters, label, card, check_state):
-    """train() for `steps` steps with every launch count set to 0 just
-    before and read just after: finite losses, the launch counts of every
-    kernel equal to the model's, and (check_state) student, teacher
-    and both centers changed. Returns the counts."""
+def _slice(torch, cfg, steps, counters, label, card, check_state,
+           **train_kw):
+    """train() for `steps` steps (on ``train_kw``'s data, else synthetic
+    crops on the card) with every launch count set to 0 just before and
+    read just after: finite losses, the launch counts of every kernel equal
+    to the model's, and (check_state) student, teacher and both centers
+    changed. Returns the counts and train()'s per-step records."""
     import gc
 
     from esvit_tpu_torch.train.train import train
@@ -1233,7 +1291,7 @@ def _slice(torch, cfg, steps, counters, label, card, check_state):
         for k in launches:
             launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    state, history = train(cfg, max_steps=steps, device="cuda")
+    state, history = train(cfg, max_steps=steps, device="cuda", **train_kw)
     torch.cuda.synchronize()
     got = {name: dict(launches) for name, launches in counters.items()}
     losses = [h["loss"] for h in history]
@@ -1262,7 +1320,7 @@ def _slice(torch, cfg, steps, counters, label, card, check_state):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    return got
+    return got, history
 
 
 def phase_slice(torch, C, counters, card, out_dir):
@@ -1270,14 +1328,119 @@ def phase_slice(torch, C, counters, card, out_dir):
     window-attention route for 3 and on the qkv-layout route for 3 (its
     backward is autograd of the plain version: forward launches only)."""
     cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
-    got = _slice(torch, cfg, STEPS, counters, "Swin-T fused route", card,
-                 True)
+    got, history = _slice(torch, cfg, STEPS, counters, "Swin-T fused route",
+                          card, True)
     _slice(torch, cfg.replace(model=C.swin_tiny(fused_block_stages=())), 3,
            counters, "Swin-T window-attention route", card, False)
     _slice(torch, cfg.replace(model=C.swin_tiny(attention_impl="pallas",
                                                 fused_block_stages=())), 3,
            counters, "Swin-T qkv-layout route", card, False)
-    return got
+    return got, statistics.mean(h["seconds"] for h in history[1:]) * 1e3
+
+
+def phase_data_slice(torch, C, counters, card, out_dir, synthetic_ms):
+    """Swin-T on the default route fed by MultiCropIterator over
+    ProceduralShapesHard(256 px, DATA_IMAGES x B images), NUM_THREADS host
+    threads, augmentation on the card, for DATA_STEPS steps through
+    train(): the same checks as the synthetic slice, ms per step beside the
+    synthetic one of this call, and the host's wait on the feed per step;
+    the batch that train() consumed at step 1 (its record's 'inputs') on
+    the card, fp32, finite, of the crops' shapes, each channel's mean and
+    std in a band around the normalisation (DATA_MEAN_BAND,
+    DATA_STD_BAND). Then the feed alone on the same data: the host
+    batches per second of NUM_THREADS workers, and the device time of one
+    batch's upload and augmentation (CUDA events)."""
+    from esvit_tpu_torch.data import augment_device
+    from esvit_tpu_torch.data.datasets import ProceduralShapesHard
+    from esvit_tpu_torch.data.loader import MultiCropIterator
+
+    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
+    ds = ProceduralShapesHard(n=DATA_IMAGES * BATCH, size=256, seed=0)
+    _, history = _slice(torch, cfg, DATA_STEPS, counters, "Swin-T data-fed",
+                        card, True, dataset=ds)
+    steady = history[1:]
+    ms = statistics.mean(h["seconds"] for h in steady) * 1e3
+    waits = [h["data_seconds"] * 1e3 for h in steady]
+    log(f"slice Swin-T data-fed: {ms:.1f} ms/step over steps 2-{DATA_STEPS} "
+        f"beside synthetic_device {synthetic_ms:.1f} ms/step in this call; "
+        f"host wait on the feed {statistics.mean(waits):.2f} ms/step (max "
+        f"{max(waits):.2f}); ProceduralShapesHard 256 px, {NUM_THREADS} "
+        f"threads, augmentation on the card [{card}]")
+
+    # The batch train() consumed at step 1, as train() read it.
+    want = {"global": (2 * BATCH, cfg.crops.global_size),
+            "local": (cfg.crops.local_crops_number * BATCH,
+                      cfg.crops.local_size)}
+    for name, x in history[0]["inputs"].items():
+        n, side = want[name]
+        mean, std = x["mean"], x["std"]
+        if (x["device"] != "cuda" or x["dtype"] != "torch.float32"
+                or x["shape"] != (n, side, side, 3) or not x["finite"]):
+            raise AssertionError(f"data-fed step 1 {name}: {x}")
+        if not (all(DATA_MEAN_BAND[0] <= m <= DATA_MEAN_BAND[1]
+                    for m in mean)
+                and all(DATA_STD_BAND[0] <= v <= DATA_STD_BAND[1]
+                        for v in std)):
+            raise AssertionError(
+                f"data-fed step 1 {name}: channel means {mean}, stds {std} "
+                f"outside {DATA_MEAN_BAND} / {DATA_STD_BAND}")
+        log(f"data-fed step 1 {name} {x['shape']} on {x['device']}: "
+            f"channel means {[round(m, 3) for m in mean]}, stds "
+            f"{[round(v, 3) for v in std]}")
+
+    # The feed alone on the same epoch: its rate, and the device time
+    # of one batch's upload and augmentation.
+    it = MultiCropIterator(ds, cfg.crops, BATCH, epoch=0, seed=cfg.seed,
+                           num_threads=NUM_THREADS, device="cuda")
+    t0 = time.perf_counter()
+    host = [b for _, b in zip(range(DATA_STEPS), it.host_batches())]
+    host_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed << 16)
+    g_u8, l_u8 = host[0]
+    aug_ms = _median_ms(torch, lambda: augment_device.augment_multicrop(
+        g_u8.to("cuda", non_blocking=True), l_u8.to("cuda", non_blocking=True),
+        gen))
+    upload_ms = _median_ms(torch, lambda: (
+        g_u8.to("cuda", non_blocking=True), l_u8.to("cuda", non_blocking=True)))
+    mb = (g_u8.numel() + l_u8.numel()) / 1e6
+    log(f"data feed alone: {len(host)} host batches of {BATCH} images in "
+        f"{host_s:.2f} s ({len(host) / host_s:.2f} batches/s, "
+        f"{NUM_THREADS} threads, the first included); uint8 upload "
+        f"{mb:.1f} MB {upload_ms:.3f} ms; upload + augmentation "
+        f"{aug_ms:.3f} ms per batch (CUDA events) [{card}]")
+
+
+def phase_canary(torch, counters, card):
+    """The learning gate's Swin leg (esvit_tpu_torch/validate_learning.py,
+    nano Swin, shapes_hard) for CANARY_STEPS steps with every launch count
+    set to 0 just before and read just after: a finite last loss and
+    centres, the block-fused launches equal to the model's (the steps and
+    the two k-NN evals' fp32 forwards), no other kernel. No gain gate."""
+    from esvit_tpu_torch import validate_learning as vl
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    cfg, _ = vl.build_config(steps=CANARY_STEPS)
+    want = _derived_launches(cfg, CANARY_STEPS)
+    # Two k-NN evals (before, after) of 512 + 256 images in batches of 32.
+    knn_batches = 2 * (-(-512 // 32) + -(-256 // 32))
+    probe = build_backbone(cfg.model)
+    want["fused_block"]["fwd"] += knn_batches * probe.fused_block_calls(
+        cfg.crops.global_size)
+    for launches in counters.values():
+        for k in launches:
+            launches[k] = 0
+    res = vl.validate(steps=CANARY_STEPS, backbone="swin", device="cuda")
+    torch.cuda.synchronize()
+    got = {name: dict(launches) for name, launches in counters.items()}
+    log(f"canary nano Swin shapes_hard: {res['before']:.2f}% -> "
+        f"{res['after']:.2f}% 10-NN in {res['steps']} steps, "
+        f"{res['seconds']:.1f} s, last loss {res['last_loss']:.4f}, "
+        f"|centres|max {res['center_max']}; launches {got} [{card}]")
+    if not (res["steps"] == CANARY_STEPS and math.isfinite(res["last_loss"])
+            and all(map(math.isfinite, res["center_max"].values()))):
+        raise AssertionError(f"canary: {res}")
+    if got != want:
+        raise AssertionError(f"canary: launches {got}, model-derived {want}")
 
 
 def phase_route_order(torch, C, card, out_dir):
@@ -1316,7 +1479,7 @@ def phase_route_order(torch, C, card, out_dir):
 def phase_vil_slice(torch, C, counters, card, out_dir):
     """ViL-T for STEPS steps."""
     cfg = C.vil_tiny_multicrop(BATCH, output_dir=out_dir)
-    return _slice(torch, cfg, STEPS, counters, "ViL-T", card, True)
+    return _slice(torch, cfg, STEPS, counters, "ViL-T", card, True)[0]
 
 
 def phase_eval(torch, C, pwa, card, out_dir):
@@ -1419,6 +1582,7 @@ def main():
     sys.path.insert(0, ROOT)
     import torch
 
+    t_start = time.perf_counter()
     card = phase_device(torch)
     from esvit_tpu_torch import config as C
     from esvit_tpu_torch.ops import cuda_build
@@ -1442,11 +1606,14 @@ def main():
                 "sliding_chunk": sc.launches,
                 "pallas_window_attention": pwa.launches}
     with tempfile.TemporaryDirectory() as out_dir:
-        swin = phase_slice(torch, C, counters, card, out_dir)
+        swin, synthetic_ms = phase_slice(torch, C, counters, card, out_dir)
+        phase_data_slice(torch, C, counters, card, out_dir, synthetic_ms)
         phase_route_order(torch, C, card, out_dir)
         vil = phase_vil_slice(torch, C, counters, card, out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         evals = phase_eval(torch, C, pwa, card, out_dir)
+    phase_canary(torch, counters, card)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)
     record = {"kernels": [

@@ -159,7 +159,9 @@ class CropConfig:
     """Multi-crop geometry (ref: datasets/build.py:203-261)."""
 
     global_size: int = 224
+    global_scale: tuple[float, float] = (0.4, 1.0)
     local_size: int = 96
+    local_scale: tuple[float, float] = (0.05, 0.4)
     local_crops_number: int = 8
 
     @property

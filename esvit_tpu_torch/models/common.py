@@ -21,8 +21,11 @@ from torch import nn
 
 def trunc_normal_(t: torch.Tensor, std: float = 0.02,
                   generator: torch.Generator | None = None) -> torch.Tensor:
-    """Truncated normal at +-2 std (flax truncated_normal(stddev=std):
-    the unit truncated normal rescaled so its std is ``std``)."""
+    """The unit normal truncated to [-2, 2], rescaled so that its std is
+    ``std`` (bounds +-2.27 ``std``). flax's ``truncated_normal(stddev=std)``
+    (esvit_tpu's ``trunc_normal_init``) does not rescale: its std is
+    0.88 ``std``; the original EsViT's timm init has std ``std``.
+    ROADMAP.md queue 3 records the difference."""
     # std of a standard normal truncated to [-2, 2]
     unit_std = 0.87962566103423978
     with torch.no_grad():

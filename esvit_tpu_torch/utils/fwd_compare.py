@@ -28,6 +28,8 @@ ROOT = Path(__file__).resolve().parents[2]
 # Each worker runs in a checkout's root with that checkout first on
 # sys.path, so it uses what every tree since the kernel's port has:
 # chip_smoke's shape lists and _median_ms, and the wrapper's _fwd / _bwd.
+# A shape's window side, where the lists have one, is its last element
+# (7 in the trees before them).
 _WORKERS = {"fused_block": ("row 1 forward", r'''
 import sys, torch
 sys.path.insert(0, ".")
@@ -35,10 +37,10 @@ import chip_smoke as cs
 from esvit_tpu_torch.ops import fused_block as fb, window as wops
 gen = torch.Generator(device="cuda").manual_seed(1)
 step = 0.0
-for label, B, C, nH, H, shifted, dt, n_fwd, _ in cs.FUSED_SHAPES:
+for label, B, C, nH, H, shifted, dt, n_fwd, _, *ws in cs.FUSED_SHAPES:
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     x, params, k1, k2, region, pad, geo, _ = cs._fused_case(
-        torch, wops, B, C, nH, H, shifted, dtype, gen)
+        torch, wops, B, C, nH, H, shifted, dtype, gen, *ws)
     with torch.no_grad():
         ms = cs._median_ms(torch, lambda: fb._fwd(x, params, k1, k2, region,
                                                  pad, geo))
@@ -51,9 +53,10 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 from esvit_tpu_torch.ops import sliding_chunk as sc
 gen = torch.Generator(device="cuda").manual_seed(2)
-W, nglo = 7, 1
+nglo = 1
 step = {"fwd": 0.0, "bwd": 0.0}
-for label, BH, n, M, dt, n_fwd, n_bwd in cs.SC_SHAPES:
+for label, BH, n, M, dt, n_fwd, n_bwd, *w in cs.SC_SHAPES:
+    W = w[0] if w else 7
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
 
     def r(*shape, s=1.0):

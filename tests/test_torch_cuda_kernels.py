@@ -289,12 +289,20 @@ FUSED_STAGE_CASES = [
     (2, 21, 7, 384, 12, True, False, True),
     (3, 10, 7, 96, 3, True, True, False),
 ]
+# The learning gate's nano Swin (W=4): stage 0 at 64 px (C=32, head dim
+# 16), stage 1 at 32 px (one window, shifted), stage 2 at 64 px (head dim
+# 32). Appended to the lists below, so earlier case ids stay.
+NANO_FUSED_CASES = [
+    (2, 16, 4, 32, 2, True, False, True),
+    (3, 4, 4, 64, 4, True, False, False),
+    (2, 4, 4, 128, 4, False, False, False),
+]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("case", FUSED_STAGE_CASES)
+@pytest.mark.parametrize("case", FUSED_STAGE_CASES + NANO_FUSED_CASES)
 def test_cuda_fused_backward_stages_match_plain(cuda, case, dtype, tol):
     """All 19 results within tol of the plain version and bit-identical on
     repeat; each stage kernel within tol of its plain twin on its own
@@ -333,7 +341,7 @@ FUSED_FWD_CASES = FUSED_STAGE_CASES + [
     (3, 6, 7, 96, 3, False, False, True),
     (4, 14, 7, 384, 12, False, False, False),
     (43, 14, 7, 384, 12, True, False, True),
-]
+] + NANO_FUSED_CASES
 
 
 @pytest.mark.cuda
@@ -453,6 +461,9 @@ SC_CASES = [
     (2, 14, 14, 0, 7, 32),
     (2, 16, 16, 8, 4, 24),
     (1, 20, 20, 3, 8, 64),
+    # The learning gate's nano ViL (W=4, head dim 16: KD = 1).
+    (2, 16, 16, 1, 4, 16),
+    (4, 4, 4, 1, 4, 16),
 ]
 
 
