@@ -98,6 +98,17 @@ so the script exits non-zero and prints no result line:
    a finite last loss and centres, and the block-fused launches equal to
    the model's (the steps and the two evals). The full gates are
    ``python -m esvit_tpu_torch.validate_learning --steps 6000``.
+11. The entry phase: the pre-training CLI (``python -m
+   esvit_tpu_torch.train.train --arch swin_tiny --data_kind synthetic``,
+   Swin-T W=7 at full width, B=32, 2x224 + 8x96 crops, 65536-dim heads
+   with the dense head, bf16, 8 steps an epoch) and the evals' CLIs in
+   subprocesses, each kernel's launches read from the subprocess: 2
+   epochs with per-epoch checkpoints, a resume to step 24, the SIGTERM
+   save and a resume from it, the checkpoint restored on the card bit for
+   bit, a world-size-1 NCCL run against the plain one, then k-NN and the
+   linear probe with ``--pretrained`` on the run's checkpoint (see
+   ``phase_entry``). The slices above call train() with resume=False:
+   each starts from its own initial weights.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -1291,7 +1302,8 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
         for k in launches:
             launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    state, history = train(cfg, max_steps=steps, device="cuda", **train_kw)
+    state, history = train(cfg, max_steps=steps, device="cuda", resume=False,
+                           **train_kw)
     torch.cuda.synchronize()
     got = {name: dict(launches) for name, launches in counters.items()}
     losses = [h["loss"] for h in history]
@@ -1460,7 +1472,7 @@ def phase_route_order(torch, C, card, out_dir):
     for rnd in range(ROUTE_ROUNDS):
         for name in list(routes)[::1 if rnd % 2 == 0 else -1]:
             _, history = train(routes[name], max_steps=ROUTE_STEPS,
-                               device="cuda")
+                               device="cuda", resume=False)
             torch.cuda.synchronize()
             steps = [h["seconds"] * 1e3 for h in history[1:]]
             ms[name] += steps
@@ -1561,6 +1573,397 @@ def phase_eval(torch, C, pwa, card, out_dir):
     return {"fwd": knn_launches + probe_launches}
 
 
+# The entry phase: the CLIs run in subprocesses as a user runs them,
+# through this wrapper, which sets every kernel's launch count to 0, runs
+# the module as __main__ and at exit prints the counts and the seconds the
+# module's main took (atexit: also after sys.exit).
+ENTRY_RUN = """\
+import atexit, json, runpy, sys, time
+from esvit_tpu_torch.ops import (fused_block, pallas_window_attention,
+                                 sliding_chunk, window_attention)
+counters = {"window_attention": window_attention.launches,
+            "fused_block": fused_block.launches,
+            "sliding_chunk": sliding_chunk.launches,
+            "pallas_window_attention": pallas_window_attention.launches}
+for c in counters.values():
+    for k in c:
+        c[k] = 0
+t0 = time.perf_counter()
+atexit.register(lambda: print("entry-record " + json.dumps({
+    "launches": {n: dict(c) for n, c in counters.items()},
+    "seconds": time.perf_counter() - t0}), flush=True))
+module, sys.argv = sys.argv[1], sys.argv[1:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+TRAIN_MODULE = "esvit_tpu_torch.train.train"
+# Swin-T W=7 at full width through the CLI's defaults (B=32 per card,
+# 2x224 + 8x96 crops, 65536-dim heads with the dense head, bf16) on its
+# synthetic kind: SyntheticImages' 256 images, 8 steps an epoch.
+ENTRY_ARGS = ["--arch", "swin_tiny", "--data_kind", "synthetic"]
+ENTRY_IMAGES = 256
+ENTRY_DEVICE = "cuda"
+ENTRY_EVAL_ARGS = ["--arch", "swin_tiny"]
+ENTRY_TIMEOUT = 600
+# The evals' ImageFolder: procedural shapes (16 classes) of 128 px.
+ENTRY_EVAL_TRAIN, ENTRY_EVAL_VAL, ENTRY_EVAL_SIZE = 512, 128, 128
+# Two runs of one route may differ in the last bits: the backward of the
+# region matching's gather is a scatter-add with atomics.
+ENTRY_LOSS_RTOL = 1e-6
+
+
+def _entry_env(**extra):
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+    env.update(extra)
+    return env
+
+
+def _entry_record(label, text):
+    """The wrapper's record in a run's output."""
+    for line in text.splitlines():
+        if line.startswith("entry-record "):
+            return json.loads(line[len("entry-record "):])
+    raise AssertionError(f"entry {label}: no launch record:\n{text[-4000:]}")
+
+
+def _entry_run(label, module, args, env=None, want_rc=0):
+    """One CLI run through ENTRY_RUN: (output, record), failing on another
+    exit code than ``want_rc``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ENTRY_RUN, module, *args],
+                          cwd=ROOT, env=env or _entry_env(),
+                          capture_output=True, text=True,
+                          timeout=ENTRY_TIMEOUT)
+    text = proc.stdout + proc.stderr
+    if proc.returncode != want_rc:
+        raise AssertionError(f"entry {label}: exit {proc.returncode}, want "
+                             f"{want_rc}:\n{text[-6000:]}")
+    log(f"entry {label}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return text, _entry_record(label, text)
+
+
+def _entry_launches(label, got, want):
+    if got != want:
+        raise AssertionError(f"entry {label}: launches {got}, model-derived "
+                             f"{want}")
+    log(f"entry {label}: launches {got}, as derived from the model")
+
+
+def _checkpoint_lines(text):
+    """(files, step, bytes, seconds) of each 'checkpoint:' line."""
+    out = []
+    for m in re.finditer(r"^checkpoint: (.*) at step (\d+), (\d+) bytes, "
+                         r"([0-9.]+) s$", text, re.M):
+        out.append((m.group(1), int(m.group(2)), int(m.group(3)),
+                    float(m.group(4))))
+    return out
+
+
+def _load_tree(torch, path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _tree_tensors(tree):
+    out = {}
+    for part in ("student", "teacher", "mu", "nu"):
+        out.update({f"{part}.{k}": v for k, v in tree[part].items()})
+    out.update({f"centers.{k}": v for k, v in tree["centers"].items()})
+    return out
+
+
+def _eval_folder(root, n, seed):
+    """``n`` procedural 16-class PNGs under root/<class>/."""
+    from esvit_tpu_torch.data.datasets import ProceduralShapesHard
+
+    ds = ProceduralShapesHard(n=n, size=ENTRY_EVAL_SIZE, seed=seed)
+    for i in range(n):
+        img, label = ds[i]
+        d = os.path.join(root, f"class{label:02d}")
+        os.makedirs(d, exist_ok=True)
+        img.save(os.path.join(d, f"{i:05d}.png"))
+    return root
+
+
+def phase_entry(torch, C, card):
+    """The pre-training entry point and the evals on its checkpoint, as a
+    user runs them (``python -m ...`` in subprocesses, through ENTRY_RUN),
+    at Swin-T's full width on the default route, in a temporary directory
+    removed at the end:
+
+    - train: 2 epochs of 8 steps (--saveckp_freq 2): exit 0,
+      checkpoint.pth and checkpoint0000.pth, two finite log.txt lines,
+      the kernels' launches as derived from the model for 16 steps; ms per
+      step from the log, each checkpoint's size and save time; the
+      checkpoint's counts of parameters (student = backbone + two heads;
+      student, teacher, mu and nu);
+    - resume to --epochs 3: 'resumed from step 16', 8 more steps to 24,
+      checkpoint0002.pth;
+    - SIGTERM after the first step's log line: exit 0 and checkpoint.pth
+      at the step it names; a rerun resumes from it;
+    - the round trip: the checkpoint restored into a state on the card
+      (drawn from another seed) equals the file bit for bit, every tensor,
+      and a save of that state writes the same tensors;
+    - NCCL: two runs of --max_steps 2, one under --distributed with
+      WORLD_SIZE=1 RANK=0 (NCCL runs the step's all-reduce, which gives
+      back its input), one without: their losses within ENTRY_LOSS_RTOL,
+      and the largest difference of the two checkpoints;
+    - the k-NN and linear-probe CLIs with --pretrained on the train run's
+      checkpoint.pth over a PNG ImageFolder of procedural shapes: top-1,
+      img/s over the CLI's main, and the launches as derived."""
+    import signal
+    import socket
+    import threading
+
+    from esvit_tpu_torch.train import train as train_cli
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        d_train = os.path.join(tmp, "train")
+        args = [*ENTRY_ARGS, "--output_dir", d_train]
+        cfg = train_cli.config_from_args(
+            train_cli.get_args_parser().parse_args(args))
+        spe = ENTRY_IMAGES // cfg.optim.batch_size_per_device
+
+        # Train: 2 epochs.
+        text, rec = _entry_run("train", TRAIN_MODULE,
+                               [*args, "--epochs", "2", "--saveckp_freq",
+                                "2"])
+        if not text.startswith("git: "):
+            raise AssertionError(f"entry train: no git line: {text[:200]}")
+        _entry_launches("train", rec["launches"],
+                        _derived_launches(cfg, 2 * spe))
+        files = sorted(os.listdir(d_train))
+        if files != ["checkpoint.pth", "checkpoint0000.pth", "log.txt"]:
+            raise AssertionError(f"entry train: files {files}")
+        logs = [json.loads(x) for x in
+                open(os.path.join(d_train, "log.txt")).read().splitlines()]
+        if ([r["epoch"] for r in logs] != [0, 1]
+                or not all(math.isfinite(r["train_loss"]) for r in logs)):
+            raise AssertionError(f"entry train: log.txt {logs}")
+        images = cfg.crops.ncrops * cfg.optim.batch_size_per_device
+        ms = [1e3 * images / r["train_img_per_sec"] for r in logs]
+        saves = _checkpoint_lines(text)
+        log(f"entry train: log.txt losses "
+            f"{[round(r['train_loss'], 4) for r in logs]}; ms/step from the "
+            f"log's img/s: epoch 0 {ms[0]:.1f} (first step included), "
+            f"epoch 1 {ms[1]:.1f} [{card}]")
+        for files_, step, size, secs in saves:
+            log(f"entry train: checkpoint {files_} at step {step}: {size} "
+                f"bytes ({size / 2**30:.3f} GiB), saved in {secs:.3f} s "
+                f"[{card}]")
+        if [s[1] for s in saves] != [spe, 2 * spe]:
+            raise AssertionError(f"entry train: saves {saves}")
+        from esvit_tpu_torch.train.step import EsViTTrainer
+
+        tree = _load_tree(torch, os.path.join(d_train, "checkpoint.pth"))
+        n = {part: sum(v.numel() for v in tree[part].values())
+             for part in ("student", "teacher", "mu", "nu")}
+        heads = {h: sum(v.numel() for k, v in tree["mu"].items()
+                        if k.startswith(h + "."))
+                 for h in ("head", "head_dense")}
+        backbone = n["mu"] - sum(heads.values())
+        total = sum(n.values())
+        model = EsViTTrainer(cfg, device="cpu").build_model()
+        params = sum(p.numel() for p in model.parameters())
+        entries = sum(v.numel() for v in model.state_dict().values())
+        del model
+        log(f"entry train: parameters {n['mu']} (backbone {backbone}, head "
+            f"{heads['head']}, head_dense {heads['head_dense']}); tensors "
+            f"in the checkpoint {total} = student {n['student']} + teacher "
+            f"{n['teacher']} + mu {n['mu']} + nu {n['nu']}, "
+            f"{4 * total / 2**30:.3f} GiB of fp32")
+        if (tree["step"] != 2 * spe or n["mu"] != params
+                or n["nu"] != params or n["student"] != entries
+                or n["teacher"] != entries):
+            raise AssertionError(f"entry train: checkpoint counts {n}, the "
+                                 f"model's {params} parameters, {entries} "
+                                 f"state entries, step {tree['step']}")
+
+        # Resume: a third epoch.
+        text, rec = _entry_run("resume", TRAIN_MODULE,
+                               [*args, "--epochs", "3", "--saveckp_freq",
+                                "2"])
+        _entry_launches("resume", rec["launches"],
+                        _derived_launches(cfg, spe))
+        step = _load_tree(torch, os.path.join(d_train, "checkpoint.pth"))[
+            "step"]
+        if (f"resumed from step {2 * spe}" not in text or step != 3 * spe
+                or not os.path.exists(os.path.join(d_train,
+                                                   "checkpoint0002.pth"))):
+            raise AssertionError(f"entry resume: step {step}:\n"
+                                 f"{text[-3000:]}")
+        log(f"entry resume: resumed from step {2 * spe}, ended at step "
+            f"{step}, checkpoint0002.pth written")
+
+        # SIGTERM after the first step's log line.
+        d_term = os.path.join(tmp, "sigterm")
+        term_args = [*ENTRY_ARGS, "--output_dir", d_term]
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ENTRY_RUN, TRAIN_MODULE, *term_args],
+            cwd=ROOT, env=_entry_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines, seen = [], threading.Event()
+
+        def read():
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith(f"Epoch: [0/{cfg.optim.epochs}] [0]"):
+                    seen.set()
+            seen.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            seen.wait(ENTRY_TIMEOUT)
+            if proc.poll() is not None:
+                raise AssertionError("entry sigterm: exited before its "
+                                     "first step:\n" + "".join(lines[-50:]))
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(ENTRY_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+        reader.join(60)
+        text = "".join(lines)
+        m = re.search(r"checkpointed at step (\d+)", text)
+        if proc.returncode != 0 or m is None:
+            raise AssertionError(f"entry sigterm: exit {proc.returncode}:\n"
+                                 f"{text[-4000:]}")
+        term_step = int(m.group(1))
+        tree_t = _load_tree(torch, os.path.join(d_term, "checkpoint.pth"))
+        if tree_t["step"] != term_step:
+            raise AssertionError(f"entry sigterm: checkpoint at step "
+                                 f"{tree_t['step']}, printed {term_step}")
+        log(f"entry sigterm: exit 0, checkpoint.pth at step {term_step}")
+        text, _ = _entry_run("sigterm rerun", TRAIN_MODULE,
+                             [*term_args, "--max_steps",
+                              str(term_step + 1)])
+        step = _load_tree(torch, os.path.join(d_term, "checkpoint.pth"))[
+            "step"]
+        if f"resumed from step {term_step}" not in text or \
+                step != term_step + 1:
+            raise AssertionError(f"entry sigterm rerun: step {step}:\n"
+                                 f"{text[-3000:]}")
+        log(f"entry sigterm rerun: resumed from step {term_step}, ended at "
+            f"step {step}")
+
+        # Round trip on the card.
+        from esvit_tpu_torch.io.checkpoint import (CheckpointManager,
+                                                   state_to_dict)
+
+        saved = _tree_tensors(_load_tree(
+            torch, os.path.join(d_train, "checkpoint.pth")))
+        trainer = EsViTTrainer(cfg.replace(steps_per_epoch=spe),
+                               device=ENTRY_DEVICE)
+        state = trainer.init_state(torch.Generator().manual_seed(1))
+        t0 = time.perf_counter()
+        CheckpointManager(d_train).restore(state)
+        restore_s = time.perf_counter() - t0
+        live = {f"student.{k}": v for k, v in
+                state.student.state_dict().items()}
+        live.update({f"teacher.{k}": v for k, v in
+                     state.teacher.state_dict().items()})
+        live.update({f"mu.{k}": v for k, v in state.mu.items()})
+        live.update({f"nu.{k}": v for k, v in state.nu.items()})
+        live["centers.center"], live["centers.center_grid"] = state.centers
+        if set(live) != set(saved) or any(
+                v.device.type != ENTRY_DEVICE
+                or not torch.equal(v.cpu(), saved[k])
+                for k, v in live.items()):
+            raise AssertionError("entry round trip: the state on the card "
+                                 "differs from the file")
+        again = _tree_tensors(state_to_dict(state))
+        if any(not torch.equal(again[k], v) for k, v in saved.items()):
+            raise AssertionError("entry round trip: a save of the restored "
+                                 "state differs")
+        log(f"entry round trip: {len(saved)} tensors restored on the card "
+            f"bit for bit in {restore_s:.2f} s; saved again bit for bit")
+        del state, trainer, live
+        torch.cuda.empty_cache()
+
+        # NCCL at world size 1 against the plain run.
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        runs = {}
+        for name, extra, env in (
+                ("plain", [], _entry_env()),
+                ("nccl", ["--distributed"], _entry_env(
+                    WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port))):
+            d = os.path.join(tmp, name)
+            text, _ = _entry_run(f"{name} 2 steps", TRAIN_MODULE,
+                                 [*ENTRY_ARGS, "--output_dir", d,
+                                  "--max_steps", "2", *extra], env=env)
+            loss = json.loads(open(os.path.join(d, "log.txt")).read()
+                              .splitlines()[-1])["train_loss"]
+            runs[name] = (text, loss, _tree_tensors(
+                _load_tree(torch, os.path.join(d, "checkpoint.pth"))))
+        backend = ("nccl on cuda:0" if ENTRY_DEVICE == "cuda"
+                   else "gloo on cpu")
+        if f"torch.distributed: process 0/1, {backend}" not in \
+                runs["nccl"][0]:
+            raise AssertionError("entry nccl: no NCCL group line:\n"
+                                 + runs["nccl"][0][-3000:])
+        (_, loss_a, ta), (_, loss_b, tb) = runs["plain"], runs["nccl"]
+        diff = max((ta[k].float() - tb[k].float()).abs().max().item()
+                   for k in ta if ta[k].numel())
+        log(f"entry nccl: world size 1 on NCCL, mean loss of 2 steps "
+            f"{loss_b!r} vs {loss_a!r} without --distributed (difference "
+            f"{abs(loss_a - loss_b):.3e}); largest difference of the two "
+            f"checkpoints {diff:.3e}. NCCL takes one rank per card: a run "
+            f"of two or more ranks needs a machine with that many cards")
+        if abs(loss_a - loss_b) > ENTRY_LOSS_RTOL * abs(loss_a):
+            raise AssertionError(f"entry nccl: losses {loss_b} vs {loss_a}")
+
+        # The evals on the train run's checkpoint.
+        t0 = time.perf_counter()
+        train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
+                                 ENTRY_EVAL_TRAIN, seed=7)
+        val_dir = _eval_folder(os.path.join(tmp, "eval_val"),
+                               ENTRY_EVAL_VAL, seed=13)
+        log(f"entry evals: {ENTRY_EVAL_TRAIN} + {ENTRY_EVAL_VAL} PNGs of "
+            f"{ENTRY_EVAL_SIZE} px written in {time.perf_counter() - t0:.1f} s")
+        from esvit_tpu_torch.models.registry import build_backbone
+
+        probe = build_backbone(cfg.model)
+        batches = (-(-ENTRY_EVAL_TRAIN // EVAL_BATCH)
+                   + -(-ENTRY_EVAL_VAL // EVAL_BATCH))
+        images = ENTRY_EVAL_TRAIN + ENTRY_EVAL_VAL
+        common = [*ENTRY_EVAL_ARGS, "--pretrained",
+                  os.path.join(d_train, "checkpoint.pth"), "--train_path",
+                  train_dir, "--val_path", val_dir, "--output_dir",
+                  os.path.join(tmp, "eval")]
+        zero = {name: {k: 0 for k in kinds}
+                for name, (_, kinds) in KERNELS.items()}
+        for label, module, extra, want_fwd, pattern in (
+                ("k-NN", "esvit_tpu_torch.evals.knn",
+                 ["--batch_size", str(EVAL_BATCH)],
+                 {"fused_block": probe.fused_block_calls(224),
+                  "window_attention": probe.window_attention_calls(224)},
+                 r"^10-NN classifier result: Top1: ([0-9.]+)"),
+                ("linear probe", "esvit_tpu_torch.evals.linear",
+                 ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
+                  "--cached_features"],
+                 {"window_attention": probe.window_attention_calls(
+                     224, capture=True)},
+                 r"^Linear probe: Top1 ([0-9.]+)")):
+            text, rec = _entry_run(label, module, [*common, *extra])
+            want = {name: dict(kinds) for name, kinds in zero.items()}
+            for name, calls in want_fwd.items():
+                want[name]["fwd"] = calls * batches
+            _entry_launches(label, rec["launches"], want)
+            m = re.search(pattern, text, re.M)
+            if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
+                raise AssertionError(f"entry {label}: no result:\n"
+                                     f"{text[-3000:]}")
+            log(f"entry {label} on the trained checkpoint: top-1 "
+                f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
+                f"{rec['seconds']:.1f} s of main(), {images / rec['seconds']:.1f} "
+                f"img/s (model build and checkpoint load included) [{card}]")
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -1613,6 +2016,7 @@ def main():
     with tempfile.TemporaryDirectory() as out_dir:
         evals = phase_eval(torch, C, pwa, card, out_dir)
     phase_canary(torch, counters, card)
+    phase_entry(torch, C, card)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

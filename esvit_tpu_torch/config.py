@@ -188,16 +188,28 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data axis spans every process (parallel/mesh.py); ``model`` >
+    1, the DINO head's tensor parallelism, is refused."""
+
+    data: int = -1                  # -1: all processes
+    model: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     model: Any = field(default_factory=SwinConfig)
     head: HeadConfig = field(default_factory=HeadConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     crops: CropConfig = field(default_factory=CropConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    mixup: Any = None               # refused: mixup is not ported
     seed: int = 0
     dtype: torch.dtype = torch.bfloat16   # compute dtype; params stay fp32
     steps_per_epoch: int = 1251
     output_dir: str = "./output"
+    save_every_epochs: int = 5
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -306,13 +318,13 @@ PRESETS = {
 }
 # The reference's other presets (esvit_tpu/config.py:505-518): families the
 # port does not build yet.
-_NOT_PORTED_PRESETS = ("cvt_femto", "cvt_tiny", "deit_tiny", "deit_small",
+NOT_PORTED_PRESETS = ("cvt_femto", "cvt_tiny", "deit_tiny", "deit_small",
                        "vit_base")
 
 
 def get_model_config(name: str, **kw):
     """The backbone config of a preset name (esvit_tpu/config.py:521)."""
-    if name in _NOT_PORTED_PRESETS:
+    if name in NOT_PORTED_PRESETS:
         _refuse(f"model preset {name!r}", "queue 1 item 11")
     if name not in PRESETS:
         raise ValueError(f"unknown model preset {name!r}; have "
@@ -347,6 +359,11 @@ def check_supported(cfg: TrainConfig) -> None:
         _refuse(f"optimizer={cfg.optim.optimizer!r}", "queue 1 item 11")
     if cfg.optim.frozen_layers:
         _refuse("frozen_layers", "queue 1 item 12")
+    if cfg.mesh.model > 1:
+        _refuse(f"mesh model axis {cfg.mesh.model} (the DINO head's tensor "
+                "parallelism)", "queue 1 item 12")
+    if cfg.mixup is not None:
+        _refuse("mixup", "queue 1 item 11")
 
 
 def _check_vil(m: ViLConfig) -> None:

@@ -1,10 +1,13 @@
 """Shared feature-extraction machinery for the evals (port of
 esvit_tpu/evals/extract.py).
 
-- **One process**: the dataset is extracted in order by this process;
-  under an initialised ``torch.distributed`` group of more than one
-  process, :func:`extract_dataset_features` refuses (multi-process
-  extraction comes with DDP, ROADMAP queue 1 item 8).
+- **Several processes**: each extracts a disjoint *strided* shard
+  ``indices[rank::world]``, and the shards, padded to one length, are
+  all-gathered (parallel/mesh.py) and merged back into dataset order, so
+  every index is computed exactly once and every process returns the same
+  full set (the reference shards with a DistributedSampler and gathers
+  per batch, eval_knn.py:148-189; one padded gather at the end is the
+  batched equivalent).
 - **Host throughput**: decode + resize run on a thread pool with a bounded
   batch lookahead, overlapping host preprocessing with the device forward
   (the reference gets this from DataLoader workers, eval_knn.py:60-78).
@@ -16,25 +19,37 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
-import torch
+
+from esvit_tpu_torch.parallel.mesh import make_mesh
 
 
-def pad_rows(x: np.ndarray, per: int, fill=0) -> np.ndarray:
-    """Pad the leading dim to ``per`` rows (the last, short batch)."""
+def strided_shard(n: int, process_index: int, process_count: int
+                  ) -> np.ndarray:
+    """This process's dataset indices: disjoint, union covers range(n)."""
+    return np.arange(process_index, n, process_count)
+
+
+def pad_shard(x: np.ndarray, per: int, fill=0) -> np.ndarray:
+    """Pad the leading dim to ``per`` rows (a shard to the gather's
+    length, the last batch to the batch size)."""
     if len(x) == per:
         return x
     pad = np.full((per - len(x),) + x.shape[1:], fill, x.dtype)
     return np.concatenate([x, pad])
 
 
-def single_process_check():
-    """Refuse a multi-process run: the port extracts in one process."""
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process feature extraction is not ported yet (ROADMAP "
-            "queue 1 item 8)")
+def merge_strided_shards(shards: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of strided_shard after a padded all-gather.
+
+    shards: (process_count, ceil(n / process_count), ...), process p's rows
+    the features of indices p, p+P, p+2P, ... Returns (n, ...) in dataset
+    order, each index appearing exactly once."""
+    pc = shards.shape[0]
+    out = np.empty((n,) + shards.shape[2:], shards.dtype)
+    for p in range(pc):
+        ids = np.arange(p, n, pc)
+        out[ids] = shards[p, :len(ids)]
+    return out
 
 
 def iter_batches(dataset, indices: Sequence[int],
@@ -69,8 +84,8 @@ def iter_batches(dataset, indices: Sequence[int],
             y = np.asarray([p[1] for p in pairs], np.int32)
             n = len(pairs)
             if n < batch_size:
-                x = pad_rows(x, batch_size)
-                y = pad_rows(y, batch_size, fill=-1)
+                x = pad_shard(x, batch_size)
+                y = pad_shard(y, batch_size, fill=-1)
             yield x, y, n
 
 
@@ -81,11 +96,14 @@ def extract_dataset_features(fwd: Callable[[np.ndarray], np.ndarray],
     """(features (N, C) f32, labels (N,) i32) in dataset order.
 
     fwd: batched image array -> feature array (the caller's forward on its
-    device)."""
-    single_process_check()
+    device). Several processes: each computes its strided shard; the
+    shards are all-gathered and merged, so every process returns the same
+    full set."""
+    n = len(dataset)
+    mesh = make_mesh()
+    my = strided_shard(n, mesh.rank, mesh.world)
     feats, labels = [], []
-    for x, y, n_real in iter_batches(dataset, range(len(dataset)),
-                                     transform, batch_size,
+    for x, y, n_real in iter_batches(dataset, my, transform, batch_size,
                                      num_threads=num_threads):
         feats.append(np.asarray(fwd(x), np.float32)[:n_real])
         labels.append(y[:n_real])
@@ -93,4 +111,9 @@ def extract_dataset_features(fwd: Callable[[np.ndarray], np.ndarray],
          else np.zeros((0, 1), np.float32))
     lab = (np.concatenate(labels) if labels
            else np.zeros((0,), np.int32))
+    if mesh.world > 1:
+        per = -(-n // mesh.world)               # ceil: the longest shard
+        f = merge_strided_shards(mesh.all_gather(pad_shard(f, per)), n)
+        lab = merge_strided_shards(
+            mesh.all_gather(pad_shard(lab, per, fill=-1)), n)
     return f, lab

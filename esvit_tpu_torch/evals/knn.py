@@ -10,7 +10,8 @@ Feature extraction is one batched forward per batch under
 ``torch.inference_mode``, in fp32 by default as in JAX; the k-NN vote is a
 chunked similarity product (the reference chunks into 100 pieces,
 eval_knn.py:199-229). Both run on ``device``, the card unless the caller
-asks for the CPU. One process (evals/extract.py).
+asks for the CPU. Several processes extract strided shards and gather them
+(evals/extract.py).
 """
 
 from __future__ import annotations
@@ -135,19 +136,21 @@ def run_knn_eval(backbone, train_ds, val_ds, *, ks=(10, 20, 100, 200),
 
 def load_backbone_variables(backbone, model_cfg, pretrained: str,
                             checkpoint_key: str = "teacher"):
-    """The backbone with a reference .pth/.pt's weights loaded (Swin
-    tables adapted), or as initialised when ``pretrained`` is empty. The
-    port's own checkpoint format comes with checkpoints (ROADMAP queue 1
-    item 8), so an orbax directory is refused."""
+    """The backbone with the ``checkpoint_key`` model's weights ('teacher'
+    or 'student') of a .pth/.pt loaded (Swin tables adapted): a
+    reference checkpoint, or the port's own checkpoint*.pth
+    (io/checkpoint.py), which keeps the reference's names and layout. As
+    initialised when ``pretrained`` is empty. esvit_tpu's orbax
+    directories are not read."""
     del model_cfg  # the backbone carries its config
     if not pretrained:
         print("no pretrained weights — random features", flush=True)
         return backbone
     if pretrained.endswith((".pth", ".pt")):
         return load_backbone_checkpoint(backbone, pretrained, checkpoint_key)
-    raise NotImplementedError(
-        f"{pretrained!r}: only reference .pth/.pt checkpoints load; the "
-        "port's own checkpoints are not ported yet (ROADMAP queue 1 item 8)")
+    raise ValueError(f"{pretrained!r}: the evals load .pth/.pt "
+                     "checkpoints (the reference's, or checkpoint*.pth of "
+                     "esvit_tpu_torch.train.train)")
 
 
 def model_from_args(args):
@@ -166,7 +169,9 @@ def main(argv=None):
     p.add_argument("--arch", default="swin_tiny",
                    choices=sorted(config_lib.PRESETS))
     p.add_argument("--window_size", default=7, type=int)
-    p.add_argument("--pretrained", default="", help=".pth/.pt checkpoint")
+    p.add_argument("--pretrained", default="",
+                   help=".pth/.pt checkpoint: the reference's, or the "
+                        "port's checkpoint*.pth")
     p.add_argument("--checkpoint_key", default="teacher")
     p.add_argument("--data_kind", default="folder")
     p.add_argument("--train_path", default="")

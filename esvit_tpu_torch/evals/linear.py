@@ -18,7 +18,8 @@ Two training modes:
 
 Val features are always cached (the val transform is deterministic). The
 backbone and the probe run on ``device``, the card unless the caller asks
-for the CPU; one process (evals/extract.py).
+for the CPU; several processes extract strided shards (evals/extract.py)
+and the online probe walks this process's shard, as esvit_tpu's does.
 """
 
 from __future__ import annotations
@@ -34,10 +35,11 @@ import torch.nn.functional as F
 from esvit_tpu_torch import config as config_lib
 from esvit_tpu_torch.data import datasets as datasets_lib
 from esvit_tpu_torch.evals.extract import (extract_dataset_features,
-                                           iter_batches, single_process_check)
+                                           iter_batches, strided_shard)
 from esvit_tpu_torch.evals.knn import (batched_forward, eval_transform,
                                        load_backbone_variables,
                                        model_from_args)
+from esvit_tpu_torch.parallel.mesh import make_mesh
 from esvit_tpu_torch.utils import schedules
 
 
@@ -188,12 +190,13 @@ def train_linear_probe_online(backbone, train_ds, test_f, test_l, *,
                               num_threads=8, log_every=None, device="cuda"):
     """Reference protocol: per-epoch augmented forwards through the frozen
     backbone feeding the probe update directly (ref eval_linear.py:
-    244-262). Each epoch walks the train set with fresh RRC+flip draws;
-    the features stay on the device between backbone and probe."""
-    single_process_check()
+    244-262). Each epoch walks this process's strided shard of the train
+    set with fresh RRC+flip draws; the features stay on the device between
+    backbone and probe."""
     num_classes = num_classes or int(test_l.max()) + 1
-    n = len(train_ds)
-    steps_per_epoch = max(n // batch_size, 1)
+    mesh = make_mesh()
+    my = strided_shard(len(train_ds), mesh.rank, mesh.world)
+    steps_per_epoch = max(len(my) // batch_size, 1)
     params, step = make_probe(
         feature_dim_for(backbone.cfg, n_last_blocks), num_classes,
         scaled_lr=lr * batch_size / 256.0,
@@ -205,7 +208,8 @@ def train_linear_probe_online(backbone, train_ds, test_f, test_l, *,
     for epoch in range(epochs):
         view = _AugmentedProbeView(train_ds, size=size, seed=seed,
                                    epoch=epoch)
-        perm = order_rng.permutation(n)[: steps_per_epoch * batch_size]
+        perm = my[order_rng.permutation(len(my))]
+        perm = perm[: steps_per_epoch * batch_size]
         for x, y, n_real in iter_batches(view, perm, lambda a: a,
                                          batch_size,
                                          num_threads=num_threads):

@@ -1,0 +1,120 @@
+"""Checkpoints of the full training state (port of
+esvit_tpu/io/checkpoint.py).
+
+One ``torch.save`` file holds what the reference's checkpoint.pth holds
+(main_esvit.py:476-488), as esvit_tpu's tree does: the step, the AdamW
+step count, the student's and the teacher's state dicts (the reference's
+parameter names, so the evals load the file as they load the
+reference's), the AdamW moments ``mu`` / ``nu`` by parameter name, and
+both DINO centers. Every tensor is a host copy, so a checkpoint loads on
+a machine without a card. Cadence as the reference's: ``checkpoint.pth``
+every epoch (overwritten) and ``checkpoint{epoch:04d}.pth`` every
+``save_every_epochs`` epochs or when asked. Each file is written under a
+temporary name and then renamed into place, so a save that dies leaves
+the last good file. Resume restores everything, centers included, into
+the live state's tensors on their device. The step's random draws are
+not saved (esvit_tpu does not save them either).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+
+import torch
+
+from esvit_tpu_torch.losses import DinoCenters
+from esvit_tpu_torch.train.step import TrainState
+
+LATEST = "checkpoint"
+
+
+def _host(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def state_to_dict(state: TrainState) -> dict:
+    """The state as a tree of ints and host tensors."""
+    return {
+        "step": state.step,
+        "adam_count": state.adam_count,
+        "student": _host(state.student.state_dict()),
+        "teacher": _host(state.teacher.state_dict()),
+        "mu": _host(state.mu),
+        "nu": _host(state.nu),
+        "centers": {"center": state.centers.center.detach().cpu().clone(),
+                    "center_grid":
+                        state.centers.center_grid.detach().cpu().clone()},
+    }
+
+
+def load_state_dict(like: TrainState, tree: dict) -> TrainState:
+    """Copy ``tree`` into ``like``'s tensors, in place and on their
+    device; every tensor must be there with its shape."""
+    like.student.load_state_dict(tree["student"], strict=True)
+    like.teacher.load_state_dict(tree["teacher"], strict=True)
+    with torch.no_grad():
+        for part in ("mu", "nu"):
+            live, saved = getattr(like, part), tree[part]
+            if set(live) != set(saved):
+                raise KeyError(f"checkpoint {part} names differ from the "
+                               f"model's: {sorted(set(live) ^ set(saved))}")
+            for name, t in live.items():
+                t.copy_(saved[name])
+    c = like.centers
+    like.centers = DinoCenters(
+        center=tree["centers"]["center"].to(c.center.device),
+        center_grid=tree["centers"]["center_grid"].to(c.center_grid.device))
+    like.step = int(tree["step"])
+    like.adam_count = int(tree["adam_count"])
+    return like
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, name: str) -> str:
+        """The file of checkpoint ``name`` ('checkpoint', 'checkpoint0004'
+        or a file name ending in .pth)."""
+        if not name.endswith(".pth"):
+            name += ".pth"
+        return os.path.join(self.directory, name)
+
+    def save(self, state: TrainState, *, epoch: int,
+             save_every_epochs: int = 0, force_named: bool = False
+             ) -> list[str]:
+        """Write checkpoint.pth and, every ``save_every_epochs`` epochs or
+        with ``force_named``, checkpoint{epoch:04d}.pth; returns the paths
+        written."""
+        tmp = self._path(LATEST) + f".{os.getpid()}.tmp"
+        named = None
+        if force_named or (save_every_epochs
+                           and epoch % save_every_epochs == 0):
+            named = self._path(f"{LATEST}{epoch:04d}")
+        named_tmp = f"{named}.{os.getpid()}.tmp"
+        try:
+            torch.save(state_to_dict(state), tmp)
+            if named is not None:
+                shutil.copyfile(tmp, named_tmp)
+                os.replace(named_tmp, named)
+            os.replace(tmp, self._path(LATEST))
+        finally:
+            for left in (tmp, named_tmp):
+                if os.path.exists(left):
+                    os.remove(left)
+        return [self._path(LATEST)] + ([named] if named else [])
+
+    def restore(self, like: TrainState, name: str = LATEST
+                ) -> TrainState | None:
+        """``like`` with checkpoint ``name`` loaded into it (in place), or
+        None when there is no such file."""
+        path = self._path(name)
+        if not os.path.isfile(path):
+            return None
+        tree = torch.load(path, map_location="cpu", weights_only=True)
+        return load_state_dict(like, tree)
+
+    def has_checkpoint(self) -> bool:
+        return os.path.isfile(self._path(LATEST))

@@ -32,17 +32,30 @@ def _chunk_views(x: torch.Tensor, nviews: int) -> torch.Tensor:
     return x.reshape(nviews, -1, x.shape[-1])
 
 
-def _update_center(old, batch, momentum: float):
-    """EMA toward the batch mean (main_esvit.py:650-660)."""
-    batch_center = batch.reshape(-1, batch.shape[-1]).float().mean(dim=0)
-    return old * momentum + batch_center * (1.0 - momentum)
+def _update_centers(olds, batches, momentum: float, mesh=None):
+    """Each center's EMA toward its batch's mean over the global batch
+    (main_esvit.py:650-660, :760-766): under a mesh of several processes
+    (parallel/mesh.py) the local sums are all-reduced in one collective
+    and divided by the global row count; one process's batch is the
+    global batch."""
+    rows = [b.reshape(-1, b.shape[-1]).float() for b in batches]
+    if mesh is None or mesh.world == 1:
+        means = [r.mean(dim=0) for r in rows]
+    else:
+        sums = mesh.all_reduce_sum([r.sum(dim=0) for r in rows])
+        means = [s / (r.shape[0] * mesh.world) for s, r in zip(sums, rows)]
+    return [old * momentum + m * (1.0 - momentum)
+            for old, m in zip(olds, means)]
 
 
 def dino_loss(student_cls, teacher_cls, center, teacher_temp, *, ncrops: int,
-              student_temp: float = 0.1, center_momentum: float = 0.9):
+              student_temp: float = 0.1, center_momentum: float = 0.9,
+              mesh=None):
     """View-level DINO loss (ref: main_esvit.py:620-648).
     student_cls: (ncrops*B, K) view-major; teacher_cls: (2*B, K).
-    Uses sum(-q * log_softmax(s)) = logsumexp(s) - q . s (sum q == 1)."""
+    Uses sum(-q * log_softmax(s)) = logsumexp(s) - q . s (sum q == 1).
+    The loss is over this process's batch; the center moves toward the
+    mean over ``mesh``'s global batch."""
     s = _chunk_views(student_cls.float() / student_temp, ncrops)
     t_logits = (teacher_cls.float() - center[None]) / teacher_temp
     q = _chunk_views(torch.softmax(t_logits, dim=-1).detach(), 2)
@@ -54,7 +67,8 @@ def dino_loss(student_cls, teacher_cls, center, teacher_temp, *, ncrops: int,
                 continue
             total = total + (lse[v] - (q[iq] * s[v]).sum(-1)).mean()
             n_terms += 1
-    new_center = _update_center(center, teacher_cls.detach(), center_momentum)
+    (new_center,) = _update_centers([center], [teacher_cls.detach()],
+                                    center_momentum, mesh)
     return total / n_terms, new_center
 
 
@@ -65,14 +79,16 @@ def _l2n(x):
 
 def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
                *, ncrops: int, batch_size: int, student_temp: float = 0.1,
-               center_momentum: float = 0.9):
+               center_momentum: float = 0.9, mesh=None):
     """View + region (dense) EsViT loss (ref: main_esvit.py:683-770).
 
     student_out / teacher_out: EsViTModel's ``(cls_logits, region_logits,
     region_fea, npatch)``; the teacher holds the 2 global views. Region
     tensors may be batch-major ``(B, S, K)`` (EsViTModel with batch_size,
     the training path) or the reference's flat view-major rows.
-    Returns (scalar loss, new DinoCenters)."""
+    Returns (scalar loss, new DinoCenters): the loss over this process's
+    batch, the centers moved toward the means over ``mesh``'s global
+    batch (both centers' sums in one collective)."""
     s_cls_out, s_region_out, s_fea, s_npatch = student_out
     t_cls_out, t_region_out, t_fea, t_npatch = teacher_out
     B = batch_size
@@ -146,9 +162,7 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
             total = total + (loss_v + 0.5 * ce_v).mean()
             n_terms += 1
 
-    new_centers = DinoCenters(
-        center=_update_center(centers.center, t_cls_out.detach(),
-                              center_momentum),
-        center_grid=_update_center(centers.center_grid, t_region_out.detach(),
-                                   center_momentum))
+    new_centers = DinoCenters(*_update_centers(
+        [centers.center, centers.center_grid],
+        [t_cls_out.detach(), t_region_out.detach()], center_momentum, mesh))
     return total / n_terms, new_centers

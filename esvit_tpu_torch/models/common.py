@@ -21,13 +21,10 @@ from torch import nn
 
 def trunc_normal_(t: torch.Tensor, std: float = 0.02,
                   generator: torch.Generator | None = None) -> torch.Tensor:
-    """The unit normal truncated to [-2, 2], rescaled so that its std is
-    ``std`` (bounds +-2.27 ``std``). flax's ``truncated_normal(stddev=std)``
-    (esvit_tpu's ``trunc_normal_init``) does not rescale: its std is
-    0.88 ``std``; the original EsViT's timm init has std ``std``.
-    ROADMAP.md queue 3 records the difference."""
-    # std of a standard normal truncated to [-2, 2]
-    unit_std = 0.87962566103423978
+    """The unit normal truncated to [-2, 2], times ``std``, with no
+    rescale: what flax's ``truncated_normal(stddev=std)`` (esvit_tpu's
+    ``trunc_normal_init``) draws. Its std is 0.8796 ``std`` (the original
+    EsViT's timm init rescales to ``std``; esvit_tpu does not)."""
     with torch.no_grad():
         t.normal_(generator=generator)
         while True:
@@ -36,7 +33,7 @@ def trunc_normal_(t: torch.Tensor, std: float = 0.02,
                 break
             t[bad] = torch.randn(int(bad.sum()), generator=generator,
                                  dtype=t.dtype, device=t.device)
-        t.mul_(std / unit_std)
+        t.mul_(std)
     return t
 
 

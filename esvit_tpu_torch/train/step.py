@@ -3,7 +3,10 @@
 Teacher forward on the 2 global views (no autograd), student forward and
 backward on all views, DINO/DDINO loss with the center EMA, per-param
 clip, last-layer freeze, AdamW and the teacher EMA with cosine momentum.
-Schedules are evaluated from the step counter.
+Schedules are evaluated from the step counter. Over several processes
+(parallel/mesh.py, one card each) the gradients and the loss are
+averaged in one coalesced all-reduce before the clip, and the centers
+move toward the global batch's means.
 
 Compute is bf16 by explicit casts inside each module, as the JAX modules
 do; parameters, gradients and optimizer moments stay fp32. There is no
@@ -23,6 +26,7 @@ import torch
 from esvit_tpu_torch import losses
 from esvit_tpu_torch.config import TrainConfig, check_supported
 from esvit_tpu_torch.models.esvit import EsViTModel
+from esvit_tpu_torch.parallel.mesh import Mesh
 from esvit_tpu_torch.train import optim as optim_lib
 from esvit_tpu_torch.utils import schedules
 
@@ -48,10 +52,13 @@ class EsViTTrainer:
     """Builds the model, schedules and the step function."""
 
     def __init__(self, cfg: TrainConfig, total_batch_size: int | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh: Mesh | None = None):
+        """total_batch_size: the global per-view batch, which scales the
+        LR; mesh: the processes the batch is split over (one: none)."""
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh or Mesh()
         o = cfg.optim
         self.total_steps = o.epochs * cfg.steps_per_epoch
         self.warmup_steps = o.warmup_epochs * cfg.steps_per_epoch
@@ -99,8 +106,10 @@ class EsViTTrainer:
     def train_step(self, state: TrainState, batch,
                    generator: torch.Generator | None = None):
         """batch: per-resolution crop tensors ((2B, Sg, Sg, 3), (L*B, Sl,
-        Sl, 3)) on the device. ``generator`` draws drop-path masks.
-        Returns (state, metrics); the state is updated in place."""
+        Sl, 3)) on the device, B this process's share of the batch.
+        ``generator`` draws drop-path masks. Returns (state, metrics), the
+        loss the mean over every process's batch; the state is updated in
+        place."""
         cfg = self.cfg
         B = batch[0].shape[0] // 2
         ncrops = 2 + (batch[1].shape[0] // B if len(batch) > 1 else 0)
@@ -127,6 +136,10 @@ class EsViTTrainer:
         # JAX's stop_gradient gives.
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        loss = loss.detach()
+        if self.mesh.distributed:
+            with _span("all_reduce"):
+                loss, *grads = self.mesh.all_reduce_mean([loss, *grads])
 
         ll = optim_lib.last_layer_mask(dict(zip(names, params)))
         ll_mask = [ll[n] for n in names]
@@ -150,7 +163,7 @@ class EsViTTrainer:
         state.step += 1
         state.adam_count += 1
         state.centers = new_centers
-        metrics = {"loss": loss.detach(), "lr": lr, "wd": wd,
+        metrics = {"loss": loss, "lr": lr, "wd": wd,
                    "teacher_momentum": m, "teacher_temp": t_temp,
                    "grad_norm": grad_norm}
         return state, metrics
@@ -161,11 +174,11 @@ class EsViTTrainer:
             loss, new_centers = losses.ddino_loss(
                 s_out, t_out, state.centers, t_temp, ncrops=ncrops,
                 batch_size=B, student_temp=cfg.loss.student_temp,
-                center_momentum=cfg.loss.center_momentum)
+                center_momentum=cfg.loss.center_momentum, mesh=self.mesh)
         else:
             loss, new_center = losses.dino_loss(
                 s_out, t_out, state.centers.center, t_temp, ncrops=ncrops,
                 student_temp=cfg.loss.student_temp,
-                center_momentum=cfg.loss.center_momentum)
+                center_momentum=cfg.loss.center_momentum, mesh=self.mesh)
             new_centers = state.centers._replace(center=new_center)
         return loss, new_centers

@@ -1,109 +1,233 @@
-"""Training loop (port of esvit_tpu/train/train.py ``train``).
+"""Pre-training orchestrator and CLI: the ``main_esvit.py`` equivalent
+(port of esvit_tpu/train/train.py).
 
-Builds the trainer, draws random weights from ``cfg.seed``, and runs the
-epoch loop with the NaN guard and MetricLogger lines, over a dataset
-(``dataset=``, or ``data_kind`` one of data/datasets.py's kinds with
-``data_kwargs``) through one ``MultiCropIterator`` per epoch, augmented on
-the device, or over on-device synthetic batches (data kind
-``synthetic_device``). The zip/TSV/file-list readers and host
-augmentation are ROADMAP queue 1 item 6b; checkpoint save/resume, the
-SIGTERM save, the CLI and multi-card runs are item 8. ``train`` raises
-NotImplementedError when asked for them.
+    python -m esvit_tpu_torch.train.train --arch swin_tiny --data_kind synthetic
+    python -m esvit_tpu_torch.train.train --arch swin_femto --device cpu ...
+
+Flow (ref: main_esvit.py:210-496 train_esvit): the data axis over the
+process group (parallel/mesh.py) -> data -> trainer (model, optimizer,
+schedules) -> an optional initialisation from a checkpoint, then local
+auto-resume -> the epoch loop, with the NaN guard (a named debug
+checkpoint, then exit 1; main_esvit.py:546-562), the SIGTERM save (a
+checkpoint at the next step boundary, then exit 0), a checkpoint after
+every epoch and the JSON-lines log, both written by rank 0. Several
+processes: ``--distributed`` (launch.py), one process per card, each
+feeding its ``1 / world`` share of every batch. The run is on the card
+unless the caller asks for the CPU (``--device cpu``).
+
+The zip/TSV readers and host augmentation are ROADMAP queue 1 item 6b;
+mixup, SGD/LARS and BatchNorm heads item 11; frozen layers and the
+tensor-parallel head item 12. Each is refused with NotImplementedError.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
+import os
+import signal
+import subprocess
 import sys
 import time
+from typing import Any
 
 import torch
 
-from esvit_tpu_torch.config import TrainConfig
+from esvit_tpu_torch import config as config_lib
 from esvit_tpu_torch.data import datasets as datasets_lib
 from esvit_tpu_torch.data.loader import build_train_iterator, synthetic_batches
+from esvit_tpu_torch.io.checkpoint import CheckpointManager
+from esvit_tpu_torch.parallel import mesh as mesh_lib
 from esvit_tpu_torch.train.step import EsViTTrainer, TrainState
 from esvit_tpu_torch.utils.metrics import MetricLogger, append_log
 
 
-def train(cfg: TrainConfig, *, data_kind: str = "synthetic_device",
+def git_sha() -> str:
+    """Repo SHA stamping for logs (ref: utils.py:378-395 get_sha)."""
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    try:
+        sha = subprocess.check_output(
+            ["git", "rev-parse", "HEAD"], cwd=cwd,
+            stderr=subprocess.DEVNULL).decode().strip()
+        dirty = subprocess.call(["git", "diff-index", "--quiet", "HEAD"],
+                                cwd=cwd, stderr=subprocess.DEVNULL)
+    except (OSError, subprocess.CalledProcessError):
+        return "unknown"
+    return sha + (" (dirty)" if dirty else "")
+
+
+def save_checkpoint(ckpt: CheckpointManager, state: TrainState, **kw) -> None:
+    """``ckpt.save`` with one line saying what was written, its size and
+    the seconds it took."""
+    t0 = time.perf_counter()
+    paths = ckpt.save(state, **kw)
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(paths[0])
+    print(f"checkpoint: {', '.join(map(os.path.basename, paths))} at step "
+          f"{state.step}, {size} bytes, {seconds:.3f} s", flush=True)
+
+
+def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
           dataset=None, data_kwargs: dict | None = None,
-          host_aug: bool = False, resume: bool = False,
-          max_steps: int | None = None, device: torch.device | str = "cuda"
+          host_aug: bool = False, resume: bool = True,
+          max_steps: int | None = None, profile_dir: str | None = None,
+          init_from: str | None = None, device: torch.device | str = "cuda"
           ) -> tuple[TrainState, list[dict]]:
-    """Train on one device. Returns the final state and one record per
-    step: {'step', 'loss', 'lr', 'wd', 'grad_norm', 'seconds',
-    'data_seconds'}, where 'seconds' is the host time from the previous
-    step's end, each step ending when its loss reaches the host, and
-    'data_seconds' the part of it spent taking the batch from the feed.
-    The first record of each epoch also holds 'inputs', what
-    ``input_stats`` reads of the batch that step consumed.
-    With a dataset of at least B images an epoch is ``len(dataset) // B``
-    steps, as in esvit_tpu; else ``cfg.steps_per_epoch``."""
+    """Train over the process group's cards (one process, no group: one
+    card). Returns the final state and one record per step: {'step',
+    'loss', 'lr', 'wd', 'grad_norm', 'seconds', 'data_seconds'}, where
+    'seconds' is the host time from the previous step's end, each step
+    ending when its loss reaches the host, and 'data_seconds' the part of
+    it spent taking the batch from the feed. The first record of each
+    epoch also holds 'inputs', what ``input_stats`` reads of the batch
+    that step consumed.
+
+    With a dataset of at least B images (B the global per-view batch) an
+    epoch is ``len(dataset) // B`` steps, as in esvit_tpu; else
+    ``cfg.steps_per_epoch``. ``resume`` restores ``cfg.output_dir``'s
+    checkpoint.pth and starts at epoch ``step // steps_per_epoch``, from
+    its first batch; ``init_from`` (a checkpoint file) is loaded first, as
+    an initialisation that a local checkpoint overrides. ``profile_dir``
+    receives a torch.profiler trace of the first epoch (trace.json)."""
+    print(f"git: {git_sha()}", flush=True)
     if host_aug:
         raise NotImplementedError("host_aug (the full-PIL DINO pipeline) is "
                                   "not ported yet (ROADMAP queue 1 item 6b)")
-    if resume:
-        raise NotImplementedError("checkpoint resume is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    B = cfg.optim.batch_size_per_device * mesh.world   # global per-view batch
+    B_local = B // mesh.world                          # this process's share
     if dataset is None and data_kind != "synthetic_device":
         dataset = datasets_lib.build_dataset(data_kind, **(data_kwargs or {}))
     device = torch.device(device)
-    B = cfg.optim.batch_size_per_device
+    # Every process walks a disjoint 1 / world shard of B_local samples per
+    # step, so all agree on len // B steps (DistributedSampler semantics).
     steps_per_epoch = (len(dataset) // B
                        if dataset is not None and len(dataset) >= B
                        else cfg.steps_per_epoch)
     steps_per_epoch = max(steps_per_epoch, 1)
     cfg = cfg.replace(steps_per_epoch=steps_per_epoch)
-    trainer = EsViTTrainer(cfg, total_batch_size=B, device=device)
+    trainer = EsViTTrainer(cfg, total_batch_size=B, device=device, mesh=mesh)
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
-    drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+
+    ckpt = CheckpointManager(cfg.output_dir)
+    if init_from:
+        init = CheckpointManager(os.path.dirname(os.path.abspath(init_from)))
+        if init.restore(state, os.path.basename(init_from)) is not None:
+            print(f"initialized from {init_from} (step {state.step})",
+                  flush=True)
+        else:
+            print(f"WARNING: init_from {init_from} not found", flush=True)
+    if resume and ckpt.restore(state) is not None:
+        print(f"resumed from step {state.step}", flush=True)
+    # Drop-path masks: one stream per process.
+    drop_gen = torch.Generator(device=device).manual_seed(
+        cfg.seed + 1 + mesh.rank)
+
+    # Preemption: SIGTERM checkpoints at the next step boundary and exits
+    # 0, so the relaunched job resumes from it.
+    preempted = []
+
+    def on_sigterm(signum, frame):
+        preempted.append(signum)
+        print("SIGTERM received: checkpointing at next step boundary",
+              flush=True)
+
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:
+        previous = None        # not the main thread (e.g. a test runner's)
+
+    profiler = None
+    if profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
 
     history: list[dict] = []
     images_per_step = cfg.crops.ncrops * B
-    for epoch in range(state.step // steps_per_epoch, cfg.optim.epochs):
-        logger = MetricLogger()
-        header = f"Epoch: [{epoch}/{cfg.optim.epochs}]"
-        if dataset is not None:
-            batches = iter(build_train_iterator(dataset, cfg.crops, B,
-                                                epoch=epoch, seed=cfg.seed,
-                                                device=device))
-        else:
-            batches = synthetic_batches(cfg.crops, B, steps=steps_per_epoch,
-                                        seed=cfg.seed + epoch, device=device)
-        data_s = [0.0]
-        step_t0 = time.perf_counter()
-        first = True
-        for batch in logger.log_every(_timed(batches, data_s), 10, header):
-            inputs = input_stats(batch) if first else None
-            first = False
-            state, metrics = trainer.train_step(state, batch, drop_gen)
-            loss = float(metrics["loss"])
-            if not math.isfinite(loss):
-                # NaN guard (main_esvit.py:546-562). The debug checkpoint
-                # waits for checkpointing (ROADMAP queue 1 item 8).
-                print(f"Loss is {loss}, stopping training", flush=True)
-                sys.exit(1)
-            now = time.perf_counter()
-            rec = {"step": state.step, "loss": loss, "lr": metrics["lr"],
-                   "wd": metrics["wd"],
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "seconds": now - step_t0, "data_seconds": data_s[0]}
-            if inputs is not None:
-                rec["inputs"] = inputs
-            history.append(rec)
-            logger.update(loss=loss, lr=rec["lr"], wd=rec["wd"],
-                          grad_norm=rec["grad_norm"],
-                          img_per_sec=images_per_step / max(rec["seconds"], 1e-9))
-            step_t0 = now
+    try:
+        for epoch in range(state.step // steps_per_epoch, cfg.optim.epochs):
+            logger = MetricLogger()
+            header = f"Epoch: [{epoch}/{cfg.optim.epochs}]"
+            if dataset is not None:
+                source = iter(build_train_iterator(
+                    dataset, cfg.crops, B_local, epoch=epoch, seed=cfg.seed,
+                    process_index=mesh.rank, process_count=mesh.world,
+                    device=device))
+            else:
+                source = synthetic_batches(cfg.crops, B_local,
+                                           steps=steps_per_epoch,
+                                           seed=cfg.seed + epoch,
+                                           device=device)
+            data_s = [0.0]
+            batches = _timed(source, data_s)
+            step_t0 = time.perf_counter()
+            first = True
+            try:
+                for batch in logger.log_every(batches, 10, header):
+                    inputs = input_stats(batch) if first else None
+                    first = False
+                    state, metrics = trainer.train_step(state, batch,
+                                                        drop_gen)
+                    loss = float(metrics["loss"])
+                    if not math.isfinite(loss):
+                        # NaN guard (main_esvit.py:546-562): dump a debug
+                        # checkpoint, exit.
+                        print(f"Loss is {loss}, stopping training",
+                              flush=True)
+                        if mesh.rank == 0:
+                            save_checkpoint(ckpt, state, epoch=epoch,
+                                            force_named=True)
+                        sys.exit(1)
+                    now = time.perf_counter()
+                    rec = {"step": state.step, "loss": loss,
+                           "lr": metrics["lr"], "wd": metrics["wd"],
+                           "grad_norm": float(metrics["grad_norm"]),
+                           "seconds": now - step_t0,
+                           "data_seconds": data_s[0]}
+                    if inputs is not None:
+                        rec["inputs"] = inputs
+                    history.append(rec)
+                    logger.update(loss=loss, lr=rec["lr"], wd=rec["wd"],
+                                  grad_norm=rec["grad_norm"],
+                                  img_per_sec=images_per_step
+                                  / max(rec["seconds"], 1e-9))
+                    step_t0 = now
+                    if preempted:
+                        if mesh.rank == 0:
+                            save_checkpoint(ckpt, state, epoch=epoch)
+                        print(f"checkpointed at step {state.step}; exiting "
+                              "for preemption", flush=True)
+                        sys.exit(0)
+                    if max_steps is not None and state.step >= max_steps:
+                        break
+            finally:
+                batches.close()         # the feed stops its workers
+            if profiler is not None:
+                profiler.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                trace = os.path.join(profile_dir, "trace.json")
+                profiler.export_chrome_trace(trace)
+                profiler = None
+                print(f"profiler trace written to {trace}", flush=True)
+            print(f"Averaged stats: {logger}", flush=True)
+            if mesh.rank == 0:
+                save_checkpoint(ckpt, state, epoch=epoch,
+                                save_every_epochs=cfg.save_every_epochs)
+            append_log(cfg.output_dir,
+                       {"epoch": epoch,
+                        **{f"train_{k}": v
+                           for k, v in logger.global_avgs().items()}})
             if max_steps is not None and state.step >= max_steps:
                 break
-        print(f"Averaged stats: {logger}", flush=True)
-        append_log(cfg.output_dir,
-                   {"epoch": epoch,
-                    **{f"train_{k}": v for k, v in logger.global_avgs().items()}})
-        if max_steps is not None and state.step >= max_steps:
-            break
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
     return state, history
 
 
@@ -137,3 +261,162 @@ def _timed(batches, seconds: list):
             yield batch
     finally:
         batches.close()
+
+
+def get_args_parser():
+    """esvit_tpu's flags with its defaults, plus ``--device``."""
+    p = argparse.ArgumentParser("esvit_tpu_torch pretrain",
+                                description="EsViT SSL pre-training on the "
+                                            "card")
+    p.add_argument("--arch", default="swin_tiny",
+                   choices=sorted((*config_lib.PRESETS,
+                                   *config_lib.NOT_PORTED_PRESETS)))
+    p.add_argument("--window_size", default=7, type=int)
+    p.add_argument("--out_dim", default=65536, type=int)
+    p.add_argument("--norm_last_layer", default=False,
+                   action=argparse.BooleanOptionalAction)
+    p.add_argument("--use_bn_in_head", default=False,
+                   action=argparse.BooleanOptionalAction)
+    p.add_argument("--use_dense_prediction", default=True,
+                   action=argparse.BooleanOptionalAction)
+    p.add_argument("--momentum_teacher", default=0.996, type=float)
+    p.add_argument("--warmup_teacher_temp", default=0.04, type=float)
+    p.add_argument("--teacher_temp", default=0.07, type=float)
+    p.add_argument("--warmup_teacher_temp_epochs", default=30, type=int)
+    p.add_argument("--epochs", default=300, type=int)
+    p.add_argument("--warmup_epochs", default=10, type=int)
+    p.add_argument("--lr", default=5e-4, type=float)
+    p.add_argument("--min_lr", default=1e-6, type=float)
+    p.add_argument("--weight_decay", default=0.04, type=float)
+    p.add_argument("--weight_decay_end", default=0.4, type=float)
+    p.add_argument("--clip_grad", default=3.0, type=float)
+    p.add_argument("--freeze_last_layer", default=1, type=int)
+    p.add_argument("--frozen_layers", nargs="*", default=[],
+                   help="parameter subtrees frozen for the whole run: not "
+                        "ported (ROADMAP queue 1 item 12)")
+    p.add_argument("--optimizer", default="adamw",
+                   choices=["adamw", "sgd", "lars"],
+                   help="sgd and lars are not ported (ROADMAP queue 1 item "
+                        "11)")
+    p.add_argument("--batch_size_per_device", default=32, type=int)
+    p.add_argument("--global_crops_scale", nargs=2, type=float,
+                   default=(0.4, 1.0))
+    p.add_argument("--local_crops_scale", nargs=2, type=float,
+                   default=(0.05, 0.4))
+    p.add_argument("--local_crops_number", default=8, type=int)
+    p.add_argument("--local_crops_size", default=96, type=int)
+    p.add_argument("--use_mixup", default=False,
+                   action=argparse.BooleanOptionalAction,
+                   help="not ported (ROADMAP queue 1 item 11)")
+    p.add_argument("--num_mixup_views", default=2, type=int)
+    p.add_argument("--mixup", default=0.8, type=float)
+    p.add_argument("--cutmix", default=1.0, type=float)
+    p.add_argument("--mixup_prob", default=1.0, type=float)
+    p.add_argument("--mixup_switch_prob", default=0.5, type=float)
+    p.add_argument("--smoothing", default=0.0, type=float)
+    p.add_argument("--data_kind", default="synthetic",
+                   choices=["synthetic", "folder", "zip", "tsv",
+                            "composite_tsv", "openimages_tsv"],
+                   help="synthetic and folder run; the zip and TSV kinds "
+                        "are not ported (ROADMAP queue 1 item 6b)")
+    p.add_argument("--data_path", default="")
+    p.add_argument("--zip_map_file", default="")
+    p.add_argument("--host_aug", default=False,
+                   action=argparse.BooleanOptionalAction,
+                   help="full PIL augmentation on the host: not ported "
+                        "(ROADMAP queue 1 item 6b)")
+    p.add_argument("--output_dir", default="./output")
+    p.add_argument("--saveckp_freq", default=5, type=int)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--mesh_model", default=1, type=int,
+                   help="tensor-parallel axis size for the DINO head: only "
+                        "1 is ported (ROADMAP queue 1 item 12)")
+    p.add_argument("--bf16", default=True, action=argparse.BooleanOptionalAction)
+    p.add_argument("--max_steps", default=None, type=int)
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the first epoch")
+    p.add_argument("--pretrained_weights_ckpt", default="",
+                   help="checkpoint loaded as initialization before local "
+                        "auto-resume (continued_from recipes)")
+    p.add_argument("--distributed", default=False,
+                   action=argparse.BooleanOptionalAction,
+                   help="torch.distributed over the processes that the "
+                        "environment describes (launch.py)")
+    p.add_argument("--debug_nans", default=False,
+                   action=argparse.BooleanOptionalAction,
+                   help="torch.autograd.set_detect_anomaly: trap the op "
+                        "producing the first NaN (TRAIN.DETECT_ANOMALY)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (one card per process) or cpu")
+    return p
+
+
+def config_from_args(args) -> config_lib.TrainConfig:
+    if args.use_mixup:
+        raise NotImplementedError("--use_mixup is not ported yet (ROADMAP "
+                                  "queue 1 item 11)")
+    model = config_lib.get_model_config(
+        args.arch, **({"window_size": args.window_size}
+                      if args.arch.startswith("swin") else {}))
+    return config_lib.TrainConfig(
+        model=model,
+        head=config_lib.HeadConfig(out_dim=args.out_dim,
+                                   use_bn=args.use_bn_in_head,
+                                   norm_last_layer=args.norm_last_layer),
+        loss=config_lib.LossConfig(
+            out_dim=args.out_dim,
+            use_dense_prediction=args.use_dense_prediction,
+            warmup_teacher_temp=args.warmup_teacher_temp,
+            teacher_temp=args.teacher_temp,
+            warmup_teacher_temp_epochs=args.warmup_teacher_temp_epochs),
+        crops=config_lib.CropConfig(
+            global_scale=tuple(args.global_crops_scale),
+            local_scale=tuple(args.local_crops_scale),
+            local_crops_number=args.local_crops_number,
+            local_size=args.local_crops_size),
+        optim=config_lib.OptimConfig(
+            optimizer=args.optimizer, lr=args.lr, min_lr=args.min_lr,
+            warmup_epochs=args.warmup_epochs,
+            weight_decay=args.weight_decay,
+            weight_decay_end=args.weight_decay_end,
+            momentum_teacher=args.momentum_teacher,
+            clip_grad=args.clip_grad,
+            freeze_last_layer_epochs=args.freeze_last_layer,
+            epochs=args.epochs,
+            batch_size_per_device=args.batch_size_per_device,
+            frozen_layers=tuple(args.frozen_layers)),
+        mesh=config_lib.MeshConfig(model=args.mesh_model),
+        seed=args.seed,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        output_dir=args.output_dir,
+        save_every_epochs=args.saveckp_freq,
+    )
+
+
+def main(argv=None):
+    args = get_args_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    config_lib.check_supported(cfg)      # refuse before any setup
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    if args.distributed:
+        from esvit_tpu_torch.launch import initialize_distributed
+
+        initialize_distributed(device=args.device)
+    try:
+        os.makedirs(args.output_dir, exist_ok=True)
+        data_kwargs: dict[str, Any] = {}
+        if args.data_kind == "folder":
+            data_kwargs = {"root": args.data_path}
+        train(cfg, data_kind=args.data_kind, data_kwargs=data_kwargs,
+              host_aug=args.host_aug, max_steps=args.max_steps,
+              profile_dir=args.profile_dir or None,
+              init_from=args.pretrained_weights_ckpt or None,
+              device=args.device)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -44,9 +44,10 @@ NANO_VIL_ARCH = ("l1,h2,d32,n2,s1,g1,p4,f4_l2,h4,d64,n2,s1,g1,p2,f4_"
 def build_config(*, size: str = "nano", backbone: str = "swin",
                  fused: bool = True, dense: bool = True,
                  task: str = "shapes_hard", lr: float | None = None,
-                 steps: int = 2000, batch: int = 64
+                 steps: int = 2000, batch: int = 64, seed: int = 0
                  ) -> tuple[config.TrainConfig, int]:
-    """The reference script's TrainConfig (bf16) and source image side."""
+    """The reference script's TrainConfig (bf16, ``seed`` for the initial
+    weights, the crops and the drop-path draws) and source image side."""
     if backbone == "cvt":
         raise NotImplementedError("the CvT leg is not ported yet (ROADMAP "
                                   "queue 1 item 11)")
@@ -84,7 +85,7 @@ def build_config(*, size: str = "nano", backbone: str = "swin",
                 else 4e-3 if task == "shapes_hard" else 8e-3),
             batch_size_per_device=batch, freeze_last_layer_epochs=1),
         steps_per_epoch=max(steps // EPOCHS, 1),
-        dtype=torch.bfloat16, seed=0)
+        dtype=torch.bfloat16, seed=seed)
     return cfg, img_size
 
 
@@ -104,7 +105,7 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
              task: str = "shapes_hard", eval_every: int = 0,
              max_seconds: float | None = None, lr: float | None = None,
              fused: bool = True, device: torch.device | str = "cuda",
-             n_eval: int | None = None) -> dict:
+             n_eval: int | None = None, seed: int = 0) -> dict:
     """Train and evaluate as the reference script does; no gate. Returns
     {'before', 'after', 'steps', 'seconds', 'last_loss'} (k-NN top-1 in
     %, steps taken, training seconds, the last step's loss) and, under
@@ -116,7 +117,7 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
     device = torch.device(device)
     cfg, img_size = build_config(size=size, backbone=backbone, fused=fused,
                                  dense=dense, task=task, lr=lr, steps=steps,
-                                 batch=batch)
+                                 batch=batch, seed=seed)
     trainer = EsViTTrainer(cfg, total_batch_size=batch, device=device)
     if n_eval is None:
         n_eval = 512 if task == "shapes_hard" else 256
@@ -128,8 +129,8 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
     val_test = Memoized(build_dataset(task, n=n_eval // 2, size=img_size,
                                       seed=13))
 
-    state = trainer.init_state(torch.Generator().manual_seed(0))
-    drop_gen = torch.Generator(device=device).manual_seed(1)
+    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
 
     def knn(tag):
         acc = knn_accuracy(cfg, state.teacher, val_train, val_test, device)
@@ -149,7 +150,8 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
     feed_wait = 0.0
     while steps_done < steps and not out_of_time:
         it = build_train_iterator(train_ds, cfg.crops, batch, epoch=epoch,
-                                  seed=0, num_threads=4, device=device)
+                                  seed=cfg.seed, num_threads=4,
+                                  device=device)
         batches = iter(it)
         for batch_ in batches:
             state, metrics = trainer.train_step(state, batch_, drop_gen)
@@ -229,6 +231,9 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=None,
                    help="peak learning rate (default 8e-3 shapes, 4e-3 "
                         "shapes_hard)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the initial weights, the crops and the "
+                        "drop-path draws (the datasets stay fixed)")
     p.add_argument("--no-fused", dest="fused", action="store_false",
                    help="Swin: fused_block_stages=(); ViL: fused_sc='off'")
     args = p.parse_args(argv)
@@ -239,13 +244,14 @@ def main(argv=None):
                    backbone=args.backbone, dense=args.dense, task=args.task,
                    eval_every=args.eval_every, max_seconds=args.max_seconds,
                    lr=args.lr, fused=args.fused,
-                   device="cpu" if args.cpu else "cuda")
+                   device="cpu" if args.cpu else "cuda", seed=args.seed)
     before, after = res["before"], res["after"]
     ms = res["seconds"] / max(res["steps"], 1) * 1e3
     print(f"\nresult: {before:.1f}% -> {after:.1f}% ({res['steps']} steps, "
           f"{res['seconds']:.0f}s, {ms:.1f} ms/step, feed wait "
           f"{res['feed_wait_seconds']:.1f}s, task={args.task}, "
-          f"backbone={args.backbone}, fused={args.fused})", flush=True)
+          f"backbone={args.backbone}, fused={args.fused}, seed={args.seed})",
+          flush=True)
     min_gain = (args.min_gain if args.min_gain is not None
                 else min_gain_for(args.task, args.steps, args.backbone))
     # Absolute sanity first: the relative gate alone can pass on near-noise

@@ -128,7 +128,7 @@ def test_unported_presets_and_dims_raise():
 @pytest.mark.parametrize("n,per,fill", [(3, 5, 0), (4, 4, 0), (1, 6, -1)])
 def test_pad_rows_matches_jax(n, per, fill):
     x = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
-    got = textract.pad_rows(x, per, fill)
+    got = textract.pad_shard(x, per, fill)
     np.testing.assert_array_equal(got, jextract.pad_shard(x, per, fill))
     assert got.shape == (per, 2) and (got[n:] == fill).all()
 
@@ -360,7 +360,7 @@ def test_pth_checkpoint_gives_jax_features(tmp_path):
         t_cls, _ = port.forward_features(torch.from_numpy(x))
     np.testing.assert_allclose(t_cls.numpy(), np.asarray(j_cls),
                                rtol=FEAT_TOL, atol=FEAT_TOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match=r"\.pth/\.pt checkpoints"):
         tknn.load_backbone_variables(port, t_cfg, str(tmp_path))
 
 

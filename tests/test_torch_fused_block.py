@@ -324,7 +324,11 @@ def test_only_cpu_tensors_take_the_plain_version():
 def test_fused_train_step_matches_unfused_route():
     """One fp32 step with drop-path 0.3: the fused stages and the
     window-attention route give the same state. Gradients below 1e-7 are
-    held at 1e-4 for the reason tests/test_torch_step.py:31-38 gives."""
+    held at 1e-4 for the reason tests/test_torch_step.py:31-38 gives.
+    Below Adam's eps (1e-8) the first step, lr * g / (|g| + eps), no
+    longer has a magnitude near lr, and a sign that fp32 noise flips
+    moves the weight by up to the two updates' magnitudes: such student
+    elements are held to lr * sum over the routes of |g| / (|g| + eps)."""
     _, tc = _model_cfgs()
     states = {}
     for stages in ((0, 1), ()):
@@ -345,11 +349,16 @@ def test_fused_train_step_matches_unfused_route():
                                   .astype(np.float32)))
         state, m = trainer.train_step(state, batch,
                                       torch.Generator().manual_seed(1))
-        states[stages] = (state, float(m["loss"]))
-    (fused, f_loss), (ref, r_loss) = states[(0, 1)], states[()]
+        states[stages] = (state, float(m["loss"]), m["lr"])
+    (fused, f_loss, lr), (ref, r_loss, _) = states[(0, 1)], states[()]
     np.testing.assert_allclose(f_loss, r_loss, rtol=1e-5)
-    tiny = {n: np.sqrt(v.numpy() / (1 - 0.999)) < 1e-7
-            for n, v in ref.nu.items()}
+    eps = 1e-8
+    grad = {n: {k: np.sqrt(s.nu[n].numpy() / (1 - 0.999))
+                for k, s in (("fused", fused), ("ref", ref))}
+            for n in ref.nu}
+    tiny = {n: g["ref"] < 1e-7 for n, g in grad.items()}
+    sub_eps = {n: np.maximum(g["fused"], g["ref"]) < eps
+               for n, g in grad.items()}
     for part in ("student", "teacher", "mu", "nu"):
         if part in ("student", "teacher"):
             a = getattr(fused, part).state_dict()
@@ -362,7 +371,16 @@ def test_fused_train_step_matches_unfused_route():
             if part == "nu":
                 x, y = np.sqrt(x), np.sqrt(y)
             t = tiny.get(name, np.zeros(y.shape, bool))
+            u = (sub_eps[name] if part == "student" and name in sub_eps
+                 else np.zeros(y.shape, bool))
             np.testing.assert_allclose(x[~t], y[~t], rtol=1e-5, atol=1e-5,
                                        err_msg=f"{part} {name}")
-            np.testing.assert_allclose(x[t], y[t], rtol=1e-4, atol=1e-4,
+            np.testing.assert_allclose(x[t & ~u], y[t & ~u], rtol=1e-4,
+                                       atol=1e-4,
                                        err_msg=f"{part} {name} (tiny grad)")
+            if u.any():
+                g = grad[name]
+                bound = lr * sum(g[k][u] / (g[k][u] + eps) for k in g)
+                assert (np.abs(x[u] - y[u]) <= bound + 1e-6).all(), (
+                    f"{part} {name} (grad below Adam's eps): "
+                    f"{np.abs(x[u] - y[u])} > {bound}")

@@ -4,8 +4,9 @@ F4) on the CPU, as the plain-torch staged model
 to the compute dtype where the stage kernels do.
 
 - Against ``fused_swin_block_plain`` (the function the CUDA kernels are
-  held to on the card): fp32 within 2e-6 of the output's max-abs (the
-  same operations, so nearly exact), bf16 within 3e-2, the card's
+  held to on the card): fp32 within 2e-6 of the output's max-abs, or
+  within the bound that the products' fp32 accumulation allows if that is
+  larger (``_fp32_order_bound``), bf16 within 3e-2, the card's
   tolerance.
 - Against ``esvit_tpu``'s ``fused_swin_block`` in interpret mode, fp32:
   the output tolerance of tests/test_torch_fused_block.py (rtol 1e-5,
@@ -31,9 +32,52 @@ import torch
 
 from esvit_tpu.ops import fused_block as jfb
 from esvit_tpu_torch.ops import fused_block as tfb
+from esvit_tpu_torch.ops.fused_block import _ln as fb_ln
 from tests.test_torch_fused_staged import (CASES, _case, _stage_params,
                                            _torch_kw, kernel_tiles,
                                            tile_columns)
+
+
+def _fp32_order_bound(st, x, p, N, nH, eps=1e-6):
+    """How far two fp32 forwards that form the same products in another
+    summation order may differ, over the output's max-abs.
+
+    The staged and plain forwards compute the same sums, but through other
+    calls: one [q | k | v] product against three, 2-D against 3-D
+    operands, strided views against contiguous ones in the attention
+    einsums. A BLAS is free to split and order each dot product as it
+    chooses (its kernel may depend on state outside the test: its thread
+    team, its dispatch), and one run of the whole suite once saw 4.8e-5
+    where a run of this file alone sees 0. Any order of a length-K sum
+    lies within gamma_K * sum |a_i b_i| of the exact value (gamma_K = K u
+    / (1 - K u), u = 2^-24), so two orders differ by at most twice that.
+    The block's six products (inner lengths C for q/k/v, hd for the
+    scores, N for P V with probabilities summing to 1, C for the
+    projection and fc1, 4C for fc2) each add that much to the residual
+    stream, taken here at unit gain: the sum of 2 gamma_K max(|A| |B|)
+    over the products, at the staged forward's own operands."""
+    u = 2.0 ** -24
+    C = x.shape[-1]
+    hd = C // nH
+
+    def gamma(k):
+        return k * u / (1 - k * u)
+
+    xr = x.reshape(-1, C)
+    q, k, v = st["qkv"].split(C, dim=-1)
+    y = fb_ln(xr, p["g1"], p["be1"], eps)
+    y2 = fb_ln(st["x2"], p["g2"], p["be2"], eps)
+    wqkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=1)
+    scores = torch.einsum("bnhd,bmhd->bhnm",
+                          q.reshape(-1, N, nH, hd).abs() * hd ** -0.5,
+                          k.reshape(-1, N, nH, hd).abs())
+    terms = [gamma(C) * (y.abs() @ wqkv.abs()).max(),
+             gamma(hd) * scores.max(),
+             gamma(N) * v.abs().max(),
+             gamma(C) * (st["a"].abs() @ p["wp"].abs()).max(),
+             gamma(C) * (y2.abs() @ p["w1"].abs()).max(),
+             gamma(4 * C) * (st["g"].abs() @ p["w2"].abs()).max()]
+    return 2 * sum(t.item() for t in terms) / st["out"].abs().max().item()
 
 
 def _torch_inputs(x, p, keep, dtype):
@@ -57,6 +101,8 @@ def test_fwd_staged_matches_plain(B, H, ws, C, nH, shift, padded, dp, dtype,
     assert got.shape == xt.shape and got.dtype == dtype
     err = ((got.float() - want.float()).abs().max()
            / want.float().abs().max()).item()
+    if dtype == torch.float32:
+        tol = max(tol, _fp32_order_bound(st, xt, pt, N, nH))
     assert err <= tol, err
     rows = B * xt.shape[1]
     for name, width in dict(qkv=3 * C, a=C, x2=C, g=4 * C).items():

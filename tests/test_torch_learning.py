@@ -33,7 +33,7 @@ def _cfg(tmp_path):
 def test_train_on_shapes_hard_is_finite_and_repeatable(tmp_path):
     cfg = _cfg(tmp_path)
     kw = dict(data_kind="shapes_hard", data_kwargs=dict(n=8, size=48),
-              device="cpu")
+              device="cpu", resume=False)
     runs = [train(cfg, max_steps=3, **kw) for _ in range(2)]
     (s1, h1), (s2, h2) = runs
     losses = [h["loss"] for h in h1]
@@ -67,8 +67,9 @@ def test_train_takes_a_dataset_and_refuses_unported_feeds(tmp_path):
               device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
         train(cfg, data_kind="shapes", host_aug=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        train(cfg, resume=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+        train(cfg, data_kind="tsv", data_kwargs=dict(tsv_path="x"),
+              device="cpu")
 
 
 def test_validate_learning_twin_at_femto_size():
@@ -79,6 +80,36 @@ def test_validate_learning_twin_at_femto_size():
     assert 0.0 <= res["before"] <= 100.0 and 0.0 <= res["after"] <= 100.0
     assert all(map(math.isfinite, res["center_max"].values()))
     assert res["seconds"] > 0
+
+
+@pytest.mark.parametrize("size", ["femto", "nano"])
+def test_validate_learning_seed_sets_the_initial_weights(size, monkeypatch):
+    """``--seed`` reaches TrainConfig.seed, from which validate() draws
+    the initial weights: one seed gives the same weights twice, two seeds
+    different ones."""
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
+    def weights(seed):
+        cfg, _ = vl.build_config(size=size, seed=seed)
+        assert cfg.seed == seed
+        state = EsViTTrainer(cfg, total_batch_size=4, device="cpu") \
+            .init_state(torch.Generator().manual_seed(cfg.seed))
+        return state.student.state_dict()
+
+    a, b, c = weights(0), weights(0), weights(1)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["head.last_layer.weight_v"],
+                           c["head.last_layer.weight_v"])
+    seen = {}
+
+    def fake_validate(**kw):
+        seen.update(kw)
+        return {"before": 0.0, "after": 50.0, "steps": 1, "seconds": 1.0,
+                "last_loss": 1.0, "feed_wait_seconds": 0.0}
+
+    monkeypatch.setattr(vl, "validate", fake_validate)
+    vl.main(["--cpu", "--seed", "3", "--min_gain", "-100"])
+    assert seen["seed"] == 3
 
 
 def test_validate_learning_schedule_and_gates():
@@ -160,12 +191,11 @@ def test_chip_smoke_nano_shapes_are_the_gate_models_shapes(monkeypatch):
 @pytest.mark.parametrize("backbone", ["swin", "vil"])
 def test_initial_weights_against_esvit_tpu(backbone):
     """The gate's models draw their initial weights from esvit_tpu's
-    distributions up to one known scale (torch cannot draw jax.random's
-    values): the constant tensors equal; each random tensor of at least
-    2000 values a truncated normal whose std is esvit_tpu's (flax's
-    truncated_normal(0.02): 0.0176) over 0.8796 (the port's
-    trunc_normal_ rescales to std 0.02, as the original EsViT's timm
-    init), within 5%, every value within +-2.27 x 0.02."""
+    distributions (torch cannot draw jax.random's values): the constant
+    tensors equal; each random tensor of at least 2000 values a truncated
+    normal with esvit_tpu's std (flax's truncated_normal(0.02): the unit
+    normal cut at +-2 times 0.02, std 0.0176), within 5%, every value
+    within +-2 x 0.02."""
     import jax
     import jax.numpy as jnp
 
@@ -193,11 +223,10 @@ def test_initial_weights_against_esvit_tpu(backbone):
     got = TTrainer(tc, total_batch_size=2, device="cpu").init_state(
         torch.Generator().manual_seed(0)).student.state_dict()
     assert set(got) == set(want)
-    unit_std = 0.87962566103423978
     for name, w in want.items():
         g = got[name].float()
         if w.numel() == 1 or w.std() == 0:
             assert torch.equal(g, w.float()), name
         elif w.numel() >= 2000:
-            assert abs(g.std() * unit_std / w.std() - 1) < 0.05, name
-            assert g.abs().max() <= 0.02 * 2 / unit_std + 1e-7, name
+            assert abs(g.std() / w.std() - 1) < 0.05, name
+            assert g.abs().max() <= 0.02 * 2 + 1e-7, name
