@@ -109,6 +109,29 @@ so the script exits non-zero and prints no result line:
    linear probe with ``--pretrained`` on the run's checkpoint (see
    ``phase_entry``). The slices above call train() with resume=False:
    each starts from its own initial weights.
+12. The real-image path (``phase_real_images``): 512 JPEGs of 500x375
+   and 375x500 (quality 90, 16 classes, 8 of them grayscale) and 2 PNGs,
+   drawn from seed 0 and written as a zip with its map file, a TSV with
+   its .lineidx and a file list. It prints whether the native library
+   (esvit_tpu_torch/native, built with g++ from csrc/datapath.cpp)
+   decodes JPEGs itself or, without libjpeg's headers, only crops what
+   PIL decoded. On 64 images, all ten boxes of the 224/96 multi-crop:
+   the native views against PIL's (decode bit-identical, crop within 1
+   LSB, the scaled decode within RMS 4 and mean 2.5); two loader
+   batches, native against PIL: host pixels within 1 LSB, augmented on
+   the card within mean 0.02. Then train() of Swin-T W=7 (default route,
+   B=32, 2x224 + 8x96, 65536-wide heads with the dense head, bf16) fed
+   from the zip for 6 steps with the native decode and 6 with PIL, each
+   with the slice's checks (finite losses, weights and centres moved,
+   launches as derived) and the decode counts (native: the JPEGs read,
+   PIL: the PNGs; the PIL leg: every image); ms/step (steps 2-6) beside
+   this call's synthetic one, the wait on the feed, and the feed's host
+   batches/s alone. Then the train CLI for 4 steps from the zip, and
+   from the TSV with --host_aug --use_mixup --num_mixup_views 2: finite
+   losses, launches as derived, a checkpoint. Last the k-NN eval of a
+   random Swin-T (qkv-layout route, fp32) from the zip against the file
+   list through the native eval transform: the decode counts and row 7's
+   launches.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -128,6 +151,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1964,6 +1988,297 @@ def phase_entry(torch, C, card):
                 f"img/s (model build and checkpoint load included) [{card}]")
 
 
+# Phase 12, the real-image path: JPEGs written once from a seed into the
+# run's directory at ImageNet's commonest sizes, packed as a zip with its
+# map file, a TSV (base64 image, JSON label) with its .lineidx and a file
+# list; grayscale JPEGs and PNGs among them, which the feed must decode
+# and count.
+REAL_IMAGES, REAL_CLASSES, REAL_QUALITY, REAL_SEED = 512, 16, 90, 0
+REAL_SIZES = ((500, 375), (375, 500))          # (width, height)
+REAL_GRAY = frozenset(range(7, REAL_IMAGES, 64))    # 8 grayscale JPEGs
+REAL_PNG = frozenset((100, 301))
+REAL_CHECK, REAL_STEPS, REAL_CLI_STEPS = 64, 6, 4
+REAL_FEED_BATCHES = 6
+
+
+def _real_image(i):
+    """(name, encoded bytes, label) of image i: a smooth colour field,
+    shapes and fine texture, so that a decode costs what a photograph's
+    does; grayscale JPEG or PNG at REAL_GRAY / REAL_PNG."""
+    import io
+
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng([REAL_SEED, i])
+    w, h = REAL_SIZES[i % 2]
+    field = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, 3), np.uint8)
+    img = Image.fromarray(field).resize((w, h), Image.BICUBIC)
+    draw = ImageDraw.Draw(img)
+    for _ in range(int(rng.integers(4, 9))):
+        x0, y0 = int(rng.integers(0, w - 40)), int(rng.integers(0, h - 40))
+        x1 = x0 + int(rng.integers(30, w // 2))
+        y1 = y0 + int(rng.integers(30, h // 2))
+        fill = tuple(int(c) for c in rng.integers(0, 256, 3))
+        (draw.ellipse if rng.random() < 0.5 else draw.rectangle)(
+            [x0, y0, x1, y1], fill=fill)
+    arr = np.asarray(img, np.int16) + rng.integers(-20, 21, (h, w, 3))
+    img = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+    out = io.BytesIO()
+    label = i % REAL_CLASSES
+    if i in REAL_PNG:
+        img.save(out, "PNG")
+        return f"c{label:02d}/{i:05d}.png", out.getvalue(), label
+    if i in REAL_GRAY:
+        img = img.convert("L")
+    img.save(out, "JPEG", quality=REAL_QUALITY)
+    return f"c{label:02d}/{i:05d}.jpg", out.getvalue(), label
+
+
+def _real_stores(root):
+    """The images packed three ways under root: {'zip': ZipData, 'tsv':
+    TSVDataset, 'filelist': FileListDataset}, and the items."""
+    from esvit_tpu_torch.data import datasets, stores
+
+    items = [_real_image(i) for i in range(REAL_IMAGES)]
+    stores.write_zip(items, os.path.join(root, "images.zip"),
+                     os.path.join(root, "map.txt"))
+    stores.write_tsv(items, os.path.join(root, "images.tsv"))
+    stores.write_filelist(items, os.path.join(root, "files"),
+                          os.path.join(root, "list.txt"))
+    return {"zip": datasets.ZipData(os.path.join(root, "images.zip"),
+                                    os.path.join(root, "map.txt")),
+            "tsv": datasets.TSVDataset(os.path.join(root, "images.tsv")),
+            "filelist": datasets.FileListDataset(
+                os.path.join(root, "files"), os.path.join(root, "list.txt"))
+            }, items
+
+
+def _real_views_check(lib, items, crops):
+    """On the first REAL_CHECK images, all ten boxes: the native views
+    against PIL's within the reference's bounds (decode bit-identical,
+    crop within 1 LSB, the scaled decode within RMS 4 and mean 2.5)."""
+    import io
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    from esvit_tpu_torch.data.augment_host import sample_multicrop_boxes
+
+    worst = {"crop": 0, "rms": 0.0, "mean": 0.0}
+    n = 0
+    for i, (name, data, _) in enumerate(items[:REAL_CHECK]):
+        if not name.endswith(".jpg"):
+            continue
+        with Image.open(io.BytesIO(data)) as img:
+            pil = img.convert("RGB")
+        pixels = np.asarray(pil)
+        boxes, sizes = sample_multicrop_boxes(crops, random.Random(i),
+                                              pil.width, pil.height)
+        want = [np.asarray(pil.resize((s, s), Image.BICUBIC,
+                                      box=(l, t, l + w, t + h)), np.int16)
+                for (t, l, h, w), s in zip(boxes, sizes)]
+        if lib.jpeg and not np.array_equal(lib.jpeg_decode(data), pixels):
+            raise AssertionError(f"real {name}: native decode differs from "
+                                 "PIL's")
+        views = {}
+        for scaled in (False, True):      # without libjpeg: never scaled
+            outs = [np.zeros((1, s, s, 3), np.uint8) for s in sizes]
+            if lib.crops([lib.source(data)[0]], boxes[None], sizes, outs, [0],
+                         allow_scaled=scaled)[0]:
+                raise AssertionError(f"real {name}: native crops failed")
+            views[scaled] = [o[0] for o in outs]
+        for g, s_, w_ in zip(views[False], views[True], want):
+            worst["crop"] = max(worst["crop"],
+                                int(np.abs(g.astype(np.int16) - w_).max()))
+            d = np.abs(s_.astype(np.float64) - g.astype(np.float64))
+            worst["rms"] = max(worst["rms"], float(np.sqrt((d ** 2).mean())))
+            worst["mean"] = max(worst["mean"], float(d.mean()))
+        n += 1
+    if worst["crop"] > 1 or worst["rms"] >= 4.0 or worst["mean"] >= 2.5:
+        raise AssertionError(f"real views vs PIL: {worst}")
+    return n, worst
+
+
+def phase_real_images(torch, C, counters, card, synthetic_ms):
+    """The real-image path (see the module docstring, phase 12): the
+    native views and the loader's native batches against PIL's; train()
+    fed from the zip for REAL_STEPS steps with the native decode, then
+    with PIL, each with the slice's checks and the decode counts; the
+    train CLI on the zip and on the TSV (host_aug and mixup); the k-NN
+    eval on the stores through the native eval transform."""
+    import numpy as np
+
+    from esvit_tpu_torch import native
+    from esvit_tpu_torch.data.loader import MultiCropIterator
+    from esvit_tpu_torch.evals import knn
+    from esvit_tpu_torch.models.registry import build_backbone
+    from esvit_tpu_torch.train import train as train_cli
+
+    lib = native.library()
+    mode = ("decode and crop (libjpeg)" if lib.jpeg else
+            "crop only, PIL decodes: no libjpeg headers on this machine ("
+            + (native.jpeg_note() or "").splitlines()[0] + ")")
+    log(f"real images: native library {lib.path.name}: {mode}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = C.swin_tiny_multicrop(BATCH, output_dir=tmp)
+        t0 = time.perf_counter()
+        ds, items = _real_stores(tmp)
+        kinds = [name.rsplit(".", 1)[1] for name, _, _ in items]
+        mb = sum(len(d) for _, d, _ in items) / 1e6
+        log(f"real images: {REAL_IMAGES} images ({kinds.count('jpg')} JPEG "
+            f"of which {len(REAL_GRAY)} grayscale, {kinds.count('png')} "
+            f"PNG), {mb:.1f} MB encoded, written as zip, TSV and file list "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        n, worst = _real_views_check(lib, items, cfg.crops)
+        log(f"real views: {n} JPEGs x 10 boxes, native vs PIL: crop max "
+            f"|d| {worst['crop']} LSB (bound 1), scaled decode RMS "
+            f"{worst['rms']:.3f} (bound 4), mean {worst['mean']:.3f} "
+            f"(bound 2.5)")
+        # The loader's batches, native against PIL: the same geometry,
+        # each host view within the scaled decode's bounds (within 1 LSB
+        # where no view allows a scaled decode), the augmented batches
+        # within 0.02.
+        its = {nat: MultiCropIterator(ds["zip"], cfg.crops, BATCH,
+                                      seed=cfg.seed, native_decode=nat,
+                                      num_threads=NUM_THREADS, device="cuda")
+               for nat in (True, False)}
+        host = {nat: [b for _, b in zip(range(2), it.host_batches())]
+                for nat, it in its.items()}
+        host_d = {"max": 0, "rms": 0.0, "mean": 0.0}
+        for (gn, ln), (gp, lp) in zip(host[True], host[False]):
+            for a, b in ((gn, gp), (ln, lp)):
+                if a.shape != b.shape:
+                    raise AssertionError(f"real loader: native {a.shape}, "
+                                         f"PIL {b.shape}")
+                d = (a.double() - b.double()).abs().flatten(1)
+                host_d["max"] = max(host_d["max"], int(d.max()))
+                host_d["rms"] = max(host_d["rms"],
+                                    float(d.pow(2).mean(1).sqrt().max()))
+                host_d["mean"] = max(host_d["mean"], float(d.mean(1).max()))
+        if host_d["rms"] >= 4.0 or host_d["mean"] >= 2.5:
+            raise AssertionError(f"real loader: native host views vs PIL's "
+                                 f"{host_d}")
+        dev = {nat: [b for _, b in zip(range(2), iter(MultiCropIterator(
+            ds["zip"], cfg.crops, BATCH, seed=cfg.seed, native_decode=nat,
+            num_threads=NUM_THREADS, device="cuda")))] for nat in (True, False)}
+        diff = max(float((a - b).abs().mean())
+                   for (gn, ln), (gp, lp) in zip(dev[True], dev[False])
+                   for a, b in ((gn, gp), (ln, lp)))
+        if diff >= 0.02:
+            raise AssertionError(f"real loader: augmented batches differ by "
+                                 f"mean {diff} (bound 0.02)")
+        log(f"real loader: 2 batches of {BATCH}, native vs PIL: host views "
+            f"max |d| {host_d['max']} LSB, per view RMS up to "
+            f"{host_d['rms']:.3f} (bound 4), mean up to {host_d['mean']:.3f} "
+            f"(bound 2.5); augmented on the card mean |d| {diff:.5f} "
+            f"(bound 0.02)")
+
+        # train() from the zip: the native leg, then the PIL leg.
+        png = {i for i, (name, _, _) in enumerate(items)
+               if name.endswith(".png")}
+        taken = MultiCropIterator(ds["zip"], cfg.crops, BATCH, epoch=0,
+                                  seed=cfg.seed, native_decode=False,
+                                  device="cuda").indices[:REAL_STEPS * BATCH]
+        n_png = sum(int(i) in png for i in taken)
+        for nat in (True, False):
+            label = f"Swin-T zip, {'native' if nat else 'PIL'} decode"
+            _, history = _slice(torch, cfg, REAL_STEPS, counters, label, card,
+                                True, dataset=ds["zip"], native_decode=nat)
+            got = (sum(h["native_images"] for h in history),
+                   sum(h["pil_images"] for h in history))
+            want = ((REAL_STEPS * BATCH - n_png, n_png) if nat
+                    else (0, REAL_STEPS * BATCH))
+            if got != want:
+                raise AssertionError(f"{label}: decoded (native, PIL) {got}, "
+                                     f"the images read {want}")
+            steady = history[1:]
+            ms = statistics.mean(h["seconds"] for h in steady) * 1e3
+            wait = statistics.mean(h["data_seconds"] for h in steady) * 1e3
+            it = MultiCropIterator(ds["zip"], cfg.crops, BATCH, epoch=1,
+                                   seed=cfg.seed, native_decode=nat,
+                                   num_threads=NUM_THREADS, device="cuda")
+            t0 = time.perf_counter()
+            fed = sum(1 for _ in zip(range(REAL_FEED_BATCHES),
+                                     it.host_batches()))
+            rate = fed / (time.perf_counter() - t0)
+            log(f"slice {label}: {ms:.1f} ms/step over steps 2-{REAL_STEPS} "
+                f"beside synthetic_device {synthetic_ms:.1f} ms/step in this "
+                f"call ({ms / synthetic_ms:.3f}x); host wait on the feed "
+                f"{wait:.2f} ms/step; decoded native {got[0]}, PIL {got[1]}; "
+                f"the feed alone {rate:.2f} host batches/s ({NUM_THREADS} "
+                f"threads, {fed} batches, the first included) [{card}]")
+
+        # The train CLI in subprocesses, from the zip and from the TSV.
+        for label, extra in (
+                ("zip", ["--data_kind", "zip", "--data_path",
+                         os.path.join(tmp, "images.zip"), "--zip_map_file",
+                         os.path.join(tmp, "map.txt")]),
+                ("tsv host_aug mixup", [
+                    "--data_kind", "tsv", "--data_path",
+                    os.path.join(tmp, "images.tsv"), "--host_aug",
+                    "--use_mixup", "--num_mixup_views", "2"])):
+            out = os.path.join(tmp, "cli-" + label.split()[0])
+            args = ["--arch", "swin_tiny", "--output_dir", out, "--epochs",
+                    "1", "--max_steps", str(REAL_CLI_STEPS), *extra]
+            text, rec = _entry_run(f"real {label}", TRAIN_MODULE, args)
+            run_cfg = train_cli.config_from_args(
+                train_cli.get_args_parser().parse_args(args))
+            _entry_launches(f"real {label}", rec["launches"],
+                            _derived_launches(run_cfg, REAL_CLI_STEPS))
+            logs = [json.loads(x) for x in
+                    open(os.path.join(out, "log.txt")).read().splitlines()]
+            saves = _checkpoint_lines(text)
+            if (len(logs) != 1 or not math.isfinite(logs[0]["train_loss"])
+                    or [s[1] for s in saves] != [REAL_CLI_STEPS]
+                    or not os.path.exists(os.path.join(out,
+                                                       "checkpoint.pth"))):
+                raise AssertionError(f"real CLI {label}: log {logs}, saves "
+                                     f"{saves}:\n{text[-3000:]}")
+            images = run_cfg.crops.ncrops * run_cfg.optim.batch_size_per_device
+            log(f"real CLI {label}: loss {logs[0]['train_loss']:.4f}, "
+                f"{1e3 * images / logs[0]['train_img_per_sec']:.1f} ms/step "
+                f"from the log's img/s (first step included), checkpoint at "
+                f"step {saves[0][1]} [{card}]")
+            shutil.rmtree(out)
+
+        # k-NN through the native eval transform: the zip against the
+        # file list (the same images: the decode paths are what is
+        # checked).
+        model = C.swin_tiny(attention_impl="pallas", fused_block_stages=())
+        backbone = build_backbone(
+            model, generator=torch.Generator().manual_seed(0)).to("cuda")
+        counts = {}
+        counters["pallas_window_attention"]["fwd"] = 0
+        t0 = time.perf_counter()
+        res = knn.run_knn_eval(backbone, ds["zip"], ds["filelist"],
+                               ks=(10, 20), batch_size=EVAL_BATCH,
+                               device="cuda", counts=counts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        batches = 2 * -(-REAL_IMAGES // EVAL_BATCH)
+        want = backbone.pallas_window_attention_calls(224) * batches
+        got = counters["pallas_window_attention"]["fwd"]
+        n_jpg = 2 * (REAL_IMAGES - len(REAL_PNG))
+        if (counts != {"native": n_jpg, "pil": 2 * len(REAL_PNG)}
+                or got != want or sorted(res) != [10, 20]
+                or not all(0.0 <= a <= 100.0 for acc in res.values()
+                           for a in acc)):
+            raise AssertionError(f"real k-NN: counts {counts}, launches "
+                                 f"{got} (derived {want}), results {res}")
+        log(f"real k-NN (random weights, {REAL_CLASSES} classes; the val "
+            f"set is the same images through the file list: a check of the "
+            f"decode path, not an accuracy): {res}; "
+            f"{2 * REAL_IMAGES} images in {seconds:.2f} s "
+            f"({2 * REAL_IMAGES / seconds:.1f} img/s), decoded native "
+            f"{counts['native']}, PIL {counts['pil']}; launches {got} "
+            f"[{card}]")
+        del backbone
+        torch.cuda.empty_cache()
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -2017,6 +2332,7 @@ def main():
         evals = phase_eval(torch, C, pwa, card, out_dir)
     phase_canary(torch, counters, card)
     phase_entry(torch, C, card)
+    phase_real_images(torch, C, counters, card, synthetic_ms)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

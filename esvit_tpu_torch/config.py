@@ -204,7 +204,7 @@ class TrainConfig:
     crops: CropConfig = field(default_factory=CropConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    mixup: Any = None               # refused: mixup is not ported
+    mixup: Any = None               # data.mixup.MixupConfig | None
     seed: int = 0
     dtype: torch.dtype = torch.bfloat16   # compute dtype; params stay fp32
     steps_per_epoch: int = 1251
@@ -362,8 +362,6 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.mesh.model > 1:
         _refuse(f"mesh model axis {cfg.mesh.model} (the DINO head's tensor "
                 "parallelism)", "queue 1 item 12")
-    if cfg.mixup is not None:
-        _refuse("mixup", "queue 1 item 11")
 
 
 def _check_vil(m: ViLConfig) -> None:

@@ -10,7 +10,9 @@ esvit_tpu/evals/extract.py).
   batched equivalent).
 - **Host throughput**: decode + resize run on a thread pool with a bounded
   batch lookahead, overlapping host preprocessing with the device forward
-  (the reference gets this from DataLoader workers, eval_knn.py:60-78).
+  (the reference gets this from DataLoader workers, eval_knn.py:60-78);
+  JPEGs can take the native decode and crop (``transform_bytes``), which
+  runs outside the GIL.
 """
 
 from __future__ import annotations
@@ -55,18 +57,34 @@ def merge_strided_shards(shards: np.ndarray, n: int) -> np.ndarray:
 def iter_batches(dataset, indices: Sequence[int],
                  transform: Callable[[object], np.ndarray],
                  batch_size: int, *, num_threads: int = 8,
-                 lookahead: int = 2
+                 lookahead: int = 2,
+                 transform_bytes: Callable[[bytes], np.ndarray | None]
+                 | None = None, counts: dict | None = None
                  ) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
     """Yield (images (B, ...), labels (B,), n_real) batches.
 
     Decodes with a thread pool and keeps ``lookahead`` batches in flight so
     host work overlaps the consumer's device work. The final batch is
     zero-padded to ``batch_size`` (n_real < batch_size marks the padding).
+
+    transform_bytes: a path from the encoded bytes of
+    ``dataset.raw_bytes`` straight to the transformed array (the native
+    decode and crop, knn.eval_transform_bytes); where it returns None, or
+    the sample has no bytes, the PIL ``transform`` runs. ``counts``, when
+    given, has 'native' and 'pil' increased by the samples each path
+    made.
     """
+    raw = getattr(dataset, "raw_bytes", None) if transform_bytes else None
 
     def load(i):
+        if raw is not None:
+            item = raw(int(i))
+            if item is not None:
+                x = transform_bytes(item[0])
+                if x is not None:
+                    return x, item[1], "native"
         img, label = dataset[int(i)]
-        return transform(img), label
+        return transform(img), label, "pil"
 
     chunks = [indices[s:s + batch_size]
               for s in range(0, len(indices), batch_size)]
@@ -79,10 +97,13 @@ def iter_batches(dataset, indices: Sequence[int],
                 pending.append([ex.submit(load, i)
                                 for i in chunks[ci + lookahead]])
             futs = pending.pop(0)
-            pairs = [f.result() for f in futs]
-            x = np.stack([p[0] for p in pairs])
-            y = np.asarray([p[1] for p in pairs], np.int32)
-            n = len(pairs)
+            items = [f.result() for f in futs]
+            if counts is not None:
+                for _, _, path in items:
+                    counts[path] = counts.get(path, 0) + 1
+            x = np.stack([p[0] for p in items])
+            y = np.asarray([p[1] for p in items], np.int32)
+            n = len(items)
             if n < batch_size:
                 x = pad_shard(x, batch_size)
                 y = pad_shard(y, batch_size, fill=-1)
@@ -91,20 +112,24 @@ def iter_batches(dataset, indices: Sequence[int],
 
 def extract_dataset_features(fwd: Callable[[np.ndarray], np.ndarray],
                              dataset, transform, *, batch_size: int = 64,
-                             num_threads: int = 8
+                             num_threads: int = 8, transform_bytes=None,
+                             counts: dict | None = None
                              ) -> tuple[np.ndarray, np.ndarray]:
     """(features (N, C) f32, labels (N,) i32) in dataset order.
 
     fwd: batched image array -> feature array (the caller's forward on its
-    device). Several processes: each computes its strided shard; the
-    shards are all-gathered and merged, so every process returns the same
-    full set."""
+    device); ``transform_bytes`` and ``counts`` as ``iter_batches``'.
+    Several processes: each computes its strided shard; the shards are
+    all-gathered and merged, so every process returns the same full
+    set."""
     n = len(dataset)
     mesh = make_mesh()
     my = strided_shard(n, mesh.rank, mesh.world)
     feats, labels = [], []
     for x, y, n_real in iter_batches(dataset, my, transform, batch_size,
-                                     num_threads=num_threads):
+                                     num_threads=num_threads,
+                                     transform_bytes=transform_bytes,
+                                     counts=counts):
         feats.append(np.asarray(fwd(x), np.float32)[:n_real])
         labels.append(y[:n_real])
     f = (np.concatenate(feats) if feats

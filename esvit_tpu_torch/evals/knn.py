@@ -46,6 +46,43 @@ def eval_transform(img, size: int = 224) -> np.ndarray:
     return (x - IMAGENET_MEAN) / IMAGENET_STD
 
 
+def eval_transform_bytes(data: bytes, size: int = 224) -> np.ndarray | None:
+    """``eval_transform`` of a JPEG's bytes through the native library
+    (native/), or None where PIL should run (not a JPEG, too small, no
+    library).
+
+    Resize(256) + CenterCrop(size) fold into ONE crop + resize: PIL's
+    convolution resampler computes output pixel (left + xx) of the full
+    resize from the source centre ((left + xx) + 0.5) * scale, the centre
+    the box resample gives with the box origin at left * scale, so
+    cropping after resizing equals resampling the back-projected crop box
+    (within the +/-1 LSB of double against fixed-point accumulation).
+    Where the library has no JPEG half, PIL decodes and the library
+    crops."""
+    from esvit_tpu_torch import native
+
+    if not native.available():
+        return None
+    lib = native.library()
+    source = lib.source(data)
+    if source is None:
+        return None
+    w0, h0 = source[1]
+    scale = 256 / min(w0, h0)
+    rw, rh = round(w0 * scale), round(h0 * scale)
+    if rw < size or rh < size:
+        return None
+    sx, sy = w0 / rw, h0 / rh
+    left, top = (rw - size) // 2, (rh - size) // 2
+    box = np.array([[[top * sy, left * sx, size * sy, size * sx]]])
+    out = np.empty((1, size, size, 3), np.uint8)
+    if lib.crops([source[0]], box, [size], [out], [0])[0]:
+        return None
+    view = out[0]
+    x = view.astype(np.float32) / 255.0
+    return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
 def batched_forward(fn, device, dtype=torch.float32):
     """numpy batch -> fn(batch on ``device`` in ``dtype``) as fp32 numpy,
     under inference mode."""
@@ -58,15 +95,20 @@ def batched_forward(fn, device, dtype=torch.float32):
 
 def extract_features(backbone, dataset, *, batch_size: int = 64,
                      size: int = 224, dtype=torch.float32,
-                     num_threads: int = 8, device="cuda"):
+                     num_threads: int = 8, device="cuda",
+                     counts: dict | None = None):
     """(features (N, C) L2-normalised f32, labels (N,)) of a dataset: the
-    backbone's cls feature of each centre crop, on ``device``."""
+    backbone's cls feature of each centre crop, on ``device``; JPEG bytes
+    through the native library where it builds (``counts`` as
+    extract.iter_batches')."""
     backbone.to(device)
     f, lab = extract_dataset_features(
         batched_forward(lambda x: backbone.forward_features(x)[0], device,
                         dtype),
         dataset, lambda img: eval_transform(img, size),
-        batch_size=batch_size, num_threads=num_threads)
+        batch_size=batch_size, num_threads=num_threads,
+        transform_bytes=lambda data: eval_transform_bytes(data, size),
+        counts=counts)
     f /= np.maximum(np.linalg.norm(f, axis=1, keepdims=True), 1e-12)
     return f, lab
 
@@ -101,21 +143,27 @@ def knn_classifier(train_f: np.ndarray, train_l: np.ndarray,
 def run_knn_eval(backbone, train_ds, val_ds, *, ks=(10, 20, 100, 200),
                  T: float = 0.07, batch_size: int = 64, size: int = 224,
                  dump_dir: str | None = None, load_dir: str | None = None,
-                 device="cuda"):
+                 device="cuda", counts: dict | None = None):
     """Full protocol: extract (or load dumped features), optionally dump,
-    classify at each k (ref: eval_knn.py:138-144, 291-295)."""
+    classify at each k (ref: eval_knn.py:138-144, 291-295). ``counts``
+    receives the images the native library and PIL decoded ('native',
+    'pil'), which are also printed."""
     if load_dir:
         train_f = np.load(os.path.join(load_dir, "trainfeat.npy"))
         test_f = np.load(os.path.join(load_dir, "testfeat.npy"))
         train_l = np.load(os.path.join(load_dir, "trainlabels.npy"))
         test_l = np.load(os.path.join(load_dir, "testlabels.npy"))
     else:
+        counts = {} if counts is None else counts
         train_f, train_l = extract_features(backbone, train_ds,
                                             batch_size=batch_size, size=size,
-                                            device=device)
+                                            device=device, counts=counts)
         test_f, test_l = extract_features(backbone, val_ds,
                                           batch_size=batch_size, size=size,
-                                          device=device)
+                                          device=device, counts=counts)
+        print(f"feature extraction: {counts.get('native', 0)} images "
+              f"decoded by the native library, {counts.get('pil', 0)} by "
+              "PIL", flush=True)
     if dump_dir and not load_dir:
         os.makedirs(dump_dir, exist_ok=True)
         np.save(os.path.join(dump_dir, "trainfeat.npy"), train_f)

@@ -37,6 +37,7 @@ from esvit_tpu_torch.data import datasets as datasets_lib
 from esvit_tpu_torch.evals.extract import (extract_dataset_features,
                                            iter_batches, strided_shard)
 from esvit_tpu_torch.evals.knn import (batched_forward, eval_transform,
+                                       eval_transform_bytes,
                                        load_backbone_variables,
                                        model_from_args)
 from esvit_tpu_torch.parallel.mesh import make_mesh
@@ -78,7 +79,8 @@ def extract_probe_features(backbone, dataset, *, n_last_blocks=4,
     return extract_dataset_features(
         batched_forward(_n_last_blocks(backbone, n_last_blocks), device),
         dataset, lambda img: eval_transform(img, size),
-        batch_size=batch_size, num_threads=num_threads)
+        batch_size=batch_size, num_threads=num_threads,
+        transform_bytes=lambda data: eval_transform_bytes(data, size))
 
 
 def make_probe(dim: int, num_classes: int, *, scaled_lr: float,

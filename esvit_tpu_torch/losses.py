@@ -50,9 +50,12 @@ def _update_centers(olds, batches, momentum: float, mesh=None):
 
 def dino_loss(student_cls, teacher_cls, center, teacher_temp, *, ncrops: int,
               student_temp: float = 0.1, center_momentum: float = 0.9,
-              mesh=None):
+              mesh=None, targets_mixup=None):
     """View-level DINO loss (ref: main_esvit.py:620-648).
     student_cls: (ncrops*B, K) view-major; teacher_cls: (2*B, K).
+    targets_mixup: optional (ncrops, B, B) matching targets (mixup-SSL,
+    main_esvit.py:639-641, data/mixup.py): the CE of teacher row a
+    against student row b weighted by T[a, b].
     Uses sum(-q * log_softmax(s)) = logsumexp(s) - q . s (sum q == 1).
     The loss is over this process's batch; the center moves toward the
     mean over ``mesh``'s global batch."""
@@ -65,7 +68,14 @@ def dino_loss(student_cls, teacher_cls, center, teacher_temp, *, ncrops: int,
         for v in range(ncrops):
             if v == iq:
                 continue
-            total = total + (lse[v] - (q[iq] * s[v]).sum(-1)).mean()
+            if targets_mixup is not None:
+                # -sum_b T[a,b] (q[a] . logp[b]), logp = s - lse.
+                qs = q[iq] @ s[v].T
+                term = (-(targets_mixup[v] * qs).sum(-1)
+                        + targets_mixup[v] @ lse[v])
+            else:
+                term = lse[v] - (q[iq] * s[v]).sum(-1)
+            total = total + term.mean()
             n_terms += 1
     (new_center,) = _update_centers([center], [teacher_cls.detach()],
                                     center_momentum, mesh)

@@ -25,6 +25,7 @@ import torch
 
 from esvit_tpu_torch import losses
 from esvit_tpu_torch.config import TrainConfig, check_supported
+from esvit_tpu_torch.data import mixup as mixup_lib
 from esvit_tpu_torch.models.esvit import EsViTModel
 from esvit_tpu_torch.parallel.mesh import Mesh
 from esvit_tpu_torch.train import optim as optim_lib
@@ -104,12 +105,17 @@ class EsViTTrainer:
                                               self.device))
 
     def train_step(self, state: TrainState, batch,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None,
+                   mixup_draws: list[mixup_lib.MixupDraws] | None = None):
         """batch: per-resolution crop tensors ((2B, Sg, Sg, 3), (L*B, Sl,
         Sl, 3)) on the device, B this process's share of the batch.
-        ``generator`` draws drop-path masks. Returns (state, metrics), the
-        loss the mean over every process's batch; the state is updated in
-        place."""
+        ``generator`` draws drop-path masks. With ``cfg.mixup`` enabled,
+        ``mixup_draws`` (data/mixup.py ``draw_multicrop``) mix the first
+        student views (main_esvit.py:515-538): the teacher sees the clean
+        globals, and the targets feed the view-level DINO loss (DDINO
+        ignores them, as the reference does). Returns (state, metrics),
+        the loss the mean over every process's batch; the state is
+        updated in place."""
         cfg = self.cfg
         B = batch[0].shape[0] // 2
         ncrops = 2 + (batch[1].shape[0] // B if len(batch) > 1 else 0)
@@ -118,16 +124,28 @@ class EsViTTrainer:
         t_temp = self.teacher_temp_fn(epoch)
         dtype = cfg.dtype
 
+        student_in = tuple(b.to(dtype) for b in batch)
+        targets_mixup = None
+        mix = cfg.mixup
+        if mix is not None and mix.enabled:
+            if mixup_draws is None:
+                raise ValueError("cfg.mixup is enabled: pass the step's "
+                                 "mixup_draws (data/mixup.py draw_multicrop)")
+            with _span("mixup"):
+                g, loc, targets_mixup = mixup_lib.mixup_multicrop(
+                    student_in[0], student_in[1] if len(student_in) > 1
+                    else student_in[0][:0], mix, mixup_draws)
+            student_in = (g, loc) if len(student_in) > 1 else (g,)
+
         with torch.no_grad(), _span("teacher_forward"):
             t_out = state.teacher((batch[0].to(dtype),), deterministic=True,
                                   batch_size=B)
         with _span("student_forward"):
-            s_out = state.student(tuple(b.to(dtype) for b in batch),
-                                  deterministic=False, generator=generator,
-                                  batch_size=B)
+            s_out = state.student(student_in, deterministic=False,
+                                  generator=generator, batch_size=B)
         with _span("loss"):
             loss, new_centers = self._loss(state, s_out, t_out, t_temp,
-                                           ncrops, B)
+                                           ncrops, B, targets_mixup)
 
         names, params = zip(*state.student.named_parameters())
         with _span("backward"):
@@ -168,7 +186,7 @@ class EsViTTrainer:
                    "grad_norm": grad_norm}
         return state, metrics
 
-    def _loss(self, state, s_out, t_out, t_temp, ncrops, B):
+    def _loss(self, state, s_out, t_out, t_temp, ncrops, B, targets_mixup):
         cfg = self.cfg
         if cfg.loss.use_dense_prediction:
             loss, new_centers = losses.ddino_loss(
@@ -179,6 +197,7 @@ class EsViTTrainer:
             loss, new_center = losses.dino_loss(
                 s_out, t_out, state.centers.center, t_temp, ncrops=ncrops,
                 student_temp=cfg.loss.student_temp,
-                center_momentum=cfg.loss.center_momentum, mesh=self.mesh)
+                center_momentum=cfg.loss.center_momentum, mesh=self.mesh,
+                targets_mixup=targets_mixup)
             new_centers = state.centers._replace(center=new_center)
         return loss, new_centers

@@ -15,9 +15,15 @@ processes: ``--distributed`` (launch.py), one process per card, each
 feeding its ``1 / world`` share of every batch. The run is on the card
 unless the caller asks for the CPU (``--device cpu``).
 
-The zip/TSV readers and host augmentation are ROADMAP queue 1 item 6b;
-mixup, SGD/LARS and BatchNorm heads item 11; frozen layers and the
-tensor-parallel head item 12. Each is refused with NotImplementedError.
+The data: ``--data_kind`` synthetic (random noise images), folder
+(``--data_path``), zip (``--data_path`` and ``--zip_map_file``) or tsv
+(``--data_path``), decoded on the host (JPEGs by the native library,
+native/) and augmented on the card, or with ``--host_aug`` by the full
+PIL pipeline on the host; composite_tsv and openimages_tsv take lists of
+paths, which only ``train(data_kwargs=...)`` passes. ``--use_mixup``
+mixes the first student views (data/mixup.py). SGD/LARS and BatchNorm
+heads are ROADMAP queue 1 item 11; frozen layers and the tensor-parallel
+head item 12. Each is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 
 from esvit_tpu_torch import config as config_lib
 from esvit_tpu_torch.data import datasets as datasets_lib
+from esvit_tpu_torch.data import mixup as mixup_lib
 from esvit_tpu_torch.data.loader import build_train_iterator, synthetic_batches
 from esvit_tpu_torch.io.checkpoint import CheckpointManager
 from esvit_tpu_torch.parallel import mesh as mesh_lib
@@ -69,7 +76,8 @@ def save_checkpoint(ckpt: CheckpointManager, state: TrainState, **kw) -> None:
 
 def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
           dataset=None, data_kwargs: dict | None = None,
-          host_aug: bool = False, resume: bool = True,
+          host_aug: bool = False, native_decode: bool | None = None,
+          resume: bool = True,
           max_steps: int | None = None, profile_dir: str | None = None,
           init_from: str | None = None, device: torch.device | str = "cuda"
           ) -> tuple[TrainState, list[dict]]:
@@ -78,9 +86,19 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
     'loss', 'lr', 'wd', 'grad_norm', 'seconds', 'data_seconds'}, where
     'seconds' is the host time from the previous step's end, each step
     ending when its loss reaches the host, and 'data_seconds' the part of
-    it spent taking the batch from the feed. The first record of each
+    it spent taking the batch from the feed; fed from a dataset, also
+    'native_images' and 'pil_images', the samples of the step's batch
+    that the native library and PIL decoded. The first record of each
     epoch also holds 'inputs', what ``input_stats`` reads of the batch
     that step consumed.
+
+    data_kind / data_kwargs: ``datasets.build_dataset``'s, or
+    'synthetic_device' (random crops drawn on the card). host_aug: the
+    full-PIL DINO augmentation on the host in place of the card's.
+    native_decode: the feed's JPEG decode by the native library (None:
+    where it builds; MultiCropIterator's).
+    ``cfg.mixup`` (enabled) mixes the first student views, with draws
+    from a CPU generator seeded ``cfg.seed + 2 + rank``.
 
     With a dataset of at least B images (B the global per-view batch) an
     epoch is ``len(dataset) // B`` steps, as in esvit_tpu; else
@@ -90,9 +108,6 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
     an initialisation that a local checkpoint overrides. ``profile_dir``
     receives a torch.profiler trace of the first epoch (trace.json)."""
     print(f"git: {git_sha()}", flush=True)
-    if host_aug:
-        raise NotImplementedError("host_aug (the full-PIL DINO pipeline) is "
-                                  "not ported yet (ROADMAP queue 1 item 6b)")
     mesh = mesh_lib.make_mesh(cfg.mesh)
     B = cfg.optim.batch_size_per_device * mesh.world   # global per-view batch
     B_local = B // mesh.world                          # this process's share
@@ -122,6 +137,11 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
     # Drop-path masks: one stream per process.
     drop_gen = torch.Generator(device=device).manual_seed(
         cfg.seed + 1 + mesh.rank)
+    mix = cfg.mixup if cfg.mixup is not None and cfg.mixup.enabled else None
+    mix_gen = torch.Generator().manual_seed(cfg.seed + 2 + mesh.rank)
+    c = cfg.crops
+    view_sizes = ([(c.global_size, c.global_size)] * 2
+                  + [(c.local_size, c.local_size)] * c.local_crops_number)
 
     # Preemption: SIGTERM checkpoints at the next step boundary and exits
     # 0, so the relaunched job resumes from it.
@@ -152,11 +172,15 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
         for epoch in range(state.step // steps_per_epoch, cfg.optim.epochs):
             logger = MetricLogger()
             header = f"Epoch: [{epoch}/{cfg.optim.epochs}]"
+            feed = None
             if dataset is not None:
-                source = iter(build_train_iterator(
+                feed = build_train_iterator(
                     dataset, cfg.crops, B_local, epoch=epoch, seed=cfg.seed,
-                    process_index=mesh.rank, process_count=mesh.world,
-                    device=device))
+                    host_aug=host_aug, native_decode=native_decode,
+                    process_index=mesh.rank,
+                    process_count=mesh.world, device=device)
+                source = iter(feed)
+                decoded = (0, 0)
             else:
                 source = synthetic_batches(cfg.crops, B_local,
                                            steps=steps_per_epoch,
@@ -170,8 +194,11 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                 for batch in logger.log_every(batches, 10, header):
                     inputs = input_stats(batch) if first else None
                     first = False
+                    draws = (mixup_lib.draw_multicrop(mix_gen, mix,
+                                                      view_sizes)
+                             if mix is not None else None)
                     state, metrics = trainer.train_step(state, batch,
-                                                        drop_gen)
+                                                        drop_gen, draws)
                     loss = float(metrics["loss"])
                     if not math.isfinite(loss):
                         # NaN guard (main_esvit.py:546-562): dump a debug
@@ -188,6 +215,10 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                            "grad_norm": float(metrics["grad_norm"]),
                            "seconds": now - step_t0,
                            "data_seconds": data_s[0]}
+                    if feed is not None:
+                        rec["native_images"] = feed.native_images - decoded[0]
+                        rec["pil_images"] = feed.pil_images - decoded[1]
+                        decoded = (feed.native_images, feed.pil_images)
                     if inputs is not None:
                         rec["inputs"] = inputs
                     history.append(rec)
@@ -307,7 +338,8 @@ def get_args_parser():
     p.add_argument("--local_crops_size", default=96, type=int)
     p.add_argument("--use_mixup", default=False,
                    action=argparse.BooleanOptionalAction,
-                   help="not ported (ROADMAP queue 1 item 11)")
+                   help="mixup / CutMix on the first --num_mixup_views "
+                        "student views (mixup-SSL)")
     p.add_argument("--num_mixup_views", default=2, type=int)
     p.add_argument("--mixup", default=0.8, type=float)
     p.add_argument("--cutmix", default=1.0, type=float)
@@ -317,14 +349,14 @@ def get_args_parser():
     p.add_argument("--data_kind", default="synthetic",
                    choices=["synthetic", "folder", "zip", "tsv",
                             "composite_tsv", "openimages_tsv"],
-                   help="synthetic and folder run; the zip and TSV kinds "
-                        "are not ported (ROADMAP queue 1 item 6b)")
+                   help="composite_tsv and openimages_tsv take lists of "
+                        "paths, which only train(data_kwargs=...) passes")
     p.add_argument("--data_path", default="")
     p.add_argument("--zip_map_file", default="")
     p.add_argument("--host_aug", default=False,
                    action=argparse.BooleanOptionalAction,
-                   help="full PIL augmentation on the host: not ported "
-                        "(ROADMAP queue 1 item 6b)")
+                   help="the full PIL augmentation on the host in place "
+                        "of the photometrics on the card")
     p.add_argument("--output_dir", default="./output")
     p.add_argument("--saveckp_freq", default=5, type=int)
     p.add_argument("--seed", default=0, type=int)
@@ -352,9 +384,6 @@ def get_args_parser():
 
 
 def config_from_args(args) -> config_lib.TrainConfig:
-    if args.use_mixup:
-        raise NotImplementedError("--use_mixup is not ported yet (ROADMAP "
-                                  "queue 1 item 11)")
     model = config_lib.get_model_config(
         args.arch, **({"window_size": args.window_size}
                       if args.arch.startswith("swin") else {}))
@@ -386,6 +415,11 @@ def config_from_args(args) -> config_lib.TrainConfig:
             batch_size_per_device=args.batch_size_per_device,
             frozen_layers=tuple(args.frozen_layers)),
         mesh=config_lib.MeshConfig(model=args.mesh_model),
+        mixup=(None if not args.use_mixup else mixup_lib.MixupConfig(
+            enabled=True, num_mixup_views=args.num_mixup_views,
+            mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+            prob=args.mixup_prob, switch_prob=args.mixup_switch_prob,
+            label_smoothing=args.smoothing)),
         seed=args.seed,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         output_dir=args.output_dir,
@@ -393,10 +427,31 @@ def config_from_args(args) -> config_lib.TrainConfig:
     )
 
 
+def data_kwargs_from_args(args) -> dict[str, Any]:
+    """build_dataset's arguments for ``--data_kind`` (esvit_tpu's CLI
+    mapping). composite_tsv and openimages_tsv take lists of paths that
+    esvit_tpu's CLI has no flags for: refused here, as they cannot run
+    from its command line either."""
+    if args.data_kind == "folder":
+        return {"root": args.data_path}
+    if args.data_kind == "zip":
+        return {"zip_path": args.data_path, "map_file": args.zip_map_file}
+    if args.data_kind == "tsv":
+        return {"tsv_path": args.data_path}
+    if args.data_kind in ("composite_tsv", "openimages_tsv"):
+        raise ValueError(
+            f"--data_kind {args.data_kind} needs lists of TSV paths, which "
+            "the CLI has no flags for (esvit_tpu's neither): call "
+            f"train(cfg, data_kind={args.data_kind!r}, data_kwargs=...) "
+            "from Python")
+    return {}
+
+
 def main(argv=None):
     args = get_args_parser().parse_args(argv)
     cfg = config_from_args(args)
     config_lib.check_supported(cfg)      # refuse before any setup
+    data_kwargs = data_kwargs_from_args(args)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if args.distributed:
@@ -405,9 +460,6 @@ def main(argv=None):
         initialize_distributed(device=args.device)
     try:
         os.makedirs(args.output_dir, exist_ok=True)
-        data_kwargs: dict[str, Any] = {}
-        if args.data_kind == "folder":
-            data_kwargs = {"root": args.data_path}
         train(cfg, data_kind=args.data_kind, data_kwargs=data_kwargs,
               host_aug=args.host_aug, max_steps=args.max_steps,
               profile_dir=args.profile_dir or None,

@@ -2,7 +2,8 @@
 scripts/validate_learning.py).
 
 Pre-trains a nano Swin or ViL with the full EsViT recipe (multi-crop
-DDINO, augmentation on the device, teacher EMA) on a procedural shape
+DDINO, augmentation on the device, or with ``--host_aug`` the full PIL
+pipeline on the host, teacher EMA) on a procedural shape
 dataset and compares the frozen teacher's k-NN accuracy before and after.
 The models, crops, head / loss / optimiser settings, datasets, data loop
 and gate are the reference script's: the LR / temperature schedule runs
@@ -44,15 +45,19 @@ NANO_VIL_ARCH = ("l1,h2,d32,n2,s1,g1,p4,f4_l2,h4,d64,n2,s1,g1,p2,f4_"
 def build_config(*, size: str = "nano", backbone: str = "swin",
                  fused: bool = True, dense: bool = True,
                  task: str = "shapes_hard", lr: float | None = None,
-                 steps: int = 2000, batch: int = 64, seed: int = 0
-                 ) -> tuple[config.TrainConfig, int]:
+                 steps: int = 2000, batch: int = 64, seed: int = 0,
+                 hires: bool = False) -> tuple[config.TrainConfig, int]:
     """The reference script's TrainConfig (bf16, ``seed`` for the initial
-    weights, the crops and the drop-path draws) and source image side."""
+    weights, the crops and the drop-path draws) and source image side.
+    hires (nano only): 160 px sources, 96 / 48 px crops, where the full
+    PIL recipe's blur leaves shapes_hard's fill texture."""
     if backbone == "cvt":
         raise NotImplementedError("the CvT leg is not ported yet (ROADMAP "
                                   "queue 1 item 11)")
+    if hires and size != "nano":
+        raise ValueError("--hires is a nano-size configuration")
     if size == "nano":
-        g_size, l_size, img_size = 64, 32, 96
+        g_size, l_size, img_size = (96, 48, 160) if hires else (64, 32, 96)
         if backbone == "vil":
             model = config.vil_from_arch(NANO_VIL_ARCH, img_size=g_size)
         else:
@@ -105,7 +110,8 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
              task: str = "shapes_hard", eval_every: int = 0,
              max_seconds: float | None = None, lr: float | None = None,
              fused: bool = True, device: torch.device | str = "cuda",
-             n_eval: int | None = None, seed: int = 0) -> dict:
+             n_eval: int | None = None, seed: int = 0,
+             host_aug: bool = False, hires: bool = False) -> dict:
     """Train and evaluate as the reference script does; no gate. Returns
     {'before', 'after', 'steps', 'seconds', 'last_loss'} (k-NN top-1 in
     %, steps taken, training seconds, the last step's loss) and, under
@@ -117,7 +123,7 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
     device = torch.device(device)
     cfg, img_size = build_config(size=size, backbone=backbone, fused=fused,
                                  dense=dense, task=task, lr=lr, steps=steps,
-                                 batch=batch, seed=seed)
+                                 batch=batch, seed=seed, hires=hires)
     trainer = EsViTTrainer(cfg, total_batch_size=batch, device=device)
     if n_eval is None:
         n_eval = 512 if task == "shapes_hard" else 256
@@ -151,7 +157,7 @@ def validate(*, steps: int = 2000, batch: int = 64, size: str = "nano",
     while steps_done < steps and not out_of_time:
         it = build_train_iterator(train_ds, cfg.crops, batch, epoch=epoch,
                                   seed=cfg.seed, num_threads=4,
-                                  device=device)
+                                  host_aug=host_aug, device=device)
         batches = iter(it)
         for batch_ in batches:
             state, metrics = trainer.train_step(state, batch_, drop_gen)
@@ -215,9 +221,11 @@ def main(argv=None):
     p.add_argument("--task", choices=["shapes", "shapes_hard"],
                    default="shapes_hard")
     p.add_argument("--host_aug", action="store_true",
-                   help="the host (PIL) augmentation path: not ported")
+                   help="the host (PIL) augmentation path in place of the "
+                        "card's, for an augmentation A/B")
     p.add_argument("--hires", action="store_true",
-                   help="160px source, 96/48px crops: not ported")
+                   help="160px source, 96/48px crops (nano only): the "
+                        "full PIL recipe's blur leaves the fill texture")
     p.add_argument("--min_gain", type=float, default=None,
                    help="required (after - before) k-NN gain in points; "
                         "default the reference's bar")
@@ -237,20 +245,19 @@ def main(argv=None):
     p.add_argument("--no-fused", dest="fused", action="store_false",
                    help="Swin: fused_block_stages=(); ViL: fused_sc='off'")
     args = p.parse_args(argv)
-    if args.host_aug or args.hires:
-        raise NotImplementedError("--host_aug / --hires need the host "
-                                  "augmentation (ROADMAP queue 1 item 6b)")
     res = validate(steps=args.steps, batch=args.batch, size=args.size,
                    backbone=args.backbone, dense=args.dense, task=args.task,
                    eval_every=args.eval_every, max_seconds=args.max_seconds,
                    lr=args.lr, fused=args.fused,
-                   device="cpu" if args.cpu else "cuda", seed=args.seed)
+                   device="cpu" if args.cpu else "cuda", seed=args.seed,
+                   host_aug=args.host_aug, hires=args.hires)
     before, after = res["before"], res["after"]
     ms = res["seconds"] / max(res["steps"], 1) * 1e3
     print(f"\nresult: {before:.1f}% -> {after:.1f}% ({res['steps']} steps, "
           f"{res['seconds']:.0f}s, {ms:.1f} ms/step, feed wait "
           f"{res['feed_wait_seconds']:.1f}s, task={args.task}, "
-          f"backbone={args.backbone}, fused={args.fused}, seed={args.seed})",
+          f"backbone={args.backbone}, fused={args.fused}, seed={args.seed}, "
+          f"host_aug={args.host_aug}, hires={args.hires})",
           flush=True)
     min_gain = (args.min_gain if args.min_gain is not None
                 else min_gain_for(args.task, args.steps, args.backbone))

@@ -13,6 +13,7 @@ n = 20000.
 """
 
 import random
+import re
 import threading
 import time
 
@@ -115,8 +116,13 @@ def test_memoized_dataset_returns_the_same_images():
 
 
 def test_build_dataset_refuses_unported_readers():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        tdata.build_dataset("tsv", tsv_file="x")
+    """Every kind of esvit_tpu's build_dataset is a reader of the port's
+    (none is refused any more); an unknown kind raises."""
+    import inspect
+
+    ref = inspect.getsource(jdata.build_dataset)
+    kinds = set(re.findall(r'"(\w+)": \w+', ref))
+    assert kinds and kinds == set(tdata.KINDS)
     with pytest.raises(ValueError, match="unknown dataset kind"):
         tdata.build_dataset("nope")
 
@@ -160,12 +166,19 @@ def test_host_batches_match_jax_iterator(monkeypatch, sampler_kind):
 
 
 def test_iterator_refuses_unported_paths():
+    """What the iterator cannot do raises at construction: the chunk
+    sampler over a dataset without shards, an unknown sampler, the native
+    decode beside the host augmentation (which decodes with PIL)."""
     ds = tdata.ProceduralShapes(n=8, size=64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        tloader.MultiCropIterator(ds, T_CROPS, 4, host_aug=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+    with pytest.raises(ValueError, match="chunk_sizes"):
         tloader.MultiCropIterator(ds, T_CROPS, 4, sampler_kind="chunk",
                                   device="cpu")
+    with pytest.raises(ValueError, match="unknown sampler_kind"):
+        tloader.MultiCropIterator(ds, T_CROPS, 4, sampler_kind="nope",
+                                  device="cpu")
+    with pytest.raises(ValueError, match="host_aug"):
+        tloader.MultiCropIterator(ds, T_CROPS, 4, host_aug=True,
+                                  native_decode=True, device="cpu")
 
 
 class _Recorder:

@@ -22,6 +22,7 @@ Every subprocess has a timeout.
 import ast
 import dataclasses
 import json
+import math
 import os
 import queue
 import signal
@@ -86,7 +87,11 @@ def _same(port, ref, path="cfg"):
      "--norm_last_layer", "--no-use_dense_prediction", "--seed", "3",
      "--saveckp_freq", "10", "--batch_size_per_device", "64",
      "--output_dir", "/elsewhere"],
-], ids=["defaults", "no-bf16", "crops", "schedules", "vil_tiny", "misc"])
+    ["--use_mixup", "--num_mixup_views", "3", "--mixup", "0.5", "--cutmix",
+     "0.7", "--mixup_prob", "0.9", "--mixup_switch_prob", "0.3",
+     "--smoothing", "0.1"],
+], ids=["defaults", "no-bf16", "crops", "schedules", "vil_tiny", "misc",
+        "mixup"])
 def test_cli_config_matches_esvit_tpu(argv):
     port = ttrain.config_from_args(ttrain.get_args_parser().parse_args(argv))
     ref = jtrain.config_from_args(jtrain.get_args_parser().parse_args(argv))
@@ -106,23 +111,83 @@ def test_cli_flags_and_defaults_match_esvit_tpu():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--use_mixup"], "item 11"),
     (["--use_bn_in_head"], "item 11"),
     (["--optimizer", "sgd"], "item 11"),
     (["--optimizer", "lars"], "item 11"),
     (["--arch", "cvt_tiny"], "item 11"),
     (["--frozen_layers", "patch_embed"], "item 12"),
     (["--mesh_model", "2"], "item 12"),
-    (["--data_kind", "zip", "--data_path", "x.zip"], "item 6b"),
-    (["--data_kind", "tsv", "--data_path", "x.tsv"], "item 6b"),
-    (["--data_kind", "composite_tsv"], "item 6b"),
-    (["--data_kind", "openimages_tsv"], "item 6b"),
-    (["--host_aug"], "item 6b"),
 ])
 def test_unported_options_are_refused(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         ttrain.main([*FEMTO, "--output_dir", str(tmp_path), *argv])
     assert not os.path.exists(tmp_path / "checkpoint.pth")
+
+
+@pytest.mark.parametrize("kind", ["composite_tsv", "openimages_tsv"])
+def test_cli_kinds_without_path_flags_are_refused_clearly(tmp_path, kind):
+    """esvit_tpu's CLI passes these kinds no paths (a TypeError there);
+    the port's CLI says to call train() with data_kwargs, before any
+    setup."""
+    with pytest.raises(ValueError, match=r"train\(cfg, data_kind="):
+        ttrain.main([*FEMTO, "--output_dir", str(tmp_path), "--data_kind",
+                     kind])
+    assert not os.path.exists(tmp_path / "checkpoint.pth")
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--data_kind", "folder", "--data_path", "/d"], {"root": "/d"}),
+    (["--data_kind", "zip", "--data_path", "/d.zip", "--zip_map_file",
+      "/m.txt"], {"zip_path": "/d.zip", "map_file": "/m.txt"}),
+    (["--data_kind", "tsv", "--data_path", "/d.tsv"], {"tsv_path": "/d.tsv"}),
+    (["--data_kind", "synthetic"], {}),
+])
+def test_cli_data_kwargs_match_esvit_tpu(argv, want):
+    """The CLI's build_dataset arguments per --data_kind, as esvit_tpu's
+    main maps them (esvit_tpu/train/train.py:366-373)."""
+    args = ttrain.get_args_parser().parse_args(argv)
+    assert ttrain.data_kwargs_from_args(args) == want
+
+
+def _jpeg_items(n, seed=0, png=(5,)):
+    """n (name, bytes, label) items of 64 x 48 JPEGs (a PNG at ``png``)."""
+    import io
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        arr = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+        b = io.BytesIO()
+        fmt, ext = ("PNG", "png") if i in png else ("JPEG", "jpg")
+        Image.fromarray(arr).save(b, fmt)
+        items.append((f"c{i % 2}/{i}.{ext}", b.getvalue(), i % 2))
+    return items
+
+
+@pytest.mark.parametrize("argv", [
+    ["--data_kind", "zip"],
+    ["--data_kind", "tsv", "--host_aug", "--use_mixup", "--num_mixup_views",
+     "2"],
+], ids=["zip", "tsv-host_aug-mixup"])
+def test_cli_trains_from_a_store(tmp_path, capsys, argv):
+    """The CLI on the CPU at femto size, fed from a zip or TSV of JPEGs
+    (and a PNG), 2 steps: finite losses in log.txt, a checkpoint at the
+    last step."""
+    from esvit_tpu_torch.data import stores
+
+    items = _jpeg_items(8)
+    stores.write_zip(items, str(tmp_path / "d.zip"), str(tmp_path / "m.txt"))
+    stores.write_tsv(items, str(tmp_path / "d.tsv"))
+    path = {"zip": ["--data_path", str(tmp_path / "d.zip"),
+                    "--zip_map_file", str(tmp_path / "m.txt")],
+            "tsv": ["--data_path", str(tmp_path / "d.tsv")]}[argv[1]]
+    out = tmp_path / "out"
+    ttrain.main([*FEMTO, "--output_dir", str(out), "--epochs", "1",
+                 "--max_steps", "2", *path, *argv])
+    log = [json.loads(line) for line in open(out / "log.txt")]
+    assert len(log) == 1 and math.isfinite(log[0]["train_loss"])
+    tree = torch.load(out / "checkpoint.pth", weights_only=True)
+    assert tree["step"] == 2
 
 
 def _cfg(out, epochs=3, **kw):

@@ -121,8 +121,8 @@ def test_unported_presets_and_dims_raise():
             tcfg.get_model_config(name)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tlinear.feature_dim_for(jcfg.deit_small(), 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tdata.build_dataset("zip", zip_path="x", map_file="y")
+    with pytest.raises(ValueError, match="unknown dataset kind"):
+        tdata.build_dataset("imagenet", root="x")
 
 
 @pytest.mark.parametrize("n,per,fill", [(3, 5, 0), (4, 4, 0), (1, 6, -1)])

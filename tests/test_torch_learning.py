@@ -62,14 +62,13 @@ def test_train_takes_a_dataset_and_refuses_unported_feeds(tmp_path):
     _, hist = train(cfg, dataset=ProceduralShapes(n=4, size=40),
                     max_steps=1, device="cpu")
     assert len(hist) == 1 and math.isfinite(hist[0]["loss"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        train(cfg, data_kind="zip", data_kwargs=dict(zip_path="x"),
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        train(cfg, data_kind="shapes", host_aug=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        train(cfg, data_kind="tsv", data_kwargs=dict(tsv_path="x"),
-              device="cpu")
+    # The host augmentation feeds a step (float32 views from the host).
+    _, hist = train(cfg, data_kind="shapes", data_kwargs=dict(n=4, size=40),
+                    host_aug=True, max_steps=1, device="cpu", resume=False)
+    assert len(hist) == 1 and math.isfinite(hist[0]["loss"])
+    assert (hist[0]["native_images"], hist[0]["pil_images"]) == (0, 4)
+    with pytest.raises(ValueError, match="unknown dataset kind"):
+        train(cfg, data_kind="nope", device="cpu")
 
 
 def test_validate_learning_twin_at_femto_size():
@@ -127,8 +126,11 @@ def test_validate_learning_schedule_and_gates():
     assert vl.min_gain_for("shapes", 6000, "vil") == 5.0
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         vl.build_config(backbone="cvt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        vl.main(["--host_aug", "--cpu"])
+    hires, img = vl.build_config(hires=True)
+    assert (hires.crops.global_size, hires.crops.local_size, img) == (96, 48,
+                                                                      160)
+    with pytest.raises(ValueError, match="nano-size"):
+        vl.build_config(size="femto", hires=True)
 
 
 def test_chip_smoke_nano_shapes_are_the_gate_models_shapes(monkeypatch):
