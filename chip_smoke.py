@@ -132,6 +132,24 @@ so the script exits non-zero and prints no result line:
    random Swin-T (qkv-layout route, fp32) from the zip against the file
    list through the native eval transform: the decode counts and row 7's
    launches.
+13. The CvT and ViT families (``phase_families``): cvt_tiny (CvT-T,
+   BatchNorm in every block's q/k/v projection) and deit_small (DeiT-S/16)
+   at full width, plain PyTorch (esvit_tpu runs their attention as plain
+   XLA: no TPU kernel lies on this path). The fp32 forward on the card
+   (TF32 off) against the CPU on the same seeded weights, at 224 px (4
+   images) and 96 px (8), features within 1e-4 of the largest |feature|,
+   CvT's on running and on batch statistics, its running buffers after
+   each bn_train forward within 1e-4 of the largest |buffer|; then
+   train() of cvt_tiny_multicrop and deit_small_multicrop (B=32, 2x224 +
+   8x96, 65536-wide heads with the dense head, bf16, synthetic crops on
+   the card) for 6 steps each: finite losses, student, teacher and centres
+   moved, for CvT every BatchNorm's running mean and variance moved in
+   both nets and the teacher's apart from the student's, and no launch of
+   the seven kernels; ms/step (steps 2-6) and peak memory. Then the train
+   CLI in subprocesses: cvt_tiny 4 steps, its checkpoint restored on the
+   card with every BatchNorm buffer equal to the file's, a resume for a
+   fifth step; deit_small 2 steps; the k-NN and linear-probe CLIs on the
+   CvT run's checkpoint; no kernel launches.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -1310,12 +1328,13 @@ def _derived_launches(cfg, steps):
 
 
 def _slice(torch, cfg, steps, counters, label, card, check_state,
-           **train_kw):
+           check_more=None, **train_kw):
     """train() for `steps` steps (on ``train_kw``'s data, else synthetic
     crops on the card) with every launch count set to 0 just before and
     read just after: finite losses, the launch counts of every kernel equal
     to the model's, and (check_state) student, teacher and both centers
-    changed. Returns the counts and train()'s per-step records."""
+    changed, and ``check_more(state, init)`` where given. Returns the
+    counts and train()'s per-step records."""
     import gc
 
     from esvit_tpu_torch.train.train import train
@@ -1337,7 +1356,7 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
     ips = cfg.crops.ncrops * BATCH / (ms / 1e3)
     log(f"slice {label}: losses {losses}")
     log(f"slice {label}: launches {got}")
-    log(f"slice {label}: W=7 B={BATCH} 2x224+8x96 DDINO out_dim 65536 "
+    log(f"slice {label}: B={BATCH} 2x224+8x96 DDINO out_dim 65536 "
         f"bf16: {ms:.1f} ms/step, {ips:.1f} img/s over steps 2-{steps}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB [{card}]")
@@ -1353,6 +1372,8 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
         if not all(v > 0 for v in moved.values()):
             raise AssertionError(f"{label}: state did not change: {moved}")
         log(f"slice {label}: max change {moved}")
+    if check_more is not None:
+        check_more(state, init)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2279,6 +2300,195 @@ def phase_real_images(torch, C, counters, card, synthetic_ms):
         torch.cuda.empty_cache()
 
 
+# Phase 13, the CvT and ViT families at full width: the fp32 parity of the
+# card against the CPU ((crop side, images) per batch; tolerance of the
+# largest |feature| or |buffer|, fp32 sums in another order through 12
+# blocks), train()'s steps per family, and the CLI's (steps, then the
+# resume's) and the evals' image folders.
+FAMILY_PARITY = ((224, 4), (96, 8))
+FAMILY_TOL = 1e-4
+FAMILY_STEPS = 6
+FAMILY_CLI_STEPS = 4
+FAMILY_EVAL_TRAIN, FAMILY_EVAL_VAL = 256, 64
+
+
+def _bn_buffers(sd):
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _check_bn_moved(torch, label, student, teacher, init):
+    """Every BatchNorm buffer moved from its initial value in both nets,
+    and the teacher's differ from the student's (each net's own)."""
+    s, t = _bn_buffers(student), _bn_buffers(teacher)
+    if not s or set(s) != set(t):
+        raise AssertionError(f"{label}: BatchNorm buffers {sorted(s)}")
+    for k, v in s.items():
+        a, b, i = v.detach().cpu(), t[k].detach().cpu(), init[k]
+        if not ((a - i).abs().max() > 0 and (b - i).abs().max() > 0
+                and not torch.equal(a, b)):
+            raise AssertionError(f"{label}: BatchNorm buffer {k} did not "
+                                 "move in both nets, or the nets share it")
+    log(f"{label}: all {len(s)} BatchNorm buffers moved in the student and "
+        "in the teacher, each net's its own")
+
+
+def _family_parity(torch, C, name, card):
+    """fp32 forward_features of ``name`` on the card (TF32 off) against the
+    CPU, same weights, at each FAMILY_PARITY batch; a BatchNorm backbone
+    on running and on batch statistics, its buffers held after each
+    bn_train forward."""
+    import copy
+
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    cfg = C.get_model_config(name)
+    cpu = build_backbone(cfg, generator=torch.Generator().manual_seed(0))
+    dev = copy.deepcopy(cpu).cuda()
+    modes = (False, True) if cfg.name == "cvt" else (False,)
+    for size, n in FAMILY_PARITY:
+        x = torch.randn(n, size, size, 3,
+                        generator=torch.Generator().manual_seed(size))
+        for bn_train in modes:
+            with torch.no_grad():
+                want = cpu.forward_features(x, bn_train=bn_train)
+                got = dev.forward_features(x.cuda(), bn_train=bn_train)
+            torch.cuda.synchronize()
+            errs = [(a.cpu() - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(got, want)]
+            if bn_train:
+                bw, bg = (_bn_buffers(m.state_dict()) for m in (cpu, dev))
+                errs.append(max((bg[k].cpu() - v).abs().max().item()
+                                / v.abs().max().item()
+                                for k, v in bw.items()))
+            if max(errs) > FAMILY_TOL:
+                raise AssertionError(f"{name} {size}px bn_train={bn_train}: "
+                                     f"card vs CPU {errs}")
+            log(f"families {name} fp32 {n}x{size}px bn_train={bn_train}: "
+                f"card vs CPU rel err cls {errs[0]:.2e}, region {errs[1]:.2e}"
+                + (f", running buffers {errs[2]:.2e}" if bn_train else "")
+                + f" (tol {FAMILY_TOL}), region {tuple(got[1].shape)} "
+                f"[{card}]")
+    del dev
+
+
+def phase_families(torch, C, counters, card):
+    """Phase 13 (see the module docstring)."""
+    from esvit_tpu_torch.io.checkpoint import CheckpointManager
+    from esvit_tpu_torch.train import train as train_cli
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
+    for name in ("cvt_tiny", "deit_small"):
+        _family_parity(torch, C, name, card)
+    torch.cuda.empty_cache()
+    zero = {name: {k: 0 for k in kinds}
+            for name, (_, kinds) in KERNELS.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, make in (("CvT-T (cvt_tiny)", C.cvt_tiny_multicrop),
+                            ("DeiT-S (deit_small)", C.deit_small_multicrop)):
+            cfg = make(BATCH, output_dir=tmp)
+            bn = cfg.model.name == "cvt"
+            _slice(torch, cfg, FAMILY_STEPS, counters, label, card, True,
+                   check_more=(lambda state, init, label=label:
+                               _check_bn_moved(torch, label, state.student
+                                               .state_dict(), state.teacher
+                                               .state_dict(), init))
+                   if bn else None)
+            log(f"slice {label}: no launch of the seven kernels in "
+                f"{FAMILY_STEPS} steps, as derived")
+
+        # The train CLI: cvt_tiny, a checkpoint, its restore, a resume.
+        d_cvt = os.path.join(tmp, "cvt")
+        args = ["--arch", "cvt_tiny", "--data_kind", "synthetic",
+                "--output_dir", d_cvt, "--epochs", "1"]
+        text, rec = _entry_run("cvt_tiny train", TRAIN_MODULE,
+                               [*args, "--max_steps", str(FAMILY_CLI_STEPS)])
+        _entry_launches("cvt_tiny train", rec["launches"], zero)
+        ckpt = os.path.join(d_cvt, "checkpoint.pth")
+        tree = _load_tree(torch, ckpt)
+        cfg = train_cli.config_from_args(
+            train_cli.get_args_parser().parse_args(args))
+        init = _initial_weights(torch, cfg)
+        if tree["step"] != FAMILY_CLI_STEPS:
+            raise AssertionError(f"cvt_tiny CLI: step {tree['step']}")
+        _check_bn_moved(torch, "cvt_tiny CLI checkpoint", tree["student"],
+                        tree["teacher"], init)
+        state = EsViTTrainer(cfg, device="cuda").init_state(
+            torch.Generator().manual_seed(1))
+        CheckpointManager(d_cvt).restore(state)
+        for part in ("student", "teacher"):
+            live = getattr(state, part).state_dict()
+            for k, v in _bn_buffers(tree[part]).items():
+                if not torch.equal(live[k].cpu(), v):
+                    raise AssertionError(f"cvt_tiny restore: {part} {k}")
+        del state
+        torch.cuda.empty_cache()
+        logs = [json.loads(x) for x in
+                open(os.path.join(d_cvt, "log.txt")).read().splitlines()]
+        images = cfg.crops.ncrops * cfg.optim.batch_size_per_device
+        log(f"entry cvt_tiny: {FAMILY_CLI_STEPS} steps, loss "
+            f"{logs[-1]['train_loss']:.4f}, "
+            f"{1e3 * images / logs[-1]['train_img_per_sec']:.1f} ms/step "
+            f"from log.txt's img/s (first step included); checkpoint "
+            f"{_checkpoint_lines(text)[-1][2]} bytes; every BatchNorm buffer "
+            f"of student and teacher restored on the card equal to the "
+            f"file's [{card}]")
+        text, rec = _entry_run("cvt_tiny resume", TRAIN_MODULE,
+                               [*args, "--max_steps",
+                                str(FAMILY_CLI_STEPS + 1)])
+        _entry_launches("cvt_tiny resume", rec["launches"], zero)
+        step = _load_tree(torch, ckpt)["step"]
+        if (f"resumed from step {FAMILY_CLI_STEPS}" not in text
+                or step != FAMILY_CLI_STEPS + 1):
+            raise AssertionError(f"cvt_tiny resume: step {step}:\n"
+                                 f"{text[-3000:]}")
+        log(f"entry cvt_tiny resume: resumed from step {FAMILY_CLI_STEPS}, "
+            f"ended at step {step}")
+
+        d_vit = os.path.join(tmp, "deit")
+        text, rec = _entry_run("deit_small train", TRAIN_MODULE,
+                               ["--arch", "deit_small", "--data_kind",
+                                "synthetic", "--output_dir", d_vit,
+                                "--epochs", "1", "--max_steps", "2"])
+        _entry_launches("deit_small train", rec["launches"], zero)
+        logs = [json.loads(x) for x in
+                open(os.path.join(d_vit, "log.txt")).read().splitlines()]
+        if (_load_tree(torch, os.path.join(d_vit, "checkpoint.pth"))["step"]
+                != 2 or not math.isfinite(logs[-1]["train_loss"])):
+            raise AssertionError(f"deit_small CLI: {logs}\n{text[-3000:]}")
+        log(f"entry deit_small: 2 steps, loss {logs[-1]['train_loss']:.4f}, "
+            f"{1e3 * images / logs[-1]['train_img_per_sec']:.1f} ms/step "
+            f"from log.txt's img/s (first step included) [{card}]")
+
+        # The evals' CLIs on the CvT run's checkpoint.
+        train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
+                                 FAMILY_EVAL_TRAIN, seed=7)
+        val_dir = _eval_folder(os.path.join(tmp, "eval_val"),
+                               FAMILY_EVAL_VAL, seed=13)
+        common = ["--arch", "cvt_tiny", "--pretrained", ckpt, "--train_path",
+                  train_dir, "--val_path", val_dir, "--output_dir",
+                  os.path.join(tmp, "eval")]
+        images = FAMILY_EVAL_TRAIN + FAMILY_EVAL_VAL
+        for label, module, extra, pattern in (
+                ("cvt_tiny k-NN", "esvit_tpu_torch.evals.knn",
+                 ["--batch_size", str(EVAL_BATCH)],
+                 r"^10-NN classifier result: Top1: ([0-9.]+)"),
+                ("cvt_tiny linear probe", "esvit_tpu_torch.evals.linear",
+                 ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
+                  "--cached_features"],
+                 r"^Linear probe: Top1 ([0-9.]+)")):
+            text, rec = _entry_run(label, module, [*common, *extra])
+            _entry_launches(label, rec["launches"], zero)
+            m = re.search(pattern, text, re.M)
+            if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
+                raise AssertionError(f"entry {label}: no result:\n"
+                                     f"{text[-3000:]}")
+            log(f"entry {label} on the CLI run's checkpoint: top-1 "
+                f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
+                f"{rec['seconds']:.1f} s of main(), "
+                f"{images / rec['seconds']:.1f} img/s [{card}]")
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -2333,6 +2543,7 @@ def main():
     phase_canary(torch, counters, card)
     phase_entry(torch, C, card)
     phase_real_images(torch, C, counters, card, synthetic_ms)
+    phase_families(torch, C, counters, card)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

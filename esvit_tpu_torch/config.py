@@ -12,8 +12,9 @@ reference's defaults: Swin stages 0-2 run block-fused
 the fused kernel on its augmented window (``subwindow_fused_stages=None``
 follows ``fused_block_stages``).
 
-The ViL (Vision Longformer) configs mirror ``esvit_tpu/config.py:233-279,
-464-491`` with the reference arch-string parser
+The ViT/DeiT and CvT configs mirror ``esvit_tpu/config.py:175-230,
+429-462`` with no field left out. The ViL (Vision Longformer) configs
+mirror ``esvit_tpu/config.py:233-279, 464-491`` with the reference arch-string parser
 (``esvit_tpu/models/vil.py:47-59``). ``fused_sc`` keeps two of the
 reference's values: 'auto' sends every sparse stage that the sliding-chunk
 kernel's shape rule takes to it (ops/sliding_chunk.py, the CUDA kernel
@@ -81,6 +82,66 @@ class SwinConfig:
     @property
     def num_features(self) -> int:
         return int(self.embed_dim * 2 ** (len(self.depths) - 1))
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    """Monolithic ViT/DeiT spec (ref: models/vision_transformer.py:124-381)."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    in_chans: int = 3
+    embed_dim: int = 384
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: float | None = None
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    norm_eps: float = 1e-6
+    name: str = "vit"
+
+    @property
+    def num_features(self) -> int:
+        return self.embed_dim
+
+
+@dataclass(frozen=True)
+class CvTStageConfig:
+    """One CvT-v4 stage (ref: models/cvt_v4_transformer.py:457-507 SPEC
+    arrays: PATCH_SIZE/STRIDE/PADDING, DIM_EMBED, DEPTH, NUM_HEADS,
+    MLP_RATIO, QKV_BIAS, KERNEL_QKV, PADDING_QKV, WINDOW_SIZE, SHIFT)."""
+
+    patch_size: int = 7
+    patch_stride: int = 4
+    patch_padding: int = 2
+    embed_dim: int = 64
+    depth: int = 1
+    num_heads: int = 1
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    drop_path_rate: float = 0.0
+    kernel_qkv: int = 3
+    padding_qkv: int = 1
+    window_size: int = 7
+    shift: bool = False
+
+
+@dataclass(frozen=True)
+class CvTConfig:
+    """CvT-v4 backbone spec (ref: models/cvt_v4_transformer.py:434-707)."""
+
+    img_size: int = 224
+    in_chans: int = 3
+    stages: tuple[CvTStageConfig, ...] = ()
+    norm_eps: float = 1e-5
+    name: str = "cvt"
+
+    @property
+    def num_features(self) -> int:
+        return self.stages[-1].embed_dim
 
 
 @dataclass(frozen=True)
@@ -251,6 +312,59 @@ def swin_tiny_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
                        steps_per_epoch=1251, dtype=torch.bfloat16, **kw)
 
 
+def deit_tiny(**kw) -> ViTConfig:
+    return ViTConfig(embed_dim=192, depth=12, num_heads=3, **kw)
+
+
+def deit_small(**kw) -> ViTConfig:
+    return ViTConfig(embed_dim=384, depth=12, num_heads=6, **kw)
+
+
+def vit_base(**kw) -> ViTConfig:
+    return ViTConfig(embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def cvt_tiny(**kw) -> CvTConfig:
+    """experiments/imagenet/cvt_v4/s1.yaml: 4 stages, dims 64/192/384/768,
+    heads 1/3/6/12, depths 2/2/6/2, window 7, no shift, no rel-pos."""
+    dims = (64, 192, 384, 768)
+    heads = (1, 3, 6, 12)
+    depths = (2, 2, 6, 2)
+    patches = ((7, 4, 2), (3, 2, 1), (3, 2, 1), (3, 2, 1))
+    return CvTConfig(stages=tuple(
+        CvTStageConfig(patch_size=p, patch_stride=s, patch_padding=pd,
+                       embed_dim=d, depth=n, num_heads=h, drop_path_rate=0.1)
+        for (p, s, pd), d, h, n in zip(patches, dims, heads, depths)), **kw)
+
+
+def cvt_femto(**kw) -> CvTConfig:
+    """Tiny CPU-testable CvT: 2 stages."""
+    return CvTConfig(stages=(
+        CvTStageConfig(patch_size=3, patch_stride=2, patch_padding=1,
+                       embed_dim=16, depth=1, num_heads=2, window_size=4),
+        CvTStageConfig(patch_size=3, patch_stride=2, patch_padding=1,
+                       embed_dim=32, depth=1, num_heads=2, window_size=4),
+    ), **kw)
+
+
+def cvt_tiny_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
+    """CvT-T (cvt_tiny) on the Swin-T step's recipe: 2x224 + 8x96 crops,
+    DINO heads of 65536 outputs, DDINO, bf16, B=32 per card."""
+    return TrainConfig(model=cvt_tiny(), head=HeadConfig(),
+                       loss=LossConfig(),
+                       optim=OptimConfig(batch_size_per_device=batch_size),
+                       steps_per_epoch=1251, dtype=torch.bfloat16, **kw)
+
+
+def deit_small_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
+    """DeiT-S/16 on the Swin-T step's recipe: 2x224 + 8x96 crops, DINO
+    heads of 65536 outputs, DDINO, bf16, B=32 per card."""
+    return TrainConfig(model=deit_small(), head=HeadConfig(),
+                       loss=LossConfig(),
+                       optim=OptimConfig(batch_size_per_device=batch_size),
+                       steps_per_epoch=1251, dtype=torch.bfloat16, **kw)
+
+
 def parse_vil_arch(arch: str) -> tuple[ViLStageConfig, ...]:
     """'l1,h3,d96,n2,s1,g1,p4,f7,a1_l2,...' -> stage configs (ref
     vision_longformer.py:474-482; attributes left out take the reference's
@@ -309,23 +423,22 @@ def vil_tiny_multicrop(batch_size: int = 32, **kw) -> TrainConfig:
 
 PRESETS = {
     "swin_femto": swin_femto,
+    "cvt_femto": cvt_femto,
     "swin_tiny": swin_tiny,
     "swin_small": swin_small,
     "swin_base": swin_base,
+    "deit_tiny": deit_tiny,
+    "deit_small": deit_small,
+    "vit_base": vit_base,
+    "cvt_tiny": cvt_tiny,
     "vil_femto": vil_femto,
     "vil_tiny": vil_tiny,
     "vil_small": vil_small,
 }
-# The reference's other presets (esvit_tpu/config.py:505-518): families the
-# port does not build yet.
-NOT_PORTED_PRESETS = ("cvt_femto", "cvt_tiny", "deit_tiny", "deit_small",
-                       "vit_base")
 
 
 def get_model_config(name: str, **kw):
     """The backbone config of a preset name (esvit_tpu/config.py:521)."""
-    if name in NOT_PORTED_PRESETS:
-        _refuse(f"model preset {name!r}", "queue 1 item 11")
     if name not in PRESETS:
         raise ValueError(f"unknown model preset {name!r}; have "
                          f"{sorted(PRESETS)}")
@@ -347,9 +460,9 @@ def check_supported(cfg: TrainConfig) -> None:
             _refuse(f"remat={m.remat!r}", "queue 1 item 12")
     elif name == "vil":
         _check_vil(m)
-    else:
+    elif name not in ("vit", "cvt"):
         _refuse(f"backbone {getattr(m, 'name', m)!r}", "queue 1 item 11")
-    if m.drop_rate or m.attn_drop_rate:
+    if getattr(m, "drop_rate", 0.0) or getattr(m, "attn_drop_rate", 0.0):
         _refuse("dropout inside the backbone", "queue 1 item 12")
     if cfg.head.use_bn:
         _refuse("BatchNorm in the DINO head", "queue 1 item 11")

@@ -7,7 +7,9 @@ nearest train features with temperature-softened cosine similarity:
 ``w = exp(sim / T)``, T=0.07, k in {10, 20, 100, 200}.
 
 Feature extraction is one batched forward per batch under
-``torch.inference_mode``, in fp32 by default as in JAX; the k-NN vote is a
+``torch.inference_mode``, in fp32 by default as in JAX (with fp32
+convolutions exact, and BatchNorm on its running statistics:
+``forward_features``' default ``bn_train=False``); the k-NN vote is a
 chunked similarity product (the reference chunks into 100 pieces,
 eval_knn.py:199-229). Both run on ``device``, the card unless the caller
 asks for the CPU. Several processes extract strided shards and gather them
@@ -28,6 +30,7 @@ from esvit_tpu_torch.data import datasets as datasets_lib
 from esvit_tpu_torch.data.augment_host import IMAGENET_MEAN, IMAGENET_STD
 from esvit_tpu_torch.evals.extract import extract_dataset_features
 from esvit_tpu_torch.io.torch_checkpoint import load_backbone_checkpoint
+from esvit_tpu_torch.models.common import exact_fp32_convolutions
 from esvit_tpu_torch.models.registry import build_backbone
 
 
@@ -86,6 +89,9 @@ def eval_transform_bytes(data: bytes, size: int = 224) -> np.ndarray | None:
 def batched_forward(fn, device, dtype=torch.float32):
     """numpy batch -> fn(batch on ``device`` in ``dtype``) as fp32 numpy,
     under inference mode."""
+    if dtype == torch.float32:
+        exact_fp32_convolutions()
+
     def fwd(x):
         with torch.inference_mode():
             out = fn(torch.from_numpy(x).to(device, dtype))

@@ -40,6 +40,7 @@ from esvit_tpu_torch.evals.knn import (batched_forward, eval_transform,
                                        eval_transform_bytes,
                                        load_backbone_variables,
                                        model_from_args)
+from esvit_tpu_torch.models.common import exact_fp32_convolutions
 from esvit_tpu_torch.parallel.mesh import make_mesh
 from esvit_tpu_torch.utils import schedules
 
@@ -52,7 +53,9 @@ def feature_dim_for(model_cfg, n_last_blocks: int) -> int:
         for i, d in enumerate(model_cfg.depths):
             dims += [int(model_cfg.embed_dim * 2 ** i)] * d
         return sum(dims[-n_last_blocks:])
-    if model_cfg.name == "vil":
+    if model_cfg.name == "vit":
+        return model_cfg.embed_dim * n_last_blocks
+    if model_cfg.name in ("cvt", "vil"):
         dims = []
         for s in model_cfg.stages:
             dims += [s.embed_dim] * s.depth
@@ -62,7 +65,9 @@ def feature_dim_for(model_cfg, n_last_blocks: int) -> int:
 
 
 def _n_last_blocks(backbone, n_last_blocks):
-    """The backbone's concat-of-n-last-blocks forward."""
+    """The backbone's concat-of-n-last-blocks forward (BatchNorm on its
+    running statistics, fp32 convolutions exact)."""
+    exact_fp32_convolutions()
     if not hasattr(backbone, "forward_return_n_last_blocks"):
         raise NotImplementedError(
             f"{type(backbone).__name__}.forward_return_n_last_blocks is not "

@@ -5,7 +5,8 @@ One ``torch.save`` file holds what the reference's checkpoint.pth holds
 (main_esvit.py:476-488), as esvit_tpu's tree does: the step, the AdamW
 step count, the student's and the teacher's state dicts (the reference's
 parameter names, so the evals load the file as they load the
-reference's), the AdamW moments ``mu`` / ``nu`` by parameter name, and
+reference's; each net's BatchNorm running statistics are in its own,
+as esvit_tpu keeps ``student_state`` and ``teacher_state``), the AdamW moments ``mu`` / ``nu`` by parameter name, and
 both DINO centers. Every tensor is a host copy, so a checkpoint loads on
 a machine without a card. Cadence as the reference's: ``checkpoint.pth``
 every epoch (overwritten) and ``checkpoint{epoch:04d}.pth`` every

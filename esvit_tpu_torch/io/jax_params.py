@@ -14,6 +14,17 @@ is exactly the inverse of esvit_tpu/io/torch_import.py
 - ViL (the inverse of ``import_vil_backbone``): ``embed_i`` ->
   ``layer{i+1}.0``, ``stage{i}_attn{j}`` -> ``layer{i+1}.{2j+1}``,
   ``stage{i}_mlp{j}`` -> ``layer{i+1}.{2j+2}``.
+- CvT (the inverse of ``import_cvt_backbone``): ``embed_i`` ->
+  ``stage{i}.0``; ``stage{i}_block{j}`` -> ``stage{i}.1.layers.{j}``, its
+  ``norm_attn`` / ``attn`` under ``.0`` (``norm`` / ``fn``) and
+  ``norm_ff`` / ``ff_1`` / ``ff_2`` under ``.1`` (``norm`` /
+  ``fn.net.0`` / ``fn.net.2``); the depthwise kernel (k, k, 1, C) ->
+  (C, 1, k, k) like every conv kernel; BatchNorm ``scale`` -> ``weight``
+  and the ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
+  ``running_var``.
+- ViT (the inverse of ``import_vit_backbone``): ``patch_embed`` ->
+  ``patch_embed.proj``; ``cls_token``, ``pos_embed`` and ``blocks_i`` as
+  they are.
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the flax
 tree); nothing here imports jax.
@@ -36,8 +47,13 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int
-             ) -> tuple[str, np.ndarray]:
+_CVT_BLOCK = {"norm_attn": ["0", "norm"], "attn": ["0", "fn"],
+              "norm_ff": ["1", "norm"], "ff_1": ["1", "fn", "net", "0"],
+              "ff_2": ["1", "fn", "net", "2"]}
+
+
+def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
+             cvt: bool) -> tuple[str, np.ndarray]:
     parts = list(path)
     if parts[0] == "backbone":
         parts = parts[1:]
@@ -45,7 +61,12 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int
     if parts and parts[-1] == "ln":                 # LayerNorm scope
         parts.pop()
         leaf = {"scale": "weight", "bias": "bias"}[leaf]
-    elif leaf == "kernel":
+    elif parts and parts[-1] == "bn":               # BatchNorm scope
+        leaf = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"}[leaf]
+    elif parts == ["patch_embed"]:                  # ViT's patch conv
+        parts.append("proj")
+    if leaf == "kernel":
         leaf = "weight"
         v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
     elif leaf == "kernel_v":
@@ -53,11 +74,18 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int
     elif leaf == "scale_g":
         leaf, v = "weight_g", v.reshape(-1, 1)
     names = []
-    for p in parts:
+    for i, p in enumerate(parts):
         if m := re.fullmatch(r"(layers|blocks)_(\d+)", p):
             names += [m.group(1), m.group(2)]
+        elif cvt and (m := re.fullmatch(r"embed_(\d+)", p)):
+            names += [f"stage{m.group(1)}", "0"]
         elif m := re.fullmatch(r"embed_(\d+)", p):
             names += [f"layer{int(m.group(1)) + 1}", "0"]
+        elif m := re.fullmatch(r"stage(\d+)_block(\d+)", p):
+            names += [f"stage{m.group(1)}", "1", "layers", m.group(2)]
+        elif i > 0 and p in _CVT_BLOCK and re.fullmatch(
+                r"stage\d+_block\d+", parts[i - 1]):
+            names += _CVT_BLOCK[p]
         elif m := re.fullmatch(r"stage(\d+)_(attn|mlp)(\d+)", p):
             j = 2 * int(m.group(3)) + (1 if m.group(2) == "attn" else 2)
             names += [f"layer{int(m.group(1)) + 1}", str(j)]
@@ -70,13 +98,20 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int
     return ".".join(names + [leaf]), np.ascontiguousarray(v)
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """EsViTModel (or bare backbone) flax params -> the port's state_dict."""
+def state_dict_from_flax(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any] | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """EsViTModel (or bare backbone) flax params, and its ``batch_stats``
+    collection where it has one -> the port's state_dict."""
     n_head_mlps = sum(1 for k in params.get("head", {}) if k.startswith("mlp_"))
+    trees = [params] + ([batch_stats] if batch_stats else [])
+    cvt = any(re.fullmatch(r"stage\d+_block\d+", p)
+              for tree in trees for path, _ in _leaves(tree) for p in path)
     out = {}
-    for path, v in _leaves(params):
-        name, arr = _convert(path, v, n_head_mlps)
-        out[name] = torch.from_numpy(np.array(arr, copy=True))
+    for tree in trees:
+        for path, v in _leaves(tree):
+            name, arr = _convert(path, v, n_head_mlps, cvt)
+            out[name] = torch.from_numpy(np.array(arr, copy=True))
     return out
 
 
@@ -89,26 +124,30 @@ def _adam_state(opt_state):
 
 def train_state_from_jax(jax_state, trainer):
     """esvit_tpu TrainState (numpy leaves) -> the port's TrainState on
-    ``trainer.device``: student, teacher, AdamW moments and count, step
-    and centers."""
+    ``trainer.device``: student and teacher with their BatchNorm state
+    (``student_state`` / ``teacher_state``), AdamW moments and count,
+    step and centers."""
     from esvit_tpu_torch.losses import DinoCenters
     from esvit_tpu_torch.train.step import TrainState
 
     dev = trainer.device
 
-    def model(params):
+    def model(params, extra):
         m = trainer.build_model()
-        m.load_state_dict(state_dict_from_flax(params))
+        m.load_state_dict(state_dict_from_flax(
+            params, (extra or {}).get("batch_stats")))
         return m.to(dev)
 
     def by_name(tree):
         return {k: v.to(dev) for k, v in state_dict_from_flax(tree).items()}
 
     adam = _adam_state(jax_state.opt_state)
-    teacher = model(jax_state.teacher).requires_grad_(False)
+    teacher = model(jax_state.teacher,
+                    jax_state.teacher_state).requires_grad_(False)
     c = jax_state.centers
     return TrainState(
-        step=int(jax_state.step), student=model(jax_state.student),
+        step=int(jax_state.step),
+        student=model(jax_state.student, jax_state.student_state),
         teacher=teacher, mu=by_name(adam.mu), nu=by_name(adam.nu),
         adam_count=int(adam.count),
         centers=DinoCenters(center=torch.tensor(np.asarray(c.center)).to(dev),

@@ -5,9 +5,12 @@ The released EsViT checkpoints (ref: main_esvit.py:476-488 save layout)
 store ``{'student': sd, 'teacher': sd, 'optimizer', 'epoch', 'args',
 'dino_loss'}``, each state_dict with the backbone keys at the root plus
 ``head.*`` / ``head_dense.*``, and an optional ``module.`` DDP prefix. The
-port's parameter names are the reference's, so loading is a key filter:
-the heads and the ``relative_position_index`` / ``attn_mask`` buffers
-(static tables here) are dropped. :func:`adapt_swin_tables` resizes the
+port's parameter and buffer names are the reference's (Swin, ViL, CvT
+with its BatchNorm running statistics, ViT), so loading is a key filter:
+the heads, the ``relative_position_index`` / ``attn_mask`` / CvT
+``rel_pos_idx`` buffers (static tables here) and BatchNorm's
+``num_batches_tracked`` (unused: flax's BatchNorm has a fixed momentum)
+are dropped, as esvit_tpu/io/torch_import.py:176-180 drops them. :func:`adapt_swin_tables` resizes the
 relative-position tables and the absolute position embedding when the
 checkpoint's window size or resolution differs from the model's
 (ref: swin_transformer.py:852-917 init_weights).
@@ -22,7 +25,8 @@ import torch
 
 from esvit_tpu_torch.ops.resample import bicubic_resize
 
-_DROPPED = ("relative_position_index", "attn_mask")
+_DROPPED = ("relative_position_index", "attn_mask", "rel_pos_idx",
+            "num_batches_tracked")
 
 
 def load_torch_checkpoint(path: str, key: str = "teacher"
@@ -37,7 +41,7 @@ def load_torch_checkpoint(path: str, key: str = "teacher"
 
 def backbone_state(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The backbone's entries of a reference state_dict: no heads, no
-    static index or mask buffers."""
+    static index or mask buffers, no BatchNorm step counts."""
     return {k: v for k, v in sd.items()
             if not k.startswith(("head.", "head_dense."))
             and not any(d in k for d in _DROPPED)}

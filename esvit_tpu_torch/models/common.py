@@ -126,6 +126,15 @@ class DropPath(nn.Module):
                                                  x.device))
 
 
+def exact_fp32_convolutions() -> None:
+    """cuDNN rounds fp32 convolutions to TF32 unless told not to
+    (``torch.backends.cudnn.allow_tf32`` is on by default), and not only
+    in the call's own scope: a convolution's backward reads the flag when
+    it runs. So a process that runs fp32 convolutions (CvT's) turns it
+    off for itself: the fp32 path is fp32 throughout."""
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 

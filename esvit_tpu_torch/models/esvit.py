@@ -50,11 +50,17 @@ class EsViTModel(nn.Module):
 
     def forward(self, crops: Sequence[torch.Tensor], deterministic=True,
                 generator: torch.Generator | None = None,
-                batch_size: int | None = None):
+                batch_size: int | None = None, bn_train: bool | None = None):
+        """bn_train: BatchNorm's mode in BN backbones (CvT), by default
+        ``not deterministic``; the teacher runs deterministic with True,
+        as the reference's always-train-mode teacher does
+        (esvit_tpu/models/esvit.py:53-80). Other backbones ignore it."""
+        if bn_train is None:
+            bn_train = not deterministic
         cls_list, fea_list, npatch = [], [], []
         for x in crops:
-            cls, fea = self.backbone.forward_features(x, deterministic,
-                                                      generator)
+            cls, fea = self.backbone.forward_features(
+                x, deterministic, generator, bn_train=bn_train)
             cls_list.append(cls)
             fea_list.append(fea)
             npatch.append(fea.shape[1])

@@ -585,7 +585,9 @@ class SwinTransformer(nn.Module):
             x = x + self.absolute_pos_embed.to(x.dtype)
         return x
 
-    def forward_features(self, x, deterministic=True, generator=None):
+    def forward_features(self, x, deterministic=True, generator=None,
+                         bn_train=False):
+        del bn_train                    # no BatchNorm
         x = self._embed(x)
         for stage in self.layers:
             x = stage(x, deterministic, generator, self.cfg.layout_opt)

@@ -176,7 +176,9 @@ class MsViT(nn.Module):
     def stages(self):
         return [getattr(self, f"layer{i + 1}") for i in range(len(self.cfg.stages))]
 
-    def forward_features(self, x, deterministic=True, generator=None):
+    def forward_features(self, x, deterministic=True, generator=None,
+                         bn_train=False):
+        del bn_train                    # no BatchNorm
         nx = ny = None
         for i, layer in enumerate(self.stages()):
             if i > 0:

@@ -13,6 +13,12 @@ do; parameters, gradients and optimizer moments stay fp32. There is no
 GradScaler and no autocast (autocast would round in other places). The
 step updates the state in place: parameters, moments and teacher are
 written where they lie.
+
+BatchNorm state (CvT) lives in each net's buffers, as esvit_tpu keeps a
+``student_state`` and a ``teacher_state`` (esvit_tpu/train/step.py:
+36-41): each net's forwards update its own running statistics, the
+teacher's EMA moves parameters only, and the teacher starts with a copy
+of the student's buffers.
 """
 
 from __future__ import annotations
@@ -92,7 +98,7 @@ class EsViTTrainer:
     def init_state(self, generator: torch.Generator) -> TrainState:
         """Random weights from ``generator`` (a CPU generator, so a seed
         gives the same weights on every device); the teacher starts as a
-        copy of the student (main_esvit.py:380-383)."""
+        copy of the student, buffers included (main_esvit.py:380-383)."""
         student = self.build_model(generator).to(self.device)
         teacher = copy.deepcopy(student).requires_grad_(False)
         named = dict(student.named_parameters())
@@ -137,9 +143,11 @@ class EsViTTrainer:
                     else student_in[0][:0], mix, mixup_draws)
             student_in = (g, loc) if len(student_in) > 1 else (g,)
 
+        # BatchNorm backbones: the teacher runs deterministic with BN on
+        # batch statistics, updating its own running buffers.
         with torch.no_grad(), _span("teacher_forward"):
             t_out = state.teacher((batch[0].to(dtype),), deterministic=True,
-                                  batch_size=B)
+                                  batch_size=B, bn_train=True)
         with _span("student_forward"):
             s_out = state.student(student_in, deterministic=False,
                                   generator=generator, batch_size=B)

@@ -21,9 +21,13 @@ The data: ``--data_kind`` synthetic (random noise images), folder
 native/) and augmented on the card, or with ``--host_aug`` by the full
 PIL pipeline on the host; composite_tsv and openimages_tsv take lists of
 paths, which only ``train(data_kwargs=...)`` passes. ``--use_mixup``
-mixes the first student views (data/mixup.py). SGD/LARS and BatchNorm
-heads are ROADMAP queue 1 item 11; frozen layers and the tensor-parallel
-head item 12. Each is refused with NotImplementedError.
+mixes the first student views (data/mixup.py). ``--arch`` takes every
+preset of config.py: Swin, ViL, CvT (cvt_femto, cvt_tiny) and ViT/DeiT
+(deit_tiny, deit_small, vit_base). An fp32 run (``--no-bf16``) turns
+cuDNN's TF32 off for its process (models/common.py
+``exact_fp32_convolutions``). SGD/LARS and BatchNorm heads are ROADMAP
+queue 1 item 11; frozen layers and the tensor-parallel head item 12.
+Each is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from esvit_tpu_torch.data import datasets as datasets_lib
 from esvit_tpu_torch.data import mixup as mixup_lib
 from esvit_tpu_torch.data.loader import build_train_iterator, synthetic_batches
 from esvit_tpu_torch.io.checkpoint import CheckpointManager
+from esvit_tpu_torch.models.common import exact_fp32_convolutions
 from esvit_tpu_torch.parallel import mesh as mesh_lib
 from esvit_tpu_torch.train.step import EsViTTrainer, TrainState
 from esvit_tpu_torch.utils.metrics import MetricLogger, append_log
@@ -114,6 +119,8 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
     if dataset is None and data_kind != "synthetic_device":
         dataset = datasets_lib.build_dataset(data_kind, **(data_kwargs or {}))
     device = torch.device(device)
+    if cfg.dtype == torch.float32:
+        exact_fp32_convolutions()
     # Every process walks a disjoint 1 / world shard of B_local samples per
     # step, so all agree on len // B steps (DistributedSampler semantics).
     steps_per_epoch = (len(dataset) // B
@@ -300,8 +307,7 @@ def get_args_parser():
                                 description="EsViT SSL pre-training on the "
                                             "card")
     p.add_argument("--arch", default="swin_tiny",
-                   choices=sorted((*config_lib.PRESETS,
-                                   *config_lib.NOT_PORTED_PRESETS)))
+                   choices=sorted(config_lib.PRESETS))
     p.add_argument("--window_size", default=7, type=int)
     p.add_argument("--out_dim", default=65536, type=int)
     p.add_argument("--norm_last_layer", default=False,

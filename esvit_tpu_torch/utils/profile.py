@@ -1,10 +1,12 @@
 """Where the port's train step spends its time on the card.
 
-    python -m esvit_tpu_torch.utils.profile [--model swin_tiny|vil_tiny]
-        [--batch 32] [--steps 3] [--trace step_trace.json]
+    python -m esvit_tpu_torch.utils.profile
+        [--model swin_tiny|vil_tiny|cvt_tiny|deit_small] [--batch 32]
+        [--steps 3] [--trace step_trace.json]
 
-Runs the Swin-T W=7 (config.swin_tiny_multicrop) or the ViL-T
-(config.vil_tiny_multicrop) multi-crop DDINO step: two warm-up steps, ``--steps`` timed steps without the profiler (host
+Runs the Swin-T W=7 (config.swin_tiny_multicrop), the ViL-T
+(config.vil_tiny_multicrop), the CvT-T (config.cvt_tiny_multicrop) or
+the DeiT-S (config.deit_small_multicrop) multi-crop DDINO step: two warm-up steps, ``--steps`` timed steps without the profiler (host
 clock, each ending in a loss fetch), then ``--steps`` steps under
 torch.profiler. Prints, per step: the untraced step time; the kernels'
 summed device time and the device idle share against the untraced step
@@ -30,24 +32,30 @@ from esvit_tpu_torch.train.step import EsViTTrainer
 
 
 MODELS = {"swin_tiny": (config_lib.swin_tiny_multicrop, "Swin-T W=7"),
-          "vil_tiny": (config_lib.vil_tiny_multicrop, "ViL-T")}
+          "vil_tiny": (config_lib.vil_tiny_multicrop, "ViL-T"),
+          "cvt_tiny": (config_lib.cvt_tiny_multicrop, "CvT-T"),
+          "deit_small": (config_lib.deit_small_multicrop, "DeiT-S/16")}
 
 
 def _kernel_group(name: str) -> str:
     """A kernel's group by its demangled name. The block-fused kernels
     (fused_block_fwd_* for the forward's token tiles F1-F4, fused_bwd_*,
-    wgrad*, sum_rows for the backward) are tested before the GEMM names;
+    wgrad_tc, sum_rows for the backward) are tested before the GEMM names;
     both passes' attention halves (A1, A2 and the dbias sum) are the
     window-attention tile kernels instantiated with the fused block's bias
-    policy (FusedBlockBias), so they go to the fused block."""
+    policy (FusedBlockBias), so they go to the fused block. cuDNN's
+    convolutions (CvT's) have a group of their own, before the GEMMs
+    (its implicit-GEMM kernels name a gemm)."""
     n = name.lower()
     if "sliding_chunk" in n or "glo_reduce" in n:
         return "sliding chunk (this repo's CUDA)"
     if any(k in n for k in ("fusedblockbias", "fused_block", "fused_bwd",
-                            "wgrad", "sum_rows")):
+                            "wgrad_tc", "sum_rows")):
         return "fused block (this repo's CUDA)"
     if "window_attention" in n or "dbias_reduce" in n:
         return "window attention (this repo's CUDA)"
+    if any(k in n for k in ("cudnn", "conv", "fprop", "dgrad", "wgrad")):
+        return "convolutions (cuDNN)"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMM (cuBLAS)"
     if "reduce" in n or "norm" in n or "softmax" in n:

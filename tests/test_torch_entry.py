@@ -90,8 +90,11 @@ def _same(port, ref, path="cfg"):
     ["--use_mixup", "--num_mixup_views", "3", "--mixup", "0.5", "--cutmix",
      "0.7", "--mixup_prob", "0.9", "--mixup_switch_prob", "0.3",
      "--smoothing", "0.1"],
+    ["--arch", "cvt_tiny"],
+    ["--arch", "deit_small", "--no-bf16"],
+    ["--arch", "vit_base", "--window_size", "14"],
 ], ids=["defaults", "no-bf16", "crops", "schedules", "vil_tiny", "misc",
-        "mixup"])
+        "mixup", "cvt_tiny", "deit_small", "vit_base"])
 def test_cli_config_matches_esvit_tpu(argv):
     port = ttrain.config_from_args(ttrain.get_args_parser().parse_args(argv))
     ref = jtrain.config_from_args(jtrain.get_args_parser().parse_args(argv))
@@ -114,7 +117,7 @@ def test_cli_flags_and_defaults_match_esvit_tpu():
     (["--use_bn_in_head"], "item 11"),
     (["--optimizer", "sgd"], "item 11"),
     (["--optimizer", "lars"], "item 11"),
-    (["--arch", "cvt_tiny"], "item 11"),
+    (["--arch", "cvt_tiny", "--optimizer", "sgd"], "item 11"),
     (["--frozen_layers", "patch_embed"], "item 12"),
     (["--mesh_model", "2"], "item 12"),
 ])
@@ -409,6 +412,81 @@ def test_eval_clis_on_a_checkpoint_train_wrote(tmp_path):
                               "--cached_features"])
     assert 0.0 <= top1 <= 100.0 and 0.0 <= top5 <= 100.0
     assert "linear_top1" in (tmp_path / "eval" / "log.txt").read_text()
+
+
+# The CLI at femto size for the BatchNorm family and for DeiT: 224 px
+# global crops, two 32 px locals, B=2, the dense head, fp32.
+SMALL = ["--device", "cpu", "--out_dim", "32", "--batch_size_per_device",
+         "2", "--local_crops_number", "2", "--local_crops_size", "32",
+         "--no-bf16", "--warmup_epochs", "0", "--freeze_last_layer", "0",
+         "--data_kind", "synthetic"]
+
+
+def _bn_buffers(sd):
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def test_cli_cvt_femto_trains_resumes_and_evaluates(tmp_path, capsys):
+    """--arch cvt_femto: 2 steps write the student's and the teacher's
+    BatchNorm buffers (moved from 0 / 1, and each net's own); the
+    checkpoint restores them bit for bit into a state drawn from another
+    seed; a rerun resumes from step 2; the k-NN and linear CLIs read the
+    run's checkpoint."""
+    from esvit_tpu_torch.evals import knn, linear
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
+    out = tmp_path / "out"
+    args = ["--arch", "cvt_femto", *SMALL, "--output_dir", str(out),
+            "--epochs", "1"]
+    ttrain.main([*args, "--max_steps", "2"])
+    tree = torch.load(out / "checkpoint.pth", weights_only=True)
+    assert tree["step"] == 2
+    student, teacher = (_bn_buffers(tree[k]) for k in ("student", "teacher"))
+    assert len(student) == len(teacher) == 4
+    for k, v in student.items():
+        init = 0.0 if k.endswith("mean") else 1.0
+        assert (v - init).abs().min() > 0 and (teacher[k] - init).abs().min() > 0
+        assert not torch.equal(v, teacher[k]), k
+
+    cfg = ttrain.config_from_args(ttrain.get_args_parser().parse_args(args))
+    state = EsViTTrainer(cfg, device="cpu").init_state(
+        torch.Generator().manual_seed(1))
+    CheckpointManager(str(out)).restore(state)
+    for name, sd in (("student", state.student.state_dict()),
+                     ("teacher", state.teacher.state_dict())):
+        for k, v in _bn_buffers(tree[name]).items():
+            assert torch.equal(sd[k], v), (name, k)
+
+    capsys.readouterr()
+    ttrain.main([*args, "--max_steps", "3"])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert torch.load(out / "checkpoint.pth", weights_only=True)["step"] == 3
+
+    train_dir = _png_folder(tmp_path / "train", 12, classes=3, seed=1)
+    val_dir = _png_folder(tmp_path / "val", 6, classes=3, seed=2)
+    common = ["--arch", "cvt_femto", "--device", "cpu", "--pretrained",
+              str(out / "checkpoint.pth"), "--train_path", train_dir,
+              "--val_path", val_dir, "--output_dir", str(tmp_path / "eval")]
+    got = knn.main([*common, "--batch_size", "4", "--nb_knn", "3"])
+    assert 0.0 <= got[3][0] <= 100.0
+    top1, _ = linear.main([*common, "--epochs", "2", "--batch_size", "4",
+                           "--cached_features"])
+    assert 0.0 <= top1 <= 100.0
+
+
+def test_cli_deit_tiny_trains(tmp_path):
+    """--arch deit_tiny at full width, 2 steps: finite losses in log.txt
+    and a checkpoint with the reference's ViT names."""
+    out = tmp_path / "out"
+    ttrain.main(["--arch", "deit_tiny", *SMALL, "--output_dir", str(out),
+                 "--epochs", "1", "--max_steps", "2"])
+    log = [json.loads(line) for line in open(out / "log.txt")]
+    assert len(log) == 1 and math.isfinite(log[0]["train_loss"])
+    tree = torch.load(out / "checkpoint.pth", weights_only=True)
+    assert tree["step"] == 2
+    assert tree["teacher"]["pos_embed"].shape == (1, 197, 192)
+    assert "blocks.11.mlp.fc2.weight" in tree["student"]
 
 
 def _imports(path):

@@ -116,11 +116,13 @@ def test_presets_and_feature_dims_match_jax(preset):
 
 
 def test_unported_presets_and_dims_raise():
-    for name in set(jcfg.PRESETS) - set(tcfg.PRESETS):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            tcfg.get_model_config(name)
+    """Every esvit_tpu preset is ported; ResNet's probe width waits for
+    its backbone."""
+    assert set(tcfg.PRESETS) == set(jcfg.PRESETS)
+    with pytest.raises(ValueError, match="unknown model preset"):
+        tcfg.get_model_config("resnet50")
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tlinear.feature_dim_for(jcfg.deit_small(), 4)
+        tlinear.feature_dim_for(type("R", (), {"name": "resnet"})(), 4)
     with pytest.raises(ValueError, match="unknown dataset kind"):
         tdata.build_dataset("imagenet", root="x")
 
@@ -303,6 +305,59 @@ def test_probe_features_and_online_probe_match_jax(femto):
                                    np.asarray(j_params[name]),
                                    rtol=FEAT_TOL, atol=FEAT_TOL)
     assert t_acc == j_acc
+
+
+def _family(name):
+    """(JAX backbone, its variables with BatchNorm statistics moved off 0 /
+    1, the port's backbone on them) of a small CvT or ViT."""
+    if name == "cvt":
+        jc, tc = jcfg.cvt_femto(img_size=32), tcfg.cvt_femto(img_size=32)
+    else:
+        jc, tc = (pkg.ViTConfig(img_size=32, patch_size=8, embed_dim=32,
+                                depth=2, num_heads=2) for pkg in (jcfg, tcfg))
+    backbone = jbuild(jc)
+    v = jax.tree.map(np.asarray, backbone.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 32, 32, 3))))
+    rng = np.random.default_rng(2)
+    if "batch_stats" in v:
+        v["batch_stats"] = jax.tree.map(
+            lambda a: (a + rng.uniform(0.1, 0.5, a.shape)).astype(np.float32),
+            v["batch_stats"])
+    port = tbuild(tc)
+    port.load_state_dict(state_dict_from_flax(v["params"],
+                                              v.get("batch_stats")),
+                         strict=True)
+    return backbone, v, port
+
+
+@pytest.mark.parametrize("name", ["cvt", "vit"])
+def test_cvt_and_vit_eval_features_match_jax(name):
+    """k-NN features and 2-last-block probe features of a CvT (BatchNorm
+    on its running statistics in both) and a ViT on the same images."""
+    backbone, variables, port = _family(name)
+    before = {k: v.clone() for k, v in port.state_dict().items()
+              if "running" in k}
+    ds = tdata.SyntheticImages(n=6, size=40, num_classes=3)
+    j_ds = jdata.SyntheticImages(n=6, size=40, num_classes=3)
+    j_f, j_l = jknn.extract_features(
+        lambda v, x: backbone.apply(v, x, deterministic=True), variables,
+        j_ds, batch_size=4, size=32)
+    t_f, t_l = tknn.extract_features(port, ds, batch_size=4, size=32,
+                                     device="cpu")
+    np.testing.assert_array_equal(t_l, j_l)
+    np.testing.assert_allclose(t_f, j_f, rtol=FEAT_TOL, atol=FEAT_TOL)
+    j_f, _ = jlinear.extract_probe_features(backbone, variables, j_ds,
+                                            n_last_blocks=2, batch_size=4,
+                                            size=32)
+    t_f, _ = tlinear.extract_probe_features(port, ds, n_last_blocks=2,
+                                            batch_size=4, size=32,
+                                            device="cpu")
+    assert t_f.shape[1] == tlinear.feature_dim_for(port.cfg, 2)
+    np.testing.assert_allclose(t_f, j_f, rtol=FEAT_TOL, atol=FEAT_TOL)
+    # The evals read the running statistics and leave them as they are.
+    assert len(before) == (4 if name == "cvt" else 0)
+    after = port.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())
 
 
 def test_adapt_swin_tables_matches_jax():

@@ -81,6 +81,15 @@ def test_validate_learning_twin_at_femto_size():
     assert res["seconds"] > 0
 
 
+def test_validate_learning_cvt_leg_at_a_few_steps():
+    """The nano CvT leg: 3 steps of the twin on the CPU, then its k-NN."""
+    res = vl.validate(steps=3, batch=4, backbone="cvt", device="cpu",
+                      n_eval=32)
+    assert res["steps"] == 3 and math.isfinite(res["last_loss"])
+    assert 0.0 <= res["before"] <= 100.0 and 0.0 <= res["after"] <= 100.0
+    assert all(map(math.isfinite, res["center_max"].values()))
+
+
 @pytest.mark.parametrize("size", ["femto", "nano"])
 def test_validate_learning_seed_sets_the_initial_weights(size, monkeypatch):
     """``--seed`` reaches TrainConfig.seed, from which validate() draws
@@ -124,8 +133,16 @@ def test_validate_learning_schedule_and_gates():
     assert vl.min_gain_for("shapes_hard", 6000, "vil") == 6.0
     assert vl.min_gain_for("shapes_hard", 2000, "swin") == 2.0
     assert vl.min_gain_for("shapes", 6000, "vil") == 5.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        vl.build_config(backbone="cvt")
+    cvt, img = vl.build_config(backbone="cvt", steps=6000)
+    st = cvt.model.stages
+    assert (img, cvt.model.img_size, cvt.optim.lr) == (96, 64, 4e-3)
+    assert [(s.patch_stride, s.embed_dim, s.depth, s.num_heads,
+             s.window_size) for s in st] == [(4, 32, 1, 2, 7),
+                                             (2, 64, 1, 4, 7),
+                                             (2, 128, 2, 4, 7)]
+    assert vl.build_config(backbone="cvt", fused=False)[0].model == cvt.model
+    assert vl.min_gain_for("shapes_hard", 6000, "cvt") == -1.0
+    assert vl.min_gain_for("shapes_hard", 2000, "cvt") == -1.0
     hires, img = vl.build_config(hires=True)
     assert (hires.crops.global_size, hires.crops.local_size, img) == (96, 48,
                                                                       160)
@@ -190,7 +207,7 @@ def test_chip_smoke_nano_shapes_are_the_gate_models_shapes(monkeypatch):
     assert want["eval"] <= seen["eval"]
 
 
-@pytest.mark.parametrize("backbone", ["swin", "vil"])
+@pytest.mark.parametrize("backbone", ["swin", "vil", "cvt"])
 def test_initial_weights_against_esvit_tpu(backbone):
     """The gate's models draw their initial weights from esvit_tpu's
     distributions (torch cannot draw jax.random's values): the constant
@@ -211,8 +228,19 @@ def test_initial_weights_against_esvit_tpu(backbone):
         jm = jcfg.SwinConfig(img_size=64, patch_size=4, embed_dim=32,
                              depths=(2, 2, 2), num_heads=(2, 4, 4),
                              window_size=4, drop_path_rate=0.0)
-    else:
+    elif backbone == "vil":
         jm = jcfg.vil_from_arch(vl.NANO_VIL_ARCH, img_size=64)
+    else:               # scripts/validate_learning.py:126-140
+        jm = jcfg.CvTConfig(img_size=64, stages=(
+            jcfg.CvTStageConfig(patch_size=3, patch_stride=4,
+                                patch_padding=1, embed_dim=32, depth=1,
+                                num_heads=2),
+            jcfg.CvTStageConfig(patch_size=3, patch_stride=2,
+                                patch_padding=1, embed_dim=64, depth=1,
+                                num_heads=4),
+            jcfg.CvTStageConfig(patch_size=3, patch_stride=2,
+                                patch_padding=1, embed_dim=128, depth=2,
+                                num_heads=4)))
     jc = jcfg.TrainConfig(
         model=jm, head=jcfg.HeadConfig(out_dim=1024, hidden_dim=512,
                                        bottleneck_dim=64,
@@ -221,7 +249,9 @@ def test_initial_weights_against_esvit_tpu(backbone):
     example = (jnp.zeros((4, 64, 64, 3)), jnp.zeros((4, 32, 32, 3)))
     jstate = JTrainer(jc, total_batch_size=2).init_state(
         jax.random.PRNGKey(0), example)
-    want = state_dict_from_flax(jax.device_get(jstate.student))
+    want = state_dict_from_flax(
+        jax.device_get(jstate.student),
+        jax.device_get(jstate.student_state).get("batch_stats"))
     got = TTrainer(tc, total_batch_size=2, device="cpu").init_state(
         torch.Generator().manual_seed(0)).student.state_dict()
     assert set(got) == set(want)

@@ -6,7 +6,9 @@ window-attention tile kernels instantiated with the fused block's bias
 policy (csrc/fused_block.cu FusedBlockBias): they belong to the fused
 block, not to the window-attention kernels (rows 3 and 4). The
 sliding-chunk pair's tensor-core kernels (csrc/sliding_chunk.cu tc::) and
-the globals' reduce file under "sliding chunk"."""
+the globals' reduce file under "sliding chunk". cuDNN's convolutions
+(CvT's), a weight-gradient kernel and an implicit GEMM among them, file
+under "convolutions", not under the fused block or cuBLAS."""
 
 import pytest
 
@@ -15,6 +17,7 @@ from esvit_tpu_torch.utils.profile import _kernel_group
 FUSED = "fused block (this repo's CUDA)"
 WINDOW = "window attention (this repo's CUDA)"
 SLIDING = "sliding chunk (this repo's CUDA)"
+CONV = "convolutions (cuDNN)"
 
 
 @pytest.mark.parametrize("name,group", [
@@ -29,6 +32,12 @@ SLIDING = "sliding chunk (this repo's CUDA)"
     ("void (anonymous namespace)::fused_bwd_t2_kernel<__nv_bfloat16>"
      "((anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
     ("(anonymous namespace)::wgrad_tc_kernel(__nv_bfloat16 const*, int)", FUSED),
+    ("void cudnn::cnn::wgrad_alg0_engine<float, 128, 6, 7, 3, 3, 5, false, "
+     "512>(int, int, int, float const*, int, float*, float const*, "
+     "kernel_grad_params, unsigned long long, int, float, int, int, int, "
+     "int)", CONV),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1_execute_kernel__5x_cudnn", CONV),
     ("void (anonymous namespace)::fused_block_fwd_tc_kernel<96, 1>("
      "(anonymous namespace)::Table, (anonymous namespace)::Geo)", FUSED),
     ("void (anonymous namespace)::fused_block_fwd_tc_kernel<96, 3>("

@@ -187,7 +187,7 @@ def test_unported_options_raise():
         tcfg.check_supported(tcfg.TrainConfig(
             model=tcfg.swin_tiny(remat="block")))
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        build_backbone(type("CvT", (), {"name": "cvt"})())
+        build_backbone(type("ResNet", (), {"name": "resnet"})())
     tcfg.check_supported(tcfg.TrainConfig())
 
 
