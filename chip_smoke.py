@@ -150,6 +150,38 @@ so the script exits non-zero and prints no result line:
    card with every BatchNorm buffer equal to the file's, a resume for a
    fifth step; deit_small 2 steps; the k-NN and linear-probe CLIs on the
    CvT run's checkpoint; no kernel launches.
+14. The training options (``phase_options``): (a) the K-streamed DDINO
+   loss: fp32 (TF32 off) Swin-T at B=4, one batch and one set of
+   weights, the streamed loss, both centres and the heads' gradients
+   within 1e-4 relative of the dense loss's; then train() at full width
+   (B=32, 2x224 + 8x96, 65536-wide heads, bf16), 3 steps each of dense
+   and streamed for Swin-T and DeiT-S, ms/step and peak memory, failing
+   unless DeiT-S's streamed peak is below its dense one; (b) remat: the
+   fp32 B=4 Swin-T loss and every gradient on fused_block_stages=() with
+   remat='block' against 'none' from one generator seed within 1e-6, then
+   3 full-width bf16 steps of each, ms/step and peak memory (the
+   window-attention forward launched again in each recompute, as
+   derived); (c) Swin-T with drop_rate = attn_drop_rate = 0.1 for 3
+   steps: finite losses, every kernel's launches as derived (none: any
+   dropout keeps the fused routes off, attention dropout both
+   window-attention kernels); (d) frozen_layers ('patch_embed',
+   'layers_0') for 3 steps: those student parameters bit-identical to
+   their start, the rest moved; (e) ResNet-50 (torchvision layout, cuDNN
+   convolutions): the fp32 forward on the card against the CPU at 224 px
+   (4 images) and 96 px (8) within 1e-4, on running statistics the whole
+   network, on batch statistics each block on the CPU's input to it (the
+   whole network printed: fp32 statistics round differently on the two
+   devices and compound through 16 blocks), and the running buffers after
+   each bn_train pass; train() at full width
+   with LARS and BatchNorm heads for 5 steps and with SGD for 3: finite
+   losses, student, teacher and centres moved, every backbone BatchNorm
+   buffer moved in both nets and the head's in the student only, no
+   launch of the seven kernels, ms/step and peak memory; k-NN and the
+   linear probe through the API on synthetic images; (f) the CLI with
+   ``--optimizer lars --use_bn_in_head --frozen_layers patch_embed`` for
+   2 steps in a subprocess, its checkpoint restored on the card with the
+   LARS trace equal to the file's bit for bit, and a resume for a third
+   step.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -1313,16 +1345,40 @@ def phase_vil_forward_parity(torch, C, sc):
 def _derived_launches(cfg, steps):
     """Per-kernel launches of `steps` train steps, from the model's routing
     (its ``<kernel>_calls``; 0 for a kernel the backbone never calls): the
-    teacher runs the 224 crops forward, the student all crops forward and
-    backward."""
+    teacher runs the 224 crops forward (deterministic), the student all
+    crops forward and backward (ViL's route under attention dropout
+    depends on which). Under Swin's remat='block' the student's window
+    attention forwards run again in the backward's recompute; the fused
+    routes are not rematerialised. With frozen_layers the backward stops
+    before the leading stages that hold no trainable parameter
+    (SwinTransformer.frozen_stages)."""
+    import inspect
+
     from esvit_tpu_torch.models.registry import build_backbone
+    from esvit_tpu_torch.train.optim import freeze_mask_by_prefix
 
     probe = build_backbone(cfg.model)
     g, l = cfg.crops.global_size, cfg.crops.local_size
+    remat = getattr(cfg.model, "remat", "none") == "block"
+    skip = 0
+    if cfg.optim.frozen_layers and hasattr(probe, "frozen_stages"):
+        skip = probe.frozen_stages(freeze_mask_by_prefix(
+            dict(probe.named_parameters()), cfg.optim.frozen_layers,
+            cfg.model.name))
     want = {}
     for name, (_, kinds) in KERNELS.items():
-        calls = getattr(probe, f"{name}_calls", lambda size: 0)
-        per_step = {"fwd": 2 * calls(g) + calls(l), "bwd": calls(g) + calls(l)}
+        fn = getattr(probe, f"{name}_calls", lambda size: 0)
+        params = inspect.signature(fn).parameters
+
+        def calls(size, det, first=0, fn=fn, params=params):
+            kw = {"deterministic": det} if "deterministic" in params else {}
+            if "from_stage" in params:
+                kw["from_stage"] = first
+            return fn(size, **kw)
+        student = calls(g, False) + calls(l, False)
+        again = student if remat and name != "fused_block" else 0
+        per_step = {"fwd": calls(g, True) + student + again,
+                    "bwd": calls(g, False, skip) + calls(l, False, skip)}
         want[name] = {k: per_step[k] * steps for k in kinds}
     return want
 
@@ -2333,19 +2389,19 @@ def _check_bn_moved(torch, label, student, teacher, init):
         "in the teacher, each net's its own")
 
 
-def _family_parity(torch, C, name, card):
-    """fp32 forward_features of ``name`` on the card (TF32 off) against the
-    CPU, same weights, at each FAMILY_PARITY batch; a BatchNorm backbone
-    on running and on batch statistics, its buffers held after each
-    bn_train forward."""
+def _family_parity(torch, C, name, card, cfg=None):
+    """fp32 forward_features of ``name`` (a preset, or ``cfg``) on the card
+    (TF32 off) against the CPU, same weights, at each FAMILY_PARITY batch;
+    a BatchNorm backbone on running and on batch statistics, its buffers
+    held after each bn_train forward."""
     import copy
 
     from esvit_tpu_torch.models.registry import build_backbone
 
-    cfg = C.get_model_config(name)
+    cfg = cfg or C.get_model_config(name)
     cpu = build_backbone(cfg, generator=torch.Generator().manual_seed(0))
     dev = copy.deepcopy(cpu).cuda()
-    modes = (False, True) if cfg.name == "cvt" else (False,)
+    modes = (False, True) if cfg.name in ("cvt", "resnet") else (False,)
     for size, n in FAMILY_PARITY:
         x = torch.randn(n, size, size, 3,
                         generator=torch.Generator().manual_seed(size))
@@ -2356,6 +2412,15 @@ def _family_parity(torch, C, name, card):
             torch.cuda.synchronize()
             errs = [(a.cpu() - b).abs().max().item() / b.abs().max().item()
                     for a, b in zip(got, want)]
+            if bn_train and cfg.name == "resnet":
+                # fp32 batch statistics round differently on the two
+                # devices and the differences compound through 16 blocks
+                # (tests/test_torch_resnet.py): the whole network is
+                # printed, each block is held on the CPU's input to it.
+                log(f"families {name} fp32 {n}x{size}px bn_train=True: "
+                    f"whole network card vs CPU cls {errs[0]:.2e}, region "
+                    f"{errs[1]:.2e} (not held) [{card}]")
+                errs[:2] = _resnet_block_errors(torch, cpu, dev, x)
             if bn_train:
                 bw, bg = (_bn_buffers(m.state_dict()) for m in (cpu, dev))
                 errs.append(max((bg[k].cpu() - v).abs().max().item()
@@ -2364,12 +2429,42 @@ def _family_parity(torch, C, name, card):
             if max(errs) > FAMILY_TOL:
                 raise AssertionError(f"{name} {size}px bn_train={bn_train}: "
                                      f"card vs CPU {errs}")
+            per_block = bn_train and cfg.name == "resnet"
             log(f"families {name} fp32 {n}x{size}px bn_train={bn_train}: "
-                f"card vs CPU rel err cls {errs[0]:.2e}, region {errs[1]:.2e}"
+                + ("each block on the CPU's input, card vs CPU rel err up "
+                   f"to {errs[0]:.2e}" if per_block else
+                   f"card vs CPU rel err cls {errs[0]:.2e}, region "
+                   f"{errs[1]:.2e}")
                 + (f", running buffers {errs[2]:.2e}" if bn_train else "")
                 + f" (tol {FAMILY_TOL}), region {tuple(got[1].shape)} "
                 f"[{card}]")
     del dev
+
+
+def _resnet_block_errors(torch, cpu, dev, x):
+    """The largest error of the stem and of each bottleneck on the card
+    (batch statistics) against the CPU's, each run on the CPU's input to
+    it (relative to its largest output), and the same for the pooled
+    feature; both models' buffers move as in a whole forward."""
+    import torch.nn.functional as F
+
+    def stem(model, x):
+        y = F.relu(model.bn1(model.conv1(x), True))
+        return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(
+            0, 2, 3, 1)
+
+    errs = []
+    with torch.no_grad():
+        y = stem(cpu, x)
+        errs.append(_rel(torch, stem(dev, x.cuda()).cpu(), y))
+        blocks = zip([b for layer in cpu.layers() for b in layer],
+                     [b for layer in dev.layers() for b in layer])
+        for b_cpu, b_dev in blocks:
+            out = b_cpu(y, True)
+            errs.append(_rel(torch, b_dev(y.cuda(), True).cpu(), out))
+            y = out
+    torch.cuda.synchronize()
+    return [max(errs), max(errs)]
 
 
 def phase_families(torch, C, counters, card):
@@ -2489,6 +2584,338 @@ def phase_families(torch, C, counters, card):
                 f"{images / rec['seconds']:.1f} img/s [{card}]")
 
 
+# Phase 14, the training options. Steps of each full-width train() run,
+# ResNet-50's LARS and SGD runs, the fp32 parity batch (B, the Swin-T
+# step's crops) and its tolerances (relative to each tensor's largest
+# |value|), and the API evals' synthetic image counts.
+OPT_STEPS = 3
+RESNET_LARS_STEPS, RESNET_SGD_STEPS = 5, 3
+OPT_PARITY_B = 4
+STREAMED_TOL, REMAT_TOL = 1e-4, 1e-6
+OPT_EVAL_TRAIN, OPT_EVAL_VAL = 256, 64
+
+
+def _rel(torch, a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _loss_and_grads(torch, trainer, state, batch, seed, deterministic):
+    """One step's loss, new centres and every student gradient (by name),
+    without the update: the step's forwards and loss as train_step runs
+    them, drop-path from a generator seeded ``seed``."""
+    cfg = trainer.cfg
+    B = batch[0].shape[0] // 2
+    ncrops = 2 + batch[1].shape[0] // B
+    streamed = cfg.loss.use_dense_prediction and cfg.loss.streamed
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        t_out = state.teacher((batch[0],), deterministic=True, batch_size=B,
+                              bn_train=True, bottleneck_outputs=streamed)
+    s_out = state.student(batch, deterministic=deterministic, generator=gen,
+                          batch_size=B, bottleneck_outputs=streamed)
+    loss, centers = trainer._loss(state, s_out, t_out,
+                                  trainer.teacher_temp_fn(0), ncrops, B, None)
+    named = dict(state.student.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return (loss.detach(), centers,
+            {n: g for n, g in zip(named, grads) if g is not None})
+
+
+def _parity_batch(torch, C):
+    gen = torch.Generator().manual_seed(14)
+    c = C.CropConfig()
+    return (torch.randn(2 * OPT_PARITY_B, c.global_size, c.global_size, 3,
+                        generator=gen).cuda(),
+            torch.randn(c.local_crops_number * OPT_PARITY_B, c.local_size,
+                        c.local_size, 3, generator=gen).cuda())
+
+
+def _options_parity(torch, C, label, cfg_a, cfg_b, keep, tol, deterministic,
+                    card):
+    """fp32 loss, centres and the gradients of the parameters ``keep``
+    takes, from one state (seed 0) and batch under cfg_a and cfg_b, within
+    ``tol`` of cfg_a's."""
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
+    batch = _parity_batch(torch, C)
+    out = []
+    for cfg in (cfg_a, cfg_b):
+        trainer = EsViTTrainer(cfg, device="cuda")
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        loss, centers, grads = _loss_and_grads(torch, trainer, state, batch,
+                                               1, deterministic)
+        out.append((loss, centers, {n: g for n, g in grads.items()
+                                    if keep(n)}))
+        del trainer, state
+        torch.cuda.empty_cache()
+    (la, ca, ga), (lb, cb, gb) = out
+    if set(ga) != set(gb) or not ga:
+        raise AssertionError(f"{label}: gradients of {sorted(set(ga) ^ set(gb))}")
+    errs = {"loss": _rel(torch, lb, la),
+            "center": max(_rel(torch, b, a) for a, b in zip(ca, cb)),
+            "grads": max(_rel(torch, gb[n], ga[n]) for n in ga)}
+    if not (math.isfinite(la.item()) and max(errs.values()) <= tol):
+        raise AssertionError(f"{label}: {errs} (tol {tol})")
+    log(f"options {label}: fp32 B={OPT_PARITY_B} 2x224+8x96, loss "
+        f"{la.item():.6f} vs {lb.item():.6f}; rel err loss {errs['loss']:.2e}, "
+        f"centres {errs['center']:.2e}, {len(ga)} gradients up to "
+        f"{errs['grads']:.2e} (tol {tol}) [{card}]")
+
+
+def _timed_slice(torch, cfg, steps, counters, label, card, check_state,
+                 check_more=None):
+    """_slice, then its ms/step over steps 2-N and its peak memory."""
+    _, history = _slice(torch, cfg, steps, counters, label, card,
+                        check_state, check_more)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.mean(h["seconds"] for h in history[1:]) * 1e3
+    return ms, peak
+
+
+def _with_loss(cfg, **kw):
+    import dataclasses
+
+    return cfg.replace(loss=dataclasses.replace(cfg.loss, **kw))
+
+
+def _with_optim(cfg, **kw):
+    import dataclasses
+
+    return cfg.replace(optim=dataclasses.replace(cfg.optim, **kw))
+
+
+def _check_frozen(prefixes):
+    def check(state, init):
+        held, moved = 0, 0
+        for name, p in state.student.named_parameters():
+            change = (p.detach().cpu() - init[name]).abs().max().item()
+            if name.startswith(prefixes):
+                if change != 0:
+                    raise AssertionError(f"frozen {name} moved by {change}")
+                held += 1
+            elif name.startswith(("layers.1.", "layers.2.", "layers.3.",
+                                  "head")):
+                moved += change > 0
+        if not held or not moved:
+            raise AssertionError(f"frozen layers: {held} held, {moved} moved")
+        log(f"options frozen_layers: {held} student parameters "
+            f"bit-identical to their start, {moved} of the later stages' "
+            "and the heads' moved")
+    return check
+
+
+def _check_resnet_buffers(label):
+    """Every backbone BatchNorm buffer moved in both nets; the heads' in
+    the student only (the teacher's head normalises by its running
+    statistics, esvit_tpu/models/heads.py:98-100)."""
+    def check(state, init):
+        s, t = (_bn_buffers(m.state_dict()) for m in (state.student,
+                                                      state.teacher))
+        head = [k for k in s if k.startswith("head")]
+        backbone = [k for k in s if not k.startswith("head")]
+        if len(backbone) != 2 * 53 or not head:
+            raise AssertionError(f"{label}: buffers {len(backbone)}, "
+                                 f"{len(head)}")
+        for k in backbone + head:
+            i = init[k]
+            s_moved = (s[k].cpu() - i).abs().max() > 0
+            t_moved = (t[k].cpu() - i).abs().max() > 0
+            if not s_moved or t_moved != (k in backbone):
+                raise AssertionError(f"{label}: buffer {k} student moved "
+                                     f"{bool(s_moved)}, teacher {bool(t_moved)}")
+        log(f"{label}: all {len(backbone)} backbone BatchNorm buffers moved "
+            f"in the student and in the teacher; the {len(head)} head "
+            "buffers in the student only")
+    return check
+
+
+def phase_options(torch, C, counters, card):
+    """Phase 14 (see the module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (_options_streamed, _options_remat, _options_dropout,
+                     _options_frozen, _options_resnet, _options_cli):
+            part(torch, C, counters, card, tmp)
+    log(f"options phase: {time.perf_counter() - t0:.1f} s")
+
+
+def _fp32_parity_cfg(torch, C):
+    return C.swin_tiny_multicrop(OPT_PARITY_B).replace(dtype=torch.float32)
+
+
+def _options_streamed(torch, C, counters, card, tmp):
+    """(a) The K-streamed loss: fp32 parity with the dense loss, then
+    full-width ms/step and peak memory of both on Swin-T and DeiT-S."""
+    fp32 = _fp32_parity_cfg(torch, C)
+    _options_parity(torch, C, "streamed vs dense loss", fp32,
+                    _with_loss(fp32, streamed=True),
+                    lambda n: n.startswith("head"), STREAMED_TOL, True, card)
+    summary = {}
+    for label, make in (("Swin-T", C.swin_tiny_multicrop),
+                        ("DeiT-S", C.deit_small_multicrop)):
+        for streamed in (False, True):
+            cfg = _with_loss(make(BATCH, output_dir=tmp),
+                             streamed=streamed)
+            name = f"{label} {'streamed' if streamed else 'dense'} loss"
+            summary[name] = _timed_slice(torch, cfg, OPT_STEPS, counters,
+                                         name, card, False)
+    for label in ("Swin-T", "DeiT-S"):
+        (dm, dp), (sm, sp) = (summary[f"{label} {k} loss"]
+                              for k in ("dense", "streamed"))
+        log(f"options {label} B={BATCH} bf16: dense loss {dm:.1f} ms/step, "
+            f"peak {dp:.2f} GiB; streamed ({C.LossConfig().stream_chunks} "
+            f"chunks) {sm:.1f} ms/step, peak {sp:.2f} GiB [{card}]")
+    dense_peak = summary["DeiT-S dense loss"][1]
+    if not summary["DeiT-S streamed loss"][1] < dense_peak:
+        raise AssertionError(f"DeiT-S streamed peak not below dense: "
+                             f"{summary}")
+
+
+def _options_remat(torch, C, counters, card, tmp):
+    """(b) remat='block' against 'none': fp32 parity of every gradient,
+    then full-width ms/step and peak memory of both."""
+    fp32 = _fp32_parity_cfg(torch, C)
+    wa_cfg = fp32.replace(model=C.swin_tiny(fused_block_stages=()))
+    _options_parity(torch, C, "remat='block' vs 'none'", wa_cfg,
+                    wa_cfg.replace(model=C.swin_tiny(
+                        fused_block_stages=(), remat="block")),
+                    lambda n: True, REMAT_TOL, False, card)
+    for remat in ("none", "block"):
+        cfg = C.swin_tiny_multicrop(BATCH, output_dir=tmp).replace(
+            model=C.swin_tiny(fused_block_stages=(), remat=remat))
+        ms, peak = _timed_slice(torch, cfg, OPT_STEPS, counters,
+                                f"Swin-T remat={remat!r}", card, False)
+        log(f"options Swin-T fused_block_stages=() remat={remat!r} "
+            f"B={BATCH} bf16: {ms:.1f} ms/step, peak {peak:.2f} GiB "
+            f"[{card}]")
+
+
+def _options_dropout(torch, C, counters, card, tmp):
+    """(c) Swin-T with backbone dropout: finite losses, launches as
+    derived."""
+    cfg = C.swin_tiny_multicrop(BATCH, output_dir=tmp).replace(
+        model=C.swin_tiny(drop_rate=0.1, attn_drop_rate=0.1))
+    got, _ = _slice(torch, cfg, OPT_STEPS, counters,
+                    "Swin-T dropout 0.1", card, False)
+    log(f"options dropout: launches {got} as derived (any dropout keeps "
+        "the fused routes off, attention dropout both window-attention "
+        "kernels)")
+
+
+def _options_frozen(torch, C, counters, card, tmp):
+    """(d) frozen_layers: the frozen student parameters bit-identical to
+    their start, the rest moved."""
+    cfg = _with_optim(C.swin_tiny_multicrop(BATCH, output_dir=tmp),
+                      frozen_layers=("patch_embed", "layers_0"))
+    _slice(torch, cfg, OPT_STEPS, counters, "Swin-T frozen_layers", card,
+           True, _check_frozen(("patch_embed.", "layers.0.")))
+
+
+def _options_resnet(torch, C, counters, card, tmp):
+    """(e) ResNet-50: card against CPU, LARS and SGD runs, the evals
+    through the API."""
+    import numpy as np
+
+    from esvit_tpu_torch.data.datasets import SyntheticImages
+    from esvit_tpu_torch.evals import knn, linear
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    zero = {name: {k: 0 for k in kinds}
+            for name, (_, kinds) in KERNELS.items()}
+    _family_parity(torch, C, "resnet50", card, C.ResNetConfig(depth=50))
+    torch.cuda.empty_cache()
+    resnet = C.TrainConfig(
+        model=C.ResNetConfig(depth=50), head=C.HeadConfig(use_bn=True),
+        optim=C.OptimConfig(optimizer="lars",
+                            batch_size_per_device=BATCH),
+        output_dir=tmp)
+    for opt, steps in (("lars", RESNET_LARS_STEPS),
+                       ("sgd", RESNET_SGD_STEPS)):
+        cfg = _with_optim(resnet, optimizer=opt)
+        label = f"ResNet-50 {opt.upper()} BN heads"
+        ms, peak = _timed_slice(torch, cfg, steps, counters, label, card,
+                                True, _check_resnet_buffers(label))
+        log(f"options {label} B={BATCH} 2x224+8x96 bf16: {ms:.1f} "
+            f"ms/step over steps 2-{steps}, peak {peak:.2f} GiB, no "
+            f"launch of the seven kernels [{card}]")
+    backbone = build_backbone(
+        C.ResNetConfig(depth=50),
+        generator=torch.Generator().manual_seed(0)).cuda()
+    train_ds = SyntheticImages(OPT_EVAL_TRAIN, EVAL_SIZE, EVAL_CLASSES, 0)
+    val_ds = SyntheticImages(OPT_EVAL_VAL, EVAL_SIZE, EVAL_CLASSES, 1)
+    for launches in counters.values():
+        for k in launches:
+            launches[k] = 0
+    res = knn.run_knn_eval(backbone, train_ds, val_ds, ks=(10, 20),
+                           batch_size=EVAL_BATCH, dump_dir=tmp,
+                           device="cuda")
+    f = np.load(os.path.join(tmp, "trainfeat.npy"))
+    acc = linear.run_linear_eval(backbone, train_ds, val_ds,
+                                 n_last_blocks=4, epochs=5,
+                                 feat_batch=EVAL_BATCH,
+                                 cached_features=True, device="cuda")
+    got = {n: dict(c) for n, c in counters.items()}
+    if (f.shape != (OPT_EVAL_TRAIN, 2048) or not np.isfinite(f).all()
+            or sorted(res) != [10, 20] or got != zero
+            or not all(0 <= a <= 100 for a in acc)):
+        raise AssertionError(f"ResNet-50 evals: features {f.shape}, "
+                             f"k-NN {res}, probe {acc}, launches {got}")
+    log(f"options ResNet-50 evals through the API (random weights, "
+        f"{OPT_EVAL_TRAIN} + {OPT_EVAL_VAL} images): k-NN {res}, linear "
+        f"probe top1 {acc[0]:.2f} on {linear.feature_dim_for(C.ResNetConfig(), 4)}"
+        f"-dim pooled features, no kernel launches [{card}]")
+    del backbone
+    torch.cuda.empty_cache()
+
+
+def _options_cli(torch, C, counters, card, tmp):
+    """(f) The CLI with LARS, BatchNorm heads and a frozen patch
+    embedding: its checkpoint's trace restored bit for bit, a resume."""
+    from esvit_tpu_torch.io.checkpoint import CheckpointManager
+    from esvit_tpu_torch.train import train as train_cli
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
+    d = os.path.join(tmp, "cli")
+    args = [*ENTRY_ARGS, "--optimizer", "lars", "--use_bn_in_head",
+            "--frozen_layers", "patch_embed", "--output_dir", d,
+            "--epochs", "1"]
+    cfg = train_cli.config_from_args(
+        train_cli.get_args_parser().parse_args(args))
+    _, rec = _entry_run("lars cli", TRAIN_MODULE,
+                        [*args, "--max_steps", "2"])
+    _entry_launches("lars cli", rec["launches"], _derived_launches(cfg, 2))
+    ckpt = os.path.join(d, "checkpoint.pth")
+    tree = _load_tree(torch, ckpt)
+    init = _initial_weights(torch, cfg)
+    frozen = [k for k in tree["student"] if k.startswith("patch_embed.")]
+    if (tree["optimizer"] != "lars" or tree["step"] != 2 or tree["mu"]
+            or not tree["trace"] or not frozen or not all(
+                torch.equal(tree["student"][k], init[k]) for k in frozen)):
+        raise AssertionError(f"lars cli checkpoint: {tree['optimizer']}, "
+                             f"step {tree['step']}")
+    state = EsViTTrainer(cfg, device="cuda").init_state(
+        torch.Generator().manual_seed(1))
+    CheckpointManager(d).restore(state)
+    for k, v in tree["trace"].items():
+        if not torch.equal(state.trace[k].cpu(), v):
+            raise AssertionError(f"lars cli restore: trace {k}")
+    n = sum(v.numel() for v in tree["trace"].values())
+    del state
+    torch.cuda.empty_cache()
+    text, rec = _entry_run("lars cli resume", TRAIN_MODULE,
+                           [*args, "--max_steps", "3"])
+    _entry_launches("lars cli resume", rec["launches"],
+                    _derived_launches(cfg, 1))
+    if ("resumed from step 2" not in text
+            or _load_tree(torch, ckpt)["step"] != 3):
+        raise AssertionError(f"lars cli resume:\n{text[-3000:]}")
+    log(f"options CLI --optimizer lars --use_bn_in_head --frozen_layers "
+        f"patch_embed: 2 steps, the patch embedding bit-identical to its "
+        f"start, the LARS trace ({n} values) restored on the card equal "
+        f"to the file's, resumed from step 2 to 3 [{card}]")
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -2544,6 +2971,7 @@ def main():
     phase_entry(torch, C, card)
     phase_real_images(torch, C, counters, card, synthetic_ms)
     phase_families(torch, C, counters, card)
+    phase_options(torch, C, counters, card)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

@@ -21,9 +21,14 @@ kernel's shape rule takes to it (ops/sliding_chunk.py, the CUDA kernel
 for tensors on the card), 'off' runs the plain stacked-neighbourhood
 version everywhere; the TPU's 'interpret' and 'on' are not ported.
 
+The ResNet config mirrors ``esvit_tpu/config.py:283-292``; as there, no
+preset names it: ``TrainConfig(model=ResNetConfig(depth=50))`` reaches it.
+
 Fields whose reference behaviour the port does not run yet keep their
 names and are refused by :func:`check_supported`, which names the ROADMAP
-item that ports them.
+item that ports them: the DINO head's tensor parallelism (``mesh.model >
+1``) and ViL's neighbour sampling, attention types and relative position
+bias.
 """
 
 from __future__ import annotations
@@ -65,6 +70,9 @@ class SwinConfig:
     # Window-major stage layout (ops/window.py): per-block pad/roll/
     # partition copies become one index gather per layout change.
     layout_opt: bool = True
+    # 'block': each block of the window-major and classic loops runs under
+    # torch.utils.checkpoint, so backward recomputes its activations from
+    # its input (the fused routes recompute in their own backward).
     remat: str = "none"
     # Stages whose blocks each run as one call of the block-fused kernel
     # pair (ops/fused_block.py, csrc/fused_block.cu) where its shape rule
@@ -190,6 +198,19 @@ class ViLConfig:
 
 
 @dataclass(frozen=True)
+class ResNetConfig:
+    """torchvision-layout ResNet v1 (ref: utils.py:621-665 ResNetWrapper)."""
+
+    depth: int = 50
+    in_chans: int = 3
+    name: str = "resnet"
+
+    @property
+    def num_features(self) -> int:
+        return 2048 if self.depth >= 50 else 512
+
+
+@dataclass(frozen=True)
 class HeadConfig:
     """DINO projection head (ref: models/vision_transformer.py:384-418)."""
 
@@ -212,7 +233,11 @@ class LossConfig:
     warmup_teacher_temp_epochs: int = 30
     student_temp: float = 0.1
     center_momentum: float = 0.9
+    # K-streamed DDINO loss (losses.ddino_loss_streamed): the DINO heads'
+    # last layers fold into the loss, which walks out_dim in
+    # stream_chunks chunks, so no (rows, out_dim) tensor outlives a chunk.
     streamed: bool = False
+    stream_chunks: int = 8
 
 
 @dataclass(frozen=True)
@@ -234,7 +259,7 @@ class CropConfig:
 class OptimConfig:
     """Optimizer + schedules (ref: main_esvit.py:96-140, utils.py:161-173)."""
 
-    optimizer: str = "adamw"
+    optimizer: str = "adamw"        # adamw | sgd | lars
     lr: float = 5e-4                # scaled by total_batch/256 at runtime
     min_lr: float = 1e-6
     warmup_epochs: int = 10
@@ -245,6 +270,10 @@ class OptimConfig:
     freeze_last_layer_epochs: int = 1
     epochs: int = 300
     batch_size_per_device: int = 32
+    # Parameter subtrees frozen for the whole run (the finetune recipes'
+    # FINETUNE.FROZEN_LAYERS): esvit_tpu's keys ('patch_embed', 'layers_0',
+    # 'layers_0/blocks_1', dotted 'layers.0') or '*' (train/optim.py
+    # freeze_mask_by_prefix).
     frozen_layers: tuple = ()
 
 
@@ -450,28 +479,24 @@ def _refuse(what: str, item: str):
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for reference options the port lacks."""
+    """Raise NotImplementedError for reference options the port lacks:
+    the DINO head's tensor parallelism and ViL's item-9b variants."""
     m = cfg.model
     name = getattr(m, "name", None)
     if name == "swin":
         if m.attention_impl not in ("packed", "pallas", "xla"):
             raise ValueError(f"unknown attention_impl {m.attention_impl!r}")
-        if m.remat != "none":
-            _refuse(f"remat={m.remat!r}", "queue 1 item 12")
+        if m.remat not in ("none", "block"):
+            raise ValueError(f"unknown remat mode {m.remat!r}")
     elif name == "vil":
         _check_vil(m)
+    elif name == "resnet":
+        if m.depth not in (50, 101, 152):
+            raise ValueError(f"ResNet depth {m.depth}: have 50, 101, 152")
     elif name not in ("vit", "cvt"):
-        _refuse(f"backbone {getattr(m, 'name', m)!r}", "queue 1 item 11")
-    if getattr(m, "drop_rate", 0.0) or getattr(m, "attn_drop_rate", 0.0):
-        _refuse("dropout inside the backbone", "queue 1 item 12")
-    if cfg.head.use_bn:
-        _refuse("BatchNorm in the DINO head", "queue 1 item 11")
-    if cfg.loss.streamed:
-        _refuse("the K-streamed loss", "queue 1 item 12")
-    if cfg.optim.optimizer != "adamw":
-        _refuse(f"optimizer={cfg.optim.optimizer!r}", "queue 1 item 11")
-    if cfg.optim.frozen_layers:
-        _refuse("frozen_layers", "queue 1 item 12")
+        raise ValueError(f"no backbone for {name!r}")
+    if cfg.optim.optimizer not in ("adamw", "sgd", "lars"):
+        raise ValueError(f"unknown optimizer {cfg.optim.optimizer!r}")
     if cfg.mesh.model > 1:
         _refuse(f"mesh model axis {cfg.mesh.model} (the DINO head's tensor "
                 "parallelism)", "queue 1 item 12")

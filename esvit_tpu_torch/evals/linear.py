@@ -60,8 +60,9 @@ def feature_dim_for(model_cfg, n_last_blocks: int) -> int:
         for s in model_cfg.stages:
             dims += [s.embed_dim] * s.depth
         return sum(dims[-n_last_blocks:])
-    raise NotImplementedError(f"the {model_cfg.name!r} family is not ported "
-                              "yet (ROADMAP queue 1 item 11)")
+    if model_cfg.name == "resnet":
+        return model_cfg.num_features        # avgpool only (ref :168-176)
+    raise ValueError(f"unknown arch {model_cfg.name}")
 
 
 def _n_last_blocks(backbone, n_last_blocks):

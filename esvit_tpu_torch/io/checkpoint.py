@@ -6,8 +6,10 @@ One ``torch.save`` file holds what the reference's checkpoint.pth holds
 step count, the student's and the teacher's state dicts (the reference's
 parameter names, so the evals load the file as they load the
 reference's; each net's BatchNorm running statistics are in its own,
-as esvit_tpu keeps ``student_state`` and ``teacher_state``), the AdamW moments ``mu`` / ``nu`` by parameter name, and
-both DINO centers. Every tensor is a host copy, so a checkpoint loads on
+as esvit_tpu keeps ``student_state`` and ``teacher_state``), the
+optimizer's name and state by parameter name (AdamW's moments ``mu`` /
+``nu``, or SGD's / LARS's ``trace``), and both DINO centers. Restoring a
+file into a state of another optimizer raises. Every tensor is a host copy, so a checkpoint loads on
 a machine without a card. Cadence as the reference's: ``checkpoint.pth``
 every epoch (overwritten) and ``checkpoint{epoch:04d}.pth`` every
 ``save_every_epochs`` epochs or when asked. Each file is written under a
@@ -41,8 +43,10 @@ def state_to_dict(state: TrainState) -> dict:
         "adam_count": state.adam_count,
         "student": _host(state.student.state_dict()),
         "teacher": _host(state.teacher.state_dict()),
+        "optimizer": state.optimizer,
         "mu": _host(state.mu),
         "nu": _host(state.nu),
+        "trace": _host(state.trace),
         "centers": {"center": state.centers.center.detach().cpu().clone(),
                     "center_grid":
                         state.centers.center_grid.detach().cpu().clone()},
@@ -51,12 +55,17 @@ def state_to_dict(state: TrainState) -> dict:
 
 def load_state_dict(like: TrainState, tree: dict) -> TrainState:
     """Copy ``tree`` into ``like``'s tensors, in place and on their
-    device; every tensor must be there with its shape."""
+    device; every tensor must be there with its shape, and the file's
+    optimizer must be the state's (a file without the key is AdamW's)."""
+    saved_opt = tree.get("optimizer", "adamw")
+    if saved_opt != like.optimizer:
+        raise ValueError(f"checkpoint of optimizer {saved_opt!r} restored "
+                         f"into a {like.optimizer!r} run")
     like.student.load_state_dict(tree["student"], strict=True)
     like.teacher.load_state_dict(tree["teacher"], strict=True)
     with torch.no_grad():
-        for part in ("mu", "nu"):
-            live, saved = getattr(like, part), tree[part]
+        for part in ("mu", "nu", "trace"):
+            live, saved = getattr(like, part), tree.get(part, {})
             if set(live) != set(saved):
                 raise KeyError(f"checkpoint {part} names differ from the "
                                f"model's: {sorted(set(live) ^ set(saved))}")

@@ -25,6 +25,14 @@ is exactly the inverse of esvit_tpu/io/torch_import.py
 - ViT (the inverse of ``import_vit_backbone``): ``patch_embed`` ->
   ``patch_embed.proj``; ``cls_token``, ``pos_embed`` and ``blocks_i`` as
   they are.
+- ResNet, to torchvision's names: ``stem/conv`` -> ``conv1``, ``stem/bn``
+  -> ``bn1``, ``layer{i}_block{j}`` -> ``layer{i}.{j}``, its ``cb{k}/conv``
+  / ``cb{k}/bn`` -> ``conv{k}`` / ``bn{k}`` and ``down/conv`` /
+  ``down/bn`` -> ``downsample.0`` / ``downsample.1``; conv kernels HWIO ->
+  OIHW, BatchNorm as CvT's.
+- A BatchNorm head (``use_bn``): ``mlp_k`` -> ``mlp.{3k}`` and ``bn_k``
+  -> ``mlp.{3k+1}`` (the reference's Linear, BatchNorm1d, GELU), its
+  ``scale`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` as above.
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the flax
 tree); nothing here imports jax.
@@ -52,18 +60,36 @@ _CVT_BLOCK = {"norm_attn": ["0", "norm"], "attn": ["0", "fn"],
               "ff_2": ["1", "fn", "net", "2"]}
 
 
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _resnet_names(parts: list[str]) -> list[str]:
+    """ResNet's flax scopes (BatchNorm leaves already renamed) ->
+    torchvision's module path."""
+    if parts[0] == "stem":
+        return [{"conv": "conv1", "bn": "bn1"}[parts[1]]]
+    m = re.fullmatch(r"layer(\d+)_block(\d+)", parts[0])
+    names = [f"layer{m.group(1)}", m.group(2)]
+    if parts[1] == "down":
+        return names + ["downsample", {"conv": "0", "bn": "1"}[parts[2]]]
+    k = re.fullmatch(r"cb(\d)", parts[1]).group(1)
+    return names + [f"{parts[2]}{k}"]
+
+
 def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
-             cvt: bool) -> tuple[str, np.ndarray]:
+             cvt: bool, head_bn: bool = False, resnet: bool = False
+             ) -> tuple[str, np.ndarray]:
     parts = list(path)
+    backbone = parts[0] not in ("head", "head_dense")
     if parts[0] == "backbone":
         parts = parts[1:]
     leaf = parts.pop()
     if parts and parts[-1] == "ln":                 # LayerNorm scope
         parts.pop()
         leaf = {"scale": "weight", "bias": "bias"}[leaf]
-    elif parts and parts[-1] == "bn":               # BatchNorm scope
-        leaf = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-                "var": "running_var"}[leaf]
+    elif parts and (parts[-1] == "bn" or re.fullmatch(r"bn_\d+", parts[-1])):
+        leaf = _BN_LEAVES[leaf]                     # BatchNorm scope
     elif parts == ["patch_embed"]:                  # ViT's patch conv
         parts.append("proj")
     if leaf == "kernel":
@@ -73,9 +99,13 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
         leaf, v = "weight_v", v.T
     elif leaf == "scale_g":
         leaf, v = "weight_g", v.reshape(-1, 1)
+    if resnet and backbone:
+        return ".".join(_resnet_names(parts) + [leaf]), np.ascontiguousarray(v)
     names = []
     for i, p in enumerate(parts):
-        if m := re.fullmatch(r"(layers|blocks)_(\d+)", p):
+        if m := re.fullmatch(r"bn_(\d+)", p):
+            names += ["mlp", str(3 * int(m.group(1)) + 1)]
+        elif m := re.fullmatch(r"(layers|blocks)_(\d+)", p):
             names += [m.group(1), m.group(2)]
         elif cvt and (m := re.fullmatch(r"embed_(\d+)", p)):
             names += [f"stage{m.group(1)}", "0"]
@@ -90,7 +120,9 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
             j = 2 * int(m.group(3)) + (1 if m.group(2) == "attn" else 2)
             names += [f"layer{int(m.group(1)) + 1}", str(j)]
         elif m := re.fullmatch(r"mlp_(\d+)", p):
-            names += ["mlp"] if n_head_mlps == 1 else ["mlp", str(2 * int(m.group(1)))]
+            step = 3 if head_bn else 2
+            names += (["mlp"] if n_head_mlps == 1
+                      else ["mlp", str(step * int(m.group(1)))])
         elif p == "norm_final":
             names.append("norm")
         else:
@@ -104,13 +136,15 @@ def state_dict_from_flax(params: Mapping[str, Any],
     """EsViTModel (or bare backbone) flax params, and its ``batch_stats``
     collection where it has one -> the port's state_dict."""
     n_head_mlps = sum(1 for k in params.get("head", {}) if k.startswith("mlp_"))
+    head_bn = any(k.startswith("bn_") for k in params.get("head", {}))
     trees = [params] + ([batch_stats] if batch_stats else [])
-    cvt = any(re.fullmatch(r"stage\d+_block\d+", p)
-              for tree in trees for path, _ in _leaves(tree) for p in path)
+    keys = {p for tree in trees for path, _ in _leaves(tree) for p in path}
+    cvt = any(re.fullmatch(r"stage\d+_block\d+", p) for p in keys)
+    resnet = any(re.fullmatch(r"layer\d+_block\d+", p) for p in keys)
     out = {}
     for tree in trees:
         for path, v in _leaves(tree):
-            name, arr = _convert(path, v, n_head_mlps, cvt)
+            name, arr = _convert(path, v, n_head_mlps, cvt, head_bn, resnet)
             out[name] = torch.from_numpy(np.array(arr, copy=True))
     return out
 
@@ -122,11 +156,26 @@ def _adam_state(opt_state):
     return inject.inner_state[0]
 
 
+def _trace_state(opt_state):
+    """The TraceState (SGD's or LARS's momentum) inside an optax state."""
+    if hasattr(opt_state, "trace") and not hasattr(opt_state, "inner_state"):
+        return opt_state
+    children = (opt_state.inner_state if hasattr(opt_state, "inner_state")
+                else opt_state)
+    if isinstance(children, tuple):
+        for child in children:
+            if isinstance(child, tuple) or hasattr(child, "inner_state"):
+                found = _trace_state(child)
+                if found is not None:
+                    return found
+    return None
+
+
 def train_state_from_jax(jax_state, trainer):
     """esvit_tpu TrainState (numpy leaves) -> the port's TrainState on
     ``trainer.device``: student and teacher with their BatchNorm state
-    (``student_state`` / ``teacher_state``), AdamW moments and count,
-    step and centers."""
+    (``student_state`` / ``teacher_state``), the optimizer's state (AdamW
+    moments and count, or the SGD / LARS trace), step and centers."""
     from esvit_tpu_torch.losses import DinoCenters
     from esvit_tpu_torch.train.step import TrainState
 
@@ -141,15 +190,21 @@ def train_state_from_jax(jax_state, trainer):
     def by_name(tree):
         return {k: v.to(dev) for k, v in state_dict_from_flax(tree).items()}
 
-    adam = _adam_state(jax_state.opt_state)
+    opt = trainer.cfg.optim.optimizer
+    if opt == "adamw":
+        adam = _adam_state(jax_state.opt_state)
+        moments = dict(mu=by_name(adam.mu), nu=by_name(adam.nu),
+                       adam_count=int(adam.count), trace={})
+    else:
+        moments = dict(mu={}, nu={}, adam_count=0, trace=by_name(
+            _trace_state(jax_state.opt_state).trace))
     teacher = model(jax_state.teacher,
                     jax_state.teacher_state).requires_grad_(False)
     c = jax_state.centers
     return TrainState(
         step=int(jax_state.step),
         student=model(jax_state.student, jax_state.student_state),
-        teacher=teacher, mu=by_name(adam.mu), nu=by_name(adam.nu),
-        adam_count=int(adam.count),
+        teacher=teacher, optimizer=opt, **moments,
         centers=DinoCenters(center=torch.tensor(np.asarray(c.center)).to(dev),
                             center_grid=torch.tensor(
                                 np.asarray(c.center_grid)).to(dev)))

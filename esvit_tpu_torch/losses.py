@@ -6,6 +6,11 @@ pairs with v != iq; the dense task adds a region-level CE where each
 student region is matched to its cosine-most-similar teacher region, 0.5 /
 0.5 weighted (ref: main_esvit.py:603-770). Centers are explicit state:
 each loss returns ``(loss, new_center(s))``. All math is fp32.
+
+``ddino_loss_streamed`` is the same DDINO loss with the DINO heads' last
+layers folded in, walking the K outputs in chunks so that no (rows, K)
+tensor outlives a chunk, in the forward or in what backward keeps
+(esvit_tpu/losses.py:217-392).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 class DinoCenters(NamedTuple):
@@ -102,10 +108,7 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
     s_cls_out, s_region_out, s_fea, s_npatch = student_out
     t_cls_out, t_region_out, t_fea, t_npatch = teacher_out
     B = batch_size
-    if len(s_npatch) == 1:
-        view_patches = [s_npatch[0]] * ncrops
-    else:
-        view_patches = [s_npatch[0]] * 2 + [s_npatch[1]] * (ncrops - 2)
+    view_patches = _view_patches(s_npatch, ncrops)
     N_t = t_npatch[0]
 
     def _to_batch_major(flat, patches):
@@ -130,7 +133,6 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
     if t_region_out.ndim == 2:
         t_region_out = _to_batch_major(t_region_out, [N_t, N_t])
         t_fea = _to_batch_major(t_fea, [N_t, N_t])
-    S = s_region_out.shape[1]
 
     with torch.no_grad():
         t_cls = _chunk_views(torch.softmax(
@@ -149,7 +151,32 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
     qs_cls = torch.einsum("qbk,vbk->qvb", t_cls, s_cls) * inv_t
     lse_reg = torch.logsumexp(s_reg * inv_t, dim=-1)             # (B, S)
     M = torch.einsum("bjk,btk->bjt", t_region, s_reg) * inv_t    # (B, 2Nt, S)
-    sim = torch.einsum("bjc,btc->bjt", _l2n(t_fea_v), _l2n(s_fea.float()))
+    loss = _assemble(lse_cls, qs_cls, lse_reg, M, t_fea_v, s_fea, B, N_t,
+                     ncrops, view_patches)
+    new_centers = DinoCenters(*_update_centers(
+        [centers.center, centers.center_grid],
+        [t_cls_out.detach(), t_region_out.detach()], center_momentum, mesh))
+    return loss, new_centers
+
+
+def _view_patches(npatch, ncrops):
+    """Each view's region-token count, the globals' first."""
+    if len(npatch) == 1:
+        return [npatch[0]] * ncrops
+    return [npatch[0]] * 2 + [npatch[1]] * (ncrops - 2)
+
+
+def _assemble(lse_cls, qs_cls, lse_reg, M, t_fea, s_fea, B, N_t, ncrops,
+              view_patches):
+    """The K-free end of the DDINO loss from the view-level log-normalisers
+    lse_cls (ncrops, B) and teacher-weighted sums qs_cls (2, ncrops, B),
+    the region ones lse_reg (B, S) and M (B, 2Nt, S), all at the student
+    temperature: each student patch matched to its cosine-most-similar
+    teacher patch per teacher view, and the CE terms over (teacher view,
+    student view) pairs."""
+    S = lse_reg.shape[1]
+    sim = torch.einsum("bjc,btc->bjt", _l2n(t_fea.float()),
+                       _l2n(s_fea.float()))
     # Per teacher view q: match each student patch t to its most similar
     # teacher patch j and read M there.
     sim4 = sim.reshape(B, 2, N_t, S)
@@ -171,8 +198,133 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
             ce_v = ce_flat[:, iq, seg[v][0]:seg[v][1]].mean(dim=-1)
             total = total + (loss_v + 0.5 * ce_v).mean()
             n_terms += 1
+    return total / n_terms
 
-    new_centers = DinoCenters(*_update_centers(
-        [centers.center, centers.center_grid],
-        [t_cls_out.detach(), t_region_out.detach()], center_momentum, mesh))
-    return total / n_terms, new_centers
+
+def _logits(z, w):
+    """(..., D) x (Kc, D) -> (..., Kc) fp32: the head's last-layer product
+    in the compute dtype, as the dense path's, then upcast."""
+    return torch.matmul(z, w.to(z.dtype).t()).float()
+
+
+def _lse_update(m, l, chunk):
+    """One chunk of an online logsumexp over the last axis: the running
+    max m and the sum l of exp(x - m)."""
+    m_new = torch.maximum(m, chunk.amax(dim=-1))
+    l_new = (l * torch.exp(m - m_new)
+             + torch.exp(chunk - m_new[..., None]).sum(dim=-1))
+    return m_new, l_new
+
+
+def ddino_loss_streamed(s_cls_z, s_reg_z, s_fea, t_cls_z, t_reg_z, t_fea,
+                        w_s, centers: DinoCenters, teacher_temp, *,
+                        ncrops: int, batch_size: int, npatch, t_npatch: int,
+                        w_t=None, w_s_dense=None, w_t_dense=None,
+                        n_chunks: int = 8, student_temp: float = 0.1,
+                        center_momentum: float = 0.9, mesh=None):
+    """``ddino_loss`` of the heads' logits without a (rows, K) tensor
+    (port of esvit_tpu/losses.py:217-392).
+
+    Inputs are EsViTModel's ``bottleneck_outputs``: s_cls_z (ncrops*B, D)
+    view-major, s_reg_z (B, S, D) batch-major, t_cls_z (2B, D), t_reg_z
+    (B, 2Nt, D), the L2-normalised bottlenecks; s_fea / t_fea the C-wide
+    region features for the matching; w_s the student cls head's
+    effective (K, D) last layer, w_t the teacher's (default w_s),
+    w_s_dense / w_t_dense the dense heads' (default the cls ones). The
+    teacher's inputs take no gradient.
+
+    K is walked in ``n_chunks`` chunks, each chunk's logits recomputed
+    from the bottleneck and that chunk of the weights:
+      0. the teacher's online logsumexp per row and its centre sums (no
+         autograd);
+      1. the student's online logsumexp per row;
+      2. the teacher-softmax-weighted contractions qs_cls and M.
+    Passes 1 and 2 run each chunk under ``torch.utils.checkpoint``, so
+    backward recomputes a chunk's logits instead of keeping them. The
+    matching and CE assembly are the dense loss's. The centres move
+    toward the global batch's means: over several processes the two sums
+    go through ``mesh``'s all-reduce, as ``ddino_loss``'s do.
+    Returns (loss, new DinoCenters)."""
+    w_t = w_s if w_t is None else w_t
+    w_s_dense = w_s if w_s_dense is None else w_s_dense
+    w_t_dense = w_t if w_t_dense is None else w_t_dense
+    B = batch_size
+    K, D = w_s.shape
+    if K % n_chunks:
+        raise ValueError(f"K={K} is not a multiple of n_chunks={n_chunks}")
+    Kc = K // n_chunks
+    N_t = t_npatch
+    S = s_reg_z.shape[1]
+    inv_ts = 1.0 / student_temp
+    inv_tt = 1.0 / teacher_temp
+    dev = s_cls_z.device
+    chunks = [slice(i * Kc, (i + 1) * Kc) for i in range(n_chunks)]
+    s_cls3 = _chunk_views(s_cls_z, ncrops)                      # (v, B, D)
+    t_cls_z, t_reg_z = t_cls_z.detach(), t_reg_z.detach()
+    w_t, w_t_dense = w_t.detach(), w_t_dense.detach()
+    c_cls, c_reg = centers.center, centers.center_grid
+
+    def ml(*shape):
+        return (torch.full(shape, -torch.inf, device=dev),
+                torch.zeros(shape, device=dev))
+
+    def lse(m, l):
+        return m + torch.log(l)
+
+    # Pass 0: the teacher's normalisers and centre sums.
+    with torch.no_grad():
+        (mtc, ltc), (mtr, ltr) = ml(2 * B), ml(B, 2 * N_t)
+        sum_tc, sum_tr = [], []
+        for c in chunks:
+            raw_tc = _logits(t_cls_z, w_t[c])                    # (2B, Kc)
+            raw_tr = _logits(t_reg_z, w_t_dense[c])              # (B,2Nt,Kc)
+            mtc, ltc = _lse_update(mtc, ltc, (raw_tc - c_cls[c]) * inv_tt)
+            mtr, ltr = _lse_update(mtr, ltr, (raw_tr - c_reg[c]) * inv_tt)
+            sum_tc.append(raw_tc.sum(dim=0))
+            sum_tr.append(raw_tr.sum(dim=(0, 1)))
+            del raw_tc, raw_tr
+        lse_tc, lse_tr = lse(mtc, ltc), lse(mtr, ltr)
+        sum_tc, sum_tr = torch.cat(sum_tc), torch.cat(sum_tr)
+
+    # Pass 1: the student's normalisers.
+    def pass1(mc, lc, mr, lr, w, wd):
+        mc, lc = _lse_update(mc, lc, _logits(s_cls3, w) * inv_ts)
+        mr, lr = _lse_update(mr, lr, _logits(s_reg_z, wd) * inv_ts)
+        return mc, lc, mr, lr
+
+    (mc, lc), (mr, lr) = ml(ncrops, B), ml(B, S)
+    for c in chunks:
+        mc, lc, mr, lr = checkpoint(pass1, mc, lc, mr, lr, w_s[c],
+                                    w_s_dense[c], use_reentrant=False)
+    lse_cls, lse_reg = lse(mc, lc), lse(mr, lr)
+
+    # Pass 2: the teacher-softmax-weighted contractions.
+    def pass2(w, wd, wt, wtd, cc, cr):
+        q_cls = torch.exp((_logits(t_cls_z, wt) - cc) * inv_tt
+                          - lse_tc[:, None]).reshape(2, B, -1)
+        q_reg = torch.exp((_logits(t_reg_z, wtd) - cr) * inv_tt
+                          - lse_tr[..., None])
+        qs = torch.einsum("qbk,vbk->qvb", q_cls, _logits(s_cls3, w))
+        m = torch.einsum("bjk,btk->bjt", q_reg, _logits(s_reg_z, wd))
+        return qs, m
+
+    qs_cls = torch.zeros(2, ncrops, B, device=dev)
+    M = torch.zeros(B, 2 * N_t, S, device=dev)
+    for c in chunks:
+        qs, m = checkpoint(pass2, w_s[c], w_s_dense[c], w_t[c], w_t_dense[c],
+                           c_cls[c], c_reg[c], use_reentrant=False)
+        qs_cls = qs_cls + qs
+        M = M + m
+    qs_cls = qs_cls * inv_ts
+    M = M * inv_ts
+
+    loss = _assemble(lse_cls, qs_cls, lse_reg, M, t_fea.detach(), s_fea, B,
+                     N_t, ncrops, _view_patches(npatch, ncrops))
+    if mesh is not None and mesh.world > 1:
+        sum_tc, sum_tr = mesh.all_reduce_sum([sum_tc, sum_tr])
+    world = mesh.world if mesh is not None else 1
+    m = center_momentum
+    new_centers = DinoCenters(
+        center=c_cls * m + (sum_tc / (2 * B * world)) * (1.0 - m),
+        center_grid=c_reg * m + (sum_tr / (2 * N_t * B * world)) * (1.0 - m))
+    return loss, new_centers

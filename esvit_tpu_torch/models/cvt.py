@@ -41,41 +41,13 @@ from torch import nn
 
 from esvit_tpu_torch.config import CvTConfig, CvTStageConfig
 from esvit_tpu_torch.models.batchnorm import BatchNorm
-from esvit_tpu_torch.models.common import (DropPath, LayerNorm, softmax_fp32,
-                                           trunc_normal_)
+from esvit_tpu_torch.models.common import (Conv, DropPath, LayerNorm,
+                                           softmax_fp32)
 from esvit_tpu_torch.ops import window as wops
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
-
-
-class Conv(nn.Module):
-    """flax ``nn.Conv`` on channels-last input: (B, H, W, din) ->
-    (B, H', W', dout), input and weight cast to ``dtype``, the bias added
-    in it. ``groups=din`` is a depthwise conv. The weight is OIHW, as
-    ``torch.nn.Conv2d`` stores it."""
-
-    def __init__(self, din: int, dout: int, kernel: int = 1, stride: int = 1,
-                 padding: int = 0, groups: int = 1, bias: bool = True,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
-        self.stride, self.padding, self.groups = stride, padding, groups
-        self.dtype = dtype
-        self.weight = nn.Parameter(trunc_normal_(
-            torch.empty(dout, din // groups, kernel, kernel),
-            generator=generator))
-        self.bias = nn.Parameter(torch.zeros(dout)) if bias else None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(self.dtype)
-        b = self.bias.to(self.dtype) if self.bias is not None else None
-        x = x.to(self.dtype)
-        if w.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
-            return F.linear(x, w.reshape(w.shape[0], -1), b)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
-                     groups=self.groups)
-        return y.permute(0, 2, 3, 1)
 
 
 class QuickGELU(nn.Module):

@@ -15,6 +15,12 @@ tuple of per-resolution batches ``(n_r*B, S_r, S_r, 3)``:
                   S = sum_r n_r*N_r when ``batch_size`` is given
     region_fea    the same layouts with C features
     npatch        tuple of N_r per resolution group
+
+With ``bottleneck_outputs`` (the K-streamed loss, esvit_tpu/models/
+esvit.py:55-107) the heads stop before their last layer: ``(cls_z,
+region_z, region_fea, npatch, w_cls, w_dense)``, the L2-normalised
+bottleneck features and the two heads' effective (K, D) last-layer
+matrices, so no K-wide tensor is made here.
 """
 
 from __future__ import annotations
@@ -50,11 +56,14 @@ class EsViTModel(nn.Module):
 
     def forward(self, crops: Sequence[torch.Tensor], deterministic=True,
                 generator: torch.Generator | None = None,
-                batch_size: int | None = None, bn_train: bool | None = None):
-        """bn_train: BatchNorm's mode in BN backbones (CvT), by default
-        ``not deterministic``; the teacher runs deterministic with True,
-        as the reference's always-train-mode teacher does
-        (esvit_tpu/models/esvit.py:53-80). Other backbones ignore it."""
+                batch_size: int | None = None, bn_train: bool | None = None,
+                bottleneck_outputs: bool = False):
+        """bn_train: BatchNorm's mode in BN backbones (CvT, ResNet), by
+        default ``not deterministic``; the teacher runs deterministic with
+        True, as the reference's always-train-mode teacher does
+        (esvit_tpu/models/esvit.py:53-80). Other backbones ignore it. A
+        BatchNorm head follows ``deterministic`` instead (models/heads.py).
+        bottleneck_outputs: the dense path's bottleneck form (above)."""
         if bn_train is None:
             bn_train = not deterministic
         cls_list, fea_list, npatch = [], [], []
@@ -64,9 +73,15 @@ class EsViTModel(nn.Module):
             cls_list.append(cls)
             fea_list.append(fea)
             npatch.append(fea.shape[1])
-        cls_logits = self.head(torch.cat(cls_list, dim=0))
-        if not self.use_dense_prediction:
-            return cls_logits
+        cls_cat = torch.cat(cls_list, dim=0)
+        if bottleneck_outputs:
+            if not self.use_dense_prediction:
+                raise ValueError("bottleneck_outputs is the dense path's")
+            cls_z = self.head.bottleneck(cls_cat, deterministic)
+        else:
+            cls_logits = self.head(cls_cat, deterministic)
+            if not self.use_dense_prediction:
+                return cls_logits
         if batch_size is None:
             fea_cat = torch.cat([f.reshape(-1, f.shape[-1]) for f in fea_list],
                                 dim=0)
@@ -77,5 +92,9 @@ class EsViTModel(nn.Module):
             fea_cat = torch.cat(
                 [f.reshape(-1, B, f.shape[1], f.shape[-1]).transpose(0, 1)
                   .reshape(B, -1, f.shape[-1]) for f in fea_list], dim=1)
-        region_logits = self.head_dense(fea_cat)
+        if bottleneck_outputs:
+            return (cls_z, self.head_dense.bottleneck(fea_cat, deterministic),
+                    fea_cat, tuple(npatch), self.head.last_weight(),
+                    self.head_dense.last_weight())
+        region_logits = self.head_dense(fea_cat, deterministic)
         return cls_logits, region_logits, fea_cat, tuple(npatch)

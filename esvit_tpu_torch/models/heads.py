@@ -8,6 +8,20 @@ the odd indices), ``last_layer.weight_v`` (out, in) and
 them. The effective weight ``g * v / ||v||`` (per output row) is computed
 in ``forward``; with ``norm_last_layer`` g is pinned and gets no gradient
 (vision_transformer.py:404-406).
+
+With ``use_bn`` a BatchNorm follows each hidden linear, as the
+reference's ``nn.BatchNorm1d`` does (``mlp.{0,3,6}`` Linears, ``mlp.{1,4}``
+BatchNorms): flax's default BatchNorm as esvit_tpu builds it (fp32 out,
+momentum 0.99, eps 1e-5), then the exact GELU in fp32. Its mode follows
+esvit_tpu's rule, ``use_running_average=deterministic``
+(esvit_tpu/models/heads.py:98-100): the student's head normalises by the
+batch and updates its buffers, the teacher's (deterministic) by its
+running buffers, which therefore never move. The statistics are global
+over the process group (parallel/mesh.py ``Mesh.batch_norm``).
+
+``bottleneck`` and ``last_weight`` are the head's two halves, for the
+K-streamed loss (losses.ddino_loss_streamed), which contracts the
+bottleneck with the last layer chunk by chunk.
 """
 
 from __future__ import annotations
@@ -16,7 +30,10 @@ import torch
 from torch import nn
 
 from esvit_tpu_torch.config import HeadConfig
+from esvit_tpu_torch.models.batchnorm import BatchNorm
 from esvit_tpu_torch.models.common import Dense, gelu, trunc_normal_
+
+HEAD_BN_MOMENTUM = 0.99         # flax nn.BatchNorm's default
 
 
 class _GELU(nn.Module):
@@ -56,11 +73,15 @@ class DINOHead(nn.Module):
             self.mlp = Dense(in_dim, cfg.bottleneck_dim, dtype=dtype,
                              generator=generator)
         else:
-            layers = [Dense(in_dim, cfg.hidden_dim, dtype=dtype,
-                            generator=generator), _GELU()]
+            def hidden(din):
+                bn = ([BatchNorm(cfg.hidden_dim, momentum=HEAD_BN_MOMENTUM)]
+                      if cfg.use_bn else [])
+                return [Dense(din, cfg.hidden_dim, dtype=dtype,
+                              generator=generator), *bn, _GELU()]
+
+            layers = hidden(in_dim)
             for _ in range(nlayers - 2):
-                layers += [Dense(cfg.hidden_dim, cfg.hidden_dim, dtype=dtype,
-                                 generator=generator), _GELU()]
+                layers += hidden(cfg.hidden_dim)
             layers.append(Dense(cfg.hidden_dim, cfg.bottleneck_dim,
                                 dtype=dtype, generator=generator))
             self.mlp = nn.Sequential(*layers)
@@ -68,11 +89,25 @@ class DINOHead(nn.Module):
                                           cfg.norm_last_layer, dtype, generator)
         self.dtype = dtype
 
-    def bottleneck(self, x):
+    def bottleneck(self, x, deterministic: bool = True):
         """MLP + L2 normalise in fp32 (F.normalize, eps 1e-12)."""
-        x32 = self.mlp(x).float()
+        if isinstance(self.mlp, nn.Sequential):
+            for layer in self.mlp:
+                if isinstance(layer, BatchNorm):
+                    x = layer(x, bn_train=not deterministic,
+                              out_dtype=torch.float32)
+                else:
+                    x = layer(x)
+        else:
+            x = self.mlp(x)
+        x32 = x.float()
         norm = torch.linalg.vector_norm(x32, dim=-1, keepdim=True)
         return (x32 / torch.clamp(norm, min=1e-12)).to(self.dtype)
 
-    def forward(self, x):
-        return self.last_layer(self.bottleneck(x))
+    def last_weight(self) -> torch.Tensor:
+        """The last layer's effective (out_dim, bottleneck) matrix in the
+        compute dtype."""
+        return self.last_layer.weight()
+
+    def forward(self, x, deterministic: bool = True):
+        return self.last_layer(self.bottleneck(x, deterministic))

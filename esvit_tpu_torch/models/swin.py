@@ -32,8 +32,20 @@ reference does (esvit_tpu/models/swin.py:667-702); an attention map is
 computed on the plain path.
 
 The fused kernel pair runs for CUDA tensors and its plain version for CPU
-tensors; which route a stage takes depends on shapes alone, never on the
-device.
+tensors; which route a stage takes depends on shapes and the config
+alone, never on the device.
+
+Dropout routes as esvit_tpu's (esvit_tpu/models/swin.py:231, :258, :753,
+:773, :792): ``drop_rate`` or ``attn_drop_rate`` > 0 keeps a stage off
+both fused routes; ``attn_drop_rate`` > 0 also keeps it off the
+sub-window route (a single padded window then runs window-major) and
+sends every attention call to the plain path, away from both
+window-attention kernels. Masks come from the step's generator.
+``remat='block'`` runs each block of the window-major and classic loops
+under ``torch.utils.checkpoint`` (models/common.py ``remat``, which
+rewinds the generator for the recompute, so the recomputed block draws
+the forward's masks); the fused routes recompute in their own backward
+and are left as they are.
 
 The per-stage effective window follows the reference
 (swin_transformer.py:206-210): if the construction-time resolution is at
@@ -51,9 +63,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from esvit_tpu_torch.config import SwinConfig
-from esvit_tpu_torch.models.common import (Dense, DropPath, LayerNorm, Mlp,
-                                           PatchConv, softmax_fp32,
-                                           trunc_normal_)
+from esvit_tpu_torch.models.common import (Dense, DropPath, Dropout,
+                                           LayerNorm, Mlp, PatchConv, remat,
+                                           softmax_fp32, trunc_normal_)
 from esvit_tpu_torch.ops import fused_block as fb
 from esvit_tpu_torch.ops import window as wops
 from esvit_tpu_torch.ops.pallas_window_attention import fused_window_attention
@@ -132,13 +144,16 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim, window_size, num_heads, qkv_bias=True,
                  qk_scale=None, attention_impl="packed",
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, attn_drop=0.0,
+                 proj_drop=0.0):
         super().__init__()
         ws = window_size
         self.window_size = ws
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.attention_impl = attention_impl
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         self.relative_position_bias_table = nn.Parameter(trunc_normal_(
             torch.empty((2 * ws - 1) ** 2, num_heads), generator=generator))
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, generator)
@@ -163,29 +178,44 @@ class WindowAttention(nn.Module):
                                  (H, W, self.window_size, ss), device)
         return bias + mask[:, None]
 
-    def forward(self, x, shift=None, return_attention=False):
+    def forward(self, x, shift=None, return_attention=False,
+                deterministic=True, generator=None):
         """The projected attention output; with ``return_attention`` also
-        the (B_, nH, N, N) fp32 probabilities, from the plain path."""
+        the (B_, nH, N, N) fp32 probabilities, from the plain path.
+        Attention dropout (``attn_drop`` > 0) takes the plain path
+        whatever ``attention_impl`` says (esvit_tpu/models/swin.py:231,
+        :258), deterministic or not."""
         B_, N, C = x.shape
         qkv = self.qkv(x)
-        if self.attention_impl == "pallas" and not return_attention:
+        plain_only = self.attn_drop.rate > 0.0
+        if (self.attention_impl == "pallas" and not return_attention
+                and not plain_only):
             out = fused_window_attention(qkv, self.dense_bias(shift, x.device),
                                          self.num_heads, self.scale)
-            return self.proj(out)
+            return self._project(out, deterministic, generator)
         qkv = qkv.reshape(B_ * N, 3 * C)
         q2, k2, v2 = (qkv[:, i * C:(i + 1) * C].contiguous() for i in range(3))
+        drop = ((lambda p: self.attn_drop(p, deterministic, generator))
+                if plain_only else None)
         if return_attention:
             out, probs = window_attention_plain(
                 q2, k2, v2, self.dense_bias(shift, x.device), None, N,
-                self.num_heads, self.scale, return_probs=True)
-            return self.proj(out.reshape(B_, N, C)), probs
-        use_kernel = (self.attention_impl == "packed"
-                      and N == self.window_size ** 2)
-        attend = window_attention if use_kernel else window_attention_plain
-        out = attend(q2, k2, v2, self.rel_bias(),
-                     shift_region(shift, self.window_size, x.device), N,
-                     self.num_heads, self.scale)
-        return self.proj(out.reshape(B_, N, C))
+                self.num_heads, self.scale, return_probs=True, drop=drop)
+            return self._project(out.reshape(B_, N, C), deterministic,
+                                 generator), probs
+        region = shift_region(shift, self.window_size, x.device)
+        if (self.attention_impl == "packed" and N == self.window_size ** 2
+                and not plain_only):
+            out = window_attention(q2, k2, v2, self.rel_bias(), region, N,
+                                   self.num_heads, self.scale)
+        else:
+            out = window_attention_plain(q2, k2, v2, self.rel_bias(), region,
+                                         N, self.num_heads, self.scale,
+                                         drop=drop)
+        return self._project(out.reshape(B_, N, C), deterministic, generator)
+
+    def _project(self, out, deterministic, generator):
+        return self.proj_drop(self.proj(out), deterministic, generator)
 
 
 def shift_region(shift, ws, device):
@@ -204,7 +234,8 @@ class SwinBlock(nn.Module):
     def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, drop_path=0.0, norm_eps=1e-6,
                  attention_impl="packed", subwindow_opt=True,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, drop=0.0,
+                 attn_drop=0.0):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
@@ -213,10 +244,11 @@ class SwinBlock(nn.Module):
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, norm_eps, dtype)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias,
-                                    qk_scale, attention_impl, dtype, generator)
+                                    qk_scale, attention_impl, dtype, generator,
+                                    attn_drop, drop)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, norm_eps, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator, drop)
 
     def _keep_scale(self, B, deterministic, generator, device):
         """(B,) fp32 drop-path scales {0, 1/keep}, drawn as DropPath draws
@@ -253,8 +285,15 @@ class SwinBlock(nn.Module):
                                    eps=self.norm1.eps)
 
     def _ffn(self, x, deterministic, generator):
-        y = self.mlp(self.norm2(x))
+        y = self.mlp(self.norm2(x), deterministic, generator)
         return x + self.drop_path(y, deterministic, generator)
+
+    def takes_subwindow(self, L: int) -> bool:
+        """Whether the classic loop runs this block's sub-window path on L
+        tokens (esvit_tpu/models/swin.py:478-484): not under attention
+        dropout."""
+        return (self.subwindow_opt and self.attn.attn_drop.rate == 0.0
+                and self.is_subwindow(L))
 
     def is_subwindow(self, L: int) -> bool:
         """One spatially padded window per image (Hp == Wp == ws > H)."""
@@ -294,7 +333,7 @@ class SwinBlock(nn.Module):
         # (B, nH, L, L+1): the L real keys, then the virtual pad column
         out = torch.einsum("bhnm,bmhd->bnhd", probs[..., :L].to(cd), v)
         out = out + torch.einsum("bhn,hd->bnhd", probs[..., L].to(cd), b_v)
-        out = attn_mod.proj(out.reshape(B, L, C))
+        out = attn_mod._project(out.reshape(B, L, C), deterministic, generator)
         x = shortcut + self.drop_path(out, deterministic, generator)
         return self._ffn(x, deterministic, generator)
 
@@ -313,14 +352,14 @@ class SwinBlock(nn.Module):
             if window_major["pad_mask"] is not None:
                 y = y * window_major["pad_mask"].to(y.dtype)[None, :, None]
             windows = y.reshape(B * window_major["n_windows"], ws * ws, C)
-            out = self.attn(windows, window_major["shift"])
+            out = self.attn(windows, window_major["shift"],
+                            deterministic=deterministic, generator=generator)
             x = shortcut + self.drop_path(out.reshape(B, L, C), deterministic,
                                           generator)
             return self._ffn(x, deterministic, generator)
 
         H = W = math.isqrt(L)
-        if (self.subwindow_opt and self.is_subwindow(L)
-                and not return_attention):
+        if self.takes_subwindow(L) and not return_attention:
             return self._subwindow(x, H, W, deterministic, generator)
 
         shortcut = x
@@ -332,7 +371,8 @@ class SwinBlock(nn.Module):
         if ss > 0:
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
             shift = (H, W, ss)
-        out = self.attn(wops.window_partition(x, ws), shift, return_attention)
+        out = self.attn(wops.window_partition(x, ws), shift, return_attention,
+                        deterministic, generator)
         if return_attention:
             out, probs = out
         x = wops.window_reverse(out, ws, Hp, Wp)
@@ -394,19 +434,26 @@ class SwinStage(nn.Module):
                  mlp_ratio, qkv_bias, qk_scale, drop_path, norm_eps,
                  downsample, attention_impl="packed", subwindow_opt=True,
                  dtype=torch.float32, generator=None, fused=False,
-                 subwindow_fused=False):
+                 subwindow_fused=False, drop=0.0, attn_drop=0.0,
+                 remat="none"):
         super().__init__()
+        if remat not in ("none", "block"):
+            raise ValueError(f"unknown remat mode {remat!r}")
         self.window_size = window_size
         self.dim = dim
         self.num_heads = num_heads
         self.hidden = int(dim * mlp_ratio)
         self.fused = fused
         self.subwindow_fused = subwindow_fused
+        # Any dropout keeps a stage off the fused kernel (JAX :773, :792).
+        self.dropout = drop > 0.0 or attn_drop > 0.0
+        self.remat = remat == "block"
         self.blocks = nn.ModuleList([
             SwinBlock(dim, num_heads, window_size,
                       window_size // 2 if (i % 2 == 1 and shift_enabled) else 0,
                       mlp_ratio, qkv_bias, qk_scale, drop_path[i], norm_eps,
-                      attention_impl, subwindow_opt, dtype, generator)
+                      attention_impl, subwindow_opt, dtype, generator, drop,
+                      attn_drop)
             for i in range(depth)])
         self.downsample = (PatchMerging(dim, norm_eps, dtype, generator)
                            if downsample else None)
@@ -423,9 +470,8 @@ class SwinStage(nn.Module):
     def subwindow_ok(self, L: int) -> bool:
         """Whether an input of L tokens takes the sub-window route
         (esvit_tpu SwinStage._subwindow_ok at its default ratio of 1.0):
-        one spatially padded window per image."""
-        blk = self.blocks[0]
-        return blk.subwindow_opt and blk.is_subwindow(L)
+        one spatially padded window per image, no attention dropout."""
+        return self.blocks[0].takes_subwindow(L)
 
     def route(self, L: int, layout_opt: bool = True) -> str:
         """The path an input of L tokens takes: 'fused_subwindow',
@@ -434,10 +480,11 @@ class SwinStage(nn.Module):
         if not layout_opt or len(self.blocks) == 0:
             return "classic"
         if self.subwindow_ok(L):
-            if self.subwindow_fused and self._subwindow_fused_ok(L):
+            if (self.subwindow_fused and not self.dropout
+                    and self._subwindow_fused_ok(L)):
                 return "fused_subwindow"
             return "classic"
-        if self.fused and self._fused_ok():
+        if self.fused and not self.dropout and self._fused_ok():
             return "fused"
         return "window_major"
 
@@ -470,8 +517,16 @@ class SwinStage(nn.Module):
             x = self._forward_window_major(x, deterministic, generator)
         else:
             for blk in self.blocks:
-                x = blk(x, deterministic, generator)
+                x = self._run(lambda x, blk=blk: blk(x, deterministic,
+                                                     generator), x, generator)
         return self.downsample(x) if self.downsample is not None else x
+
+    def _run(self, fn, x, generator):
+        """One block: under ``remat='block'`` through models/common.py
+        ``remat`` (recomputed in backward, the generator rewound), else
+        as it is. The fused routes do not come here: their kernel's
+        backward recomputes from the block input already."""
+        return remat(fn, x, generator) if self.remat else fn(x)
 
     def _forward_fused_subwindow(self, x, deterministic, generator):
         """Each image is one augmented window of N = H*W + 1 tokens: the
@@ -506,7 +561,8 @@ class SwinStage(nn.Module):
 
     def _forward_window_major(self, x, deterministic, generator):
         return self._window_major(
-            x, lambda blk, x, wm: blk(x, deterministic, generator, wm))
+            x, lambda blk, x, wm: self._run(
+                lambda x: blk(x, deterministic, generator, wm), x, generator))
 
     def _window_major(self, x, run_block):
         """Pad to whole windows, run each block in its window-major layout
@@ -575,20 +631,22 @@ class SwinTransformer(nn.Module):
                 tuple(float(d) for d in dpr[lo:hi]), c.norm_eps,
                 i < nstages - 1, c.attention_impl, c.subwindow_opt, dtype,
                 generator, fused=i in c.fused_block_stages,
-                subwindow_fused=i in sub_fused))
+                subwindow_fused=i in sub_fused, drop=c.drop_rate,
+                attn_drop=c.attn_drop_rate, remat=c.remat))
         self.layers = nn.ModuleList(stages)
         self.norm = LayerNorm(c.num_features, c.norm_eps, dtype)
+        self.pos_drop = Dropout(c.drop_rate)
 
-    def _embed(self, x):
+    def _embed(self, x, deterministic=True, generator=None):
         x = self.patch_embed(x)
         if self.cfg.ape:
             x = x + self.absolute_pos_embed.to(x.dtype)
-        return x
+        return self.pos_drop(x, deterministic, generator)
 
     def forward_features(self, x, deterministic=True, generator=None,
                          bn_train=False):
         del bn_train                    # no BatchNorm
-        x = self._embed(x)
+        x = self._embed(x, deterministic, generator)
         for stage in self.layers:
             x = stage(x, deterministic, generator, self.cfg.layout_opt)
         region = self.norm(x)                                # (B, L, C)
@@ -599,7 +657,7 @@ class SwinTransformer(nn.Module):
         """n=1: the last block's attention probabilities (B*nW, nH, N, N);
         otherwise every block's, in order (ref: swin_transformer.py:
         766-796; esvit_tpu/models/swin.py:962-973)."""
-        x = self._embed(x)
+        x = self._embed(x, deterministic, generator)
         attns = []
         for i, stage in enumerate(self.layers):
             if n != 1 or i == len(self.layers) - 1:
@@ -617,7 +675,7 @@ class SwinTransformer(nn.Module):
         Every stage runs its classic block loop."""
         start = sum(self.cfg.depths) - n
         out, blk_id = [], 0
-        x = self._embed(x)
+        x = self._embed(x, deterministic, generator)
         for i, stage in enumerate(self.layers):
             x, feats = stage(x, deterministic, generator, capture="features")
             for f in feats:
@@ -628,56 +686,79 @@ class SwinTransformer(nn.Module):
                 blk_id += 1
         return torch.cat(out, dim=-1)
 
-    def _stage_routes(self, img_size: int):
+    def _stage_routes(self, img_size: int, from_stage: int = 0):
         """(stage, tokens, route) for an img_size input, by the forward's
-        rule."""
+        rule, from stage ``from_stage`` on."""
         H = img_size // self.cfg.patch_size
-        for stage in self.layers:
-            yield stage, H * H, stage.route(H * H, self.cfg.layout_opt)
+        for i, stage in enumerate(self.layers):
+            if i >= from_stage:
+                yield stage, H * H, stage.route(H * H, self.cfg.layout_opt)
             if stage.downsample is not None:
                 H = (H + 1) // 2
 
-    def _attention_calls(self, img_size: int, capture: bool) -> int:
+    def _attention_calls(self, img_size: int, capture: bool,
+                         from_stage: int = 0) -> int:
         """WindowAttention calls in one forward of an img_size input: every
         block of a stage on the window-major route, or on the classic route
         (every stage's, when capturing features) where the block does not
         take its sub-window path."""
+        if self.cfg.attn_drop_rate > 0.0:
+            return 0                    # attention dropout: plain path only
         calls = 0
-        for stage, L, route in self._stage_routes(img_size):
+        for stage, L, route in self._stage_routes(img_size, from_stage):
             blk = stage.blocks[0] if len(stage.blocks) else None
             if route == "window_major" or (
                     (capture or route == "classic") and blk is not None
-                    and not (blk.subwindow_opt and blk.is_subwindow(L))):
+                    and not blk.takes_subwindow(L)):
                 calls += len(stage.blocks)
         return calls
 
-    def window_attention_calls(self, img_size: int,
-                               capture: bool = False) -> int:
+    def window_attention_calls(self, img_size: int, capture: bool = False,
+                               from_stage: int = 0) -> int:
         """Launches of the window-attention kernel pair's forward in one
         forward of an img_size input on the card (its calls under
         attention_impl='packed'): ``forward_features``, or with ``capture``
-        ``forward_return_n_last_blocks``."""
+        ``forward_return_n_last_blocks``; ``from_stage`` counts the stages
+        from it on (a backward stops at stages whose parameters and input
+        all are frozen)."""
         if self.cfg.attention_impl != "packed":
             return 0
-        return self._attention_calls(img_size, capture)
+        return self._attention_calls(img_size, capture, from_stage)
 
     def pallas_window_attention_calls(self, img_size: int,
-                                      capture: bool = False) -> int:
+                                      capture: bool = False,
+                                      from_stage: int = 0) -> int:
         """Launches of the forward-only qkv-layout kernel in one forward of
         an img_size input on the card (its calls under
         attention_impl='pallas'): ``forward_features``, or with ``capture``
-        ``forward_return_n_last_blocks``."""
+        ``forward_return_n_last_blocks``; ``from_stage`` as above."""
         if self.cfg.attention_impl != "pallas":
             return 0
-        return self._attention_calls(img_size, capture)
+        return self._attention_calls(img_size, capture, from_stage)
 
-    def fused_block_calls(self, img_size: int) -> int:
+    def fused_block_calls(self, img_size: int, from_stage: int = 0) -> int:
         """Fused-block calls in one forward of an img_size input: every
         block of a stage on a fused route (each is a kernel launch on the
-        card)."""
+        card); ``from_stage`` as above."""
         return sum(len(stage.blocks)
-                   for stage, _, route in self._stage_routes(img_size)
+                   for stage, _, route in self._stage_routes(img_size,
+                                                             from_stage)
                    if route in ("fused", "fused_subwindow"))
+
+    def frozen_stages(self, frozen: dict[str, bool]) -> int:
+        """How many leading stages a backward never reaches: those whose
+        parameters, and all before them (the patch embedding), are frozen
+        (``frozen`` maps parameter names to train/optim.py's freeze
+        mask)."""
+        def all_frozen(prefix):
+            names = [n for n in frozen if n.startswith(prefix)]
+            return all(frozen[n] for n in names)
+        if not (all_frozen("patch_embed.") and all_frozen("absolute_pos")):
+            return 0
+        k = 0
+        while k < len(self.layers) and all_frozen(f"layers.{k}."):
+            k += 1
+        return k
 
 
 def build_swin(cfg: SwinConfig, dtype=torch.float32, generator=None):

@@ -29,9 +29,9 @@ import torch
 from torch import nn
 
 from esvit_tpu_torch.config import ViLConfig, ViLStageConfig
-from esvit_tpu_torch.models.common import (Dense, DropPath, LayerNorm, Mlp,
-                                           PatchConv, softmax_fp32,
-                                           trunc_normal_)
+from esvit_tpu_torch.models.common import (Dense, DropPath, Dropout,
+                                           LayerNorm, Mlp, PatchConv,
+                                           softmax_fp32, trunc_normal_)
 from esvit_tpu_torch.models.vil_layers import Long2DSCAttention
 from esvit_tpu_torch.ops.resample import torch_interpolate_scale
 
@@ -42,8 +42,10 @@ class ViLPatchEmbed(nn.Module):
     grid the position tables are sized for."""
 
     def __init__(self, st: ViLStageConfig, in_chans: int, nx: int, ny: int,
-                 norm_eps: float, dtype=torch.float32, generator=None):
+                 norm_eps: float, dtype=torch.float32, generator=None,
+                 drop: float = 0.0):
         super().__init__()
+        self.drop = Dropout(drop)
         C, G = st.embed_dim, st.num_global
         self.nx, self.ny, self.nglo = nx, ny, G
         self.proj = PatchConv(in_chans, C, st.patch_size, dtype, generator)
@@ -79,7 +81,8 @@ class ViLPatchEmbed(nn.Module):
                                  f"for a {nx}x{ny} grid")
         return pe.reshape(1, nx * ny, C)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         x = self.proj(x)                                     # (B, nx, ny, C)
         B, nx, ny, C = x.shape
         x = self.norm_embed(x.reshape(B, nx * ny, C))
@@ -88,7 +91,7 @@ class ViLPatchEmbed(nn.Module):
             x = torch.cat([self.cls_token.to(x.dtype).expand(B, -1, -1), x],
                           dim=1)
         x = x + torch.cat([self.cls_pos_embed, pe], dim=1).to(x.dtype)
-        return x, nx, ny
+        return self.drop(x, deterministic, generator), nx, ny
 
 
 class ViLFullAttention(nn.Module):
@@ -96,23 +99,30 @@ class ViLFullAttention(nn.Module):
     vision_longformer.py:38-131, the APE branch)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         self.num_heads = num_heads
         self.dtype = dtype
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, generator)
         self.proj = Dense(dim, dim, True, dtype, generator)
 
-    def forward(self, x: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nx: int, ny: int,
+                deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
         q = qkv[:, :, 0] * torch.tensor(self.scale, dtype=self.dtype)
         attn = torch.einsum("bnhd,bmhd->bhnm", q.float(), qkv[:, :, 1].float())
-        probs = softmax_fp32(attn, out_dtype=self.dtype)
+        probs = self.attn_drop(softmax_fp32(attn), deterministic,
+                               generator).to(self.dtype)
         out = torch.einsum("bhnm,bmhd->bnhd", probs, qkv[:, :, 2])
-        return self.proj(out.reshape(B, N, C))
+        return self.proj_drop(self.proj(out.reshape(B, N, C)), deterministic,
+                              generator)
 
 
 class ViLAttnBlock(nn.Module):
@@ -126,14 +136,16 @@ class ViLAttnBlock(nn.Module):
             self.attn = Long2DSCAttention(
                 st.embed_dim, st.num_heads, st.window_size, st.num_global,
                 cfg.qkv_bias, fused_sc=cfg.fused_sc, dtype=dtype,
-                generator=generator)
+                generator=generator, attn_drop=cfg.attn_drop_rate,
+                proj_drop=cfg.drop_rate)
         else:
             self.attn = ViLFullAttention(st.embed_dim, st.num_heads,
-                                         cfg.qkv_bias, dtype, generator)
+                                         cfg.qkv_bias, dtype, generator,
+                                         cfg.attn_drop_rate, cfg.drop_rate)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, nx, ny, deterministic=True, generator=None):
-        y = self.attn(self.norm(x), nx, ny)
+        y = self.attn(self.norm(x), nx, ny, deterministic, generator)
         return x + self.drop_path(y, deterministic, generator)
 
 
@@ -144,11 +156,12 @@ class ViLMlpBlock(nn.Module):
                  dtype=torch.float32, generator=None):
         super().__init__()
         self.norm = LayerNorm(dim, cfg.norm_eps, dtype)
-        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dtype, generator)
+        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dtype, generator,
+                       cfg.drop_rate)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, deterministic=True, generator=None):
-        y = self.mlp(self.norm(x))
+        y = self.mlp(self.norm(x), deterministic, generator)
         return x + self.drop_path(y, deterministic, generator)
 
 
@@ -164,7 +177,7 @@ class MsViT(nn.Module):
         for i, st in enumerate(cfg.stages):
             res //= st.patch_size
             layer = [ViLPatchEmbed(st, in_chans, res, res, cfg.norm_eps, dtype,
-                                   generator)]
+                                   generator, cfg.drop_rate)]
             for j in range(st.depth):
                 rate = float(dpr[acc + j])
                 layer += [ViLAttnBlock(st, cfg, rate, dtype, generator),
@@ -184,7 +197,7 @@ class MsViT(nn.Module):
             if i > 0:
                 G = self.cfg.stages[i - 1].num_global
                 x = x[:, G:].reshape(x.shape[0], nx, ny, -1)
-            x, nx, ny = layer[0](x)
+            x, nx, ny = layer[0](x, deterministic, generator)
             for blk in layer[1:]:
                 if isinstance(blk, ViLAttnBlock):
                     x = blk(x, nx, ny, deterministic, generator)
@@ -194,16 +207,18 @@ class MsViT(nn.Module):
         G = self.cfg.stages[-1].num_global
         return (x[:, 0] if G > 0 else x.mean(dim=1)), x[:, G:]
 
-    def sliding_chunk_calls(self, img_size: int) -> int:
+    def sliding_chunk_calls(self, img_size: int,
+                            deterministic: bool = True) -> int:
         """Sliding-chunk kernel calls in one forward of an img_size input:
         every attention block of a sparse stage whose route is the kernel
         (each is a kernel launch on the card). The route depends on the
-        stage's widths alone, so every input size gives the same count."""
+        stage's widths and, under attention dropout, on ``deterministic``
+        alone, so every input size gives the same count."""
         del img_size
         return sum(1 for st, layer in zip(self.cfg.stages, self.stages())
                    for blk in layer[1::2]
                    if isinstance(blk.attn, Long2DSCAttention)
-                   and blk.attn.uses_kernel(st.embed_dim))
+                   and blk.attn.uses_kernel(st.embed_dim, deterministic))
 
 
 def build_vil(cfg: ViLConfig, dtype=torch.float32, generator=None):

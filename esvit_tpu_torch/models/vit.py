@@ -10,8 +10,9 @@ it is plain XLA in esvit_tpu. ``forward_features`` returns
 
 Names are the reference's: ``patch_embed.proj``, ``blocks.{i}.{norm1,
 attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2}``, ``norm``, ``cls_token``,
-``pos_embed``. Dropout inside the backbone is refused by
-config.check_supported (ROADMAP queue 1 item 12).
+``pos_embed``. Dropout as esvit_tpu's (``drop_rate`` after the position
+embedding, the attention projection and each MLP layer, ``attn_drop_rate``
+on the probabilities), drawn from the step's generator.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ import torch
 from torch import nn
 
 from esvit_tpu_torch.config import ViTConfig
-from esvit_tpu_torch.models.common import (Dense, DropPath, LayerNorm, Mlp,
-                                           PatchConv, softmax_fp32,
-                                           trunc_normal_)
+from esvit_tpu_torch.models.common import (Dense, DropPath, Dropout,
+                                           LayerNorm, Mlp, PatchConv,
+                                           softmax_fp32, trunc_normal_)
 from esvit_tpu_torch.ops.resample import torch_interpolate_scale
 
 
@@ -35,15 +36,18 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: float | None = None, dtype=torch.float32,
-                 generator=None):
+                 generator=None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         self.num_heads = num_heads
         self.dtype = dtype
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, generator)
         self.proj = Dense(dim, dim, True, dtype, generator)
 
-    def forward(self, x):
+    def forward(self, x, deterministic=True, generator=None):
         B, N, C = x.shape
         nH = self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
@@ -51,8 +55,10 @@ class Attention(nn.Module):
         attn = torch.matmul((q * self.scale).float(),
                             k.float().transpose(-1, -2))
         probs = softmax_fp32(attn)
-        out = torch.matmul(probs.to(self.dtype), v)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C)), probs
+        kept = self.attn_drop(probs, deterministic, generator)
+        out = torch.matmul(kept.to(self.dtype), v)
+        out = self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self.proj_drop(out, deterministic, generator), probs
 
 
 class Block(nn.Module):
@@ -62,16 +68,17 @@ class Block(nn.Module):
         super().__init__()
         self.norm1 = LayerNorm(c.embed_dim, c.norm_eps, dtype)
         self.attn = Attention(c.embed_dim, c.num_heads, c.qkv_bias,
-                              c.qk_scale, dtype, generator)
+                              c.qk_scale, dtype, generator, c.attn_drop_rate,
+                              c.drop_rate)
         self.norm2 = LayerNorm(c.embed_dim, c.norm_eps, dtype)
         self.mlp = Mlp(c.embed_dim, int(c.embed_dim * c.mlp_ratio), dtype,
-                       generator)
+                       generator, c.drop_rate)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, deterministic=True, generator=None):
-        y, attn = self.attn(self.norm1(x))
+        y, attn = self.attn(self.norm1(x), deterministic, generator)
         x = x + self.drop_path(y, deterministic, generator)
-        y = self.mlp(self.norm2(x))
+        y = self.mlp(self.norm2(x), deterministic, generator)
         return x + self.drop_path(y, deterministic, generator), attn
 
 
@@ -101,6 +108,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(c, float(dpr[i]), dtype, generator) for i in range(c.depth))
         self.norm = LayerNorm(c.embed_dim, c.norm_eps, dtype)
+        self.pos_drop = Dropout(c.drop_rate)
 
     def _pos_embed_for(self, npatch: int) -> torch.Tensor:
         """The position embedding of an ``npatch``-token grid: bicubic with
@@ -119,17 +127,18 @@ class VisionTransformer(nn.Module):
                                  f"tokens for {npatch}")
         return torch.cat([pe[:, :1], flat], dim=1)
 
-    def _embed(self, x):
+    def _embed(self, x, deterministic=True, generator=None):
         x = self.patch_embed(x)
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1)
-        return x + self._pos_embed_for(x.shape[1] - 1).to(x.dtype)
+        x = x + self._pos_embed_for(x.shape[1] - 1).to(x.dtype)
+        return self.pos_drop(x, deterministic, generator)
 
     def forward_features(self, x, deterministic=True, generator=None,
                          bn_train=False):
         """(cls, patch tokens) after the final norm; ``bn_train`` is
         ignored (no BatchNorm)."""
-        x = self._embed(x)
+        x = self._embed(x, deterministic, generator)
         for blk in self.blocks:
             x, _ = blk(x, deterministic, generator)
         x = self.norm(x)
@@ -139,7 +148,7 @@ class VisionTransformer(nn.Module):
                               generator=None):
         """n=1: the last block's attention probabilities (B, nH, N, N);
         otherwise every block's, in order."""
-        x = self._embed(x)
+        x = self._embed(x, deterministic, generator)
         attns = []
         for blk in self.blocks:
             x, attn = blk(x, deterministic, generator)
@@ -151,7 +160,7 @@ class VisionTransformer(nn.Module):
         """Concat of the n last blocks' normed CLS tokens, and with
         ``avgpool`` the mean of the last block's normed patch tokens (ref
         :339-360)."""
-        x = self._embed(x)
+        x = self._embed(x, deterministic, generator)
         out = []
         depth = len(self.blocks)
         for i, blk in enumerate(self.blocks):

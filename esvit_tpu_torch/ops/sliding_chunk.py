@@ -197,12 +197,13 @@ def apply_invalid_mask(attn: torch.Tensor, nx: int, ny: int, padx: int,
 
 
 def sliding_chunk_attention_plain(q, k, v, k_glo, v_glo, *, nx: int, ny: int,
-                                  W: int) -> torch.Tensor:
+                                  W: int, drop=None) -> torch.Tensor:
     """The kernels' function in plain PyTorch (the stacked-neighbourhood
     einsums above, autograd), with the same roundings:
     fp32 scores and softmax over [global | neighbourhood], probabilities
     rounded to the input dtype, both value products summed in fp32 and
-    rounded once."""
+    rounded once. ``drop`` (attention dropout, which the kernels do not
+    take) maps the fp32 probabilities before the rounding."""
     dtype = q.dtype
     nglo = k_glo.shape[1]
     padx, pady = (W - nx % W) % W, (W - ny % W) % W
@@ -211,7 +212,8 @@ def sliding_chunk_attention_plain(q, k, v, k_glo, v_glo, *, nx: int, ny: int,
     local = apply_invalid_mask(slidingchunk_qk(qc, kc), mx, my, padx, pady,
                                W)
     glo = torch.einsum("bcmnl,btc->bmnlt", qc.float(), k_glo.float())
-    probs = torch.softmax(torch.cat([glo, local], dim=-1), dim=-1).to(dtype)
+    probs = torch.softmax(torch.cat([glo, local], dim=-1), dim=-1)
+    probs = (probs if drop is None else drop(probs)).to(dtype)
     out = slidingchunk_av(probs[..., nglo:], vc) + torch.einsum(
         "bmnlt,btc->bcmnl", probs[..., :nglo].float(), v_glo.float())
     return _untile(out.permute(0, 2, 3, 4, 1), nx, ny, W).to(dtype)

@@ -156,7 +156,8 @@ def _sm_count(index: int) -> int:
 
 
 def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
-                           scale: float, return_probs: bool = False):
+                           scale: float, return_probs: bool = False,
+                           drop=None):
     """The kernels' function in plain PyTorch (einsum, fp32 softmax,
     autograd), with the same roundings: q*scale and the probabilities are
     rounded to the input dtype, products accumulate in fp32.
@@ -181,7 +182,8 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
     nWm = full.shape[0]
     attn = (attn.reshape(B_ // nWm, nWm, nH, N, N) + full).reshape(B_, nH, N, N)
     probs = torch.softmax(attn, dim=-1)
-    out = torch.einsum("bhnm,bmhd->bnhd", probs.to(dtype).float(), v.float())
+    kept = probs if drop is None else drop(probs)
+    out = torch.einsum("bhnm,bmhd->bnhd", kept.to(dtype).float(), v.float())
     out = out.to(dtype).reshape(B_ * N, C)
     return (out, probs) if return_probs else out
 

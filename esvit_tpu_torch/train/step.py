@@ -2,7 +2,11 @@
 
 Teacher forward on the 2 global views (no autograd), student forward and
 backward on all views, DINO/DDINO loss with the center EMA, per-param
-clip, last-layer freeze, AdamW and the teacher EMA with cosine momentum.
+clip, last-layer freeze, frozen layers, AdamW (one fused pass) or SGD /
+LARS (esvit_tpu's unfused chain) and the teacher EMA with cosine
+momentum. With ``LossConfig.streamed`` both nets stop before their heads'
+last layers and the K-streamed loss takes the bottlenecks and the
+effective last-layer matrices (esvit_tpu/train/step.py:139-198).
 Schedules are evaluated from the step counter. Over several processes
 (parallel/mesh.py, one card each) the gradients and the loss are
 averaged in one coalesced all-reduce before the clip, and the centers
@@ -14,7 +18,8 @@ GradScaler and no autocast (autocast would round in other places). The
 step updates the state in place: parameters, moments and teacher are
 written where they lie.
 
-BatchNorm state (CvT) lives in each net's buffers, as esvit_tpu keeps a
+BatchNorm state (CvT, ResNet, BatchNorm heads) lives in each net's
+buffers, as esvit_tpu keeps a
 ``student_state`` and a ``teacher_state`` (esvit_tpu/train/step.py:
 36-41): each net's forwards update its own running statistics, the
 teacher's EMA moves parameters only, and the teacher starts with a copy
@@ -53,6 +58,10 @@ class TrainState:
     nu: dict[str, torch.Tensor]               # AdamW second moments by name
     adam_count: int                           # AdamW steps taken
     centers: losses.DinoCenters
+    optimizer: str = "adamw"                  # adamw | sgd | lars
+    # SGD / LARS momentum traces by name (empty for AdamW, whose mu / nu
+    # are then empty the other way round).
+    trace: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 class EsViTTrainer:
@@ -102,13 +111,18 @@ class EsViTTrainer:
         student = self.build_model(generator).to(self.device)
         teacher = copy.deepcopy(student).requires_grad_(False)
         named = dict(student.named_parameters())
+        opt = self.cfg.optim.optimizer
+
+        def zeros(use):
+            return ({n: torch.zeros_like(p) for n, p in named.items()}
+                    if use else {})
         return TrainState(
             step=0, student=student, teacher=teacher,
-            mu={n: torch.zeros_like(p) for n, p in named.items()},
-            nu={n: torch.zeros_like(p) for n, p in named.items()},
+            mu=zeros(opt == "adamw"), nu=zeros(opt == "adamw"),
             adam_count=0,
             centers=losses.DinoCenters.zeros(self.cfg.loss.out_dim,
-                                              self.device))
+                                              self.device),
+            optimizer=opt, trace=zeros(opt != "adamw"))
 
     def train_step(self, state: TrainState, batch,
                    generator: torch.Generator | None = None,
@@ -143,23 +157,40 @@ class EsViTTrainer:
                     else student_in[0][:0], mix, mixup_draws)
             student_in = (g, loc) if len(student_in) > 1 else (g,)
 
+        streamed = cfg.loss.use_dense_prediction and cfg.loss.streamed
         # BatchNorm backbones: the teacher runs deterministic with BN on
         # batch statistics, updating its own running buffers.
         with torch.no_grad(), _span("teacher_forward"):
             t_out = state.teacher((batch[0].to(dtype),), deterministic=True,
-                                  batch_size=B, bn_train=True)
+                                  batch_size=B, bn_train=True,
+                                  bottleneck_outputs=streamed)
         with _span("student_forward"):
             s_out = state.student(student_in, deterministic=False,
-                                  generator=generator, batch_size=B)
+                                  generator=generator, batch_size=B,
+                                  bottleneck_outputs=streamed)
         with _span("loss"):
             loss, new_centers = self._loss(state, s_out, t_out, t_temp,
                                            ncrops, B, targets_mixup)
 
-        names, params = zip(*state.student.named_parameters())
-        with _span("backward"):
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        named = dict(state.student.named_parameters())
+        names, params = list(named), list(named.values())
+        f_mask = None
+        if cfg.optim.frozen_layers:
+            fm = optim_lib.freeze_mask_by_prefix(
+                named, cfg.optim.frozen_layers, cfg.model.name)
+            f_mask = [fm[n] for n in names]
+        # The frozen layers' gradients are never read (their updates are
+        # zero), so autograd skips them, as requires_grad=False would.
+        trained = [i for i in range(len(params)) if not (f_mask and f_mask[i])]
+        grads = [None] * len(params)
+        if trained:
+            with _span("backward"):
+                got = torch.autograd.grad(loss, [params[i] for i in trained],
+                                          allow_unused=True)
+            for i, g in zip(trained, got):
+                grads[i] = g
         # A pinned weight_g (norm_last_layer) gets no gradient: zeros, as
-        # JAX's stop_gradient gives.
+        # JAX's stop_gradient gives; so do the frozen layers.
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         loss = loss.detach()
@@ -167,27 +198,36 @@ class EsViTTrainer:
             with _span("all_reduce"):
                 loss, *grads = self.mesh.all_reduce_mean([loss, *grads])
 
-        ll = optim_lib.last_layer_mask(dict(zip(names, params)))
+        ll = optim_lib.last_layer_mask(named)
         ll_mask = [ll[n] for n in names]
         frozen = epoch < cfg.optim.freeze_last_layer_epochs
-        decay = optim_lib.wd_mask(dict(zip(names, params)),
+        decay = optim_lib.wd_mask(named,
                                   decay_scale_g=not cfg.head.norm_last_layer)
         teacher = dict(state.teacher.named_parameters())
         m = self.momentum_fn(step)
         lr, wd = self.lr_fn(step), self.wd_fn(step)
+        common = dict(lr=lr, wd=wd, ema_m=m, clip=cfg.optim.clip_grad,
+                      decay_mask=[decay[n] for n in names], ll_mask=ll_mask,
+                      frozen=frozen, f_mask=f_mask)
         with torch.no_grad(), _span("optimizer"):
-            norms = torch._foreach_norm([g for g, llm in zip(grads, ll_mask)
-                                         if not (frozen and llm)])
-            grad_norm = torch.linalg.vector_norm(torch.stack(norms))
-            optim_lib.fused_adamw_ema_apply(
-                grads, list(params), [state.mu[n] for n in names],
-                [state.nu[n] for n in names], [teacher[n] for n in names],
-                count=state.adam_count, lr=lr, wd=wd, ema_m=m,
-                clip=cfg.optim.clip_grad, decay_mask=[decay[n] for n in names],
-                ll_mask=ll_mask, frozen=frozen)
+            held = optim_lib.held_mask(ll_mask, frozen, f_mask)
+            norms = torch._foreach_norm([g for g, h in zip(grads, held)
+                                         if not h])
+            grad_norm = (torch.linalg.vector_norm(torch.stack(norms))
+                         if norms else torch.zeros((), device=self.device))
+            if state.optimizer == "adamw":
+                optim_lib.fused_adamw_ema_apply(
+                    grads, params, [state.mu[n] for n in names],
+                    [state.nu[n] for n in names], [teacher[n] for n in names],
+                    count=state.adam_count, **common)
+                state.adam_count += 1
+            else:
+                optim_lib.sgd_lars_ema_apply(
+                    state.optimizer, grads, params,
+                    [state.trace[n] for n in names],
+                    [teacher[n] for n in names], **common)
 
         state.step += 1
-        state.adam_count += 1
         state.centers = new_centers
         metrics = {"loss": loss, "lr": lr, "wd": wd,
                    "teacher_momentum": m, "teacher_temp": t_temp,
@@ -196,7 +236,18 @@ class EsViTTrainer:
 
     def _loss(self, state, s_out, t_out, t_temp, ncrops, B, targets_mixup):
         cfg = self.cfg
-        if cfg.loss.use_dense_prediction:
+        if cfg.loss.use_dense_prediction and cfg.loss.streamed:
+            s_cls_z, s_reg_z, s_fea, s_npatch, ws_cls, ws_dense = s_out
+            t_cls_z, t_reg_z, t_fea, t_npatch, wt_cls, wt_dense = t_out
+            loss, new_centers = losses.ddino_loss_streamed(
+                s_cls_z, s_reg_z, s_fea, t_cls_z, t_reg_z, t_fea, ws_cls,
+                state.centers, t_temp, ncrops=ncrops, batch_size=B,
+                npatch=s_npatch, t_npatch=t_npatch[0], w_t=wt_cls,
+                w_s_dense=ws_dense, w_t_dense=wt_dense,
+                n_chunks=cfg.loss.stream_chunks,
+                student_temp=cfg.loss.student_temp,
+                center_momentum=cfg.loss.center_momentum, mesh=self.mesh)
+        elif cfg.loss.use_dense_prediction:
             loss, new_centers = losses.ddino_loss(
                 s_out, t_out, state.centers, t_temp, ncrops=ncrops,
                 batch_size=B, student_temp=cfg.loss.student_temp,

@@ -25,9 +25,12 @@ mixes the first student views (data/mixup.py). ``--arch`` takes every
 preset of config.py: Swin, ViL, CvT (cvt_femto, cvt_tiny) and ViT/DeiT
 (deit_tiny, deit_small, vit_base). An fp32 run (``--no-bf16``) turns
 cuDNN's TF32 off for its process (models/common.py
-``exact_fp32_convolutions``). SGD/LARS and BatchNorm heads are ROADMAP
-queue 1 item 11; frozen layers and the tensor-parallel head item 12.
-Each is refused with NotImplementedError.
+``exact_fp32_convolutions``). ``--optimizer sgd|lars``,
+``--use_bn_in_head`` and ``--frozen_layers`` run as esvit_tpu's; the
+ResNet family has no preset (esvit_tpu's CLI has none either) and is
+trained from Python, ``train(TrainConfig(model=ResNetConfig(depth=50),
+...))``. The tensor-parallel head (``--mesh_model`` > 1) is ROADMAP
+queue 1 item 12 and refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -329,12 +332,13 @@ def get_args_parser():
     p.add_argument("--clip_grad", default=3.0, type=float)
     p.add_argument("--freeze_last_layer", default=1, type=int)
     p.add_argument("--frozen_layers", nargs="*", default=[],
-                   help="parameter subtrees frozen for the whole run: not "
-                        "ported (ROADMAP queue 1 item 12)")
+                   help="parameter subtrees frozen for the whole run "
+                        "(esvit_tpu's keys: patch_embed, layers_0, "
+                        "layers_0/blocks_1, layers.0, head, or *)")
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "sgd", "lars"],
-                   help="sgd and lars are not ported (ROADMAP queue 1 item "
-                        "11)")
+                   help="adamw (one fused pass), or sgd / lars in "
+                        "esvit_tpu's optax order")
     p.add_argument("--batch_size_per_device", default=32, type=int)
     p.add_argument("--global_crops_scale", nargs=2, type=float,
                    default=(0.4, 1.0))

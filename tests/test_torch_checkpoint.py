@@ -3,6 +3,8 @@
 - A round trip restores every tensor of the training state bit for bit
   (student, teacher, both AdamW moments, both centers) and the counters,
   into a state drawn from another seed; the file holds host tensors only.
+  The same for SGD's and LARS's trace with BatchNorm heads' buffers; a
+  file of one optimizer does not restore into another's state.
 - The cadence of esvit_tpu's CheckpointManager: checkpoint.pth every save,
   checkpoint{epoch:04d}.pth every ``save_every_epochs`` epochs or with
   ``force_named``.
@@ -12,6 +14,7 @@
   reference's .pth.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -79,10 +82,35 @@ def test_round_trip_is_bit_exact(tmp_path, dense):
         assert got[name].dtype == w.dtype, name
         assert torch.equal(got[name], w), name
     tree = torch.load(tmp_path / "checkpoint.pth", weights_only=True)
-    assert set(tree) == {"step", "adam_count", "student", "teacher", "mu",
-                         "nu", "centers"}
+    assert set(tree) == {"step", "adam_count", "student", "teacher",
+                         "optimizer", "mu", "nu", "trace", "centers"}
+    assert tree["optimizer"] == "adamw" and tree["trace"] == {}
     for part in ("student", "teacher", "mu", "nu"):
         assert all(v.device.type == "cpu" for v in tree[part].values())
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "lars"])
+def test_trace_round_trip_and_optimizer_mismatch(tmp_path, optimizer):
+    cfg = _cfg(True)
+    cfg = cfg.replace(head=tcfg.HeadConfig(out_dim=32, hidden_dim=16,
+                                           bottleneck_dim=8, use_bn=True),
+                      optim=dataclasses.replace(cfg.optim,
+                                                optimizer=optimizer))
+    trainer, state = _stepped_state(cfg, steps=2)
+    assert state.mu == {} and state.trace
+    CheckpointManager(str(tmp_path)).save(state, epoch=0)
+    other = trainer.init_state(torch.Generator().manual_seed(5))
+    CheckpointManager(str(tmp_path)).restore(other)
+    for name, t in state.trace.items():
+        assert torch.equal(other.trace[name], t), name
+    for name, t in state.student.state_dict().items():
+        assert torch.equal(other.student.state_dict()[name], t), name
+    assert any(k.startswith("head.mlp.1.running") for k in
+               other.teacher.state_dict())
+    adamw = EsViTTrainer(_cfg(True), total_batch_size=2, device="cpu")
+    with pytest.raises(ValueError, match=f"optimizer '{optimizer}'"):
+        CheckpointManager(str(tmp_path)).restore(
+            adamw.init_state(torch.Generator().manual_seed(0)))
 
 
 @pytest.mark.parametrize("epoch,every,force,named", [

@@ -4,8 +4,10 @@ on the CPU at femto size.
 - The CLI: ``config_from_args(get_args_parser().parse_args(argv))`` equals
   esvit_tpu's field by field (every field the port keeps), for several
   argv sets; the parsers have the same flags and defaults (the port adds
-  ``--device``); every option the port lacks is refused naming its
-  ROADMAP item.
+  ``--device``); the options that once were refused (SGD, LARS,
+  BatchNorm heads, frozen layers) give esvit_tpu's config and pass
+  ``check_supported``, and the one the port lacks (``--mesh_model`` > 1)
+  is refused naming its ROADMAP item.
 - Resume: 2 epochs, then 1 more from the checkpoint, equal 3 epochs at
   once bit for bit (drop-path 0: the step's random draws are not
   checkpointed, as in esvit_tpu); ``init_from`` loads a checkpoint as the
@@ -122,6 +124,15 @@ def test_cli_flags_and_defaults_match_esvit_tpu():
     (["--mesh_model", "2"], "item 12"),
 ])
 def test_unported_options_are_refused(tmp_path, argv, item):
+    """The DINO head's tensor parallelism is refused before any setup;
+    the other flags of this list are ported now: their config equals
+    esvit_tpu's and check_supported admits it (no training run here)."""
+    if "--mesh_model" not in argv:
+        port = ttrain.config_from_args(ttrain.get_args_parser().parse_args(argv))
+        ref = jtrain.config_from_args(jtrain.get_args_parser().parse_args(argv))
+        _same(port, ref)
+        tcfg.check_supported(port)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         ttrain.main([*FEMTO, "--output_dir", str(tmp_path), *argv])
     assert not os.path.exists(tmp_path / "checkpoint.pth")

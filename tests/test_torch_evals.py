@@ -116,13 +116,16 @@ def test_presets_and_feature_dims_match_jax(preset):
 
 
 def test_unported_presets_and_dims_raise():
-    """Every esvit_tpu preset is ported; ResNet's probe width waits for
-    its backbone."""
+    """Every esvit_tpu preset is ported, and like esvit_tpu's none is a
+    ResNet; ResNet's probe width is its pooled feature alone, whatever
+    the block count, as esvit_tpu's."""
     assert set(tcfg.PRESETS) == set(jcfg.PRESETS)
     with pytest.raises(ValueError, match="unknown model preset"):
         tcfg.get_model_config("resnet50")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tlinear.feature_dim_for(type("R", (), {"name": "resnet"})(), 4)
+    for depth in (50, 101):
+        for n in (1, 4):
+            assert tlinear.feature_dim_for(tcfg.ResNetConfig(depth), n) == \
+                jlinear.feature_dim_for(jcfg.ResNetConfig(depth), n) == 2048
     with pytest.raises(ValueError, match="unknown dataset kind"):
         tdata.build_dataset("imagenet", root="x")
 

@@ -183,11 +183,16 @@ def test_unported_options_raise():
                                  subwindow_fused_stages=stages)))
     tcfg.check_supported(tcfg.TrainConfig(
         model=tcfg.swin_tiny(attention_impl="pallas", fused_block_stages=())))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    tcfg.check_supported(tcfg.TrainConfig(
+        model=tcfg.swin_tiny(remat="block", drop_rate=0.1,
+                             attn_drop_rate=0.1)))
+    with pytest.raises(ValueError, match="unknown remat mode"):
         tcfg.check_supported(tcfg.TrainConfig(
-            model=tcfg.swin_tiny(remat="block")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        build_backbone(type("ResNet", (), {"name": "resnet"})())
+            model=tcfg.swin_tiny(remat="stage")))
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        tcfg.check_supported(tcfg.TrainConfig(mesh=tcfg.MeshConfig(model=2)))
+    assert type(build_backbone(tcfg.ResNetConfig(depth=50))).__name__ == \
+        "ResNet"
     tcfg.check_supported(tcfg.TrainConfig())
 
 

@@ -141,9 +141,11 @@ def test_unported_vil_options_raise():
     rpe = tcfg.vil_from_arch("l1,h1,d48,n1,s1,g1,p4,f7,a0")
     with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
         tcfg.check_supported(tcfg.TrainConfig(model=rpe))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    tcfg.check_supported(tcfg.TrainConfig(
+        model=tcfg.vil_tiny(attn_drop_rate=0.1, drop_rate=0.1)))
+    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
         tcfg.check_supported(tcfg.TrainConfig(
-            model=tcfg.vil_tiny(attn_drop_rate=0.1)))
+            model=tcfg.vil_tiny(attn_drop_rate=0.1, mode=1)))
     assert isinstance(build_backbone(tcfg.vil_femto()), TViL)
 
 

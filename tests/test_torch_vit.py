@@ -179,9 +179,11 @@ def test_presets_have_jax_shapes(preset):
 def test_vit_is_built_and_admitted():
     assert isinstance(build_backbone(tcfg.deit_small()), TViT)
     tcfg.check_supported(tcfg.deit_small_multicrop())
+    tcfg.check_supported(tcfg.TrainConfig(
+        model=tcfg.deit_small(attn_drop_rate=0.1, drop_rate=0.1)))
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tcfg.check_supported(tcfg.TrainConfig(
-            model=tcfg.deit_small(attn_drop_rate=0.1)))
+        tcfg.check_supported(tcfg.deit_small_multicrop(
+            mesh=tcfg.MeshConfig(model=2)))
 
 
 def test_vit_block_draws_one_drop_path_twice():
