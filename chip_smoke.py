@@ -182,6 +182,19 @@ so the script exits non-zero and prints no result line:
    2 steps in a subprocess, its checkpoint restored on the card with the
    LARS trace equal to the file's bit for bit, and a resume for a third
    step.
+15. The rest of ViL (``phase_vil_options``), each leg ViL-T at full
+   width through train() (B=32, 2x224 + 8x96, 65536-wide heads, bf16,
+   one epoch of 8 steps), printing ms/step and peak memory: (a) the
+   neighbour-mode schedule, ``vil_tiny(mode=1, mode_switch=0.5)`` for 8
+   steps: steps 0-3 draw a neighbour per net and launch no sliding-chunk
+   kernel, steps 4-7 launch what the mode-0 step does, each half's
+   ms/step and peak; (b) per-layer draws (``per_layer_mode``), (c)
+   relative position bias on the two sparse stages (the card's fp32
+   forward against the CPU's at 2 images of 224 and 96 px within 1e-4
+   first), (d) Performer, SRFormer and Linformer (on the global crops
+   only: its sequence length is fixed at the 224 px grid, as in
+   esvit_tpu), 2 steps each, no sliding-chunk launch; (e) the k-NN and
+   linear-probe CLIs on leg (a)'s checkpoint, their launches as derived.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -197,6 +210,7 @@ tensor cores; fp32 CUDA cores for the fp32 eval), summed the same way.
 The last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -1342,12 +1356,14 @@ def phase_vil_forward_parity(torch, C, sc):
             f"rel err {err:.2e} (tol 1e-4), shape {tuple(a.shape)}")
 
 
-def _derived_launches(cfg, steps):
+def _derived_launches(cfg, steps, modes=None):
     """Per-kernel launches of `steps` train steps, from the model's routing
     (its ``<kernel>_calls``; 0 for a kernel the backbone never calls): the
     teacher runs the 224 crops forward (deterministic), the student all
     crops forward and backward (ViL's route under attention dropout
-    depends on which). Under Swin's remat='block' the student's window
+    depends on which, and at each step on the nets' neighbour modes,
+    ``modes`` = train()'s per-step (mode, teacher_mode), all (0, 0) when
+    not given). Under Swin's remat='block' the student's window
     attention forwards run again in the backward's recompute; the fused
     routes are not rematerialised. With frozen_layers the backward stops
     before the leading stages that hold no trainable parameter
@@ -1365,21 +1381,31 @@ def _derived_launches(cfg, steps):
         skip = probe.frozen_stages(freeze_mask_by_prefix(
             dict(probe.named_parameters()), cfg.optim.frozen_layers,
             cfg.model.name))
+    sizes = [g] + ([l] if cfg.crops.local_crops_number else [])
+    modes = modes or [(0, 0)] * steps
+    if len(modes) != steps:
+        raise AssertionError(f"{len(modes)} steps' modes for {steps} steps")
     want = {}
     for name, (_, kinds) in KERNELS.items():
         fn = getattr(probe, f"{name}_calls", lambda size: 0)
         params = inspect.signature(fn).parameters
 
-        def calls(size, det, first=0, fn=fn, params=params):
+        def calls(size, det, first=0, mode=0, fn=fn, params=params):
             kw = {"deterministic": det} if "deterministic" in params else {}
             if "from_stage" in params:
                 kw["from_stage"] = first
+            if "mode" in params:
+                kw["mode"] = mode
             return fn(size, **kw)
-        student = calls(g, False) + calls(l, False)
-        again = student if remat and name != "fused_block" else 0
-        per_step = {"fwd": calls(g, True) + student + again,
-                    "bwd": calls(g, False, skip) + calls(l, False, skip)}
-        want[name] = {k: per_step[k] * steps for k in kinds}
+        want[name] = {k: 0 for k in kinds}
+        for mode, t_mode in modes:
+            student = sum(calls(s, False, mode=mode) for s in sizes)
+            again = student if remat and name != "fused_block" else 0
+            per_step = {"fwd": calls(g, True, mode=t_mode) + student + again,
+                        "bwd": sum(calls(s, False, skip, mode)
+                                   for s in sizes)}
+            for k in kinds:
+                want[name][k] += per_step[k]
     return want
 
 
@@ -1395,7 +1421,6 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
 
     from esvit_tpu_torch.train.train import train
 
-    want = _derived_launches(cfg, steps)
     init = _initial_weights(torch, cfg) if check_state else None
     for launches in counters.values():
         for k in launches:
@@ -1408,6 +1433,7 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
     losses = [h["loss"] for h in history]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{label}: losses {losses}")
+    want = _derived_launches(cfg, steps, [h["modes"] for h in history])
     ms = statistics.mean(h["seconds"] for h in history[1:]) * 1e3
     ips = cfg.crops.ncrops * BATCH / (ms / 1e3)
     log(f"slice {label}: losses {losses}")
@@ -2674,14 +2700,10 @@ def _timed_slice(torch, cfg, steps, counters, label, card, check_state,
 
 
 def _with_loss(cfg, **kw):
-    import dataclasses
-
     return cfg.replace(loss=dataclasses.replace(cfg.loss, **kw))
 
 
 def _with_optim(cfg, **kw):
-    import dataclasses
-
     return cfg.replace(optim=dataclasses.replace(cfg.optim, **kw))
 
 
@@ -2916,6 +2938,194 @@ def _options_cli(torch, C, counters, card, tmp):
         f"to the file's, resumed from step 2 to 3 [{card}]")
 
 
+# Phase 15, the rest of ViL: the schedule leg's steps (the switch at half
+# of them), the other legs' steps (2: the whole script has run past 830
+# s, so each leg times its second step only), leg (c)'s arch (ViL-T with
+# relative position bias on its two sparse stages; full attention's rpe
+# takes the native grid only) and its card-vs-CPU tolerance, as
+# phase_vil_forward_parity's.
+VIL_SWITCH_STEPS, VIL_LEG_STEPS = 8, 2
+VIL_RPE_ARCH = ("l1,h1,d48,n1,s1,g1,p4,f7,a0_l2,h3,d96,n1,s1,g1,p2,f7,a0_"
+                "l3,h3,d192,n9,s0,g1,p2,f7_l4,h6,d384,n1,s0,g0,p2,f7")
+VIL_PARITY_TOL = 1e-4
+
+
+class _StepRecorder:
+    """EsViTTrainer.train_step wrapped while it is entered: each step's
+    (mode, teacher_mode), the launches of every kernel in it, and the peak
+    device memory since the last reset, which it makes before step 0 and
+    before step ``split``."""
+
+    def __init__(self, torch, counters, split):
+        self.torch, self.counters, self.split = torch, counters, split
+        self.steps = []
+
+    def __enter__(self):
+        from esvit_tpu_torch.train import step as step_lib
+
+        self.cls, self.real = step_lib.EsViTTrainer, \
+            step_lib.EsViTTrainer.train_step
+        rec = self
+
+        def train_step(trainer, state, batch, *a, **kw):
+            if len(rec.steps) in (0, rec.split):
+                rec.torch.cuda.reset_peak_memory_stats()
+            before = {n: dict(c) for n, c in rec.counters.items()}
+            out = rec.real(trainer, state, batch, *a, **kw)
+            rec.steps.append({
+                "modes": (kw.get("mode", 0), kw.get("teacher_mode", 0)),
+                "launches": {n: {k: c[k] - before[n][k] for k in c}
+                             for n, c in rec.counters.items()},
+                "peak": rec.torch.cuda.max_memory_allocated() / 2**30})
+            return out
+        self.cls.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.real
+
+
+def _vil_leg(torch, C, cfg, steps, counters, label, card):
+    """train() for ``steps`` steps through _slice (launches as derived
+    from each step's modes, state moved); its ms/step over steps 2-N and
+    peak GiB printed, and no sliding-chunk launch."""
+    ms, peak = _timed_slice(torch, cfg, steps, counters, label, card, True)
+    if any(counters["sliding_chunk"].values()):
+        raise AssertionError(f"{label}: sliding-chunk launches "
+                             f"{counters['sliding_chunk']}")
+    log(f"vil {label} B={BATCH} bf16: {ms:.1f} ms/step over steps "
+        f"2-{steps}, peak {peak:.2f} GiB, no sliding-chunk launch [{card}]")
+
+
+def phase_vil_options(torch, C, counters, card):
+    """Phase 15 (see the module docstring)."""
+    t0 = time.perf_counter()
+    base = _with_optim(C.vil_tiny_multicrop(BATCH), epochs=1).replace(
+        steps_per_epoch=VIL_SWITCH_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = _vil_schedule_leg(torch, C, base.replace(output_dir=tmp),
+                                 counters, card)
+        legs = (
+            ("per-layer draws", base.replace(model=C.vil_tiny(
+                mode=1, per_layer_mode=True))),
+            ("rpe", base.replace(model=C.vil_from_arch(VIL_RPE_ARCH))),
+            ("performer", base.replace(model=C.vil_tiny(
+                attn_type="performer"))),
+            ("srformer", base.replace(model=C.vil_tiny(
+                attn_type="srformer"))),
+            # esvit_tpu's Linformer fixes the sequence length at the 224 px
+            # grid: it cannot run the 96 px crops either.
+            ("linformer, no local crops", base.replace(
+                model=C.vil_tiny(attn_type="linformer"),
+                crops=dataclasses.replace(base.crops, local_crops_number=0))),
+        )
+        d = os.path.join(tmp, "legs")
+        for label, cfg in legs:
+            if label == "rpe":
+                _vil_rpe_parity(torch, C, card)
+            _vil_leg(torch, C, cfg.replace(output_dir=d), VIL_LEG_STEPS,
+                     counters, label, card)
+        _vil_evals(torch, C, ckpt, tmp, card)
+    log(f"vil options phase: {time.perf_counter() - t0:.1f} s")
+
+
+def _vil_schedule_leg(torch, C, base, counters, card):
+    """(a) vil_tiny(mode=1, mode_switch=0.5) for VIL_SWITCH_STEPS steps of
+    one epoch: the first half samples a neighbour per net and launches no
+    sliding-chunk kernel, the second launches what the mode-0 step does;
+    ms/step and peak of each half. Returns the run's checkpoint."""
+    cfg = base.replace(model=C.vil_tiny(mode=1, mode_switch=0.5))
+    half = VIL_SWITCH_STEPS // 2
+    with _StepRecorder(torch, counters, half) as rec:
+        _, history = _slice(torch, cfg, VIL_SWITCH_STEPS, counters,
+                            "ViL-T mode 1 switching at step 4", card, True)
+    mode0 = _derived_launches(cfg, 1)["sliding_chunk"]
+    for i, step in enumerate(rec.steps):
+        sampled = i < half
+        want = {"fwd": 0, "bwd": 0} if sampled else mode0
+        if (step["launches"]["sliding_chunk"] != want
+                or (step["modes"] == (0, 0)) == sampled):
+            raise AssertionError(f"vil schedule step {i}: {step}, want "
+                                 f"sliding chunk {want}")
+    ms = [1e3 * h["seconds"] for h in history]
+    before, after = (statistics.mean(ms[1:half]),
+                     statistics.mean(ms[half:]))
+    log(f"vil schedule: modes {[s['modes'] for s in rec.steps]}; steps "
+        f"0-{half - 1} no sliding-chunk launch, steps {half}-"
+        f"{VIL_SWITCH_STEPS - 1} {mode0} each as the mode-0 step")
+    log(f"vil schedule B={BATCH} bf16: sampled mode {before:.1f} ms/step "
+        f"(steps 1-{half - 1}), peak {rec.steps[half - 1]['peak']:.2f} GiB; "
+        f"mode 0 {after:.1f} ms/step (steps {half}-{VIL_SWITCH_STEPS - 1}), "
+        f"peak {rec.steps[-1]['peak']:.2f} GiB; per step "
+        f"{[round(x, 1) for x in ms]} ms [{card}]")
+    return os.path.join(base.output_dir, "checkpoint.pth")
+
+
+def _vil_rpe_parity(torch, C, card):
+    """(c) The rpe model's fp32 forward_features on the card (TF32 off)
+    against the CPU, same weights, 2 images at 224 and 96 px."""
+    import copy
+
+    from esvit_tpu_torch.models.vil import MsViT
+
+    cpu = MsViT(C.vil_from_arch(VIL_RPE_ARCH),
+                generator=torch.Generator().manual_seed(0))
+    dev = copy.deepcopy(cpu).cuda()
+    for size in (224, 96):
+        x = torch.randn(2, size, size, 3,
+                        generator=torch.Generator().manual_seed(size))
+        with torch.no_grad():
+            want = cpu.forward_features(x)
+            got = dev.forward_features(x.cuda())
+        errs = [_rel(torch, a.cpu(), b) for a, b in zip(got, want)]
+        if max(errs) > VIL_PARITY_TOL or not all(
+                torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"vil rpe {size}px: card vs CPU {errs}")
+        log(f"vil rpe forward_features fp32 2x{size}px: card vs CPU rel "
+            f"err cls {errs[0]:.2e}, region {errs[1]:.2e} (tol "
+            f"{VIL_PARITY_TOL}) [{card}]")
+    del dev
+
+
+def _vil_evals(torch, C, ckpt, tmp, card):
+    """(e) The k-NN and linear-probe CLIs on the schedule leg's
+    checkpoint: fp32 forwards at 224 px, each batch launching the
+    sliding-chunk forward once per kernel-route layer."""
+    from esvit_tpu_torch.models.vil import MsViT
+
+    train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
+                             FAMILY_EVAL_TRAIN, seed=7)
+    val_dir = _eval_folder(os.path.join(tmp, "eval_val"), FAMILY_EVAL_VAL,
+                           seed=13)
+    batches = (-(-FAMILY_EVAL_TRAIN // EVAL_BATCH)
+               + -(-FAMILY_EVAL_VAL // EVAL_BATCH))
+    want = {name: {k: 0 for k in kinds}
+            for name, (_, kinds) in KERNELS.items()}
+    want["sliding_chunk"]["fwd"] = batches * MsViT(
+        C.vil_tiny()).sliding_chunk_calls(224)
+    common = ["--arch", "vil_tiny", "--pretrained", ckpt, "--train_path",
+              train_dir, "--val_path", val_dir, "--output_dir",
+              os.path.join(tmp, "eval")]
+    images = FAMILY_EVAL_TRAIN + FAMILY_EVAL_VAL
+    for label, module, extra, pattern in (
+            ("vil_tiny k-NN", "esvit_tpu_torch.evals.knn",
+             ["--batch_size", str(EVAL_BATCH)],
+             r"^10-NN classifier result: Top1: ([0-9.]+)"),
+            ("vil_tiny linear probe", "esvit_tpu_torch.evals.linear",
+             ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
+              "--cached_features"],
+             r"^Linear probe: Top1 ([0-9.]+)")):
+        text, rec = _entry_run(label, module, [*common, *extra])
+        _entry_launches(label, rec["launches"], want)
+        m = re.search(pattern, text, re.M)
+        if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
+            raise AssertionError(f"entry {label}: no result:\n"
+                                 f"{text[-3000:]}")
+        log(f"entry {label} on the schedule leg's checkpoint: top-1 "
+            f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
+            f"{rec['seconds']:.1f} s of main() [{card}]")
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -2972,6 +3182,7 @@ def main():
     phase_real_images(torch, C, counters, card, synthetic_ms)
     phase_families(torch, C, counters, card)
     phase_options(torch, C, counters, card)
+    phase_vil_options(torch, C, counters, card)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

@@ -15,11 +15,12 @@ follows ``fused_block_stages``).
 The ViT/DeiT and CvT configs mirror ``esvit_tpu/config.py:175-230,
 429-462`` with no field left out. The ViL (Vision Longformer) configs
 mirror ``esvit_tpu/config.py:233-279, 464-491`` with the reference arch-string parser
-(``esvit_tpu/models/vil.py:47-59``). ``fused_sc`` keeps two of the
-reference's values: 'auto' sends every sparse stage that the sliding-chunk
-kernel's shape rule takes to it (ops/sliding_chunk.py, the CUDA kernel
-for tensors on the card), 'off' runs the plain stacked-neighbourhood
-version everywhere; the TPU's 'interpret' and 'on' are not ported.
+(``esvit_tpu/models/vil.py:47-59``). ``fused_sc`` 'auto' (and 'on', which
+takes the same route) sends every sliding-chunk layer that the kernel
+takes (ops/sliding_chunk.py ``supports``: its configuration and shape) to
+it, the CUDA kernel for tensors on the card; 'off' runs the plain
+stacked-neighbourhood version everywhere. 'interpret', Pallas's CPU
+interpreter, is TPU machinery that the port's plain CPU route replaces.
 
 The ResNet config mirrors ``esvit_tpu/config.py:283-292``; as there, no
 preset names it: ``TrainConfig(model=ResNetConfig(depth=50))`` reaches it.
@@ -27,8 +28,7 @@ preset names it: ``TrainConfig(model=ResNetConfig(depth=50))`` reaches it.
 Fields whose reference behaviour the port does not run yet keep their
 names and are refused by :func:`check_supported`, which names the ROADMAP
 item that ports them: the DINO head's tensor parallelism (``mesh.model >
-1``) and ViL's neighbour sampling, attention types and relative position
-bias.
+1``).
 """
 
 from __future__ import annotations
@@ -175,12 +175,18 @@ class ViLConfig:
     img_size: int = 224
     in_chans: int = 3
     stages: tuple[ViLStageConfig, ...] = ()
-    attn_type: str = "longformer"   # longformer | full | performer | ...
-    # Sliding-chunk neighbour sampling (ref longformer2d.py:135-155);
-    # only mode 0 (all 8 neighbours) is ported.
+    # Sparse stages' attention: longformer (also longformerhand,
+    # longformerauto) | performer | linformer | srformer.
+    attn_type: str = "longformer"
+    # Sliding-chunk neighbour sampling (ref longformer2d.py:135-155 and
+    # VIL_MODE_SWITCH): with mode > 0, each step of the first mode_switch
+    # fraction of training draws one neighbour chunk per net (train.py's
+    # schedule), full 8-neighbour attention after it; per_layer_mode: each
+    # layer draws its own neighbour every forward instead.
     mode: int = 0
+    mode_switch: float = 0.5
     per_layer_mode: bool = False
-    # 'auto': sparse stages the kernel's shape rule takes go through
+    # 'auto' / 'on': the sliding-chunk layers the kernel takes go through
     # ops/sliding_chunk.py (the CUDA kernel for tensors on the card);
     # 'off': the plain stacked-neighbourhood version everywhere.
     fused_sc: str = "auto"
@@ -479,8 +485,9 @@ def _refuse(what: str, item: str):
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for reference options the port lacks:
-    the DINO head's tensor parallelism and ViL's item-9b variants."""
+    """Raise NotImplementedError for reference options the port lacks
+    (the DINO head's tensor parallelism, and ViL's Pallas interpreter),
+    ValueError for values no package takes."""
     m = cfg.model
     name = getattr(m, "name", None)
     if name == "swin":
@@ -502,17 +509,19 @@ def check_supported(cfg: TrainConfig) -> None:
                 "parallelism)", "queue 1 item 12")
 
 
+VIL_ATTN_TYPES = ("longformer", "longformerhand", "longformerauto",
+                  "performer", "linformer", "srformer")
+
+
 def _check_vil(m: ViLConfig) -> None:
-    """The port runs the canonical EsViT ViL: mode 0, the longformer
-    attention family, absolute position embeddings everywhere."""
-    if m.mode != 0 or m.per_layer_mode:
-        _refuse(f"ViL neighbour sampling (mode={m.mode}, per_layer_mode="
-                f"{m.per_layer_mode})", "queue 1 item 9b")
-    if m.attn_type not in ("longformer", "longformerhand", "longformerauto"):
-        _refuse(f"ViL attn_type={m.attn_type!r}", "queue 1 item 9b")
-    if not all(st.ape for st in m.stages):
-        _refuse("ViL relative position bias (a stage with ape=False)",
-                "queue 1 item 9b")
-    if m.fused_sc not in ("auto", "off"):
-        _refuse(f"fused_sc={m.fused_sc!r} (the port has 'auto' and 'off')",
-                "queue 1 item 9b")
+    """Every option of esvit_tpu's ViL runs; 'interpret' is Pallas's CPU
+    interpreter, which the port's plain CPU route replaces."""
+    if m.attn_type not in VIL_ATTN_TYPES:
+        raise ValueError(f"unknown ViL attn_type {m.attn_type!r}")
+    if m.fused_sc == "interpret":
+        raise NotImplementedError(
+            "fused_sc='interpret' is Pallas's CPU interpreter, TPU "
+            "machinery the port replaces: 'auto' runs the plain version "
+            "for tensors on the CPU")
+    if m.fused_sc not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused_sc {m.fused_sc!r}")

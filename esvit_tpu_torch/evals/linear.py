@@ -69,10 +69,6 @@ def _n_last_blocks(backbone, n_last_blocks):
     """The backbone's concat-of-n-last-blocks forward (BatchNorm on its
     running statistics, fp32 convolutions exact)."""
     exact_fp32_convolutions()
-    if not hasattr(backbone, "forward_return_n_last_blocks"):
-        raise NotImplementedError(
-            f"{type(backbone).__name__}.forward_return_n_last_blocks is not "
-            "ported yet (ROADMAP queue 1 item 9b)")
     return lambda x: backbone.forward_return_n_last_blocks(x, n_last_blocks)
 
 

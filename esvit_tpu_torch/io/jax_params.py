@@ -13,7 +13,12 @@ is exactly the inverse of esvit_tpu/io/torch_import.py
   for a one-layer head; the ``backbone`` level is dropped.
 - ViL (the inverse of ``import_vil_backbone``): ``embed_i`` ->
   ``layer{i+1}.0``, ``stage{i}_attn{j}`` -> ``layer{i+1}.{2j+1}``,
-  ``stage{i}_mlp{j}`` -> ``layer{i+1}.{2j+2}``.
+  ``stage{i}_mlp{j}`` -> ``layer{i+1}.{2j+2}``; the rpe tables, ``g2l`` /
+  ``g2g``, Linformer's stored ``proj_k`` / ``proj_v``, the pooled keys'
+  scales and cross-window table keep their names, ``pool_fc`` and
+  SRFormer's ``proj_sr`` convert as every Dense / Conv kernel; the
+  ``performer`` collection's ``projection`` -> each Performer's buffer
+  ``fast_attention.projection_matrix``.
 - CvT (the inverse of ``import_cvt_backbone``): ``embed_i`` ->
   ``stage{i}.0``; ``stage{i}_block{j}`` -> ``stage{i}.1.layers.{j}``, its
   ``norm_attn`` / ``attn`` under ``.0`` (``norm`` / ``fn``) and
@@ -92,6 +97,9 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
         leaf = _BN_LEAVES[leaf]                     # BatchNorm scope
     elif parts == ["patch_embed"]:                  # ViT's patch conv
         parts.append("proj")
+    elif leaf == "projection":                      # the performer collection
+        parts.append("fast_attention")
+        leaf = "projection_matrix"
     if leaf == "kernel":
         leaf = "weight"
         v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
@@ -131,13 +139,15 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
 
 
 def state_dict_from_flax(params: Mapping[str, Any],
-                         batch_stats: Mapping[str, Any] | None = None
+                         batch_stats: Mapping[str, Any] | None = None,
+                         performer: Mapping[str, Any] | None = None
                          ) -> dict[str, torch.Tensor]:
     """EsViTModel (or bare backbone) flax params, and its ``batch_stats``
-    collection where it has one -> the port's state_dict."""
+    and ``performer`` collections where it has them -> the port's
+    state_dict."""
     n_head_mlps = sum(1 for k in params.get("head", {}) if k.startswith("mlp_"))
     head_bn = any(k.startswith("bn_") for k in params.get("head", {}))
-    trees = [params] + ([batch_stats] if batch_stats else [])
+    trees = [params] + [t for t in (batch_stats, performer) if t]
     keys = {p for tree in trees for path, _ in _leaves(tree) for p in path}
     cvt = any(re.fullmatch(r"stage\d+_block\d+", p) for p in keys)
     resnet = any(re.fullmatch(r"layer\d+_block\d+", p) for p in keys)
@@ -174,7 +184,9 @@ def _trace_state(opt_state):
 def train_state_from_jax(jax_state, trainer):
     """esvit_tpu TrainState (numpy leaves) -> the port's TrainState on
     ``trainer.device``: student and teacher with their BatchNorm state
-    (``student_state`` / ``teacher_state``), the optimizer's state (AdamW
+    (``student_state`` / ``teacher_state``) and their Performer
+    projections (the ``performer`` collection there), the optimizer's
+    state (AdamW
     moments and count, or the SGD / LARS trace), step and centers."""
     from esvit_tpu_torch.losses import DinoCenters
     from esvit_tpu_torch.train.step import TrainState
@@ -183,8 +195,9 @@ def train_state_from_jax(jax_state, trainer):
 
     def model(params, extra):
         m = trainer.build_model()
+        extra = extra or {}
         m.load_state_dict(state_dict_from_flax(
-            params, (extra or {}).get("batch_stats")))
+            params, extra.get("batch_stats"), extra.get("performer")))
         return m.to(dev)
 
     def by_name(tree):

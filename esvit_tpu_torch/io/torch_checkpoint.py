@@ -8,9 +8,10 @@ store ``{'student': sd, 'teacher': sd, 'optimizer', 'epoch', 'args',
 port's parameter and buffer names are the reference's (Swin, ViL, CvT
 with its BatchNorm running statistics, ViT), so loading is a key filter:
 the heads, the ``relative_position_index`` / ``attn_mask`` / CvT
-``rel_pos_idx`` buffers (static tables here) and BatchNorm's
+``rel_pos_idx`` buffers (static tables here), BatchNorm's
 ``num_batches_tracked`` (unused: flax's BatchNorm has a fixed momentum)
-are dropped, as esvit_tpu/io/torch_import.py:176-180 drops them. :func:`adapt_swin_tables` resizes the
+and the Performer's ``calls_since_last_redraw`` are dropped, as
+esvit_tpu/io/torch_import.py:176-180, 239 drops them. :func:`adapt_swin_tables` resizes the
 relative-position tables and the absolute position embedding when the
 checkpoint's window size or resolution differs from the model's
 (ref: swin_transformer.py:852-917 init_weights).
@@ -26,7 +27,7 @@ import torch
 from esvit_tpu_torch.ops.resample import bicubic_resize
 
 _DROPPED = ("relative_position_index", "attn_mask", "rel_pos_idx",
-            "num_batches_tracked")
+            "num_batches_tracked", "calls_since_last_redraw")
 
 
 def load_torch_checkpoint(path: str, key: str = "teacher"

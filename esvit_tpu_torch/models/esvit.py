@@ -57,19 +57,28 @@ class EsViTModel(nn.Module):
     def forward(self, crops: Sequence[torch.Tensor], deterministic=True,
                 generator: torch.Generator | None = None,
                 batch_size: int | None = None, bn_train: bool | None = None,
-                bottleneck_outputs: bool = False):
+                bottleneck_outputs: bool = False, mode: int = 0):
         """bn_train: BatchNorm's mode in BN backbones (CvT, ResNet), by
         default ``not deterministic``; the teacher runs deterministic with
         True, as the reference's always-train-mode teacher does
         (esvit_tpu/models/esvit.py:53-80). Other backbones ignore it. A
         BatchNorm head follows ``deterministic`` instead (models/heads.py).
-        bottleneck_outputs: the dense path's bottleneck form (above)."""
+        bottleneck_outputs: the dense path's bottleneck form (above).
+        mode: a ViL backbone's sliding-chunk neighbour mode
+        (models/vil.py; other backbones take none). A crop group without
+        images (no local crops) is skipped, where esvit_tpu forwards the
+        empty batch: that changes no output, and lets a backbone whose
+        sequence length is fixed (Linformer) train on the global crops
+        alone."""
         if bn_train is None:
             bn_train = not deterministic
+        extra = {"mode": mode} if self.backbone.cfg.name == "vil" else {}
         cls_list, fea_list, npatch = [], [], []
         for x in crops:
+            if x.shape[0] == 0:
+                continue
             cls, fea = self.backbone.forward_features(
-                x, deterministic, generator, bn_train=bn_train)
+                x, deterministic, generator, bn_train=bn_train, **extra)
             cls_list.append(cls)
             fea_list.append(fea)
             npatch.append(fea.shape[1])

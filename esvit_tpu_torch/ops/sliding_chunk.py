@@ -24,15 +24,19 @@ uses :func:`sliding_chunk_attention_plain` only for tensors on the CPU.
 ``launches`` counts one per forward call and one per backward call.
 
 The plain twin is the stacked-neighbourhood form of Vision Longformer's
-local attention (a port of esvit_tpu/ops/slidingchunk.py, mode 0; ref
+local attention (a port of esvit_tpu/ops/slidingchunk.py; ref
 layers/slidingchunk_2d.py): each query chunk attends to its 3x3 chunk
 neighbourhood, gathered as 9 rolled copies of the chunked keys in the
 reference's concat order (-1,-1), (-1,0), ..., (1,1). Rolling wraps at the
 grid's edges; :func:`invalid_mask_zero` (blockwise zero padding,
 ``exact=0``) then masks the wrapped chunks and the spatially padded
 positions, so the valid keys are exactly the in-grid neighbours' real
-tokens. Other modes and ``exact=+-1`` are not ported (ROADMAP queue 1
-item 9b).
+tokens. The same primitives take the other neighbour modes (-1: the chunk
+itself; 1-8: itself and one neighbour, ``MODE_SHIFTS``) and the other
+masks (``exact=-1``, cyclic; ``exact=1``, the exact sliding window, mode
+0 only): models/vil_layers.py builds every non-kernel configuration of
+the ViL attention from them. :func:`supports` is the one rule of which
+configurations the kernel pair takes.
 
 Beside it, the staged twins (:func:`sliding_chunk_fwd_staged`,
 :func:`sliding_chunk_bwd_q_staged`, :func:`sliding_chunk_bwd_k_staged`,
@@ -142,68 +146,168 @@ def _untile(t: torch.Tensor, nx: int, ny: int, W: int) -> torch.Tensor:
     return t.reshape(BH, mx * W, my * W, C)[:, :nx, :ny]
 
 
-# Roll shifts applied to k/v, in the reference's concat order
-# (slidingchunk_2d.py:34-76): shift (1, 1) brings neighbour (-1, -1).
+# Mode -> the roll shift applied to k/v (ref slidingchunk_2d.py:12-21),
+# and every shift in the reference's concat order (slidingchunk_2d.py:
+# 34-76): shift (1, 1) brings neighbour (-1, -1).
+MODE_SHIFTS = {
+    1: (1, 1), 2: (1, 0), 3: (1, -1),
+    4: (0, 1), 5: (0, -1),
+    6: (-1, 1), 7: (-1, 0), 8: (-1, -1),
+}
 _ALL_SHIFTS = [(1, 1), (1, 0), (1, -1), (0, 1), (0, 0), (0, -1),
                (-1, 1), (-1, 0), (-1, -1)]
 
 
-def _stack_neighbors(t: torch.Tensor) -> torch.Tensor:
-    """(BH, M, mx, my, W2) -> (BH, M, 9, mx, my, W2) of rolled copies."""
+def neighbour_count(mode: int) -> int:
+    """Chunks each query chunk attends to: 9 (mode 0), 1 (mode -1), 2
+    (mode 1-8: itself and one neighbour)."""
+    return {0: 9, -1: 1}.get(mode, 2)
+
+
+def _stack_neighbors(t: torch.Tensor, mode: int = 0) -> torch.Tensor:
+    """(BH, M, mx, my, W2) -> (BH, M, K, mx, my, W2) of rolled copies."""
+    if mode == 0:
+        shifts = _ALL_SHIFTS
+    elif mode == -1:
+        shifts = [(0, 0)]
+    else:
+        shifts = [(0, 0), MODE_SHIFTS[mode]]
     return torch.stack(
         [torch.roll(t, s, dims=(2, 3)) if s != (0, 0) else t
-         for s in _ALL_SHIFTS], dim=2)
+         for s in shifts], dim=2)
 
 
-def slidingchunk_qk(q_img: torch.Tensor, k_img: torch.Tensor) -> torch.Tensor:
-    """(BH,M,mx,my,W2) x2 -> attn (BH,mx,my,W2,9*W2) in fp32."""
-    kn = _stack_neighbors(k_img)
+def slidingchunk_qk(q_img: torch.Tensor, k_img: torch.Tensor,
+                    mode: int = 0) -> torch.Tensor:
+    """(BH,M,mx,my,W2) x2 -> attn (BH,mx,my,W2,K*W2) in fp32."""
+    kn = _stack_neighbors(k_img, mode)
     attn = torch.einsum("bcmnl,bcjmnt->bmnljt", q_img.float(), kn.float())
     return attn.reshape(*attn.shape[:4], -1)
 
 
-def slidingchunk_av(attn: torch.Tensor, v_img: torch.Tensor) -> torch.Tensor:
-    """attn (BH,mx,my,W2,9*W2) x v (BH,M,mx,my,W2) -> (BH,M,mx,my,W2),
-    summed in fp32."""
+def slidingchunk_av(attn: torch.Tensor, v_img: torch.Tensor,
+                    mode: int = 0) -> torch.Tensor:
+    """attn (BH,mx,my,W2,K*W2) x v (BH,M,mx,my,W2) -> (BH,M,mx,my,W2) in
+    attn's dtype (fp32 probabilities: summed in fp32)."""
     BH, mx, my, W2, _ = attn.shape
-    a = attn.reshape(BH, mx, my, W2, 9, W2)
-    vn = _stack_neighbors(v_img)
-    return torch.einsum("bmnljt,bcjmnt->bcmnl", a.float(), vn.float())
+    a = attn.reshape(BH, mx, my, W2, -1, W2)
+    vn = _stack_neighbors(v_img, mode)
+    return torch.einsum("bmnljt,bcjmnt->bcmnl", a, vn.to(attn.dtype))
+
+
+# Invalid-location masks, bit-identical to esvit_tpu/ops/slidingchunk.py
+# (ref slidingchunk_2d.py:246-315), over nx x ny chunks of w x w with
+# padx x pady padded positions.
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_components(nx: int, ny: int, padx: int, pady: int, w: int):
+    """Index grids: query chunk row / column (N, 1), neighbour chunk
+    offsets 0..2 and the key's place in its chunk (1, 9w^2)."""
+    w2 = w * w
+    i = np.arange(nx * ny)
+    j = np.arange(9 * w2)
+    return ((i // ny)[:, None], (i % ny)[:, None],
+            ((j // w2) // 3)[None], ((j // w2) % 3)[None],
+            ((j % w2) // w)[None], ((j % w2) % w)[None])
+
+
+@functools.lru_cache(maxsize=None)
+def invalid_mask_cyclic(nx: int, ny: int, padx: int, pady: int, w: int
+                        ) -> np.ndarray:
+    """(nx*ny, 9w^2) bool: padded positions wrapped in by cyclic padding
+    (ref :246-264)."""
+    ix, iy, cdx, cdy, tx, ty = _mask_components(nx, ny, padx, pady, w)
+    mx = (ix + cdx == nx) & ((nx - 1) * w + tx >= nx * w - padx)
+    my = (iy + cdy == ny) & ((ny - 1) * w + ty >= ny * w - pady)
+    return mx | my
 
 
 @functools.lru_cache(maxsize=None)
 def invalid_mask_zero(nx: int, ny: int, padx: int, pady: int, w: int
                       ) -> np.ndarray:
-    """(nx*ny, 9w^2) bool over nx x ny chunks: out-of-grid neighbours and
-    spatially padded positions (ref slidingchunk_2d.py:267-287)."""
-    w2 = w * w
-    i = np.arange(nx * ny)[:, None]
-    j = np.arange(9 * w2)[None]
-    gx = i // ny + (j // w2) // 3 - 1          # absolute key chunk row
-    gy = i % ny + (j // w2) % 3 - 1
-    tx, ty = (j % w2) // w, (j % w2) % w       # key within its chunk
+    """(nx*ny, 9w^2) bool: out-of-grid neighbours and spatially padded
+    positions (ref :267-287)."""
+    ix, iy, cdx, cdy, tx, ty = _mask_components(nx, ny, padx, pady, w)
+    gx = ix + cdx - 1                          # absolute key chunk row
+    gy = iy + cdy - 1
     bad_x = (gx < 0) | (gx >= nx) | (gx * w + tx >= nx * w - padx)
     bad_y = (gy < 0) | (gy >= ny) | (gy * w + ty >= ny * w - pady)
     return bad_x | bad_y
 
 
+@functools.lru_cache(maxsize=None)
+def invalid_mask_exact(nx: int, ny: int, padx: int, pady: int, w: int
+                       ) -> np.ndarray:
+    """(nx*ny, w^2, 9w^2) bool: outside each query's exact sliding window
+    (ref :290-315)."""
+    ix, iy, cdx, cdy, tx, ty = _mask_components(nx, ny, padx, pady, w)
+    ll = np.arange(w * w)
+    lx, ly = (ll // w)[None, :, None], (ll % w)[None, :, None]
+    ix, iy = ix[:, :, None], iy[:, :, None]                   # (N, 1, 1)
+    cdx, cdy, tx, ty = (a[:, None, :] for a in (cdx, cdy, tx, ty))
+    kx = (ix + cdx - 1) * w + tx               # absolute key row (N,w2,9w2)
+    ky = (iy + cdy - 1) * w + ty
+    qx = (ix - 1) * w + lx                     # window bounds around query
+    qy = (iy - 1) * w + ly
+    return ((kx < np.maximum(0, qx))
+            | (kx > np.minimum(nx * w - 1 - padx, qx + 2 * w))
+            | (ky < np.maximum(0, qy))
+            | (ky > np.minimum(ny * w - 1 - pady, qy + 2 * w)))
+
+
+def _select_mode_columns(mask: np.ndarray, w: int, mode: int) -> np.ndarray:
+    """A (..., 9w^2) array restricted to the mode's chunk columns: all
+    (mode 0), the chunk itself (-1), or itself then neighbour ``mode``
+    (ref mask_invalid_locations :341-350)."""
+    w2 = w * w
+    if mode == 0:
+        return mask
+    if mode == -1:
+        return mask[..., 4 * w2:5 * w2]
+    chunk_id = mode if mode > 4 else mode - 1
+    return np.concatenate([mask[..., 4 * w2:5 * w2],
+                           mask[..., chunk_id * w2:(chunk_id + 1) * w2]],
+                          axis=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def invalid_locations_mask(nx: int, ny: int, padx: int, pady: int, w: int,
+                           exact: int = 0, mode: int = 0) -> np.ndarray:
+    """Boolean mask broadcastable onto attn (BH, nx, ny, w^2, K*w^2).
+    exact: 1 = the exact sliding window (mode 0 only), 0 = blockwise zero
+    padding, -1 = blockwise cyclic padding (ref :318-354)."""
+    w2 = w * w
+    if exact == 1 and mode == 0:
+        m = invalid_mask_exact(nx, ny, padx, pady, w)
+        return m.reshape(1, nx, ny, w2, 9 * w2)
+    if exact == 0:
+        m = invalid_mask_zero(nx, ny, padx, pady, w)
+    elif exact == -1:
+        m = invalid_mask_cyclic(nx, ny, padx, pady, w)
+    else:
+        raise ValueError("exact must be in {1, 0, -1}, and 1 takes mode 0 "
+                         f"only (got exact={exact}, mode={mode})")
+    return _select_mode_columns(m, w, mode).reshape(1, nx, ny, 1, -1)
+
+
 def apply_invalid_mask(attn: torch.Tensor, nx: int, ny: int, padx: int,
-                       pady: int, w: int) -> torch.Tensor:
-    """-inf where :func:`invalid_mask_zero` is set; attn (BH, nx, ny, W2,
-    9*W2) over nx x ny chunks."""
-    mask = device_table(invalid_mask_zero, (nx, ny, padx, pady, w),
-                        attn.device).reshape(1, nx, ny, 1, -1)
+                       pady: int, w: int, exact: int = 0, mode: int = 0
+                       ) -> torch.Tensor:
+    """-inf where :func:`invalid_locations_mask` is set; attn (BH, nx, ny,
+    W2, K*W2) over nx x ny chunks."""
+    mask = device_table(invalid_locations_mask,
+                        (nx, ny, padx, pady, w, exact, mode), attn.device)
     return attn.masked_fill(mask, float("-inf"))
 
 
 def sliding_chunk_attention_plain(q, k, v, k_glo, v_glo, *, nx: int, ny: int,
-                                  W: int, drop=None) -> torch.Tensor:
+                                  W: int) -> torch.Tensor:
     """The kernels' function in plain PyTorch (the stacked-neighbourhood
     einsums above, autograd), with the same roundings:
     fp32 scores and softmax over [global | neighbourhood], probabilities
     rounded to the input dtype, both value products summed in fp32 and
-    rounded once. ``drop`` (attention dropout, which the kernels do not
-    take) maps the fp32 probabilities before the rounding."""
+    rounded once."""
     dtype = q.dtype
     nglo = k_glo.shape[1]
     padx, pady = (W - nx % W) % W, (W - ny % W) % W
@@ -213,8 +317,8 @@ def sliding_chunk_attention_plain(q, k, v, k_glo, v_glo, *, nx: int, ny: int,
                                W)
     glo = torch.einsum("bcmnl,btc->bmnlt", qc.float(), k_glo.float())
     probs = torch.softmax(torch.cat([glo, local], dim=-1), dim=-1)
-    probs = (probs if drop is None else drop(probs)).to(dtype)
-    out = slidingchunk_av(probs[..., nglo:], vc) + torch.einsum(
+    probs = probs.to(dtype)
+    out = slidingchunk_av(probs[..., nglo:].float(), vc) + torch.einsum(
         "bmnlt,btc->bcmnl", probs[..., :nglo].float(), v_glo.float())
     return _untile(out.permute(0, 2, 3, 4, 1), nx, ny, W).to(dtype)
 

@@ -126,10 +126,16 @@ class EsViTTrainer:
 
     def train_step(self, state: TrainState, batch,
                    generator: torch.Generator | None = None,
-                   mixup_draws: list[mixup_lib.MixupDraws] | None = None):
+                   mixup_draws: list[mixup_lib.MixupDraws] | None = None,
+                   mode: int = 0, teacher_mode: int = 0):
         """batch: per-resolution crop tensors ((2B, Sg, Sg, 3), (L*B, Sl,
         Sl, 3)) on the device, B this process's share of the batch.
-        ``generator`` draws drop-path masks. With ``cfg.mixup`` enabled,
+        ``generator`` draws drop-path masks. mode / teacher_mode: a ViL
+        backbone's sliding-chunk neighbour modes for the student's and the
+        teacher's forwards (esvit_tpu/train/step.py:104-186; 9 =
+        models/vil.py ``PER_LAYER_MODE``, each layer's own draw from
+        ``generator``, the teacher's before the student's). With
+        ``cfg.mixup`` enabled,
         ``mixup_draws`` (data/mixup.py ``draw_multicrop``) mix the first
         student views (main_esvit.py:515-538): the teacher sees the clean
         globals, and the targets feed the view-level DINO loss (DDINO
@@ -162,12 +168,13 @@ class EsViTTrainer:
         # batch statistics, updating its own running buffers.
         with torch.no_grad(), _span("teacher_forward"):
             t_out = state.teacher((batch[0].to(dtype),), deterministic=True,
-                                  batch_size=B, bn_train=True,
-                                  bottleneck_outputs=streamed)
+                                  generator=generator, batch_size=B,
+                                  bn_train=True, bottleneck_outputs=streamed,
+                                  mode=teacher_mode)
         with _span("student_forward"):
             s_out = state.student(student_in, deterministic=False,
                                   generator=generator, batch_size=B,
-                                  bottleneck_outputs=streamed)
+                                  bottleneck_outputs=streamed, mode=mode)
         with _span("loss"):
             loss, new_centers = self._loss(state, s_out, t_out, t_temp,
                                            ncrops, B, targets_mixup)

@@ -38,6 +38,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import random
 import signal
 import subprocess
 import sys
@@ -52,6 +53,7 @@ from esvit_tpu_torch.data import mixup as mixup_lib
 from esvit_tpu_torch.data.loader import build_train_iterator, synthetic_batches
 from esvit_tpu_torch.io.checkpoint import CheckpointManager
 from esvit_tpu_torch.models.common import exact_fp32_convolutions
+from esvit_tpu_torch.models.vil import PER_LAYER_MODE
 from esvit_tpu_torch.parallel import mesh as mesh_lib
 from esvit_tpu_torch.train.step import EsViTTrainer, TrainState
 from esvit_tpu_torch.utils.metrics import MetricLogger, append_log
@@ -82,6 +84,33 @@ def save_checkpoint(ckpt: CheckpointManager, state: TrainState, **kw) -> None:
           f"{state.step}, {size} bytes, {seconds:.3f} s", flush=True)
 
 
+def vil_mode_schedule(cfg: config_lib.TrainConfig, steps_per_epoch: int):
+    """``modes_for(step) -> (mode, teacher_mode)``, the ViL neighbour
+    sampling schedule of esvit_tpu's train() (esvit_tpu/train/train.py:
+    125-142, the reference's VIL_MODE_SWITCH): with ``cfg.model.mode`` >
+    0, each step before ``int(mode_switch * epochs * steps_per_epoch)``
+    draws the student's mode and then the teacher's, each uniform on 1-8,
+    from ``random.Random(cfg.seed)`` (or gives (9, 9), each layer's own
+    draw, with ``per_layer_mode``); every later step, and every step of
+    another backbone, is (0, 0). Call it once per step, in order: the
+    draws come in sequence. A resumed run starts them again from the
+    seed, as esvit_tpu's does."""
+    m = cfg.model
+    mode = getattr(m, "mode", 0)
+    switch = int(getattr(m, "mode_switch", 0.0) * cfg.optim.epochs
+                 * steps_per_epoch)
+    per_layer = getattr(m, "per_layer_mode", False)
+    rng = random.Random(cfg.seed)
+
+    def modes_for(step: int) -> tuple[int, int]:
+        if mode > 0 and step < switch:
+            if per_layer:
+                return PER_LAYER_MODE, PER_LAYER_MODE
+            return rng.randrange(1, 9), rng.randrange(1, 9)
+        return 0, 0
+    return modes_for
+
+
 def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
           dataset=None, data_kwargs: dict | None = None,
           host_aug: bool = False, native_decode: bool | None = None,
@@ -91,7 +120,9 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
           ) -> tuple[TrainState, list[dict]]:
     """Train over the process group's cards (one process, no group: one
     card). Returns the final state and one record per step: {'step',
-    'loss', 'lr', 'wd', 'grad_norm', 'seconds', 'data_seconds'}, where
+    'loss', 'lr', 'wd', 'grad_norm', 'seconds', 'data_seconds', 'modes'},
+    where 'modes' is the step's (mode, teacher_mode) of a ViL backbone's
+    neighbour sampling (:func:`vil_mode_schedule`) and
     'seconds' is the host time from the previous step's end, each step
     ending when its loss reaches the host, and 'data_seconds' the part of
     it spent taking the batch from the feed; fed from a dataset, also
@@ -144,9 +175,11 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
             print(f"WARNING: init_from {init_from} not found", flush=True)
     if resume and ckpt.restore(state) is not None:
         print(f"resumed from step {state.step}", flush=True)
-    # Drop-path masks: one stream per process.
+    # Drop-path masks (and ViL's per-layer neighbour draws): one stream
+    # per process.
     drop_gen = torch.Generator(device=device).manual_seed(
         cfg.seed + 1 + mesh.rank)
+    modes_for = vil_mode_schedule(cfg, steps_per_epoch)
     mix = cfg.mixup if cfg.mixup is not None and cfg.mixup.enabled else None
     mix_gen = torch.Generator().manual_seed(cfg.seed + 2 + mesh.rank)
     c = cfg.crops
@@ -207,8 +240,10 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                     draws = (mixup_lib.draw_multicrop(mix_gen, mix,
                                                       view_sizes)
                              if mix is not None else None)
-                    state, metrics = trainer.train_step(state, batch,
-                                                        drop_gen, draws)
+                    modes = modes_for(state.step)
+                    state, metrics = trainer.train_step(
+                        state, batch, drop_gen, draws, mode=modes[0],
+                        teacher_mode=modes[1])
                     loss = float(metrics["loss"])
                     if not math.isfinite(loss):
                         # NaN guard (main_esvit.py:546-562): dump a debug
@@ -224,7 +259,7 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                            "lr": metrics["lr"], "wd": metrics["wd"],
                            "grad_norm": float(metrics["grad_norm"]),
                            "seconds": now - step_t0,
-                           "data_seconds": data_s[0]}
+                           "data_seconds": data_s[0], "modes": modes}
                     if feed is not None:
                         rec["native_images"] = feed.native_images - decoded[0]
                         rec["pil_images"] = feed.pil_images - decoded[1]
@@ -273,11 +308,13 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
 
 
 def input_stats(batch) -> dict:
-    """Of each of a batch's (global, local) NHWC crops: its device, dtype
-    and shape, whether every value is finite, and each channel's mean and
-    std."""
+    """Of each of a batch's (global, local) NHWC crops that holds images:
+    its device, dtype and shape, whether every value is finite, and each
+    channel's mean and std."""
     out = {}
     for name, x in zip(("global", "local"), batch):
+        if not x.shape[0]:
+            continue
         flat = x.detach().reshape(-1, x.shape[-1]).double()
         out[name] = {"device": x.device.type, "dtype": str(x.dtype),
                      "shape": tuple(x.shape),

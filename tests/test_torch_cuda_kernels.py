@@ -590,6 +590,49 @@ def test_cuda_sliding_chunk_shape_rule_fits_the_card(cuda):
                 assert lib.esvit_sliding_chunk_smem_bytes(W, M, nglo) <= limit
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,mode,launched", [
+    ({"rpe": True}, 0, False), ({}, 3, False), ({"exact": 1}, 0, False),
+    ({}, 0, True)])
+def test_cuda_vil_layer_routes_by_its_options(cuda, kw, mode, launched):
+    """A ViL-T stage-1 sliding-chunk layer (dim 96, 3 heads, W=7, one
+    global token, 14 x 14) in fp32 on the card: with rpe, a sampled mode
+    or exact=1 it launches no sliding-chunk kernel and matches its plain
+    version (the same layer on the CPU); at mode 0 with none of them it
+    launches the forward and the backward once each and matches the
+    fused_sc='off' layer within 2e-5 of each result's max-abs."""
+    import copy
+
+    from esvit_tpu_torch.models.vil_layers import Long2DSCAttention
+    from esvit_tpu_torch.ops import sliding_chunk as sc
+
+    layer = Long2DSCAttention(96, 3, 7, 1, generator=torch.Generator()
+                              .manual_seed(0), **kw)
+    ref = copy.deepcopy(layer)
+    ref.fused_sc = "off"
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 1 + 14 * 14, 96, generator=gen)
+    dout = torch.randn(x.shape, generator=gen)
+
+    def run(mod, dev):
+        mod = mod.to(dev)
+        xt = x.to(dev).requires_grad_()
+        out = mod(xt, 14, 14, mode=mode)
+        out.backward(dout.to(dev))
+        return [out.detach().cpu(), xt.grad.cpu()] + [
+            p.grad.cpu() for p in mod.parameters()]
+
+    sc.launches.update(fwd=0, bwd=0)
+    got = run(layer, cuda)
+    torch.cuda.synchronize()
+    assert sc.launches == ({"fwd": 1, "bwd": 1} if launched
+                           else {"fwd": 0, "bwd": 0})
+    want = run(ref, cuda if launched else torch.device("cpu"))
+    for a, b in zip(got, want):
+        s = b.abs().max().clamp_min(1e-6)
+        torch.testing.assert_close(a / s, b / s, rtol=2e-5, atol=2e-5)
+
+
 # The forward-only window attention over the qkv layout
 # (ops/pallas_window_attention.py) against its plain version: (B_, N, C,
 # nH, nWm). Swin-T's head dim 32 shifted (nWm > 1) and unshifted, a

@@ -132,20 +132,21 @@ def test_vil_tiny_sliding_chunk_calls(size):
 
 
 def test_unported_vil_options_raise():
+    """Every ViL option of esvit_tpu passes check_supported: the sampled
+    modes and per-layer draws, every attention type, rpe stages and
+    fused_sc='on'; only Pallas's interpreter ('interpret') is refused."""
     tcfg.check_supported(tcfg.vil_tiny_multicrop())
-    for kw in ({"mode": 1}, {"per_layer_mode": True},
-               {"attn_type": "performer"}, {"fused_sc": "interpret"},
-               {"fused_sc": "on"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-            tcfg.check_supported(tcfg.TrainConfig(model=tcfg.vil_tiny(**kw)))
     rpe = tcfg.vil_from_arch("l1,h1,d48,n1,s1,g1,p4,f7,a0")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        tcfg.check_supported(tcfg.TrainConfig(model=rpe))
-    tcfg.check_supported(tcfg.TrainConfig(
-        model=tcfg.vil_tiny(attn_drop_rate=0.1, drop_rate=0.1)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
+    for model in ([tcfg.vil_tiny(mode=k) for k in range(1, 9)]
+                  + [tcfg.vil_tiny(mode=1, per_layer_mode=True), rpe,
+                     tcfg.vil_tiny(fused_sc="on"),
+                     tcfg.vil_tiny(attn_drop_rate=0.1, drop_rate=0.1, mode=1)]
+                  + [tcfg.vil_tiny(attn_type=t)
+                     for t in tcfg.VIL_ATTN_TYPES]):
+        tcfg.check_supported(tcfg.TrainConfig(model=model))
+    with pytest.raises(NotImplementedError, match="interpreter"):
         tcfg.check_supported(tcfg.TrainConfig(
-            model=tcfg.vil_tiny(attn_drop_rate=0.1, mode=1)))
+            model=tcfg.vil_tiny(fused_sc="interpret")))
     assert isinstance(build_backbone(tcfg.vil_femto()), TViL)
 
 
