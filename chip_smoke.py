@@ -195,6 +195,29 @@ so the script exits non-zero and prints no result line:
    only: its sequence length is fixed at the 224 px grid, as in
    esvit_tpu), 2 steps each, no sliding-chunk launch; (e) the k-NN and
    linear-probe CLIs on leg (a)'s checkpoint, their launches as derived.
+16. The last modules (``phase_last_modules``): (a) the analysis CLI
+   (``python -m esvit_tpu_torch.analysis.cli``) in subprocesses, fp32,
+   on 16 seeded 256 px PNGs in two classes: ``measure_entropy`` and
+   ``measure_correspondence`` of Swin-T W=7 at 224 px from a
+   reference-layout .pth written from a seeded Swin-T,
+   ``measure_correspondence`` of a seeded ViL-T, and ``vis_attention``
+   where matplotlib is installed (the phase says whether it ran); each
+   run's launches of rows 1, 3 and 5 equal to the model-derived counts,
+   its log.txt record finite; then in-process on the same weights, the
+   last block's attention maps and both models' flip features on the
+   card against the CPU within 1e-4, their launches as derived. (b)
+   ``AxialAttention``, ``CrissCrossAttention``, ``ConvQKVAttention``
+   (``conv``, ``dw_bn_glu_pw``, ``pw_glu_conv_bn_swish_pw``),
+   ``DownAttention`` and ``CrossScaleAttention`` (stride 2) at a DeiT-S
+   block's width (dim 384, 6 heads, 14x14 + CLS, B=64), ``T2TModule`` at
+   T2T-ViT-14's (embed 384, token_dim 64, 224 px, B=32), ``SELayer2D``,
+   ``DyReLU2``, ``FrozenBatchNorm`` and ``DropBlock`` (block 7) at
+   ResNet-50's stage-2 map (28x28x512, B=64), BatchNorm statistics
+   drawn away from their init: forward and backward, fp32 output and
+   every gradient on the card within 1e-4 of the CPU's (relative to the
+   largest value), bf16 finite, the median ms of 5 forward + backward
+   passes and the peak GiB. (c) ``utils/flops.py`` ``summarize`` of
+   Swin-T, ViL-T and DeiT-S at 224 px (counted on the CPU).
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -3126,6 +3149,307 @@ def _vil_evals(torch, C, ckpt, tmp, card):
             f"{rec['seconds']:.1f} s of main() [{card}]")
 
 
+# Phase 16, the last modules: the analysis CLI on a folder of PNGs in two
+# classes, the auxiliary modules at published widths (DeiT-S's block: dim
+# 384, 6 heads, 14x14 + CLS; T2T-ViT-14's T2T module: embed 384,
+# token_dim 64, 224 px; ResNet-50's stage-2 map: 28x28x512), timed over
+# reps of forward + backward.
+LAST_IMAGES, LAST_TOL = 16, 1e-4
+LAST_PARITY_IMAGES = 4
+AUX_B, AUX_GRID, AUX_DIM, AUX_HEADS = 64, 14, 384, 6
+T2T_B, CNN_B, CNN_HW, CNN_C = 32, 64, 28, 512
+AUX_REPS = 5
+ANALYSIS_MODULE = "esvit_tpu_torch.analysis.cli"
+
+
+def phase_last_modules(torch, C, counters, card):
+    """Phase 16 (see the module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _last_analysis(torch, C, counters, card, tmp)
+    _last_aux(torch, card)
+    _last_flops(torch, C, card)
+    log(f"last modules phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def _last_folder(root):
+    """LAST_IMAGES procedural 256 px PNGs (seed 16) in two classes."""
+    from esvit_tpu_torch.data.datasets import ProceduralShapesHard
+
+    ds = ProceduralShapesHard(n=LAST_IMAGES, size=256, seed=16)
+    for i in range(LAST_IMAGES):
+        d = os.path.join(root, f"class{i % 2}")
+        os.makedirs(d, exist_ok=True)
+        ds[i][0].save(os.path.join(d, f"{i:02d}.png"))
+    return root
+
+
+def _launch_want(fused=0, wa=0, sc=0):
+    want = {name: {k: 0 for k in kinds}
+            for name, (_, kinds) in KERNELS.items()}
+    want["fused_block"]["fwd"] = fused
+    want["window_attention"]["fwd"] = wa
+    want["sliding_chunk"]["fwd"] = sc
+    return want
+
+
+def _last_analysis(torch, C, counters, card, tmp):
+    """(a) The analysis CLI in subprocesses on a reference-layout .pth of a
+    seeded Swin-T (and a seeded random ViL-T), each run's launches of rows
+    1, 3 and 5 as derived from the model; then in-process on the same
+    weights, fp32 attention maps and flip features, card against CPU."""
+    import copy
+    import importlib.util
+
+    import numpy as np
+
+    from esvit_tpu_torch.analysis import attention as attn_lib
+    from esvit_tpu_torch.analysis import correspondence as corr_lib
+    from esvit_tpu_torch.data import datasets as datasets_lib
+    from esvit_tpu_torch.evals.knn import eval_transform
+    from esvit_tpu_torch.io.torch_checkpoint import load_backbone_checkpoint
+    from esvit_tpu_torch.models.swin import SwinTransformer
+    from esvit_tpu_torch.models.vil import MsViT
+
+    data = _last_folder(os.path.join(tmp, "imgs"))
+    src = SwinTransformer(C.swin_tiny(),
+                          generator=torch.Generator().manual_seed(16))
+    ckpt = os.path.join(tmp, "swin_tiny.pth")
+    torch.save({"teacher": {f"module.{k}": v
+                            for k, v in src.state_dict().items()}}, ckpt)
+    # Model-derived launches per forward at 224 px: forward_features; the
+    # last block's maps (n=1) run the stages before the last on their
+    # routes and the last on the plain capture path; every block's maps
+    # (n=2) are all on the capture path, no kernel.
+    fused, wa = src.fused_block_calls(224), src.window_attention_calls(224)
+    wa_maps = wa - src.window_attention_calls(224,
+                                              from_stage=len(src.layers) - 1)
+    sc = MsViT(C.vil_tiny()).sliding_chunk_calls(224)
+    log(f"last modules: model-derived launches per 224 px forward: Swin-T "
+        f"fused block {fused}, window attention {wa} ({wa_maps} for the "
+        f"last block's maps); ViL-T sliding chunk {sc} [{card}]")
+    swin = ["--arch", "swin_tiny", "--window_size", "7", "--pretrained", ckpt]
+    runs = [("swin_tiny measure_entropy", "measure_entropy", swin,
+             _launch_want()),
+            ("swin_tiny measure_correspondence", "measure_correspondence",
+             swin, _launch_want(2 * fused, 2 * wa)),
+            ("vil_tiny measure_correspondence", "measure_correspondence",
+             ["--arch", "vil_tiny"], _launch_want(sc=2 * sc))]
+    if importlib.util.find_spec("matplotlib") is None:
+        log("last modules: vis_attention skipped: matplotlib does not "
+            "import on this machine")
+    else:
+        runs.append(("swin_tiny vis_attention (2 images)", "vis_attention",
+                     swin + ["--num_images", "2"],
+                     _launch_want(2 * fused, 2 * wa_maps)))
+    for label, command, args, want in runs:
+        out = os.path.join(tmp, label.replace(" ", "_"))
+        text, rec = _entry_run(label, ANALYSIS_MODULE, [
+            command, "--data_path", data, "--num_images", str(LAST_IMAGES),
+            *args, "--output_dir", out, "--device", "cuda"])
+        _entry_launches(label, rec["launches"], want)
+        if command == "vis_attention":
+            pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+            if len(pngs) != 2:
+                raise AssertionError(f"{label}: wrote {pngs}")
+            log(f"last modules {label}: ran, wrote {pngs} in "
+                f"{rec['seconds']:.1f} s of main() [{card}]")
+            continue
+        with open(os.path.join(out, "log.txt")) as f:
+            record = json.loads(f.read().splitlines()[-1])
+        values = [v for vs in record.values()
+                  for v in (vs if isinstance(vs, list) else [vs])]
+        if not values or not all(math.isfinite(v) for v in values) or not (
+                0.0 <= record.get("correspondence_acc", 0.0) <= 100.0):
+            raise AssertionError(f"{label}: log.txt record {record}")
+        log(f"last modules {label}: {json.dumps(record)} over {LAST_IMAGES} "
+            f"images in {rec['seconds']:.1f} s of main() [{card}]")
+
+    ds = datasets_lib.build_dataset("folder", root=data)
+    x = np.stack([eval_transform(ds[i][0], 224)
+                  for i in range(LAST_PARITY_IMAGES)])
+    cpu = load_backbone_checkpoint(SwinTransformer(C.swin_tiny()), ckpt)
+    vil_cpu = MsViT(C.vil_tiny(), generator=torch.Generator().manual_seed(0))
+    dev, vil_dev = copy.deepcopy(cpu).cuda(), copy.deepcopy(vil_cpu).cuda()
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    got = {"maps": attn_lib.attention_maps(dev, torch.from_numpy(x).cuda()),
+           "swin flip features": corr_lib.flip_features(dev, x),
+           "vil flip features": corr_lib.flip_features(vil_dev, x)}
+    launches = {n: dict(c) for n, c in counters.items()}
+    want = _launch_want(fused + 2 * fused, wa_maps + 2 * wa, 2 * sc)
+    if launches != want:
+        raise AssertionError(f"last modules in-process: launches {launches}, "
+                             f"model-derived {want}")
+    ref = {"maps": attn_lib.attention_maps(cpu, torch.from_numpy(x)),
+           "swin flip features": corr_lib.flip_features(cpu, x),
+           "vil flip features": corr_lib.flip_features(vil_cpu, x)}
+    for what, g in got.items():
+        pairs = (zip(g, ref[what]) if isinstance(g, tuple)
+                 else [(g.cpu().numpy(), ref[what].numpy())])
+        errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in pairs]
+        if not max(errs) <= LAST_TOL:
+            raise AssertionError(f"last modules {what}: card vs CPU {errs}")
+        log(f"last modules {what} fp32 {LAST_PARITY_IMAGES}x224px: card vs "
+            f"CPU rel err {', '.join(f'{e:.2e}' for e in errs)} (tol "
+            f"{LAST_TOL}) [{card}]")
+    log(f"last modules in-process: launches fused block "
+        f"{launches['fused_block']['fwd']}, window attention "
+        f"{launches['window_attention']['fwd']}, sliding chunk "
+        f"{launches['sliding_chunk']['fwd']}, as derived from the models "
+        f"[{card}]")
+    del dev, vil_dev
+
+
+def _aux_cases(torch):
+    """(label, build(dtype, generator), input shape) of each module."""
+    from esvit_tpu_torch.models import aux_attention as A
+    from esvit_tpu_torch.models import cnn_extras as X
+    from esvit_tpu_torch.models import t2t as T
+
+    D, nH = AUX_DIM, AUX_HEADS
+    tok = (AUX_B, 1 + AUX_GRID * AUX_GRID, D)
+    cnn = (CNN_B, CNN_HW, CNN_HW, CNN_C)
+
+    def conv_qkv(method):
+        return lambda dt, g: A.ConvQKVAttention(
+            D, num_heads=nH, use_qkvconv=True, method=method, dtype=dt,
+            generator=g)
+    return [
+        ("AxialAttention", lambda dt, g: A.AxialAttention(
+            D, nH, dtype=dt, generator=g), tok),
+        ("CrissCrossAttention", lambda dt, g: A.CrissCrossAttention(
+            D, nH, dtype=dt, generator=g), tok),
+        ("ConvQKVAttention conv", conv_qkv("conv"), tok),
+        ("ConvQKVAttention dw_bn_glu_pw", conv_qkv("dw_bn_glu_pw"), tok),
+        ("ConvQKVAttention pw_glu_conv_bn_swish_pw",
+         conv_qkv("pw_glu_conv_bn_swish_pw"), tok),
+        ("DownAttention stride 2", lambda dt, g: A.DownAttention(
+            D, num_heads=nH, stride=2, dtype=dt, generator=g), tok),
+        ("CrossScaleAttention stride 2", lambda dt, g: A.CrossScaleAttention(
+            D, num_heads=nH, stride=2, dtype=dt, generator=g), tok),
+        ("T2TModule", lambda dt, g: T.T2TModule(
+            embed_dim=384, token_dim=64, dtype=dt, generator=g),
+         (T2T_B, 224, 224, 3)),
+        ("SELayer2D", lambda dt, g: X.SELayer2D(CNN_C, dtype=dt,
+                                                generator=g), cnn),
+        ("DyReLU2", lambda dt, g: X.DyReLU2(CNN_C, dtype=dt, generator=g),
+         cnn),
+        ("FrozenBatchNorm", lambda dt, g: X.FrozenBatchNorm(CNN_C, dtype=dt),
+         cnn),
+        ("DropBlock block 7", lambda dt, g: X.DropBlock(7, 0.9), cnn),
+    ]
+
+
+def _randomise_buffers(torch, module, gen):
+    """BatchNorm / FrozenBatchNorm statistics and the frozen affine away
+    from their init, so the card's normalisation is held too."""
+    with torch.no_grad():
+        for name, b in module.named_buffers():
+            if name.endswith(("running_var", "weight")):
+                b.uniform_(0.5, 1.5, generator=gen)
+            elif name.endswith(("running_mean", "bias")):
+                b.normal_(0.0, 0.5, generator=gen)
+
+
+def _aux_weights(torch, out):
+    """The fixed fp32 weights (seed 17, drawn on the CPU) of the loss
+    sum(out * w)."""
+    return torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        17)).to(out.device)
+
+
+def _aux_step(torch, module, x, u=None, gen=None, w=None):
+    """Forward + backward of sum(out * w), ``w`` from ``_aux_weights`` if
+    not given: (output, [x grad, parameter grads...]). DropBlock runs on
+    the CPU through its mask on the given uniform field ``u``, and on the
+    card through its own forward with the card generator ``gen``, which
+    draws that same field."""
+    from esvit_tpu_torch.models.cnn_extras import dropblock_mask
+
+    module.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_(True)
+    if u is not None:
+        out = module.apply_mask(x, dropblock_mask(
+            u, *module.gamma(x.shape[2], 1.0)))
+    elif gen is not None:
+        out = module(x, deterministic=False, generator=gen)
+    else:
+        out = module(x)
+    out = out[0] if isinstance(out, tuple) else out
+    w = _aux_weights(torch, out) if w is None else w
+    (out.float() * w).sum().backward()
+    return out, [x.grad] + [p.grad for p in module.parameters()]
+
+
+def _last_aux(torch, card):
+    """(b) Each module forward + backward on the card: fp32 output and
+    gradients against the CPU, bf16 finite, median ms and peak GiB. The
+    timed step is the compared one."""
+    import copy
+
+    for label, build, shape in _aux_cases(torch):
+        gen = torch.Generator().manual_seed(16)
+        cpu = build(torch.float32, gen)
+        _randomise_buffers(torch, cpu, gen)
+        dev = copy.deepcopy(cpu).cuda()
+        x = torch.randn(shape, generator=gen)
+        xd = x.cuda()
+        drop = label.startswith("DropBlock")
+
+        def card_gen():
+            """DropBlock's generator on the card, from its seed each
+            time, so every step draws the field the CPU was given."""
+            return (torch.Generator(device="cuda").manual_seed(16) if drop
+                    else None)
+        u = (torch.rand(shape, generator=card_gen(), device="cuda").cpu()
+             if drop else None)
+        out_cpu, g_cpu = _aux_step(torch, cpu, x, u)
+        out, grads = _aux_step(torch, dev, xd, gen=card_gen())
+        errs = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip([out] + grads, [out_cpu] + g_cpu)]
+        if not errs or not max(errs) <= LAST_TOL or not all(
+                torch.isfinite(t).all() for t in [out] + grads):
+            raise AssertionError(f"last modules {label}: card vs CPU {errs}")
+        wd = _aux_weights(torch, out)
+        _aux_step(torch, dev, xd, gen=card_gen(), w=wd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(AUX_REPS):
+            g = card_gen()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            _aux_step(torch, dev, xd, gen=g, w=wd)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bf = build(torch.bfloat16, torch.Generator().manual_seed(16)).cuda()
+        out_bf, g_bf = _aux_step(torch, bf, xd.bfloat16(), gen=card_gen())
+        if not all(torch.isfinite(t).all() for t in [out_bf] + g_bf):
+            raise AssertionError(f"last modules {label}: bf16 not finite")
+        log(f"last modules {label} {tuple(shape)}: fp32 card vs CPU rel err "
+            f"output {errs[0]:.2e}, gradients up to {max(errs[1:]):.2e} "
+            f"({len(errs) - 1}; tol {LAST_TOL}); bf16 finite; forward + "
+            f"backward fp32 median {statistics.median(ms):.2f} ms of "
+            f"{AUX_REPS}, peak {peak:.2f} GiB [{card}]")
+        del dev, bf
+
+
+def _last_flops(torch, C, card):
+    """(c) utils/flops.summarize of Swin-T, ViL-T and DeiT-S at 224 px
+    (counted on the CPU's plain route: the kernels are not aten ops)."""
+    from esvit_tpu_torch.models.registry import build_backbone
+    from esvit_tpu_torch.utils import flops
+
+    for name in ("swin_tiny", "vil_tiny", "deit_small"):
+        log(f"last modules flops {name}: "
+            f"{flops.summarize(build_backbone(C.get_model_config(name)))} "
+            f"(products counted on the CPU) [{card}]")
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -3183,6 +3507,7 @@ def main():
     phase_families(torch, C, counters, card)
     phase_options(torch, C, counters, card)
     phase_vil_options(torch, C, counters, card)
+    phase_last_modules(torch, C, counters, card)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

@@ -38,6 +38,12 @@ is exactly the inverse of esvit_tpu/io/torch_import.py
 - A BatchNorm head (``use_bn``): ``mlp_k`` -> ``mlp.{3k}`` and ``bn_k``
   -> ``mlp.{3k+1}`` (the reference's Linear, BatchNorm1d, GELU), its
   ``scale`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` as above.
+- The standalone modules (T2T, the CNN extras, the auxiliary
+  attentions) keep their flax names; their BatchNorms (``bn``, ``v_bn``,
+  ``q_bn``, ``kv_bn``) convert as CvT's, depthwise kernels (k, k, 1, C)
+  -> (C, 1, k, k), and ``FrozenBatchNorm``'s ``frozen_stats`` collection
+  (``weight``, ``bias``, ``mean``, ``var``) -> its buffers ``weight``,
+  ``bias``, ``running_mean``, ``running_var``.
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the flax
 tree); nothing here imports jax.
@@ -93,7 +99,7 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
     if parts and parts[-1] == "ln":                 # LayerNorm scope
         parts.pop()
         leaf = {"scale": "weight", "bias": "bias"}[leaf]
-    elif parts and (parts[-1] == "bn" or re.fullmatch(r"bn_\d+", parts[-1])):
+    elif parts and re.fullmatch(r"(?:\w+_)?bn|bn_\d+", parts[-1]):
         leaf = _BN_LEAVES[leaf]                     # BatchNorm scope
     elif parts == ["patch_embed"]:                  # ViT's patch conv
         parts.append("proj")
@@ -140,11 +146,12 @@ def _convert(path: tuple[str, ...], v: np.ndarray, n_head_mlps: int,
 
 def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None = None,
-                         performer: Mapping[str, Any] | None = None
+                         performer: Mapping[str, Any] | None = None,
+                         frozen_stats: Mapping[str, Any] | None = None
                          ) -> dict[str, torch.Tensor]:
-    """EsViTModel (or bare backbone) flax params, and its ``batch_stats``
-    and ``performer`` collections where it has them -> the port's
-    state_dict."""
+    """EsViTModel (or bare backbone, or standalone module) flax params, and
+    its ``batch_stats``, ``performer`` and ``frozen_stats`` collections
+    where it has them -> the port's state_dict."""
     n_head_mlps = sum(1 for k in params.get("head", {}) if k.startswith("mlp_"))
     head_bn = any(k.startswith("bn_") for k in params.get("head", {}))
     trees = [params] + [t for t in (batch_stats, performer) if t]
@@ -156,6 +163,11 @@ def state_dict_from_flax(params: Mapping[str, Any],
         for path, v in _leaves(tree):
             name, arr = _convert(path, v, n_head_mlps, cvt, head_bn, resnet)
             out[name] = torch.from_numpy(np.array(arr, copy=True))
+    for path, v in _leaves(frozen_stats or {}):
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(
+            path[-1], path[-1])
+        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(
+            np.array(v, copy=True))
     return out
 
 

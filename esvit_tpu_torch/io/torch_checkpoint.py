@@ -1,5 +1,5 @@
-"""Load reference torch checkpoints into the port's backbones (port of the
-loading half of esvit_tpu/io/torch_import.py).
+"""Load reference torch checkpoints into the port's backbones and whole
+EsViT models (port of the loading half of esvit_tpu/io/torch_import.py).
 
 The released EsViT checkpoints (ref: main_esvit.py:476-488 save layout)
 store ``{'student': sd, 'teacher': sd, 'optimizer', 'epoch', 'args',
@@ -15,6 +15,11 @@ esvit_tpu/io/torch_import.py:176-180, 239 drops them. :func:`adapt_swin_tables` 
 relative-position tables and the absolute position embedding when the
 checkpoint's window size or resolution differs from the model's
 (ref: swin_transformer.py:852-917 init_weights).
+:func:`load_esvit_checkpoint` loads the whole model (backbone, ``head``
+and, with the dense head, ``head_dense``; esvit_tpu
+``import_esvit_model``), and :func:`verify_state_matches` lists what a
+state dict lacks, has over, or holds in another shape than a reference
+one (esvit_tpu ``verify_tree_matches``).
 """
 
 from __future__ import annotations
@@ -43,9 +48,16 @@ def load_torch_checkpoint(path: str, key: str = "teacher"
 def backbone_state(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The backbone's entries of a reference state_dict: no heads, no
     static index or mask buffers, no BatchNorm step counts."""
-    return {k: v for k, v in sd.items()
-            if not k.startswith(("head.", "head_dense."))
-            and not any(d in k for d in _DROPPED)}
+    return {k: v for k, v in sd.items() if _backbone_key(k) and _kept(k)}
+
+
+def _backbone_key(name: str) -> bool:
+    return not name.startswith(("head.", "head_dense."))
+
+
+def _kept(name: str) -> bool:
+    """Not one of the static buffers the port builds itself."""
+    return not any(d in name for d in _DROPPED)
 
 
 def adapt_swin_tables(state: Mapping[str, torch.Tensor],
@@ -75,12 +87,48 @@ def adapt_swin_tables(state: Mapping[str, torch.Tensor],
     return out
 
 
+def _load_reference(module, cfg, path: str, key: str, keep):
+    """Load the entries of the ``key`` model of a reference .pth whose
+    names ``keep`` accepts into ``module`` in place: the static buffers
+    dropped, Swin's tables adapted to the module; every entry of the
+    module must come from the file (strict)."""
+    state = {k: v for k, v in load_torch_checkpoint(path, key).items()
+             if keep(k) and _kept(k)}
+    if getattr(cfg, "name", None) == "swin":
+        state = adapt_swin_tables(state, module.state_dict())
+    module.load_state_dict(state, strict=True)
+    return module
+
+
 def load_backbone_checkpoint(backbone, path: str, key: str = "teacher"):
     """Load the ``key`` model of a reference .pth into ``backbone`` in
     place (Swin tables adapted to its window size and resolution); every
     backbone parameter must come from the file."""
-    state = backbone_state(load_torch_checkpoint(path, key))
-    if getattr(backbone.cfg, "name", None) == "swin":
-        state = adapt_swin_tables(state, backbone.state_dict())
-    backbone.load_state_dict(state, strict=True)
-    return backbone
+    return _load_reference(backbone, backbone.cfg, path, key, _backbone_key)
+
+
+def load_esvit_checkpoint(model, path: str, key: str = "teacher",
+                          use_dense_prediction: bool = True):
+    """Load the ``key`` model of a released EsViT .pth into a whole
+    ``EsViTModel`` in place: ``module.`` stripped, the static buffers
+    dropped, Swin's tables adapted to the model, ``head_dense`` taken only
+    with ``use_dense_prediction``; every entry of the model must come from
+    the file (strict)."""
+    return _load_reference(
+        model, model.backbone.cfg, path, key,
+        lambda k: use_dense_prediction or not k.startswith("head_dense."))
+
+
+def verify_state_matches(imported: Mapping[str, torch.Tensor],
+                         reference: Mapping[str, torch.Tensor]) -> list[str]:
+    """Missing, unexpected and shape-mismatched entries of ``imported``
+    against ``reference``, as human-readable lines (none: a match)."""
+    problems = [f"{k}: missing from import"
+                for k in sorted(set(reference) - set(imported))]
+    problems += [f"{k}: unexpected in import"
+                 for k in sorted(set(imported) - set(reference))]
+    for k in sorted(set(imported) & set(reference)):
+        have, want = tuple(imported[k].shape), tuple(reference[k].shape)
+        if have != want:
+            problems.append(f"{k}: shape {have} != expected {want}")
+    return problems
