@@ -9,10 +9,12 @@ so the script exits non-zero and prints no result line:
 1. Device: require CUDA, print the card's name and power limit and the
    torch/CUDA versions; TF32 off for the parity checks.
 2. Build the four kernel libraries from esvit_tpu_torch/csrc/ (one nvcc
-   each, started together) and print nvcc's -Xptxas -v report; fail if a
+   per source, all started together) and print nvcc's -Xptxas -v report; fail if a
    window-attention tile kernel's registers hold fewer warps per SM than
-   ops/window_attention.py tile_plan assumes; print the sliding-chunk
-   tensor-core kernels' registers, spills and blocks per SM.
+   ops/window_attention.py tile_plan assumes; the same for the
+   large-window tile's six kernels (N > 64, printed with their spills and
+   blocks per SM at N=196); print each source's nvcc seconds and the
+   sliding-chunk tensor-core kernels' registers, spills and blocks per SM.
 3. Window attention vs plain PyTorch on the card at every full-window
    shape of the Swin-T W=7 B=32 multi-crop step (bf16, plus one fp32
    case): forward output and the q/k/v/bias gradients within 3e-2 (bf16)
@@ -21,11 +23,14 @@ so the script exits non-zero and prints no result line:
    and the library call (scaled_dot_product_attention), with each
    shape's bound. First, the tile kernels' shared memory (forward and
    backward) as the wrapper counts it equals the kernels' own count at
-   every N, head dim and dtype, and fits a block.
+   every N up to 256 (the large tile above 64), head dim and dtype, and
+   fits a block wherever the shape rules admit the shape.
 4. The block-fused kernels vs their plain version at every block shape
-   the default (fused) route gives them (Swin-T's, and the learning
-   gate's nano Swin's at W=4: C 32/64/128, N=16 and the augmented window
-   of 5 tokens, bf16, and its fp32 eval), shifted and unshifted, with
+   the default (fused) route gives them (Swin-T's at W=7 and at W=14:
+   N=196 full and padded windows and the augmented 145, on the
+   large-window tile, bf16 and fp32; and the learning gate's nano Swin's
+   at W=4: C 32/64/128, N=16 and the augmented window of 5 tokens, bf16,
+   and its fp32 eval), shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
    output, dx and all 17 parameter gradients within the same tolerances
    (dbk, whose exact value is 0, at the scale of the largest gradient);
@@ -35,8 +40,8 @@ so the script exits non-zero and prints no result line:
    times over 20 reps; both passes' device time split by kernel
    (torch.profiler), per shape and per default step; beside the forward,
    a yardstick: torch.matmul (cuBLAS) of the block's four products at the
-   shape, timed only. First, both passes' token-tile blocks fit the card
-   at every admitted width.
+   shape, timed only; the sums per W=7 and per W=14 step. First, both
+   passes' token-tile blocks fit the card at every admitted width.
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
    of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case) and
    at the learning gate's nano ViL shapes (W=4, head dim 16): the
@@ -54,8 +59,9 @@ so the script exits non-zero and prints no result line:
 6. The forward-only qkv-layout window attention (row 7) vs plain PyTorch
    on the card at every shape of the eval slice (fp32, B=64 at 224 px,
    shifted and unshifted) and of its train route (bf16, the 224 and 96 px
-   shapes): the output within the same tolerances and bit-identical on
-   repeat; d(qkv) and d(bias) through the autograd wrapper equal to the
+   shapes), at W=7 and at W=14 (N=196 on the large-window tile; sums per
+   W=7 and per W=14 eval batch): the output within the same tolerances
+   and bit-identical on repeat; d(qkv) and d(bias) through the autograd wrapper equal to the
    plain version's; median times over 20 reps of kernel, plain and the
    library call (scaled_dot_product_attention, the dense bias as its
    float attn_mask, its output first held to the plain one).
@@ -64,8 +70,11 @@ so the script exits non-zero and prints no result line:
    qkv-layout route (attention_impl='pallas', no fused stages) and the
    plain route (attention_impl='xla', no fused stages) agree within 1e-4
    relative, and so does forward_return_n_last_blocks(x, 4) on each of
-   them; each kernel's launches equal the model-derived counts; so do
-   ViL-T's kernel route and its plain route (fused_sc='off').
+   them; each kernel's launches equal the model-derived counts; the same
+   at W=14 (stages 0-2 on the large tile on the fused and qkv-layout
+   routes, plain on the window-attention route, whose packed pair takes
+   N <= 64); so do ViL-T's kernel route and its plain route
+   (fused_sc='off').
 8. The slices: esvit_tpu_torch.train.train.train() runs 5 steps of Swin-T
    W=7, B=32, 2x224 + 8x96 crops, out_dim 65536, DDINO, bf16, on-device
    synthetic data, on the default fused route; then 3 steps of the
@@ -75,7 +84,7 @@ so the script exits non-zero and prints no result line:
    ViL-T); each run's launch counts of every kernel must equal the
    per-step counts derived from the model times the steps. Then the
    route order: the default route and fused_block_stages=() alternate for
-   3 rounds of 3 steps each; each route's median ms per step over steps
+   2 rounds of 3 steps each; each route's median ms per step over steps
    2-3 of its rounds and their spread. Between the two, the data-fed
    slice: 6 steps of the Swin-T default route through train() fed by
    data/loader.py MultiCropIterator over ProceduralShapesHard (256 px,
@@ -93,7 +102,7 @@ so the script exits non-zero and prints no result line:
    features. Features finite and unit-norm, accuracies in [0, 100], and
    the kernel's launches equal to the model-derived count per batch
    times the batches.
-10. The learning canary: 200 steps of esvit_tpu_torch.validate_learning's
+10. The learning canary: 60 steps of esvit_tpu_torch.validate_learning's
    nano Swin leg on shapes_hard (k-NN before and after, no gain gate):
    a finite last loss and centres, and the block-fused launches equal to
    the model's (the steps and the two evals). The full gates are
@@ -219,6 +228,21 @@ so the script exits non-zero and prints no result line:
    passes and the peak GiB. (c) ``utils/flops.py`` ``summarize`` of
    Swin-T, ViL-T and DeiT-S at 224 px (counted on the CPU).
 
+17. Swin-T at W=14 (``phase_swin_w14``, after the route order): the
+   Swin-T multi-crop recipe with window_size=14 (B=32, 2x224 + 8x96,
+   65536-wide heads, DDINO, bf16, seed 0, synthetic crops on the card),
+   3 steps on the kernel route (the block-fused pair on the large-window
+   tile at stages 0-2; launches as derived, 30 forward and 20 backward a
+   step: 22 / 12 at N=196, 2 / 2 at N=145, 6 / 6 at N=37; finite losses,
+   state moved), 3 on the plain route (fused_block_stages=(),
+   attention_impl='xla': no kernel), each with its peak memory, then 3
+   alternating rounds of 3 steps on one trainer per route: each route's
+   median ms/step and spread, and its device time by kernel group
+   (torch.profiler); the fp32 eval forward on the
+   qkv-layout route (batch 64 at 224 px: row 7's launches as derived,
+   the ms per batch); the k-NN CLI at --window_size 14 in fp32 on noise
+   images, the card's features within 1e-4 of the CPU's.
+
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
 slice for pallas_window_attention);
@@ -230,6 +254,9 @@ the slice shapes (calls per step x median per call; per eval forward
 batch for pallas_window_attention); ``bound_ms`` the larger of the bytes
 over HBM bandwidth and the operations over the peak of their type (bf16
 tensor cores; fp32 CUDA cores for the fp32 eval), summed the same way.
+The ``*_w14_*`` entries are the same for the W=14 cell: the block-fused
+pair per W=14 step (launches from phase 17's kernel-route steps) and row
+7 per W=14 eval batch (launches from phase 17's eval forward).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -251,7 +278,7 @@ STEPS = 5
 REPS = 20
 # The route order: rounds of the default route and fused_block_stages=()
 # in turns, and steps per round.
-ROUTE_ROUNDS, ROUTE_STEPS = 3, 3
+ROUTE_ROUNDS, ROUTE_STEPS = 2, 3
 # The data-fed Swin-T slice: steps, images per batch of the procedural
 # dataset, host threads (train()'s feed has MultiCropIterator's default
 # 4), and the band each channel's mean and std must fall in after
@@ -259,7 +286,11 @@ ROUTE_ROUNDS, ROUTE_STEPS = 3, 3
 DATA_STEPS, DATA_IMAGES, NUM_THREADS = 6, 8, 4
 DATA_MEAN_BAND, DATA_STD_BAND = (-1.5, 1.5), (0.3, 1.5)
 # The nano learning canary's steps.
-CANARY_STEPS = 200
+CANARY_STEPS = 60
+# The kernels line's W=14 rows: the block-fused pair on the large tile
+# (rows 1-2, launches from phase 17's kernel-route steps) and row 7 on it
+# (launches from phase 17's qkv-layout eval forward), beside the W=7 rows.
+KERNELS_W14 = ("fused_block", "pallas_window_attention")
 KERNELS = {
     "window_attention": ("esvit_tpu_torch/csrc/window_attention.cu", {
         "fwd": "esvit_tpu/ops/packed_window_attention.py:305",
@@ -313,7 +344,12 @@ SHAPES = [
 # nano Swin (esvit_tpu_torch/validate_learning.py: W=4, C 32/64/128, B=64):
 # its 64 px global crops (2B images), its 32 px locals (4B images, stage 2
 # the augmented window of 5 tokens) and its fp32 k-NN eval (batch 32);
-# none runs in a Swin-T step.
+# none runs in a Swin-T step. An 11th entry, where there is one, is the
+# shape's (forward, backward) calls per Swin-T W=14 step (phase 17's cell):
+# the "w14" shapes are W=14's blocks (N = 196 full windows, the 96 px
+# stage 0 padded from 24 to 28 tokens a side, its stage 1 the augmented
+# window of 145 tokens), and its stage 2 at 96 px is W=7's augmented
+# window of 37 tokens.
 FUSED_SHAPES = [
     ("224 s0", 64, 96, 3, 56, False, "bf16", 2, 1, 7),
     ("224 s0 shifted", 64, 96, 3, 56, True, "bf16", 2, 1, 7),
@@ -325,8 +361,21 @@ FUSED_SHAPES = [
     ("96 s0 padded shifted", 256, 96, 3, 24, True, "bf16", 1, 1, 7),
     ("96 s1 padded", 256, 192, 6, 12, False, "bf16", 1, 1, 7),
     ("96 s1 padded shifted", 256, 192, 6, 12, True, "bf16", 1, 1, 7),
-    ("96 s2 augmented", 256, 384, 12, 6, False, "bf16", 6, 6, 7),
+    ("96 s2 augmented", 256, 384, 12, 6, False, "bf16", 6, 6, 7, (6, 6)),
     ("224 s1 shifted fp32", 64, 192, 6, 28, True, "fp32", 0, 0, 7),
+    ("w14 224 s0", 64, 96, 3, 56, False, "bf16", 0, 0, 14, (2, 1)),
+    ("w14 224 s0 shifted", 64, 96, 3, 56, True, "bf16", 0, 0, 14, (2, 1)),
+    ("w14 224 s1", 64, 192, 6, 28, False, "bf16", 0, 0, 14, (2, 1)),
+    ("w14 224 s1 shifted", 64, 192, 6, 28, True, "bf16", 0, 0, 14, (2, 1)),
+    ("w14 224 s2", 64, 384, 12, 14, False, "bf16", 0, 0, 14, (12, 6)),
+    ("w14 96 s0 padded", 256, 96, 3, 24, False, "bf16", 0, 0, 14, (1, 1)),
+    ("w14 96 s0 padded shifted", 256, 96, 3, 24, True, "bf16", 0, 0, 14,
+     (1, 1)),
+    ("w14 96 s1 augmented", 256, 192, 6, 12, False, "bf16", 0, 0, 14, (2, 2)),
+    ("w14 224 s0 shifted fp32", 16, 96, 3, 56, True, "fp32", 0, 0, 14),
+    ("w14 224 s2 fp32", 16, 384, 12, 14, False, "fp32", 0, 0, 14),
+    ("w14 96 s0 padded shifted fp32", 32, 96, 3, 24, True, "fp32", 0, 0, 14),
+    ("w14 96 s1 augmented fp32", 32, 192, 6, 12, False, "fp32", 0, 0, 14),
     ("nano 64 s0", 128, 32, 2, 16, False, "bf16", 0, 0, 4),
     ("nano 64 s0 shifted", 128, 32, 2, 16, True, "bf16", 0, 0, 4),
     ("nano 64 s1", 128, 64, 4, 8, False, "bf16", 0, 0, 4),
@@ -370,10 +419,13 @@ SC_GRADS = ("q", "k", "v", "k_glo", "v_glo")
 # 1: 96 = 3 x 32), for the layout copies around a call.
 SC_HEADS = {48: 1, 32: 3}
 # Row 7, the qkv-layout window attention: (label, windows B_, C, nH,
-# stage resolution H, shifted, dtype name, calls per eval forward batch).
+# stage resolution H, shifted, dtype name, calls per eval forward batch,
+# window size ws, calls per Swin-T W=14 eval forward batch).
 # fp32: the eval slice, B=64 images at 224 px (12 calls per forward);
 # bf16: the qkv-layout train route's shapes, the 224 crops (2B images)
-# and the 96 crops (8B images; stages 2-3 take the sub-window path).
+# and the 96 crops (8B images; stages 2-3 take the sub-window path). The
+# "w14" shapes are the same slices at W=14 (N = 196; stage 2 one window
+# an image, unshifted; stage 3 is W=7's): 12 calls per eval batch.
 PWA_SHAPES = [
     ("224 s0", 4096, 96, 3, 56, False, "fp32", 1),
     ("224 s0 shifted", 4096, 96, 3, 56, True, "fp32", 1),
@@ -381,7 +433,14 @@ PWA_SHAPES = [
     ("224 s1 shifted", 1024, 192, 6, 28, True, "fp32", 1),
     ("224 s2", 256, 384, 12, 14, False, "fp32", 3),
     ("224 s2 shifted", 256, 384, 12, 14, True, "fp32", 3),
-    ("224 s3", 64, 768, 24, 7, False, "fp32", 2),
+    ("224 s3", 64, 768, 24, 7, False, "fp32", 2, 7, 2),
+    ("w14 224 s0", 1024, 96, 3, 56, False, "fp32", 0, 14, 1),
+    ("w14 224 s0 shifted", 1024, 96, 3, 56, True, "fp32", 0, 14, 1),
+    ("w14 224 s1", 256, 192, 6, 28, False, "fp32", 0, 14, 1),
+    ("w14 224 s1 shifted", 256, 192, 6, 28, True, "fp32", 0, 14, 1),
+    ("w14 224 s2", 64, 384, 12, 14, False, "fp32", 0, 14, 6),
+    ("w14 224 s0 shifted", 1024, 96, 3, 56, True, "bf16", 0, 14, 0),
+    ("w14 96 s0 padded shifted", 1024, 96, 3, 24, True, "bf16", 0, 14, 0),
     ("224 s0", 4096, 96, 3, 56, False, "bf16", 0),
     ("224 s0 shifted", 4096, 96, 3, 56, True, "bf16", 0),
     ("224 s1", 1024, 192, 6, 28, False, "bf16", 0),
@@ -456,6 +515,51 @@ def check_tile_registers(wa, regs):
     return checked
 
 
+def ptxas_spills(report):
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    nvcc's -Xptxas -v report."""
+    spills, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            spills[entry] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+def large_tile_registers(wa, regs, spills):
+    """Lines for the large-window tile's kernels (N > 64: the block-fused
+    pair's forward and backward tiles, each dtype, from
+    csrc/fused_block_large*.cu, and row 7's forward tile, each dtype):
+    registers,
+    spills, the warps an SM holds by registers (held to tile_plan's
+    _SM_WARPS_MAX_LARGE, as check_tile_registers holds the small tiles)
+    and the blocks it holds by shared memory at Swin's N=196, head dim 32
+    (the plan's warps)."""
+    lines = []
+    for name, n in regs.items():
+        m = re.search(r"window_attention_large_(bwd_)?kernelI(13__nv_bfloat16|f)",
+                      name)
+        if not m:
+            continue
+        backward, itemsize = m.group(1) is not None, 2 if m.group(2) != "f" else 4
+        fits = wa._SM_REGS // (-(-n // 8) * 8 * 32)
+        cap = wa._SM_WARPS_MAX_LARGE[itemsize]
+        if fits < cap:
+            raise AssertionError(f"{name}: {n} registers hold {fits} warps per "
+                                 f"SM, but tile_plan assumes {cap}")
+        plan = wa.tile_plan(64, 196, 32, 12, 1, itemsize, backward=backward)
+        by_smem = SM_SMEM_BYTES // (plan.smem + 1024)
+        lines.append(f"{name[:70]} {n} regs, spills {spills.get(name, (0, 0))}"
+                     f" bytes (stores, loads): {fits} warps/SM >= plan {cap}; "
+                     f"{by_smem} blocks of {plan.warps} warps by shared memory "
+                     f"at N=196 hd=32 ({plan.smem} bytes)")
+    return sorted(lines)
+
+
 def sliding_chunk_registers(sc, wa, regs):
     """Lines for the sliding-chunk tensor-core kernels of nvcc's report,
     each instantiation (KD = round16(M) / 16 head-dim steps): registers,
@@ -481,19 +585,27 @@ def phase_build(cuda_build, wa, sc):
     """Build every library; hold the tile kernels' registers to the plan
     (a library built before this run has no report and is not checked)."""
     t0 = time.perf_counter()
-    regs = {}
+    regs, spills = {}, {}
     for name, (lib, report) in cuda_build.build_all(KERNELS).items():
         log(f"built {lib.name}")
         for line in report.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if ("Compiling entry" in line or "Used" in line or "spill" in line
+                    or line.startswith("nvcc ")):
                 log("  " + line.strip())
         regs.update(ptxas_registers(report))
+        spills.update(ptxas_spills(report))
     log(f"build: {time.perf_counter() - t0:.2f} s")
     lines = check_tile_registers(wa, regs)
     if regs and len(lines) < 10:
         raise AssertionError(f"found {len(lines)} tile kernels in the "
                              "ptxas report, expected 10")
     for line in lines:
+        log(f"registers {line}")
+    large = large_tile_registers(wa, regs, spills)
+    if regs and len(large) != 6:
+        raise AssertionError(f"found {len(large)} large-window tile kernels "
+                             "in the ptxas report, expected 6")
+    for line in large:
         log(f"registers {line}")
     sc_lines = sliding_chunk_registers(sc, wa, regs)
     if regs and len(sc_lines) != 12:
@@ -615,7 +727,10 @@ def phase_window_attention(torch, wa, wops):
     F = torch.nn.functional
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = wa._lib()
-    for N in range(1, 65):
+    # Every window the tiles take: N <= 64 on the small tiles, 64 < N <=
+    # 256 on the large one, whose plan must fit where its shape rule
+    # (large_tile_fits) admits the shape.
+    for N in range(1, wa._LARGE_MAX_N + 1):
         for hd in range(1, 65):
             for itemsize in (2, 4):
                 for backward in (False, True):
@@ -630,6 +745,9 @@ def phase_window_attention(torch, wa, wops):
                                 f"tile_smem_bytes({N}, {hd}, {itemsize}, "
                                 f"{warps}, {backward}) is not the kernel's "
                                 f"{want}")
+                    if N > wa._SMALL_MAX_N and not wa.large_tile_fits(
+                            N, hd, backward):
+                        continue
                     plan = wa.tile_plan(64, N, hd, 3, 1, itemsize,
                                         backward=backward)
                     if plan.smem > limit:
@@ -780,8 +898,9 @@ def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen, ws=7):
 
 def phase_fused(torch, fb, wa, wops):
     """The block-fused pair vs its plain version at the default route's
-    block shapes. Returns per-kernel max error and the per-step
-    kernel/plain milliseconds."""
+    block shapes, W=7's and W=14's. Returns two {"fwd", "bwd"} Tallies,
+    the W=7 step's and the W=14 step's: per-kernel max error and the
+    per-step kernel/plain milliseconds."""
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = fb._lib()
     for C in range(32, fb._MAX_C + 1, 32):
@@ -797,9 +916,11 @@ def phase_fused(torch, fb, wa, wops):
                         f"of shared memory (card: {limit})")
     gen = torch.Generator(device="cuda").manual_seed(1)
     tally = {"fwd": Tally(), "bwd": Tally()}
+    tally14 = {"fwd": Tally(), "bwd": Tally()}
     split_step = {"fwd": {}, "bwd": {}}
-    cublas_step = 0.0
-    for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd, ws in FUSED_SHAPES:
+    cublas_step = {7: 0.0, 14: 0.0}
+    for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd, ws, *w14 in FUSED_SHAPES:
+        w14_fwd, w14_bwd = w14[0] if w14 else (0, 0)
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, params, k1, k2, region, pad, geo, do = _fused_case(
             torch, wops, B, C, nH, H, shifted, dtype, gen, ws)
@@ -831,9 +952,14 @@ def phase_fused(torch, fb, wa, wops):
         bad = {n: e for n, e in errs.items() if e > TOL[dt]}
         if bad:
             raise AssertionError(f"fused {label}: errors {bad} above {TOL[dt]}")
-        tally["fwd"].err = max(tally["fwd"].err, errs["out"])
-        tally["bwd"].err = max(tally["bwd"].err,
-                               *(errs[n] for n in FUSED_GRADS))
+        cell = tally14 if ws == 14 else tally
+        cell["fwd"].err = max(cell["fwd"].err, errs["out"])
+        cell["bwd"].err = max(cell["bwd"].err,
+                              *(errs[n] for n in FUSED_GRADS))
+        if w14 and ws != 14:
+            tally14["fwd"].err = max(tally14["fwd"].err, errs["out"])
+            tally14["bwd"].err = max(tally14["bwd"].err,
+                                     *(errs[n] for n in FUSED_GRADS))
         del got, again, ref
         for what, stage_errors in (("fwd", fb.fwd_stage_errors),
                                    ("bwd", fb.bwd_stage_errors)):
@@ -853,7 +979,8 @@ def phase_fused(torch, fb, wa, wops):
             p_fwd = _median_ms(torch, lambda: fb.fused_swin_block_plain(
                 x, params, k1, k2, **kw))
             t_cublas = _cublas_ms(torch, x, params)
-        cublas_step += n_fwd * t_cublas
+        cublas_step[7] += n_fwd * t_cublas
+        cublas_step[14] += w14_fwd * t_cublas
         t_bwd = _median_ms(torch, lambda: fb._bwd(
             x, params, k1, k2, region, pad, do, geo))
         splits = {"fwd": kernel_split(torch, lambda: fb._fwd(
@@ -881,10 +1008,12 @@ def phase_fused(torch, fb, wa, wops):
         tables = sum(4 * t.numel() for t in (region, pad, k1, k2)
                      if t is not None)
         flops = 2 * T * 12 * C * C + 4 * T * N * C
-        tally["fwd"].add(n_fwd, t_fwd, p_fwd, 2 * rows + pbytes + tables,
-                         flops)
-        tally["bwd"].add(n_bwd, t_bwd, p_bwd, 3 * rows + 2 * pbytes + tables,
-                         3 * flops)
+        for cell, (c_fwd, c_bwd) in ((tally, (n_fwd, n_bwd)),
+                                     (tally14, (w14_fwd, w14_bwd))):
+            cell["fwd"].add(c_fwd, t_fwd, p_fwd, 2 * rows + pbytes + tables,
+                            flops)
+            cell["bwd"].add(c_bwd, t_bwd, p_bwd,
+                            3 * rows + 2 * pbytes + tables, 3 * flops)
         top = sorted(((n if n == "out" else f"d{n}", e)
                       for n, e in errs.items()), key=lambda kv: -kv[1])[:3]
         log(f"fused-vs-plain {label:22s} B={B:3d} W={ws} N={N} nW={nW:2d} "
@@ -909,8 +1038,19 @@ def phase_fused(torch, fb, wa, wops):
             + json.dumps({k: round(v, 4) for k, v in sorted(
                 split_step[what].items(), key=lambda kv: -kv[1]) if v}))
     log(f"fused fwd per default step {tally['fwd'].ms:.4f} ms beside cublas "
-        f"four products {cublas_step:.4f} ms (timed only)")
-    return tally
+        f"four products {cublas_step[7]:.4f} ms (timed only)")
+    for name, cell in (("W=7 default", tally), ("W=14", tally14)):
+        rec = {k: t.record() for k, t in cell.items()}
+        log(f"fused per {name} step: fwd kernel {rec['fwd']['ms']:.4f} ms "
+            f"plain {rec['fwd']['plain_ms']:.4f} ms bound "
+            f"{rec['fwd']['bound_ms']:.4f} ms ({rec['fwd']['bound_by']}); bwd "
+            f"kernel {rec['bwd']['ms']:.4f} ms plain {rec['bwd']['plain_ms']:.4f}"
+            f" ms bound {rec['bwd']['bound_ms']:.4f} ms "
+            f"({rec['bwd']['bound_by']}); max err fwd "
+            f"{rec['fwd']['max_abs_err']:.2e} bwd {rec['bwd']['max_abs_err']:.2e}")
+    log(f"fused fwd per W=14 step {tally14['fwd'].ms:.4f} ms beside cublas "
+        f"four products {cublas_step[14]:.4f} ms (timed only)")
+    return tally, tally14
 
 
 def _cublas_ms(torch, x, params):
@@ -933,23 +1073,26 @@ def _cublas_ms(torch, x, params):
 
 def phase_pallas_window_attention(torch, pwa, wops):
     """Row 7 vs its plain version at the eval slice's and the train
-    route's shapes, and the library call (scaled_dot_product_attention,
-    the dense bias as its float attn_mask). Returns the Tally of the
-    forward, summed per eval forward batch (fp32 peak for the bound)."""
+    route's shapes, W=7's and W=14's, and the library call
+    (scaled_dot_product_attention, the dense bias as its float
+    attn_mask). Returns the Tallies of the forward, summed per eval
+    forward batch (fp32 peak for the bound), of W=7 and of W=14."""
     F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     tally = Tally(library=True, flop_rate=FP32_FLOP_PER_S)
-    N = 49
-    for label, B_, C, nH, H, shifted, dt, calls in PWA_SHAPES:
+    tally14 = Tally(library=True, flop_rate=FP32_FLOP_PER_S)
+    for label, B_, C, nH, H, shifted, dt, calls, *w14 in PWA_SHAPES:
+        ws, calls14 = w14 if w14 else (7, 0)
+        N = ws * ws
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         hd, scale = C // nH, (C // nH) ** -0.5
         qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
         do = torch.randn(B_, N, C, generator=gen, device=dev).to(dtype)
         bias = 0.3 * torch.randn(1, nH, N, N, generator=gen, device=dev)
         if shifted:
-            mask = torch.as_tensor(wops.shifted_window_mask(H, H, 7, 3),
-                                   device=dev)
+            mask = torch.as_tensor(
+                wops.shifted_window_mask(H, H, ws, ws // 2), device=dev)
             bias = (bias + mask[:, None]).contiguous()
         nWm = bias.shape[0]
 
@@ -975,7 +1118,9 @@ def phase_pallas_window_attention(torch, pwa, wops):
         if err > TOL[dt]:
             raise AssertionError(f"pallas {label} {dt}: error {err:.2e} above "
                                  f"{TOL[dt]}")
-        tally.err = max(tally.err, err)
+        for cell, n in ((tally, ws == 7), (tally14, ws == 14 or calls14)):
+            if n:
+                cell.err = max(cell.err, err)
         plain_out = ref[0]
         del got, again, ref
 
@@ -1011,52 +1156,64 @@ def phase_pallas_window_attention(torch, pwa, wops):
         nbytes = 4 * B_ * N * C * isz + bias.numel() * 4
         flops = 4 * B_ * nH * N * N * hd
         tally.add(calls, t_fwd, p_fwd, nbytes, flops, l_fwd)
+        tally14.add(calls14, t_fwd, p_fwd, nbytes, flops, l_fwd)
         rate = FP32_FLOP_PER_S if dt == "fp32" else BF16_FLOP_PER_S
         bound = max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
-        log(f"pallas-vs-plain {label:16s} B_={B_:5d} C={C:3d} nH={nH:2d} "
+        log(f"pallas-vs-plain {label:16s} B_={B_:5d} N={N:3d} C={C:3d} nH={nH:2d} "
             f"nWm={nWm:2d} {dt}: max err out {err:.2e} (tol {TOL[dt]:.0e}); "
             f"out bit-identical on repeat; dqkv, dbias equal to plain; sdpa "
             f"out vs plain {lib_err:.2e}")
         log(f"  time {label:16s} {dt} kernel {t_fwd:.4f} ms plain "
             f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms bound {bound:.4f} ms "
-            f"(calls per eval batch {calls})")
-    return tally
+            f"(calls per eval batch {calls}, per W=14 eval batch {calls14})")
+    for name, cell in (("W=7", tally), ("W=14", tally14)):
+        rec = cell.record()
+        log(f"pallas per {name} eval batch: kernel {rec['ms']:.4f} ms plain "
+            f"{rec['plain_ms']:.4f} ms sdpa {rec['library_ms']:.4f} ms bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); max err "
+            f"{rec['max_abs_err']:.2e}")
+    return tally, tally14
 
 
-def phase_forward_parity(torch, C, fb, wa, pwa):
-    """The Swin-T backbone on the default fused route, on the
-    window-attention route, on the qkv-layout route and on the plain
-    route, fp32, same weights, 2 images at 224 and 96 px: relative error
-    <= 1e-4 to the plain one, for forward_features and for
+def phase_forward_parity(torch, C, fb, wa, pwa, window_size=7):
+    """The Swin-T backbone (at ``window_size``) on the default fused
+    route, on the window-attention route, on the qkv-layout route and on
+    the plain route, fp32, same weights, 2 images at 224 and 96 px:
+    relative error <= 1e-4 to the plain one, for forward_features and for
     forward_return_n_last_blocks(x, 4) (the probe's features, which every
     route computes in its classic block loop); each kernel's launches
-    equal to the model-derived count."""
+    equal to the model-derived count. At W=14 the window-attention route
+    runs stages 0-2 plain (the packed pair takes N <= 64) and stage 3
+    (N=49) on its kernel."""
     from esvit_tpu_torch.models.swin import SwinTransformer
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    fused = SwinTransformer(C.swin_tiny(drop_path_rate=0.0),
-                            generator=gen).to(dev)
+
+    def swin(**kw):
+        return C.swin_tiny(window_size=window_size, drop_path_rate=0.0, **kw)
+
+    fused = SwinTransformer(swin(), generator=gen).to(dev)
     routes = {
         "fused": fused,
-        "window-attention": SwinTransformer(C.swin_tiny(
-            drop_path_rate=0.0, fused_block_stages=())).to(dev),
-        "qkv-layout": SwinTransformer(C.swin_tiny(
-            drop_path_rate=0.0, attention_impl="pallas",
+        "window-attention": SwinTransformer(swin(
             fused_block_stages=())).to(dev),
-        "plain": SwinTransformer(C.swin_tiny(
-            drop_path_rate=0.0, attention_impl="xla",
-            fused_block_stages=())).to(dev),
+        "qkv-layout": SwinTransformer(swin(
+            attention_impl="pallas", fused_block_stages=())).to(dev),
+        "plain": SwinTransformer(swin(
+            attention_impl="xla", fused_block_stages=())).to(dev),
     }
     for model in routes.values():
         model.load_state_dict(fused.state_dict())
     kernel_routes = ("fused", "window-attention", "qkv-layout")
 
+    tag = f"swin-t W={window_size}"
+
     def check(what, a, b):
         err = ((a - b).abs().max() / b.abs().max()).item()
         if not (torch.isfinite(a).all() and err <= 1e-4):
-            raise AssertionError(f"{what}: {err:.2e} from plain")
-        log(f"swin-t {what} fp32: rel err vs plain {err:.2e} (tol 1e-4), "
+            raise AssertionError(f"{tag} {what}: {err:.2e} from plain")
+        log(f"{tag} {what} fp32: rel err vs plain {err:.2e} (tol 1e-4), "
             f"shape {tuple(a.shape)}")
 
     def run(what, fn, size, capture):
@@ -1080,11 +1237,11 @@ def phase_forward_parity(torch, C, fb, wa, pwa):
                "window_attention": wa.launches["fwd"],
                "pallas_window_attention": pwa.launches["fwd"]}
         if got != want:
-            raise AssertionError(f"{what} {size}px: launches {got}, "
+            raise AssertionError(f"{tag} {what} {size}px: launches {got}, "
                                  f"model-derived {want}")
         for name in kernel_routes:
             check(f"{what} {size}px: {name} route", out[name], out["plain"])
-        log(f"swin-t {what} {size}px: forward launches {got}")
+        log(f"{tag} {what} {size}px: forward launches {got}")
 
     for size in (224, 96):
         x = torch.randn(2, size, size, 3, generator=gen).to(dev)
@@ -1449,8 +1606,10 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
         for k in launches:
             launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    state, history = train(cfg, max_steps=steps, device="cuda", resume=False,
-                           **train_kw)
+    # checkpoint.pth only: no run here reads a numbered copy (the entry
+    # phase's CLI runs check those)
+    state, history = train(cfg.replace(save_every_epochs=0), max_steps=steps,
+                           device="cuda", resume=False, **train_kw)
     torch.cuda.synchronize()
     got = {name: dict(launches) for name, launches in counters.items()}
     losses = [h["loss"] for h in history]
@@ -1614,7 +1773,8 @@ def phase_route_order(torch, C, card, out_dir):
 
     from esvit_tpu_torch.train.train import train
 
-    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
+    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir,
+                                save_every_epochs=0)
     routes = {"default": cfg,
               "fused_block_stages=()": cfg.replace(
                   model=C.swin_tiny(fused_block_stages=()))}
@@ -1636,6 +1796,226 @@ def phase_route_order(torch, C, card, out_dir):
             f"{len(steps)} steps of {ROUTE_ROUNDS} rounds [{card}]")
     faster = min(ms, key=lambda n: statistics.median(ms[n]))
     log(f"route order: {faster} is faster by the median")
+
+
+# Phase 17, Swin-T at W=14, the configuration EsViT publishes as its best
+# Swin (BASELINE.md): steps per run, the alternating rounds after the two
+# checked runs, and the k-NN CLI's noise images (two classes).
+W14 = 14
+W14_STEPS, W14_ROUNDS = 3, 3
+W14_KNN_TRAIN, W14_KNN_VAL, W14_KNN_SIZE, W14_KNN_BATCH = 32, 16, 128, 16
+
+
+def _fused_n_split(cfg):
+    """{"fwd", "bwd"}: {N: launches} of the block-fused kernel in one
+    train step of cfg, by window size, from the model's stage routes (a
+    fused stage's windows are ws^2 tokens, a fused sub-window stage's the
+    augmented H*W + 1); the teacher runs the global crops forward, the
+    student every crop forward and backward."""
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    probe = build_backbone(cfg.model)
+    out = {"fwd": {}, "bwd": {}}
+    sizes = [(cfg.crops.global_size, 2)]
+    if cfg.crops.local_crops_number:
+        sizes.append((cfg.crops.local_size, 1))
+    for size, forwards in sizes:
+        for stage, L, route in probe._stage_routes(size):
+            if route not in ("fused", "fused_subwindow"):
+                continue
+            N = stage.window_size ** 2 if route == "fused" else L + 1
+            for kind, times in (("fwd", forwards), ("bwd", 1)):
+                out[kind][N] = out[kind].get(N, 0) + times * len(stage.blocks)
+    return out
+
+
+def _route_stepper(torch, cfg):
+    """One EsViTTrainer of cfg on the card with its state and one synthetic
+    batch, built once: a function that takes one train step and returns
+    its ms on the host clock, to the loss's fetch (which must be finite)."""
+    from esvit_tpu_torch.data.loader import synthetic_batches
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
+    dev = torch.device("cuda")
+    trainer = EsViTTrainer(cfg, total_batch_size=BATCH, device=dev)
+    holder = [trainer.init_state(torch.Generator().manual_seed(0))]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = next(iter(synthetic_batches(cfg.crops, BATCH, steps=1,
+                                        device=dev)))
+
+    def step():
+        t0 = time.perf_counter()
+        holder[0], metrics = trainer.train_step(holder[0], batch, gen)
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"step loss {loss}")
+        return (time.perf_counter() - t0) * 1e3
+    return step
+
+
+def _step_groups(torch, step):
+    """Device ms of one train step by kernel group (utils/profile.py's
+    groups), from kernel_split over 2 steps; the step's esvit/* spans
+    (their GPU-timeline lengths, not kernels) left out, as
+    utils/profile.py leaves them."""
+    from esvit_tpu_torch.utils.profile import _kernel_group
+
+    groups = {}
+    for name, ms in kernel_split(torch, step, reps=2).items():
+        if name.startswith("esvit/"):
+            continue
+        group = _kernel_group(name)
+        groups[group] = groups.get(group, 0.0) + ms
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def _w14_knn(C, card, root):
+    """The k-NN CLI at --window_size 14 on seeded noise PNGs, fp32, on the
+    card and on the CPU (subprocesses through ENTRY_RUN): the card's
+    launches as derived from the model (none on the CPU), and the card's
+    dumped features within 1e-4 of the CPU's."""
+    import numpy as np
+    from PIL import Image
+
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    rng = np.random.default_rng(0)
+    dirs = {}
+    for split, n in (("train", W14_KNN_TRAIN), ("val", W14_KNN_VAL)):
+        dirs[split] = os.path.join(root, split)
+        for i in range(n):
+            d = os.path.join(dirs[split], f"class{i % 2}")
+            os.makedirs(d, exist_ok=True)
+            pixels = rng.integers(0, 256, (W14_KNN_SIZE, W14_KNN_SIZE, 3),
+                                  dtype=np.uint8)
+            Image.fromarray(pixels).save(os.path.join(d, f"{i:03d}.png"))
+    probe = build_backbone(C.swin_tiny(window_size=W14))
+    batches = (-(-W14_KNN_TRAIN // W14_KNN_BATCH)
+               + -(-W14_KNN_VAL // W14_KNN_BATCH))
+    feats = {}
+    for device in ("cuda", "cpu"):
+        dump = os.path.join(root, f"features_{device}")
+        _, rec = _entry_run(
+            f"w14 k-NN --device {device}", "esvit_tpu_torch.evals.knn",
+            ["--arch", "swin_tiny", "--window_size", str(W14),
+             "--train_path", dirs["train"], "--val_path", dirs["val"],
+             "--batch_size", str(W14_KNN_BATCH), "--nb_knn", "5",
+             "--dump_features", dump, "--output_dir",
+             os.path.join(root, f"out_{device}"), "--device", device])
+        want = {name: {k: 0 for k in kinds}
+                for name, (_, kinds) in KERNELS.items()}
+        if device == "cuda":
+            want["fused_block"]["fwd"] = probe.fused_block_calls(224) * batches
+            want["window_attention"]["fwd"] = (
+                probe.window_attention_calls(224) * batches)
+        _entry_launches(f"w14 k-NN --device {device}", rec["launches"], want)
+        feats[device] = [np.load(os.path.join(dump, f"{n}feat.npy"))
+                         for n in ("train", "test")]
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(feats["cuda"], feats["cpu"]))
+    if not (err <= 1e-4 and all(np.isfinite(f).all() for f in feats["cuda"])):
+        raise AssertionError(f"w14 k-NN: card features {err:.2e} from the "
+                             "CPU's (tol 1e-4)")
+    log(f"w14 k-NN CLI fp32: {W14_KNN_TRAIN} + {W14_KNN_VAL} noise images, "
+        f"card features vs CPU max abs {err:.2e} (tol 1e-4) [{card}]")
+
+
+def phase_swin_w14(torch, C, counters, card, out_dir):
+    """Swin-T at W=14 (swin_tiny_multicrop's recipe with window_size=14:
+    B=32, 2x224 + 8x96, 65536-wide heads, DDINO, bf16, seed 0, synthetic
+    crops on the card). W14_STEPS steps on the kernel route (the default
+    fused stages: the block-fused pair on the large-window tile, N=196 /
+    145 / 37) with the slice's checks (finite losses, state moved,
+    launches as derived: 30 forward / 20 backward block-fused launches a
+    step, split by N), then on the plain route (fused_block_stages=(),
+    attention_impl='xla': no kernel), both through train() (the slices
+    print each run's ms/step and peak memory); then W14_ROUNDS
+    alternating rounds of W14_STEPS steps on one trainer per route, built
+    once: each route's median ms/step over steps 2..W14_STEPS of its
+    rounds and the spread, and its device time by kernel group
+    (torch.profiler, 2 steps). Then the fp32 eval forward on the
+    qkv-layout route (attention_impl='pallas', no fused stages, batch
+    EVAL_BATCH at 224 px): row 7's launches as derived, finite features,
+    the ms per batch; then the k-NN CLI at --window_size 14, card against
+    CPU. Returns the W=14 kernels' launches: the block-fused pair's from
+    the kernel-route steps, row 7's from the eval forward."""
+    import gc
+
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    base = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
+    routes = {"kernel": base.replace(model=C.swin_tiny(window_size=W14)),
+              "plain": base.replace(model=C.swin_tiny(
+                  window_size=W14, fused_block_stages=(),
+                  attention_impl="xla"))}
+    per_step = _derived_launches(routes["kernel"], 1)
+    split = _fused_n_split(routes["kernel"])
+    log(f"w14 kernel route, derived launches per step: {per_step}; "
+        f"block-fused launches by N: {split}")
+    if (per_step["fused_block"] != {"fwd": 30, "bwd": 20}
+            or sum(split["fwd"].values()) != 30
+            or sum(split["bwd"].values()) != 20):
+        raise AssertionError(f"w14: derived block-fused launches "
+                             f"{per_step['fused_block']}, by N {split}")
+    got, _ = _slice(torch, routes["kernel"], W14_STEPS, counters,
+                    "Swin-T W=14 kernel route", card, True)
+    _slice(torch, routes["plain"], W14_STEPS, counters,
+           "Swin-T W=14 plain route", card, False)
+    steppers = {name: _route_stepper(torch, cfg)
+                for name, cfg in routes.items()}
+    ms = {name: [] for name in routes}
+    for rnd in range(W14_ROUNDS):
+        for name in (("plain", "kernel") if rnd % 2 == 0
+                     else ("kernel", "plain")):
+            steps = [steppers[name]() for _ in range(W14_STEPS)][1:]
+            ms[name] += steps
+            log(f"w14 round {rnd + 1} {name} route: "
+                + ", ".join(f"{t:.1f}" for t in steps) + " ms/step")
+    for name, steps in ms.items():
+        log(f"w14 {name} route: median {statistics.median(steps):.1f} "
+            f"ms/step, spread {min(steps):.1f}-{max(steps):.1f} over "
+            f"{len(steps)} steps of {W14_ROUNDS} alternating rounds [{card}]")
+    for name, step in steppers.items():
+        log(f"w14 {name} route, device ms per step by kernel group "
+            f"(torch.profiler): " + json.dumps(
+                {g: round(v, 3) for g, v in _step_groups(torch, step).items()}))
+    del steppers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    backbone = build_backbone(
+        C.swin_tiny(window_size=W14, attention_impl="pallas",
+                    fused_block_stages=()),
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    x = torch.randn(EVAL_BATCH, 224, 224, 3,
+                    generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    for launches in counters.values():
+        for k in launches:
+            launches[k] = 0
+    with torch.inference_mode():
+        feats = backbone.forward_features(x)[0]
+    torch.cuda.synchronize()
+    row7 = {name: dict(launches) for name, launches in counters.items()}
+    want = {name: {k: 0 for k in kinds} for name, (_, kinds) in KERNELS.items()}
+    want["pallas_window_attention"]["fwd"] = (
+        backbone.pallas_window_attention_calls(224))
+    if row7 != want or not torch.isfinite(feats).all() or tuple(
+            feats.shape) != (EVAL_BATCH, 768):
+        raise AssertionError(f"w14 eval forward: launches {row7}, derived "
+                             f"{want}, features {tuple(feats.shape)}")
+    with torch.inference_mode():
+        t_eval = _median_ms(torch, lambda: backbone.forward_features(x))
+    log(f"w14 eval forward, qkv-layout route, fp32, batch {EVAL_BATCH} at "
+        f"224 px: {t_eval:.2f} ms ({EVAL_BATCH / t_eval * 1e3:.1f} img/s), "
+        f"launches {row7['pallas_window_attention']} as derived [{card}]")
+    del backbone, x, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    _w14_knn(C, card, os.path.join(out_dir, "w14_knn"))
+    return {"fused_block": got["fused_block"],
+            "pallas_window_attention": row7["pallas_window_attention"]}
 
 
 def phase_vil_slice(torch, C, counters, card, out_dir):
@@ -3484,12 +3864,17 @@ def main():
     phase_build(cuda_build, wa, sc)
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
-    results = {"window_attention": phase_window_attention(torch, wa, wops),
-               "fused_block": phase_fused(torch, fb, wa, wops),
-               "sliding_chunk": phase_sliding_chunk(torch, sc),
-               "pallas_window_attention": {
-                   "fwd": phase_pallas_window_attention(torch, pwa, wops)}}
+    window_attention = phase_window_attention(torch, wa, wops)
+    fused, fused14 = phase_fused(torch, fb, wa, wops)
+    sliding_chunk = phase_sliding_chunk(torch, sc)
+    pwa_fwd, pwa_fwd14 = phase_pallas_window_attention(torch, pwa, wops)
+    results = {"window_attention": window_attention, "fused_block": fused,
+               "sliding_chunk": sliding_chunk,
+               "pallas_window_attention": {"fwd": pwa_fwd}}
+    results14 = {"fused_block": fused14,
+                 "pallas_window_attention": {"fwd": pwa_fwd14}}
     phase_forward_parity(torch, C, fb, wa, pwa)
+    phase_forward_parity(torch, C, fb, wa, pwa, window_size=W14)
     phase_vil_forward_parity(torch, C, sc)
     counters = {"window_attention": wa.launches, "fused_block": fb.launches,
                 "sliding_chunk": sc.launches,
@@ -3498,6 +3883,7 @@ def main():
         swin, synthetic_ms = phase_slice(torch, C, counters, card, out_dir)
         phase_data_slice(torch, C, counters, card, out_dir, synthetic_ms)
         phase_route_order(torch, C, card, out_dir)
+        launches14 = phase_swin_w14(torch, C, counters, card, out_dir)
         vil = phase_vil_slice(torch, C, counters, card, out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         evals = phase_eval(torch, C, pwa, card, out_dir)
@@ -3515,7 +3901,11 @@ def main():
         {"name": f"{name}_{k}", "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1][k], "launches": launches[name][k],
          **tally[k].record()}
-        for name, tally in results.items() for k in KERNELS[name][1]]}
+        for name, tally in results.items() for k in KERNELS[name][1]] + [
+        {"name": f"{name}_w14_{k}", "route": "cuda",
+         "source": KERNELS[name][0], "replaces": KERNELS[name][1][k],
+         "launches": launches14[name][k], **results14[name][k].record()}
+        for name in KERNELS_W14 for k in KERNELS[name][1]]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

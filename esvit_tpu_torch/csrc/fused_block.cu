@@ -5,7 +5,9 @@
 // reached through fused_swin_block.
 //
 // The forward computes, for the rows of x (tokens in the unpadded
-// window-major order of ops/window.py, windows of N <= 64 tokens):
+// window-major order of ops/window.py, windows of N <= 256 tokens: the
+// window-attention tiles take N <= 64 on the small tile and 64 < N <= 256,
+// Swin at W=14, on the large one):
 //   y   = round(LN1(x)) * pad                 fp32 LN, E[x^2] - mu^2 variance
 //   q,k,v = round(round(y Wq) + round(bq))    (bf16 operands, fp32 sums)
 //   s   = round(q round(scale)) k^T + bias[h] - 100 [region_i != region_j]
@@ -73,7 +75,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "window_attention_tile.cuh"
+#include "fused_block_attention.cuh"
 
 namespace {
 
@@ -82,7 +84,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMc = 128;            // the backward's MLP hidden-dimension chunk
-constexpr int kMaxN = 64;           // tokens per window
+constexpr int kMaxTileRows = 64;    // rows of a backward token tile
 constexpr int kMaxC = 384;          // channels (a LayerNorm row in registers)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
@@ -1696,12 +1698,6 @@ cudaError_t launch_tok(Kernel kernel, const Table& tab, const Geo& g, int which,
   return cudaGetLastError();
 }
 
-// The attention halves' bias policy: the window-attention kernel's
-// (wtile::TableBias), under a name of its own so that a profile files the
-// tile kernels it instantiates (A1, A2 and their dbias sum) under the
-// fused block and not under row 3 / 4 (esvit_tpu_torch/utils/profile.py).
-struct FusedBlockBias : wtile::TableBias {};
-
 // The attention tiles' geometry on QKV: q, k, v at columns 0, C, 2C of a
 // 3C-wide row, heads hd wide; the output a at row stride ld_out (the
 // forward's FA: C; the backward's workspace: S).
@@ -1723,7 +1719,7 @@ wtile::Geometry attn_geometry(const Geo& g, int run, int ld_out) {
 
 template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s) {
   void* const* table = tab.p;
-  if (g.R < 16 || g.R > kMaxN || g.R % 16) return (int)cudaErrorInvalidValue;
+  if (g.R < 16 || g.R > kMaxTileRows || g.R % 16) return (int)cudaErrorInvalidValue;
   T* ws = static_cast<T*>(table[WS]);
   const T* qkv = static_cast<const T*>(table[QKV]);
   FusedBlockBias bias;

@@ -1,0 +1,15 @@
+// The block-fused kernels' attention halves on the large-window tile
+// (window_attention_tile.cuh: 64 < N <= 256 tokens, Swin at W=14), the
+// N = 196 range of esvit_tpu/ops/fused_block.py _fwd_kernel / _bwd_kernel's
+// attention. Their launches for the fused block's policy are instantiated
+// in sources of their own, one nvcc each (ops/cuda_build.py compiles every
+// csrc/fused_block_*.cu beside fused_block.cu and links them into one
+// library): here A1's forward tile, both dtypes.
+
+#include "fused_block_attention.cuh"
+
+template int wtile::launch_large<float, FusedBlockBias>(
+    wtile::Operands<float>, const FusedBlockBias&, const wtile::Geometry&, int, cudaStream_t);
+template int wtile::launch_large<__nv_bfloat16, FusedBlockBias>(
+    wtile::Operands<__nv_bfloat16>, const FusedBlockBias&, const wtile::Geometry&, int,
+    cudaStream_t);

@@ -26,7 +26,9 @@
 //     result before the one cast to bf16 is within fp32 noise of the plain
 //     version;
 //   - fp32 on the CUDA cores, q scaled first as the plain version does;
-//   - the bias slice of (window type, head) comes from the dense operand.
+//   - the bias slice of (window type, head) comes from the dense operand
+//     (staged per block by the small tile, N <= 64; read from device
+//     memory by the large tile, 64 < N <= 256: Swin at W=14).
 //
 // The TPU-only machinery of the Pallas kernel (the XLA-side head
 // split/transpose copy, block-diagonal window packing with the -1e9
@@ -42,10 +44,16 @@ namespace {
 struct DenseBias {
   static constexpr bool kRoundQ = false;
   static constexpr bool kSplitP = true;
+  static constexpr bool kLarge = true;
   const float* bias;  // (nWm, nH, N, N)
 
   __device__ void stage_bias(float* dst, int bs, const wtile::Geometry& g, int t, int h) const {
     wtile::stage_bias(dst, bs, bias + ((size_t)t * g.nH + h) * g.N * g.N, nullptr, g.N);
+  }
+
+  // The large tile's bias of (t, h): the slice itself (the mask is in it).
+  __device__ wtile::GlobalRows rows(const wtile::Geometry& g, int t, int h, int*) const {
+    return wtile::GlobalRows{bias + ((size_t)t * g.nH + h) * g.N * g.N, nullptr, g.N};
   }
 };
 

@@ -56,7 +56,7 @@ namespace {
 
 struct Geometry {
   int B_;      // windows
-  int N;       // tokens per window (<= 64)
+  int N;       // tokens per window (<= 64: TableBias builds no large tile)
   int C;       // channels (row stride of q/k/v/o)
   int nH;      // heads
   int hd;      // head dim, C / nH
@@ -136,18 +136,19 @@ int esvit_window_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory of a forward block (the tile kernels of both
-// window-attention forwards), to hold ops/window_attention.py
+// window-attention forwards and of the fused block's attention halves;
+// the large tile above N = 64), to hold ops/window_attention.py
 // tile_smem_bytes to.
 long long esvit_window_attention_tile_smem_bytes(int N, int hd, int itemsize, int warps) {
-  if (itemsize == 2) return (long long)wtile::smem_bytes<__nv_bfloat16>(N, hd, warps);
-  return (long long)wtile::smem_bytes<float>(N, hd, warps);
+  if (itemsize == 2) return (long long)wtile::fwd_smem<__nv_bfloat16>(N, hd, warps);
+  return (long long)wtile::fwd_smem<float>(N, hd, warps);
 }
 
 // Dynamic shared memory of a backward block of `warps` warps, to hold
 // ops/window_attention.py tile_smem_bytes(..., backward=True) to.
 long long esvit_window_attention_bwd_smem_bytes(int N, int hd, int itemsize, int warps) {
-  if (itemsize == 2) return (long long)wtile::bwd_smem_bytes<__nv_bfloat16>(N, hd, warps);
-  return (long long)wtile::bwd_smem_bytes<float>(N, hd, warps);
+  if (itemsize == 2) return (long long)wtile::bwd_smem<__nv_bfloat16>(N, hd, warps);
+  return (long long)wtile::bwd_smem<float>(N, hd, warps);
 }
 
 // partial: (nH, nW * chunks, N, N) fp32 scratch (wtile::backward says

@@ -2,7 +2,7 @@
 // sm_90a: the packed forward (window_attention.cu) and the qkv-layout
 // forward (pallas_window_attention.cu).
 //
-// Both compute, per window w and head h (N <= 64 tokens, head dim hd <=
+// Both compute, per window w and head h (N <= 256 tokens, head dim hd <=
 // 64), o = softmax(q k^T * scale + bias[w % types, h]) v, and differ only
 // in a small policy (a struct the kernel is templated on): where q, k and
 // v sit in a row (Operands), how q is scaled and p is rounded in bf16
@@ -43,7 +43,9 @@
 //     loads), writes its p over the spent q and k tiles, and forms an 8 x 8
 //     block of the output from float4 reads of p and v (256 FMAs per 16).
 // No atomics: every output element is written once by one lane, so the
-// result is bit-identical on repeat.
+// result is bit-identical on repeat. Windows of 64 < N <= 256 tokens (Swin
+// at W=14) take the large-window tile at the end of this file, with the
+// same arithmetic.
 
 #pragma once
 
@@ -60,6 +62,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMaxWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmallMaxN = 64;   // the small tiles' windows; above: the large tile
+constexpr int kLargeMaxN = 256;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -117,13 +121,13 @@ __host__ __device__ inline size_t smem_bytes(int N, int hd, int warps) {
 
 struct Geometry {
   int B_;      // windows, batch-major, window type minor
-  int N;       // tokens per window (<= 64)
+  int N;       // tokens per window (<= 256; above 64 the large tile)
   int hd;      // head dim (<= 64)
   int nH;      // heads
   int types;   // window types: window w takes the bias slice of w % types
   int ld_in;   // row stride of q, k, v, in elements
   int ld_out;  // row stride of the output, in elements (C)
-  int run;     // windows per warp
+  int run;     // windows per warp (the large tile: per block)
   float scale;
   int vec;     // 1: q, k, v rows and heads are 16-byte aligned (cp.async)
   int ld_do;   // backward: row stride of the output gradient, in elements
@@ -221,6 +225,35 @@ __device__ inline void stage_bias(float* dst, int bs, const float* __restrict__ 
   }
 }
 
+// The composite bias of (query row i, key column j) as the softmax reads
+// it. StagedRows: the block's staged slice (stage_bias, row stride bs).
+// GlobalRows, the large tile's: the (N, N) fp32 slice in device memory
+// (L2-resident: every window of a (type, head) reads it again) plus -100
+// where the staged region ids differ, the same two fp32 values added in the
+// same order as stage_bias.
+struct StagedRows {
+  const float* s;
+  int bs;
+  // columns c and c + 1 of row i (c even, bs even: 8-byte aligned)
+  __device__ __forceinline__ float2 pair(int i, int c) const {
+    return *reinterpret_cast<const float2*>(s + i * bs + c);
+  }
+};
+
+struct GlobalRows {
+  const float* src;  // (N, N)
+  const int* ids;    // (N,) region ids in shared memory, or null
+  int N;
+  __device__ __forceinline__ float at(int i, int j) const {
+    float b = __ldg(src + (size_t)i * N + j);
+    if (ids != nullptr) b += (ids[i] != ids[j]) ? -100.f : 0.f;
+    return b;
+  }
+  __device__ __forceinline__ float2 pair(int i, int c) const {
+    return make_float2(c < N ? at(i, c) : 0.f, c + 1 < N ? at(i, c + 1) : 0.f);
+  }
+};
+
 // The packed kernel's policy (window_attention.cu; the fused block's
 // attention halves use it too): qs = bf16(q * bf16(scale)) and p rounded to
 // bf16 in bf16, and the bias slice of (window type t, head h) the (nH, N,
@@ -228,12 +261,24 @@ __device__ inline void stage_bias(float* dst, int bs, const float* __restrict__ 
 struct TableBias {
   static constexpr bool kRoundQ = true;
   static constexpr bool kSplitP = false;
+  // Whether a caller takes the large-window tile (N > 64). Rows 3-4 (the
+  // packed pair) do not; the fused block's policy, derived from this one,
+  // does. A policy that does not never instantiates the large kernels.
+  static constexpr bool kLarge = false;
   const float* table;  // (nH, N, N)
   const int* region;   // (types, N) or null
 
   __device__ void stage_bias(float* dst, int bs, const Geometry& g, int t, int h) const {
     wtile::stage_bias(dst, bs, table + (size_t)h * g.N * g.N,
                       region != nullptr ? region + (size_t)t * g.N : nullptr, g.N);
+  }
+
+  // The large tile's bias of (t, h): the block copies type t's region ids
+  // into `ids` (the caller syncs before the first read).
+  __device__ GlobalRows rows(const Geometry& g, int t, int h, int* ids) const {
+    if (region != nullptr)
+      for (int j = threadIdx.x; j < g.N; j += blockDim.x) ids[j] = region[(size_t)t * g.N + j];
+    return GlobalRows{table + (size_t)h * g.N * g.N, region != nullptr ? ids : nullptr, g.N};
   }
 };
 
@@ -289,23 +334,23 @@ struct RowStats {
 
 // The softmax of one m16 tile of scores in the accumulator layout: lane
 // (g = lane / 4, t = lane % 4) holds s[nt][e] at row m0 + g and s[nt][2 + e]
-// at row m0 + g + 8, column 8 nt + 2 t + e. Adds the bias (after the scale,
-// if kPostScale), masks columns >= N with -inf and leaves p in s (0 in the
-// masked columns and in the tiles past the keys). A row's max and sum are
-// fp32, over its quad.
-template <bool kPostScale>
-__device__ __forceinline__ RowStats softmax_tile(float (&s)[8][4], int m0, const float* sbias,
-                                                 int bs, int N, float scale, int lane) {
+// at row m0 + g + 8, column 8 nt + 2 t + e, for NT key tiles of 8. Adds the
+// bias (after the scale, if kPostScale), masks columns >= N with -inf and
+// leaves p in s (0 in the masked columns and in the tiles past the keys).
+// A row's max and sum are fp32, over its quad. Padded rows read the bias
+// of row N - 1.
+template <bool kPostScale, int NT, class Bias>
+__device__ __forceinline__ RowStats softmax_frag(float (&s)[NT][4], int m0, const Bias& bias,
+                                                 int N, float scale, int lane) {
   const int gq = lane >> 2, tq = lane & 3, nn = (N + 7) / 8;
-  const float* b0 = sbias + min(m0 + gq, N - 1) * bs;
-  const float* b1 = sbias + min(m0 + gq + 8, N - 1) * bs;
+  const int i0 = min(m0 + gq, N - 1), i1 = min(m0 + gq + 8, N - 1);
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     if (nt >= nn) continue;
-    const int c = 8 * nt + 2 * tq;  // even, and bs is even: 8-byte aligned
-    const float2 x0 = *reinterpret_cast<const float2*>(b0 + c);
-    const float2 x1 = *reinterpret_cast<const float2*>(b1 + c);
+    const int c = 8 * nt + 2 * tq;
+    const float2 x0 = bias.pair(i0, c);
+    const float2 x1 = bias.pair(i1, c);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float a = -INFINITY, b = -INFINITY;
@@ -331,7 +376,7 @@ __device__ __forceinline__ RowStats softmax_tile(float (&s)[8][4], int m0, const
   const float o0 = -mx0 * kLog2e, o1 = -mx1 * kLog2e;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     if (nt >= nn) continue;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -348,7 +393,7 @@ __device__ __forceinline__ RowStats softmax_tile(float (&s)[8][4], int m0, const
   }
   const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     if (nt >= nn) continue;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -359,107 +404,117 @@ __device__ __forceinline__ RowStats softmax_tile(float (&s)[8][4], int m0, const
   return RowStats{o0, o1, inv0, inv1};
 }
 
-// bf16: S = Q K^T and O = P V on the tensor cores, one m16 tile of query
-// rows at a time. Policy::kRoundQ: the A operand is bf16(q * bf16(scale))
-// and p is rounded to bf16 (the packed kernel's roundings); otherwise the
-// fp32 score is scaled after the product and p = bf16(p) + bf16(p - bf16(p))
-// takes two mmas (Policy::kSplitP), carrying p to ~2^-17.
-template <class Policy>
-__device__ void attend(const bf16* sq, const bf16* sk, const bf16* sv, int ld,
-                       const float* sbias, int bs, float*, const Geometry& g, int w, int h,
-                       bf16* __restrict__ out, int lane) {
+// bf16: S = Q K^T and O = P V on the tensor cores for the m16 tile of query
+// rows at m0, over NT key tiles of 8. Policy::kRoundQ: the A operand is
+// bf16(q * bf16(scale)) and p is rounded to bf16 (the packed kernel's
+// roundings); otherwise the fp32 score is scaled after the product and p =
+// bf16(p) + bf16(p - bf16(p)) takes two mmas (Policy::kSplitP), carrying p
+// to ~2^-17.
+template <class Policy, int NT, class Bias>
+__device__ __forceinline__ void attend_tile(const bf16* sq, const bf16* sk, const bf16* sv,
+                                            int ld, const Bias& bias, const Geometry& g, int w,
+                                            int h, int m0, bf16* __restrict__ out, float*,
+                                            int lane) {
   const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
   const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
   const int nn = (N + 7) / 8, kp = (N + 15) / 16;
   const float qscale = __bfloat162float(__float2bfloat16(g.scale));
   const size_t col0 = (size_t)h * hd;
-  for (int m0 = 0; m0 < N; m0 += 16) {
-    uint32_t qa[4][4];
+  uint32_t qa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= kd) continue;
+    ldsm_x4(qa[kk], sq + min(m0 + (lane & 15), N - 1) * ld + 16 * kk + ((lane >> 4) << 3));
+    if (Policy::kRoundQ)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        qa[kk][r] = pack_bf16(bf16_lo(qa[kk][r]) * qscale, bf16_hi(qa[kk][r]) * qscale);
+  }
+  float s[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    if (nt >= nn) continue;
+    // One x4 load brings the B fragments of two k16 steps: lanes 8j..8j+7
+    // address keys 8 nt.. at head columns 8j.. (the last half-used when
+    // kd is odd: its columns are zero-filled or the next tile's, unused).
+    const bf16* krow = sk + min(8 * nt + (lane & 7), N - 1) * ld + ((lane >> 3) << 3);
+#pragma unroll
+    for (int kk = 0; kk < 4; kk += 2) {
       if (kk >= kd) continue;
-      ldsm_x4(qa[kk], sq + min(m0 + (lane & 15), N - 1) * ld + 16 * kk + ((lane >> 4) << 3));
-      if (Policy::kRoundQ)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          qa[kk][r] = pack_bf16(bf16_lo(qa[kk][r]) * qscale, bf16_hi(qa[kk][r]) * qscale);
+      uint32_t b[4];
+      ldsm_x4(b, krow + 16 * kk);
+      mma_bf16(s[nt], qa[kk], {b[0], b[1]});
+      if (kk + 1 < kd) mma_bf16(s[nt], qa[kk + 1], {b[2], b[3]});
     }
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      if (nt >= nn) continue;
-      // One x4 load brings the B fragments of two k16 steps: lanes 8j..8j+7
-      // address keys 8 nt.. at head columns 8j.. (the last half-used when
-      // kd is odd: its columns are zero-filled or the next tile's, unused).
-      const bf16* krow = sk + min(8 * nt + (lane & 7), N - 1) * ld + ((lane >> 3) << 3);
-#pragma unroll
-      for (int kk = 0; kk < 4; kk += 2) {
-        if (kk >= kd) continue;
-        uint32_t b[4];
-        ldsm_x4(b, krow + 16 * kk);
-        mma_bf16(s[nt], qa[kk], {b[0], b[1]});
-        if (kk + 1 < kd) mma_bf16(s[nt], qa[kk + 1], {b[2], b[3]});
-      }
-    }
-    softmax_tile<!Policy::kRoundQ>(s, m0, sbias, bs, N, g.scale, lane);
+  }
+  softmax_frag<!Policy::kRoundQ>(s, m0, bias, N, g.scale, lane);
 
-    float o[8][4];
+  float o[8][4];
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < 8; ++dt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (kk >= kp) continue;
-      // A fragment of keys 16 kk..16 kk + 15: the accumulators of key
-      // tiles 2 kk (a0, a1) and 2 kk + 1 (a2, a3).
-      uint32_t pa[4], pl[4];
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (kk >= kp) continue;
+    // A fragment of keys 16 kk..16 kk + 15: the accumulators of key
+    // tiles 2 kk (a0, a1) and 2 kk + 1 (a2, a3).
+    uint32_t pa[4], pl[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x = s[2 * kk + (r >> 1)][2 * (r & 1)];
-        const float y = s[2 * kk + (r >> 1)][2 * (r & 1) + 1];
-        pa[r] = pack_bf16(x, y);
-        if (Policy::kSplitP) pl[r] = pack_bf16(x - bf16_lo(pa[r]), y - bf16_hi(pa[r]));
-      }
-      // One x4.trans load brings the B fragments of two n8 output tiles:
-      // lanes 0-15 address keys 16 kk.. at columns 8 dt.., lanes 16-31 the
-      // same keys at columns 8 dt + 8.. (nd is even: head_pad is 16-aligned).
-      const bf16* vrow = sv + min(16 * kk + (lane & 15), N - 1) * ld + ((lane >> 4) << 3);
-#pragma unroll
-      for (int dt = 0; dt < 8; dt += 2) {
-        if (dt >= nd) continue;
-        uint32_t b[4];
-        ldsm_x4_t(b, vrow + 8 * dt);
-        mma_bf16(o[dt], pa, {b[0], b[1]});
-        mma_bf16(o[dt + 1], pa, {b[2], b[3]});
-        if (Policy::kSplitP) {
-          mma_bf16(o[dt], pl, {b[0], b[1]});
-          mma_bf16(o[dt + 1], pl, {b[2], b[3]});
-        }
-      }
+    for (int r = 0; r < 4; ++r) {
+      const float x = s[2 * kk + (r >> 1)][2 * (r & 1)];
+      const float y = s[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+      pa[r] = pack_bf16(x, y);
+      if (Policy::kSplitP) pl[r] = pack_bf16(x - bf16_lo(pa[r]), y - bf16_hi(pa[r]));
     }
-
+    // One x4.trans load brings the B fragments of two n8 output tiles:
+    // lanes 0-15 address keys 16 kk.. at columns 8 dt.., lanes 16-31 the
+    // same keys at columns 8 dt + 8.. (nd is even: head_pad is 16-aligned).
+    const bf16* vrow = sv + min(16 * kk + (lane & 15), N - 1) * ld + ((lane >> 4) << 3);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + gq + 8 * half;
-      if (r >= N) continue;
-      bf16* orow = out + ((size_t)w * N + r) * g.ld_out + col0;
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        if (dt >= nd) continue;
-        const int c = 8 * dt + 2 * tq;
-        const float a = o[dt][2 * half], b = o[dt][2 * half + 1];
-        if (c + 1 < hd && (reinterpret_cast<uintptr_t>(orow + c) & 3) == 0) {
-          *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(a, b);
-        } else {
-          if (c < hd) orow[c] = __float2bfloat16(a);
-          if (c + 1 < hd) orow[c + 1] = __float2bfloat16(b);
-        }
+    for (int dt = 0; dt < 8; dt += 2) {
+      if (dt >= nd) continue;
+      uint32_t b[4];
+      ldsm_x4_t(b, vrow + 8 * dt);
+      mma_bf16(o[dt], pa, {b[0], b[1]});
+      mma_bf16(o[dt + 1], pa, {b[2], b[3]});
+      if (Policy::kSplitP) {
+        mma_bf16(o[dt], pl, {b[0], b[1]});
+        mma_bf16(o[dt + 1], pl, {b[2], b[3]});
       }
     }
   }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (r >= N) continue;
+    bf16* orow = out + ((size_t)w * N + r) * g.ld_out + col0;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      if (dt >= nd) continue;
+      const int c = 8 * dt + 2 * tq;
+      const float a = o[dt][2 * half], b = o[dt][2 * half + 1];
+      if (c + 1 < hd && (reinterpret_cast<uintptr_t>(orow + c) & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(a, b);
+      } else {
+        if (c < hd) orow[c] = __float2bfloat16(a);
+        if (c + 1 < hd) orow[c + 1] = __float2bfloat16(b);
+      }
+    }
+  }
+}
+
+// bf16, the small tile: the window's m16 tiles in turn, on the staged bias.
+template <class Policy>
+__device__ void attend(const bf16* sq, const bf16* sk, const bf16* sv, int ld,
+                       const float* sbias, int bs, float*, const Geometry& g, int w, int h,
+                       bf16* __restrict__ out, int lane) {
+  const StagedRows bias{sbias, bs};
+  for (int m0 = 0; m0 < g.N; m0 += 16)
+    attend_tile<Policy, 8>(sq, sk, sv, ld, bias, g, w, h, m0, out, nullptr, lane);
 }
 
 // fp32: the same column ownership on the CUDA cores (no TF32), all query
@@ -512,7 +567,7 @@ __device__ void attend(const float* sq, const float* sk, const float* sv, int ld
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     if (16 * u >= N) continue;
-    softmax_tile<false>(s[u], 16 * u, sbias, bs, N, g.scale, lane);
+    softmax_frag<false>(s[u], 16 * u, StagedRows{sbias, bs}, N, g.scale, lane);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = 16 * u + gq + 8 * half;
@@ -623,12 +678,21 @@ window_attention_tile_kernel(Operands<T> op, Policy pol, Geometry g) {
 // Launches the tile kernel: `warps` warps per block, g.run windows per warp
 // (both chosen by the Python wrapper, ops/window_attention.py tile_plan).
 template <typename T, class Policy>
+int launch_large(Operands<T> op, const Policy& pol, const Geometry& g, int warps,
+                 cudaStream_t stream);
+
+template <typename T, class Policy>
 int launch(Operands<T> op, const Policy& pol, Geometry g, int warps, cudaStream_t stream) {
-  if (warps < 1 || warps > kMaxWarps || g.run < 1 || g.types < 1 || g.B_ % g.types)
+  if (warps < 1 || warps > kMaxWarps || g.run < 1 || g.types < 1 || g.B_ % g.types ||
+      g.N < 1 || g.N > kLargeMaxN || g.hd < 1 || g.hd > 64)
     return (int)cudaErrorInvalidValue;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   g.vec = aligned(op.q) && aligned(op.k) && aligned(op.v) &&
           (g.ld_in * sizeof(T)) % 16 == 0 && (g.hd * sizeof(T)) % 16 == 0;
+  if (g.N > kSmallMaxN) {
+    if constexpr (Policy::kLarge) return launch_large<T>(op, pol, g, warps, stream);
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = smem_bytes<T>(g.N, g.hd, warps);
   auto kernel = window_attention_tile_kernel<T, Policy>;
   if (smem > 48 * 1024) {
@@ -756,48 +820,70 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t x, float qscale) {
   return pack_bf16(bf16_lo(x) * qscale, bf16_hi(x) * qscale);
 }
 
-// acc[nt] (+)= A[16 rows at arow] . B[keys 8 nt..]^T over the head dim, A
-// and B tiles stored [row][dim] (the S = Q K^T shape): A by ldmatrix x4
-// (rows clamped to N - 1), B by ldmatrix x4 (two k16 steps a load). With
-// kScaleA / kScaleB the A / B fragments become bf16(x * qscale).
-template <bool kScaleA, bool kScaleB>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const bf16* sa, int m0,
-                                             const bf16* sb, int ld, int N, int kd, int nn,
-                                             float qscale, int lane) {
-  uint32_t a[4][4];
+// The A fragments of 16 rows at m0 (rows clamped to N - 1) over kd k16
+// steps of the head dim, by ldmatrix x4; with kScale each bf16 pair
+// becomes bf16(x * qscale).
+template <bool kScale>
+__device__ __forceinline__ void load_rows(uint32_t (&a)[4][4], const bf16* sa, int m0, int ld,
+                                          int N, int kd, float qscale, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     if (kk >= kd) continue;
     ldsm_x4(a[kk], sa + min(m0 + (lane & 15), N - 1) * ld + 16 * kk + ((lane >> 4) << 3));
-    if (kScaleA)
+    if (kScale)
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[kk][r] = scale_pair(a[kk][r], qscale);
   }
+}
+
+// acc = A . B[keys n0..n0 + 7]^T over the head dim, B stored [row][dim]
+// (rows clamped to N - 1) by ldmatrix x4, two k16 steps a load; with
+// kScaleB the B fragments become bf16(x * qscale).
+template <bool kScaleB>
+__device__ __forceinline__ void dot_tile(float (&acc)[4], const uint32_t (&a)[4][4],
+                                         const bf16* sb, int n0, int ld, int N, int kd,
+                                         float qscale, int lane) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int e = 0; e < 4; ++e) acc[e] = 0.f;
+  const bf16* brow = sb + min(n0 + (lane & 7), N - 1) * ld + ((lane >> 3) << 3);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    if (nt >= nn) continue;
-    const bf16* brow = sb + min(8 * nt + (lane & 7), N - 1) * ld + ((lane >> 3) << 3);
+  for (int kk = 0; kk < 4; kk += 2) {
+    if (kk >= kd) continue;
+    uint32_t b[4];
+    ldsm_x4(b, brow + 16 * kk);
+    if (kScaleB)
 #pragma unroll
-    for (int kk = 0; kk < 4; kk += 2) {
-      if (kk >= kd) continue;
-      uint32_t b[4];
-      ldsm_x4(b, brow + 16 * kk);
-      if (kScaleB)
+      for (int r = 0; r < 4; ++r) b[r] = scale_pair(b[r], qscale);
+    mma_bf16(acc, a[kk], {b[0], b[1]});
+    if (kk + 1 < kd) mma_bf16(acc, a[kk + 1], {b[2], b[3]});
+  }
+}
+
+// acc[nt] = A[16 rows at m0] . B[keys 8 nt..]^T over the head dim for nt <
+// nn (0 past them), A and B tiles stored [row][dim] (the S = Q K^T shape).
+// With kScaleA / kScaleB the A / B fragments become bf16(x * qscale).
+template <bool kScaleA, bool kScaleB, int NT>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[NT][4], const bf16* sa, int m0,
+                                             const bf16* sb, int ld, int N, int kd, int nn,
+                                             float qscale, int lane) {
+  uint32_t a[4][4];
+  load_rows<kScaleA>(a, sa, m0, ld, N, kd, qscale, lane);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) b[r] = scale_pair(b[r], qscale);
-      mma_bf16(acc[nt], a[kk], {b[0], b[1]});
-      if (kk + 1 < kd) mma_bf16(acc[nt], a[kk + 1], {b[2], b[3]});
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      continue;
     }
+    dot_tile<kScaleB>(acc[nt], a, sb, 8 * nt, ld, N, kd, qscale, lane);
   }
 }
 
 // out = bf16(f) . B over kp k16 steps of the fragments' columns, B stored
 // [k][dim] (the P V shape; B by ldmatrix x4.trans, rows clamped to N - 1).
 // With kScaleB the B fragments become bf16(x * qscale).
-template <bool kScaleB>
-__device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&f)[8][4],
+template <bool kScaleB, int NT>
+__device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&f)[NT][4],
                                               const bf16* sb, int ld, int N, int kp, int nd,
                                               float qscale, float* /*scratch*/, int lane) {
 #pragma unroll
@@ -805,7 +891,7 @@ __device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[dt][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NT / 2; ++kk) {
     if (kk >= kp) continue;
     uint32_t a[4];
 #pragma unroll
@@ -857,13 +943,13 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld, size_t row0, si
 // columns 8 nt + 2 t + {0, 1}; rows clamped to N - 1), each score summed
 // in head-dim order, so S^T (pass 2) equals S (pass 1) bit for bit. With
 // kScaleA / kScaleB the A / B values become x * qscale, in fp32.
-template <bool kScaleA, bool kScaleB>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const float* sa, int m0,
+template <bool kScaleA, bool kScaleB, int NT>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[NT][4], const float* sa, int m0,
                                              const float* sb, int ld, int N, int kd, int nn,
                                              float qscale, int lane) {
   const int gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
   const float* a0 = sa + min(m0 + gq, N - 1) * ld;
@@ -875,7 +961,7 @@ __device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const float* sa
       x1 = make_float4(x1.x * qscale, x1.y * qscale, x1.z * qscale, x1.w * qscale);
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       if (nt >= nn) continue;
       const int c = 8 * nt + 2 * tq;
       float4 k0 = ld4(sb + min(c, N - 1) * ld + d), k1 = ld4(sb + min(c + 1, N - 1) * ld + d);
@@ -891,19 +977,75 @@ __device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const float* sa
   }
 }
 
+// fp32 acc = A[16 rows at m0] . B[keys n0..n0 + 7]^T in the accumulator
+// layout, one key tile of rows_by_rows (the same sum order).
+template <bool kScaleA, bool kScaleB>
+__device__ __forceinline__ void dot_tile(float (&acc)[4], const float* sa, int m0,
+                                         const float* sb, int n0, int ld, int N, int kd,
+                                         float qscale, int lane) {
+  const int gq = lane >> 2, tq = lane & 3, c = n0 + 2 * tq;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = 0.f;
+  const float* a0 = sa + min(m0 + gq, N - 1) * ld;
+  const float* a1 = sa + min(m0 + gq + 8, N - 1) * ld;
+  const float* b0 = sb + min(c, N - 1) * ld;
+  const float* b1 = sb + min(c + 1, N - 1) * ld;
+  for (int d = 0; d < 16 * kd; d += 4) {
+    float4 x0 = ld4(a0 + d), x1 = ld4(a1 + d), k0 = ld4(b0 + d), k1 = ld4(b1 + d);
+    if (kScaleA) {
+      x0 = make_float4(x0.x * qscale, x0.y * qscale, x0.z * qscale, x0.w * qscale);
+      x1 = make_float4(x1.x * qscale, x1.y * qscale, x1.z * qscale, x1.w * qscale);
+    }
+    if (kScaleB) {
+      k0 = make_float4(k0.x * qscale, k0.y * qscale, k0.z * qscale, k0.w * qscale);
+      k1 = make_float4(k1.x * qscale, k1.y * qscale, k1.z * qscale, k1.w * qscale);
+    }
+    acc[0] = dot4(x0, k0, acc[0]);
+    acc[1] = dot4(x0, k1, acc[1]);
+    acc[2] = dot4(x1, k0, acc[2]);
+    acc[3] = dot4(x1, k1, acc[3]);
+  }
+}
+
+// A 16-row operand of the large tile's dP products: bf16 keeps its A
+// fragments in registers, fp32 reads its rows from shared memory.
+template <typename T> struct TileRows;
+template <> struct TileRows<bf16> {
+  uint32_t a[4][4];
+  __device__ __forceinline__ void load(const bf16* sa, int m0, int ld, int N, int kd, int lane) {
+    load_rows<false>(a, sa, m0, ld, N, kd, 0.f, lane);
+  }
+  __device__ __forceinline__ void dot(float (&acc)[4], const bf16* sb, int n0, int ld, int N,
+                                      int kd, int lane) const {
+    dot_tile<false>(acc, a, sb, n0, ld, N, kd, 0.f, lane);
+  }
+};
+template <> struct TileRows<float> {
+  const float* sa;
+  int m0;
+  __device__ __forceinline__ void load(const float* p, int m, int, int, int, int) {
+    sa = p;
+    m0 = m;
+  }
+  __device__ __forceinline__ void dot(float (&acc)[4], const float* sb, int n0, int ld, int N,
+                                      int kd, int lane) const {
+    dot_tile<false, false>(acc, sa, m0, sb, n0, ld, N, kd, 0.f, lane);
+  }
+};
+
 // fp32 out = f . B over the fragments' key columns [0, N), B stored
 // [k][dim] (rows clamped to N - 1; f is 0 past N). f goes through the
 // warp's 16-row scratch; lane (g, t) then builds out[2 c + half][e] at row
 // m0 + g + 8 half, column 16 c + 4 t + e (c < nd / 2), from float4 reads.
 // With kScaleB the B values become x * qscale.
-template <bool kScaleB>
-__device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&f)[8][4],
+template <bool kScaleB, int NT>
+__device__ __forceinline__ void frags_by_rows(float (&out)[8][4], const float (&f)[NT][4],
                                               const float* sb, int ld, int N, int kp, int nd,
                                               float qscale, float* scratch, int lane) {
   const int gq = lane >> 2, tq = lane & 3, nn = (N + 7) / 8, nc = nd / 2;
   const int sld = Layout<float>::p_ld(N), n4 = round_up(N, 4);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     if (nt >= nn) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half)
@@ -989,7 +1131,7 @@ __device__ void bwd_pass1(const T* sq, const T* sk, const T* sv, const T* sdo, i
   const float qscale = operand_scale<T>(g.scale);
   float s[8][4], dp[8][4];
   rows_by_rows<true, false>(s, sq, m0, sk, ld, N, kd, nn, qscale, lane);
-  const RowStats st = softmax_tile<false>(s, m0, sbias, bs, N, g.scale, lane);
+  const RowStats st = softmax_frag<false>(s, m0, StagedRows{sbias, bs}, N, g.scale, lane);
   rows_by_rows<false, false>(dp, sdo, m0, sv, ld, N, kd, nn, qscale, lane);
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
@@ -1176,15 +1318,25 @@ window_attention_bwd_tile_kernel(BwdOperands<T> op, Policy pol, Geometry g) {
 // of four), g.run windows per group of four (ops/window_attention.py
 // tile_plan(..., backward=True)).
 template <typename T, class Policy>
+int launch_bwd_large(BwdOperands<T> op, const Policy& pol, const Geometry& g, int warps,
+                     cudaStream_t stream);
+
+template <typename T, class Policy>
 int launch_bwd(BwdOperands<T> op, const Policy& pol, Geometry g, int warps,
                cudaStream_t stream) {
-  if (warps < kGroupWarps || warps > kMaxWarps || warps % kGroupWarps || g.run < 1 ||
-      g.types < 1 || g.B_ % g.types || g.N > 64)
+  if (g.run < 1 || g.types < 1 || g.B_ % g.types || g.N < 1 || g.N > kLargeMaxN || g.hd < 1 ||
+      g.hd > 64)
     return (int)cudaErrorInvalidValue;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   constexpr int kPer = 16 / sizeof(T);
   g.vec = aligned(op.q) && aligned(op.k) && aligned(op.v) && aligned(op.dout) &&
           g.ld_in % kPer == 0 && g.ld_do % kPer == 0 && g.hd % kPer == 0;
+  if (g.N > kSmallMaxN) {
+    if constexpr (Policy::kLarge) return launch_bwd_large<T>(op, pol, g, warps, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (warps < kGroupWarps || warps > kMaxWarps || warps % kGroupWarps)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes<T>(g.N, g.hd, warps);
   auto kernel = window_attention_bwd_tile_kernel<T, Policy>;
   const cudaError_t err =
@@ -1223,9 +1375,9 @@ int launch_dbias_reduce(const float* partial, float* dbias, int nH, int parts, i
 // of the dbias partials. `warps` and g.run from ops/window_attention.py
 // tile_plan(..., backward=True); the partials hold (nH, parts, N, N)
 // floats, one per block: parts = types * chunks, chunks = ceil(B_ / types
-// / (warps / 4 * run)).
+// / (warps / 4 * run)), for the large tile ceil(B_ / types / run).
 __host__ __device__ inline int bwd_parts(const Geometry& g, int warps) {
-  const int per_block = warps / kGroupWarps * g.run;
+  const int per_block = g.N > kSmallMaxN ? g.run : warps / kGroupWarps * g.run;
   return g.types * ((g.B_ / g.types + per_block - 1) / per_block);
 }
 
@@ -1235,6 +1387,411 @@ int backward(const BwdOperands<T>& op, const Policy& pol, const Geometry& g, int
   const int rc = launch_bwd<T>(op, pol, g, warps, stream);
   if (rc != 0) return rc;
   return launch_dbias_reduce<Policy>(op.partial, dbias, g.nH, bwd_parts(g, warps), g.N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The large-window tile: 64 < N <= 256 tokens (Swin at W=14: N = 196 full
+// windows, the augmented 145 = 144 + 1 virtual), both passes, bf16 and
+// fp32. It replaces the N = 196 range of esvit_tpu/ops/fused_block.py
+// _fwd_kernel / _bwd_kernel (attention halves A1 and A2 of
+// csrc/fused_block.cu) and of esvit_tpu/ops/pallas_window_attention.py
+// _attention_kernel (csrc/pallas_window_attention.cu), with the small
+// tile's arithmetic, policies and roundings.
+//
+// Why the small tile does not stretch: one warp per (window, head) kept a
+// window's query tiles in turn over eight n8 key tiles (N <= 64); at
+// N = 196 a warp would stage 47 KB of q, k, v (bf16) and a (N, N) fp32
+// bias slice of 154 KB per block. What bounds it is the same: a (window,
+// head) is 4 N^2 hd = 4.9 MFLOP on ~38 KB of bf16 operands at N = 196, hd
+// = 32, ~130 FLOP/byte, still under the bf16 ridge (~295), so the chains
+// of fragment loads, mmas and softmax steps and not the tensor cores'
+// rate bound it. The design:
+//   - a block of warps per run of windows of one (head, window type):
+//     the block stages each window's q, k, v (and do) once in shared
+//     memory with cp.async, and its warps take the window's m16 query
+//     tiles (the backward's pass 2: key tiles) in turn, warp k the tiles
+//     k, k + warps, ...;
+//   - one m16 tile's whole score row lives in registers: NT = 32 n8 key
+//     tiles (128 fp32 a lane), so the softmax keeps one max per (window,
+//     head) row, as the small tile and the plain versions do; the tiles
+//     past the keys are skipped, their columns get -inf (p exactly 0);
+//   - the bias is not staged: each score reads its (N, N) fp32 slice entry
+//     from device memory (L2-resident, every window of the (type, head)
+//     reads the same slice) and adds -100 where the region ids, staged
+//     once per block, differ (GlobalRows), the same composite in the
+//     same order as the small tile's staged slice. One (N, N) operand
+//     serves the three callers: the packed table, the qkv-layout dense
+//     bias and the augmented window's slice, whose virtual column holds a
+//     logsumexp of the pad columns that no 729-entry table has;
+//   - fp32 (no TF32): the products as register-tiled FMAs in the
+//     accumulator layout (rows_by_rows), P.V through a 16-row scratch per
+//     warp (frags_by_rows), as the small backward's fp32 path;
+//   - the backward's pass 1 (query tiles): S, p, then dP a key tile at a
+//     time, twice (rowsum(p dP), then ds = p (dP - rowsum) in p's
+//     registers), dq; pass 2 (key tiles): S^T, p^T from the saved row
+//     constants, dv, then dP^T a key tile at a time into ds^T, dk;
+//   - dbias without atomics: each block owns one (N, N) fp32 partial in
+//     device memory; its first window stores ds, later ones add, and each
+//     element has one owning lane (the lane that holds it in pass 1, the
+//     same for every window of the run), so the run is summed in window
+//     order; dbias_reduce_kernel then sums a head's partials in block
+//     order. A per-window partial would be ~0.5 GB at Swin-T's 224 px
+//     stage 0; per block it is nH * parts * N^2 * 4 bytes, parts from the
+//     plan's run. Bit-identical on repeat.
+// Launch plans (warps per block, windows per block): ops/window_attention.py
+// tile_plan. A policy with kLarge instantiates these kernels; the fused
+// block's are compiled in sources of their own (fused_block_large*.cu),
+// so that their builds run beside the rest of fused_block.cu's.
+// ---------------------------------------------------------------------------
+
+constexpr int kLargeNT = kLargeMaxN / 8;  // n8 key tiles of a score row
+
+template <typename T>
+__host__ __device__ inline size_t large_tiles_bytes(int N, int hd, int tiles) {
+  return round_up_bytes((size_t)tiles * N * Layout<T>::ld(hd) * sizeof(T));
+}
+__host__ __device__ inline size_t large_ids_bytes(int N) {
+  return round_up_bytes((size_t)N * sizeof(int));
+}
+__host__ __device__ inline size_t large_stats_bytes(int N) {
+  return round_up_bytes((size_t)3 * N * sizeof(float));
+}
+// fp32 only: a 16-row scratch per warp at the stride of the fp32 p tile.
+template <typename T> __host__ __device__ inline size_t large_scratch_bytes(int N, int warps) {
+  return sizeof(T) == 2 ? 0 : (size_t)warps * 16 * Layout<float>::p_ld(N) * sizeof(float);
+}
+
+// Dynamic shared memory of a large-tile block of `warps` warps (ops/
+// window_attention.py tile_smem_bytes mirrors both): the forward's q, k, v
+// tiles (N rows at Layout<T>::ld(hd)), the region ids and the fp32
+// scratch; the backward's q, k, v, do tiles, the row constants (3 N
+// floats), the ids and the scratch. The ids and constants follow the
+// tiles, so the ldmatrix x4 that half-reads past the last tile's last row
+// (kd odd) stays inside the block's memory.
+template <typename T> __host__ __device__ inline size_t large_smem_bytes(int N, int hd, int warps) {
+  return large_tiles_bytes<T>(N, hd, 3) + large_ids_bytes(N) + large_scratch_bytes<T>(N, warps);
+}
+template <typename T>
+__host__ __device__ inline size_t large_bwd_smem_bytes(int N, int hd, int warps) {
+  return large_tiles_bytes<T>(N, hd, 4) + large_stats_bytes(N) + large_ids_bytes(N) +
+         large_scratch_bytes<T>(N, warps);
+}
+
+// The block zeroes head columns [hd, head_pad(hd)) of `rows` tile rows:
+// the loads never write them and the products read them.
+template <typename T>
+__device__ void zero_cols(T* tiles, int rows, int ld, int hd) {
+  const int wc = head_pad(hd) - hd;
+  if (wc == 0) return;
+  for (int e = threadIdx.x; e < rows * wc; e += blockDim.x) {
+    const int r = e / wc;
+    tiles[(size_t)r * ld + hd + (e - r * wc)] = T(0.f);
+  }
+}
+
+// The block stages rows [0, N), columns [0, hd) of window w (rows from
+// row0), head h (columns from col0) of kM operands into tiles of row
+// stride ld: 16-byte cp.async when vec, else element copies.
+template <typename T, int kM>
+__device__ __forceinline__ void stage_block(const T* const (&src)[kM], const int (&ld_src)[kM],
+                                            size_t row0, size_t col0, T* const (&dst)[kM],
+                                            int ld, int N, int hd, int vec) {
+  constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    if (vec) {
+      const int cpr = hd / kPer;
+      for (int e = threadIdx.x; e < N * cpr; e += blockDim.x) {
+        const int r = e / cpr, c = (e - r * cpr) * kPer;
+        cp_async16(dst[m] + (size_t)r * ld + c, src[m] + (row0 + r) * ld_src[m] + col0 + c);
+      }
+    } else {
+      for (int e = threadIdx.x; e < N * hd; e += blockDim.x) {
+        const int r = e / hd, c = e - r * hd;
+        dst[m][(size_t)r * ld + c] = src[m][(row0 + r) * ld_src[m] + col0 + c];
+      }
+    }
+  }
+}
+
+// fp32: one m16 query tile on the CUDA cores (no TF32): S = (q * scale) k^T
+// in the accumulator layout, its softmax, O = P V through the warp's
+// scratch. Both policies scale q first in fp32 and keep p in fp32, as
+// their plain versions do.
+template <class Policy, int NT, class Bias>
+__device__ __forceinline__ void attend_tile(const float* sq, const float* sk, const float* sv,
+                                            int ld, const Bias& bias, const Geometry& g, int w,
+                                            int h, int m0, float* __restrict__ out,
+                                            float* scratch, int lane) {
+  const int N = g.N, hd = g.hd, kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
+  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
+  float s[NT][4];
+  rows_by_rows<true, false>(s, sq, m0, sk, ld, N, kd, nn, g.scale, lane);
+  softmax_frag<false>(s, m0, bias, N, g.scale, lane);
+  float o[8][4];
+  frags_by_rows<false>(o, s, sv, ld, N, kp, nd, 0.f, scratch, lane);
+  store_rows(out, g.ld_out, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, 1.f, lane);
+}
+
+// Block (x, y = h * types + t) runs windows w = i * types + t of head h for
+// i in [x * run, (x + 1) * run), one at a time; warp k takes query tiles
+// 16 k, 16 (k + warps), ... of each.
+template <typename T, class Policy>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+window_attention_large_kernel(Operands<T> op, Policy pol, Geometry g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = g.N, ld = Layout<T>::ld(g.hd);
+  const int t = blockIdx.y % g.types, h = blockIdx.y / g.types;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t tb = large_tiles_bytes<T>(N, g.hd, 3);
+  T* tiles = reinterpret_cast<T*>(smem);
+  T* const tile[3] = {tiles, tiles + (size_t)N * ld, tiles + (size_t)2 * N * ld};
+  int* ids = reinterpret_cast<int*>(smem + tb);
+  float* scratch = reinterpret_cast<float*>(smem + tb + large_ids_bytes(N)) +
+                   (size_t)warp * 16 * Layout<float>::p_ld(N);
+  const GlobalRows bias = pol.rows(g, t, h, ids);
+  zero_cols(tiles, 3 * N, ld, g.hd);
+  __syncthreads();
+
+  const T* const src[3] = {op.q, op.k, op.v};
+  const int ld_src[3] = {g.ld_in, g.ld_in, g.ld_in};
+  const int per_type = g.B_ / g.types;
+  const int i0 = blockIdx.x * g.run, i1 = min(i0 + g.run, per_type);
+  for (int i = i0; i < i1; ++i) {
+    const int w = i * g.types + t;
+    stage_block(src, ld_src, (size_t)w * N, (size_t)h * g.hd, tile, ld, N, g.hd, g.vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the window is staged
+    for (int m0 = 16 * warp; m0 < N; m0 += 16 * warps)
+      attend_tile<Policy, kLargeNT>(tile[0], tile[1], tile[2], ld, bias, g, w, h, m0, op.out,
+                                    scratch, lane);
+    __syncthreads();  // the tiles are free
+  }
+}
+
+template <typename T, class Policy>
+int launch_large(Operands<T> op, const Policy& pol, const Geometry& g, int warps,
+                 cudaStream_t stream) {
+  const size_t smem = large_smem_bytes<T>(g.N, g.hd, warps);
+  auto kernel = window_attention_large_kernel<T, Policy>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int per_type = g.B_ / g.types;
+  const dim3 grid((per_type + g.run - 1) / g.run, g.nH * g.types);
+  kernel<<<grid, warps * 32, smem, stream>>>(op, pol, g);
+  return (int)cudaGetLastError();
+}
+
+// Pass 1 of (window w, head h) for the query tile at m0: S and its softmax,
+// rowsum(p dP) and ds = p (dP - rowsum) with dP = do v^T formed a key tile
+// at a time (twice: the rowsum needs every tile first), ds into the block's
+// dbias partial (stored by the run's first window, added after), the rows'
+// softmax constants and rowsums into `stats` (3 N floats), dq.
+template <typename T, int NT, class Bias>
+__device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
+                            const Bias& bias, float* stats, float* part, bool first,
+                            float* scratch, const Geometry& g, int w, int h, int m0,
+                            const BwdOperands<T>& op, int lane) {
+  const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
+  const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
+  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
+  const float qscale = operand_scale<T>(g.scale);
+  float s[NT][4];
+  rows_by_rows<true, false>(s, sq, m0, sk, ld, N, kd, nn, qscale, lane);
+  const RowStats st = softmax_frag<false>(s, m0, bias, N, g.scale, lane);
+  TileRows<T> dor;
+  dor.load(sdo, m0, ld, N, kd, lane);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nn) continue;
+    float dp[4];
+    dor.dot(dp, sv, 8 * nt, ld, N, kd, lane);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rs0 += s[nt][e] * dp[e];
+      rs1 += s[nt][2 + e] * dp[2 + e];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    rs0 += __shfl_xor_sync(kFull, rs0, o);
+    rs1 += __shfl_xor_sync(kFull, rs1, o);
+  }
+  const int r0 = m0 + gq, r1 = r0 + 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nn) continue;
+    float dp[4];
+    dor.dot(dp, sv, 8 * nt, ld, N, kd, lane);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = s[nt][e] * (dp[e] - rs0);
+      s[nt][2 + e] = s[nt][2 + e] * (dp[2 + e] - rs1);
+    }
+    const int c = 8 * nt + 2 * tq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (r >= N || c >= N) continue;
+      float* a = part + (size_t)r * N + c;
+      const float x = s[nt][2 * half], y = s[nt][2 * half + 1];
+      if (first) {
+        a[0] = x;
+        if (c + 1 < N) a[1] = y;
+      } else {
+        a[0] += x;
+        if (c + 1 < N) a[1] += y;
+      }
+    }
+  }
+  if (tq == 0) {
+    if (r0 < N) {
+      stats[r0] = st.off0;
+      stats[N + r0] = st.inv0;
+      stats[2 * N + r0] = rs0;
+    }
+    if (r1 < N) {
+      stats[r1] = st.off1;
+      stats[N + r1] = st.inv1;
+      stats[2 * N + r1] = rs1;
+    }
+  }
+  // dq = round(round(ds) k * scale)
+  float o[8][4];
+  frags_by_rows<false>(o, s, sk, ld, N, kp, nd, qscale, scratch, lane);
+  store_rows(op.dq, g.ld_dx, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, g.scale, lane);
+}
+
+// Pass 2 of (window w, head h) for the key tile at j0, from every query
+// row's constants: S^T, p^T (column 8 nt + 2 tq + e of a fragment is query
+// i; padded queries get p = ds = 0), dv, then dP^T = v do^T a key tile at
+// a time into ds^T, dk.
+template <typename T, int NT, class Bias>
+__device__ void large_pass2(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
+                            const Bias& bias, const float* stats, float* scratch,
+                            const Geometry& g, int w, int h, int j0, const BwdOperands<T>& op,
+                            int lane) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
+  const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
+  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
+  const float qscale = operand_scale<T>(g.scale);
+  const size_t row0 = (size_t)w * N, col0 = (size_t)h * hd;
+  float p[NT][4];
+  rows_by_rows<false, true>(p, sk, j0, sq, ld, N, kd, nn, qscale, lane);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nn) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 8 * nt + 2 * tq + e;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = j0 + gq + 8 * half;
+        float x = 0.f;
+        if (i < N && j < N) {
+          x = p[nt][2 * half + e] + bias.at(i, j);
+          x = exp2f(fmaf(x, kLog2e, stats[i])) * stats[N + i];
+        }
+        p[nt][2 * half + e] = x;
+      }
+    }
+  }
+  float o[8][4];
+  frags_by_rows<false>(o, p, sdo, ld, N, kp, nd, qscale, scratch, lane);  // dv = round(p^T) do
+  store_rows(op.dv, g.ld_dx, row0, col0, o, j0, N, hd, nd, 1.f, lane);
+  TileRows<T> vr;
+  vr.load(sv, j0, ld, N, kd, lane);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nn) continue;
+    float dp[4];
+    vr.dot(dp, sdo, 8 * nt, ld, N, kd, lane);  // dP^T
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 8 * nt + 2 * tq + e;
+      const float rs = i < N ? stats[2 * N + i] : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        p[nt][2 * half + e] = i < N ? p[nt][2 * half + e] * (dp[2 * half + e] - rs) : 0.f;
+    }
+  }
+  frags_by_rows<true>(o, p, sq, ld, N, kp, nd, qscale, scratch, lane);  // dk = round(ds^T) qs
+  store_rows(op.dk, g.ld_dx, row0, col0, o, j0, N, hd, nd, 1.f, lane);
+}
+
+// Block (x, y = h * types + t) runs windows w = i * types + t of head h for
+// i in [x * run, (x + 1) * run), one at a time: the block stages q, k, v
+// and do, its warps take the query tiles in pass 1 and the key tiles in
+// pass 2 (warp k: tiles k, k + warps, ...), and the block's dbias partial
+// is partial[h][t * chunks + x].
+template <typename T, class Policy>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+window_attention_large_bwd_kernel(BwdOperands<T> op, Policy pol, Geometry g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = g.N, ld = Layout<T>::ld(g.hd);
+  const int t = blockIdx.y % g.types, h = blockIdx.y / g.types;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t tb = large_tiles_bytes<T>(N, g.hd, 4);
+  T* tiles = reinterpret_cast<T*>(smem);
+  T* const tile[4] = {tiles, tiles + (size_t)N * ld, tiles + (size_t)2 * N * ld,
+                      tiles + (size_t)3 * N * ld};
+  float* stats = reinterpret_cast<float*>(smem + tb);
+  int* ids = reinterpret_cast<int*>(smem + tb + large_stats_bytes(N));
+  float* scratch =
+      reinterpret_cast<float*>(smem + tb + large_stats_bytes(N) + large_ids_bytes(N)) +
+      (size_t)warp * 16 * Layout<float>::p_ld(N);
+  const GlobalRows bias = pol.rows(g, t, h, ids);
+  zero_cols(tiles, 4 * N, ld, g.hd);
+  __syncthreads();
+
+  float* part = op.partial + (((size_t)h * g.types + t) * gridDim.x + blockIdx.x) * (size_t)N * N;
+  const T* const src[4] = {op.q, op.k, op.v, op.dout};
+  const int ld_src[4] = {g.ld_in, g.ld_in, g.ld_in, g.ld_do};
+  const int per_type = g.B_ / g.types;
+  const int i0 = blockIdx.x * g.run, i1 = min(i0 + g.run, per_type);
+  for (int i = i0; i < i1; ++i) {
+    const int w = i * g.types + t;
+    stage_block(src, ld_src, (size_t)w * N, (size_t)h * g.hd, tile, ld, N, g.hd, g.vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the window is staged
+    for (int m0 = 16 * warp; m0 < N; m0 += 16 * warps)
+      large_pass1<T, kLargeNT>(tile[0], tile[1], tile[2], tile[3], ld, bias, stats, part,
+                               i == i0, scratch, g, w, h, m0, op, lane);
+    __syncthreads();  // every query row's constants are in
+    for (int j0 = 16 * warp; j0 < N; j0 += 16 * warps)
+      large_pass2<T, kLargeNT>(tile[0], tile[1], tile[2], tile[3], ld, bias, stats, scratch,
+                               g, w, h, j0, op, lane);
+    __syncthreads();  // the tiles and constants are free
+  }
+}
+
+template <typename T, class Policy>
+int launch_bwd_large(BwdOperands<T> op, const Policy& pol, const Geometry& g, int warps,
+                     cudaStream_t stream) {
+  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  const size_t smem = large_bwd_smem_bytes<T>(g.N, g.hd, warps);
+  auto kernel = window_attention_large_bwd_kernel<T, Policy>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int per_type = g.B_ / g.types;
+  const dim3 grid((per_type + g.run - 1) / g.run, g.nH * g.types);
+  kernel<<<grid, warps * 32, smem, stream>>>(op, pol, g);
+  return (int)cudaGetLastError();
+}
+
+// The forward tile's and the backward tile's dynamic shared memory at any
+// N, small or large (what the exported counts report).
+template <typename T> __host__ __device__ inline size_t fwd_smem(int N, int hd, int warps) {
+  return N > kSmallMaxN ? large_smem_bytes<T>(N, hd, warps) : smem_bytes<T>(N, hd, warps);
+}
+template <typename T> __host__ __device__ inline size_t bwd_smem(int N, int hd, int warps) {
+  return N > kSmallMaxN ? large_bwd_smem_bytes<T>(N, hd, warps) : bwd_smem_bytes<T>(N, hd, warps);
 }
 
 }  // namespace wtile

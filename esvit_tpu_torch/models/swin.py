@@ -23,7 +23,10 @@ NHWC inputs, reference checkpoint names (``patch_embed.proj``,
   through ``ops/pallas_window_attention.py`` (the forward-only kernel on
   the qkv layout with a dense bias + shift-mask operand) when
   ``attention_impl='pallas'``, and through the plain torch version when
-  ``attention_impl='xla'``.
+  ``attention_impl='xla'``. Each kernel route asks its kernel's own
+  ``supports()`` first and takes that kernel's plain version for a shape
+  it refuses (``WindowAttention.kernel_takes``): Swin at W=14 (N=196) runs
+  the qkv-layout kernel but the packed pair's plain version.
 
 Capturing per-block outputs or attention maps (``SwinStage.forward``'s
 ``capture``, used by ``forward_return_n_last_blocks`` and
@@ -67,8 +70,11 @@ from esvit_tpu_torch.models.common import (Dense, DropPath, Dropout,
                                            LayerNorm, Mlp, PatchConv, remat,
                                            softmax_fp32, trunc_normal_)
 from esvit_tpu_torch.ops import fused_block as fb
+from esvit_tpu_torch.ops import pallas_window_attention as pwa
 from esvit_tpu_torch.ops import window as wops
-from esvit_tpu_torch.ops.pallas_window_attention import fused_window_attention
+from esvit_tpu_torch.ops import window_attention as wa
+from esvit_tpu_torch.ops.pallas_window_attention import (
+    fused_window_attention, pallas_window_attention_plain)
 from esvit_tpu_torch.ops.window_attention import (window_attention,
                                                   window_attention_plain)
 
@@ -178,20 +184,38 @@ class WindowAttention(nn.Module):
                                  (H, W, self.window_size, ss), device)
         return bias + mask[:, None]
 
+    def kernel_takes(self, N: int, C: int) -> bool:
+        """Whether this module's kernel route takes windows of N tokens at
+        width C, by that kernel's own shape rule: the qkv-layout kernel's
+        (``attention_impl='pallas'``), the packed pair's ('packed'); never
+        under attention dropout or on the plain route ('xla')."""
+        if self.attn_drop.rate > 0.0:
+            return False
+        if self.attention_impl == "pallas":
+            return pwa.supports(N, C, self.num_heads)
+        if self.attention_impl == "packed":
+            return wa.supports(N, C, self.num_heads)
+        return False
+
     def forward(self, x, shift=None, return_attention=False,
                 deterministic=True, generator=None):
         """The projected attention output; with ``return_attention`` also
         the (B_, nH, N, N) fp32 probabilities, from the plain path.
         Attention dropout (``attn_drop`` > 0) takes the plain path
         whatever ``attention_impl`` says (esvit_tpu/models/swin.py:231,
-        :258), deterministic or not."""
+        :258), deterministic or not. A kernel route whose kernel refuses
+        the shape (:meth:`kernel_takes`) takes that kernel's plain
+        version."""
         B_, N, C = x.shape
         qkv = self.qkv(x)
         plain_only = self.attn_drop.rate > 0.0
+        kernel = self.kernel_takes(N, C)
         if (self.attention_impl == "pallas" and not return_attention
                 and not plain_only):
-            out = fused_window_attention(qkv, self.dense_bias(shift, x.device),
-                                         self.num_heads, self.scale)
+            attend = (fused_window_attention if kernel
+                      else pallas_window_attention_plain)
+            out = attend(qkv, self.dense_bias(shift, x.device),
+                         self.num_heads, self.scale)
             return self._project(out, deterministic, generator)
         qkv = qkv.reshape(B_ * N, 3 * C)
         q2, k2, v2 = (qkv[:, i * C:(i + 1) * C].contiguous() for i in range(3))
@@ -204,8 +228,7 @@ class WindowAttention(nn.Module):
             return self._project(out.reshape(B_, N, C), deterministic,
                                  generator), probs
         region = shift_region(shift, self.window_size, x.device)
-        if (self.attention_impl == "packed" and N == self.window_size ** 2
-                and not plain_only):
+        if self.attention_impl == "packed" and kernel:
             out = window_attention(q2, k2, v2, self.rel_bias(), region, N,
                                    self.num_heads, self.scale)
         else:
@@ -698,17 +721,20 @@ class SwinTransformer(nn.Module):
 
     def _attention_calls(self, img_size: int, capture: bool,
                          from_stage: int = 0) -> int:
-        """WindowAttention calls in one forward of an img_size input: every
-        block of a stage on the window-major route, or on the classic route
-        (every stage's, when capturing features) where the block does not
-        take its sub-window path."""
-        if self.cfg.attn_drop_rate > 0.0:
-            return 0                    # attention dropout: plain path only
+        """Kernel launches of the WindowAttention route in one forward of
+        an img_size input: every block of a stage on the window-major
+        route, or on the classic route (every stage's, when capturing
+        features) where the block does not take its sub-window path, and
+        whose kernel takes the stage's windows
+        (WindowAttention.kernel_takes)."""
         calls = 0
         for stage, L, route in self._stage_routes(img_size, from_stage):
             blk = stage.blocks[0] if len(stage.blocks) else None
+            if blk is None or not blk.attn.kernel_takes(
+                    stage.window_size ** 2, stage.dim):
+                continue
             if route == "window_major" or (
-                    (capture or route == "classic") and blk is not None
+                    (capture or route == "classic")
                     and not blk.takes_subwindow(L)):
                 calls += len(stage.blocks)
         return calls

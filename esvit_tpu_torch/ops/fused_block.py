@@ -8,7 +8,9 @@ residual. The forward is five kernels: four token-tile GEMMs of
 :func:`fwd_token_rows` rows on the tensor cores (F1: LN1 and q/k/v; F2:
 proj and its residual; F3: LN2, fc1 and GELU; F4: fc2 and its residual)
 and attention per window on the tiles of ``csrc/window_attention_tile.cuh``
-(A1). The backward recomputes the forward from the block input (the only
+(A1; windows of 64 < N <= 256, Swin at W=14, on the header's
+large-window tile). The backward recomputes the forward from the block
+input (the only
 tensor saved) in five kernels: what is per token on tiles of
 :func:`token_rows` rows (T1: LN1 and q/k/v; T2: proj, LN2, the MLP and LN2
 backward; T3: the q/k/v transposes and the LN1 backward), and only
@@ -401,22 +403,21 @@ def fused_swin_block(x, params, keep1, keep2, *, N: int, nH: int, nW: int,
 
 def supports(N: int, C: int, nH: int, M: int) -> bool:
     """Whether the kernels take this block shape, by shape alone (the same
-    answer on every device): N <= 64 and a head dim that is a multiple of
-    16 and at most 64 (the window-attention tiles, A1 and A2); C a
-    multiple of 32 and at most 384 (a LayerNorm row in registers, the
-    forward's wgmma widths) and M a multiple of 128 (the backward's MLP
-    chunk). The last rule, two of the three bounds C <= 192, N <= 49 and
-    head dim <= 32, sized the shared memory of the per-window forward
-    kernel that the token-tile forward replaced; no kernel needs it now
-    (the token tiles' shared memory depends on C alone, and chip_smoke.py
-    holds both passes' against the card at every admitted width). It stays
-    so that no route changes with the forward's design."""
-    if not 0 < N <= 64 or C % nH or C % 32 or C > _MAX_C or M % _MLP_CHUNK:
+    answer on every device): a head dim that is a multiple of 16 and at
+    most 64, and N <= 64 (the small window-attention tiles, A1 and A2) or
+    64 < N <= 256 where the large tile's backward block fits the card
+    (Swin's head dim 32 at every N up to 256); C a multiple of 32 and at
+    most 384 (a LayerNorm row in registers, the forward's wgmma widths)
+    and M a multiple of 128 (the backward's MLP chunk). The token tiles'
+    shared memory depends on C alone, and chip_smoke.py holds both passes
+    against the card at every admitted width."""
+    if N <= 0 or C % nH or C % 32 or C > _MAX_C or M % _MLP_CHUNK:
         return False
     hd = C // nH
     if hd % 16 or hd > 64:
         return False
-    return (C <= 192) + (N <= 49) + (hd <= 32) >= 2
+    return N <= wa._SMALL_MAX_N or (N <= wa._LARGE_MAX_N
+                                    and wa.large_tile_fits(N, hd, True))
 
 
 def fwd_token_rows(itemsize: int = 2) -> int:

@@ -3,8 +3,9 @@ its plain twin.
 
 Replaces esvit_tpu/ops/pallas_window_attention.py ``_attention_kernel``
 (via ``fused_window_attention``) with ``csrc/pallas_window_attention.cu``,
-the tile kernel of ``csrc/window_attention_tile.cuh`` (bf16 on the tensor
-cores, fp32 as register-tiled FMAs) reading q, k and v straight out of the
+the tile kernels of ``csrc/window_attention_tile.cuh`` (bf16 on the
+tensor cores, fp32 as register-tiled FMAs; windows of 64 < N <= 256, Swin
+at W=14, on the large-window tile) reading q, k and v straight out of the
 ``(B_, N, 3C)`` qkv rows, launched as :func:`window_attention.tile_plan`
 says. The sources note what bounds it on Hopper.
 
@@ -30,7 +31,9 @@ import functools
 import torch
 
 from esvit_tpu_torch.ops import cuda_build
-from esvit_tpu_torch.ops.window_attention import _sm_count, tile_plan
+from esvit_tpu_torch.ops.window_attention import (_LARGE_MAX_N, _SMALL_MAX_N,
+                                                  _sm_count, large_tile_fits,
+                                                  tile_plan)
 
 launches = {"fwd": 0}
 
@@ -39,9 +42,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def supports(N: int, C: int, nH: int) -> bool:
     """Whether the kernel takes a window of N tokens at width C with nH
-    heads: N <= 64 (a warp's two columns per lane) and a head dim of
-    1..64 (a warp's two output columns per lane)."""
-    return 0 < N <= 64 and nH > 0 and C % nH == 0 and 0 < C // nH <= 64
+    heads, by shape alone: a head dim of 1..64 and N <= 64 (the small
+    tile), or 64 < N <= 256 where the large tile's block fits the card
+    (every head dim up to 64 at Swin's N = 196)."""
+    if not (nH > 0 and C % nH == 0 and 0 < C // nH <= 64 and N > 0):
+        return False
+    if N <= _SMALL_MAX_N:
+        return True
+    return N <= _LARGE_MAX_N and large_tile_fits(N, C // nH, backward=False)
 
 
 def pallas_window_attention_plain(qkv, bias, num_heads: int,
@@ -85,7 +93,7 @@ def _check(qkv, bias, nH):
     B_, N, C3 = qkv.shape
     if not supports(N, C3 // 3, nH):
         raise ValueError(f"unsupported shape N={N} C={C3 // 3} nH={nH} "
-                         "(N <= 64 and head dim <= 64)")
+                         "(N <= 256 and head dim <= 64)")
     nWm = bias.shape[0] if bias.dim() == 4 else 0
     if (bias.dtype != torch.float32 or bias.dim() != 4
             or tuple(bias.shape[1:]) != (nH, N, N) or not bias.is_contiguous()

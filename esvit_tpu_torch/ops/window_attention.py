@@ -10,7 +10,11 @@ picks the block's warps and the windows per warp. The fp32 products are
 register-tiled FMAs on the CUDA cores (no TF32). Each backward
 block writes one dbias partial, which a second kernel sums in a fixed
 order, so dbias is deterministic. The sources note what bounds the
-kernels on Hopper.
+kernels on Hopper. The same header's large-window tile (64 < N <= 256,
+Swin at W=14) serves the block-fused kernels' attention halves and the
+qkv-layout forward; this pair's policy builds no large-window kernel, so
+its :func:`supports` stays at N <= 64, and a caller takes
+:func:`window_attention_plain` for a shape it refuses.
 
 Layouts are the JAX ones: q2/k2/v2 ``(B_*N, C)`` window-major rows
 (windows batch-major, window type minor), bias ``(nH, N, N)`` fp32,
@@ -55,6 +59,19 @@ _MAX_RUN_BWD = {2: 2, 4: 2}
 _TILE_WARPS = (8, 7, 6, 5, 4, 3, 2, 1)
 _BWD_GROUP = 4          # warps per (window, head) in the backward
 _BWD_WARPS = (8, 4)
+# The large-window tile (wtile::window_attention_large_kernel and its
+# backward): windows above _SMALL_MAX_N tokens, up to _LARGE_MAX_N; a
+# block of _LARGE_WARPS warps (fewer where its shared memory would not
+# fit) shares each window's staged tiles, its warps taking the m16 row
+# tiles in turn; at most _LARGE_MAX_RUN windows per block. One m16 tile's
+# whole score row lives in registers (up to 255 a thread): the SM holds
+# _SM_WARPS_MAX_LARGE warps by registers (chip_smoke.py holds the build
+# to it).
+_SMALL_MAX_N = 64
+_LARGE_MAX_N = 256
+_LARGE_WARPS = (4, 3, 2, 1)
+_LARGE_MAX_RUN = 8
+_SM_WARPS_MAX_LARGE = {2: 8, 4: 8}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -69,10 +86,25 @@ def _bias_bytes(N: int) -> int:
     return _round_up(N * bias_ld * 4, 128)
 
 
+def _large_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
+                      backward: bool) -> int:
+    """The large tile's block (wtile::large_smem_bytes,
+    large_bwd_smem_bytes): the q, k, v (and do) tiles, N rows each at
+    head_pad(hd) + 8 bf16 / + 4 fp32; the backward's row constants (3 N
+    floats); the region ids (N ints); fp32 only, a 16-row scratch per warp
+    at the stride 8 ceil(N / 8) + 4; each part rounded up to 128 bytes."""
+    ld = _round_up(hd, 16) + (8 if itemsize == 2 else 4)
+    tiles = _round_up((4 if backward else 3) * N * ld * itemsize, 128)
+    stats = _round_up(3 * N * 4, 128) if backward else 0
+    ids = _round_up(N * 4, 128)
+    scratch = 0 if itemsize == 2 else warps * 16 * (8 * -(-N // 8) + 4) * 4
+    return tiles + stats + ids + scratch
+
+
 def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
                     backward: bool = False) -> int:
-    """Dynamic shared memory of a tile block (wtile::smem_bytes,
-    bwd_smem_bytes).
+    """Dynamic shared memory of a tile block (wtile::fwd_smem,
+    bwd_smem): above N = 64 the large tile's (:func:`_large_smem_bytes`).
 
     Forward: the bias slice, then per warp its q, k, v tiles (bf16: N rows
     each at head_pad(hd) + 8; fp32: N, N and round_up(N, 4) rows at
@@ -83,6 +115,8 @@ def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
     128 bytes), its row constants (3 x 64 floats), its (N, N) fp32 dbias
     accumulator (the bias slice's layout) and, fp32 only, a 16-row scratch
     per warp at the fp32 p tile's stride 8 ceil(N / 8) + 4."""
+    if N > _SMALL_MAX_N:
+        return _large_smem_bytes(N, hd, itemsize, warps, backward)
     hdp = _round_up(hd, 16)
     if backward:
         ld = hdp + (8 if itemsize == 2 else 4)
@@ -102,7 +136,8 @@ def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
 
 class TilePlan(NamedTuple):
     warps: int    # warps per block
-    run: int      # windows per warp (backward: per group of four warps)
+    run: int      # windows per warp (backward: per group of four warps;
+                  # the large tile: per block)
     chunks: int   # blocks per (head, window type): the grid is (chunks, nH * types)
     smem: int     # dynamic shared memory per block, bytes
 
@@ -116,7 +151,10 @@ def tile_plan(B_: int, N: int, hd: int, nH: int, types: int, itemsize: int,
     warps per window). Windows per warp (per group): the longest run up to
     the kernel's maximum that still gives half a wave of blocks or more
     (the backward: a whole wave), else 1. Short runs let the block
-    scheduler even out the SMs' loads."""
+    scheduler even out the SMs' loads. Above N = 64: the large tile's
+    plan (:func:`_large_plan`)."""
+    if N > _SMALL_MAX_N:
+        return _large_plan(B_, N, hd, nH, types, itemsize, sms, backward)
     per_type = B_ // types
     cap = (_SM_WARPS_MAX_BWD if backward else _SM_WARPS_MAX)[itemsize]
 
@@ -142,6 +180,50 @@ def tile_plan(B_: int, N: int, hd: int, nH: int, types: int, itemsize: int,
         run //= 2
     return TilePlan(warps, run, chunks(run),
                     tile_smem_bytes(N, hd, itemsize, warps, backward))
+
+
+def _large_plan(B_, N, hd, nH, types, itemsize, sms, backward):
+    """The large tile's plan: warps per block the count that keeps the
+    most warps resident (ties: more), among those whose block fits;
+    windows per block the longest run up to _LARGE_MAX_RUN that still
+    gives a whole wave of blocks, else 1. The backward's dbias partials,
+    one (N, N) fp32 slice per block, scale with the blocks: a whole wave
+    and no more keeps them at ~60 MB on Swin-T's W=14 shapes."""
+    per_type = B_ // types
+    cap = _SM_WARPS_MAX_LARGE[itemsize]
+
+    def resident(w):
+        smem = _large_smem_bytes(N, hd, itemsize, w, backward)
+        if smem > _BLOCK_SMEM_MAX:
+            return 0
+        return min(_SM_SMEM // (smem + _BLOCK_RESERVED), cap // w,
+                   _SM_BLOCKS_MAX)
+
+    warps = max(_LARGE_WARPS, key=lambda w: (resident(w) * w, w))
+
+    def chunks(run):
+        return -(-per_type // run)
+
+    slots = resident(warps) * sms
+    run = _LARGE_MAX_RUN
+    while run > 1 and chunks(run) * nH * types < slots:
+        run //= 2
+    return TilePlan(warps, run, chunks(run),
+                    _large_smem_bytes(N, hd, itemsize, warps, backward))
+
+
+def large_tile_fits(N: int, hd: int, backward: bool) -> bool:
+    """Whether the large tile's block fits the card at this window and
+    head dim in both dtypes (one warp at least), by shape alone."""
+    return all(_large_smem_bytes(N, hd, itemsize, 1, backward)
+               <= _BLOCK_SMEM_MAX for itemsize in (2, 4))
+
+
+def supports(N: int, C: int, nH: int) -> bool:
+    """Whether this pair's kernels take windows of N tokens at width C
+    with nH heads: N <= 64 (the small tiles) and a head dim of 1..64."""
+    return (0 < N <= _SMALL_MAX_N and nH > 0 and C % nH == 0
+            and 0 < C // nH <= 64)
 
 
 def bwd_partials(plan: TilePlan, types: int) -> int:
@@ -242,7 +324,7 @@ def _check(q2, k2, v2, bias, region, N, nH):
                              f"not match q2 {tuple(q2.shape)} {q2.dtype} {dev}")
     if not (q2.is_contiguous() and k2.is_contiguous() and v2.is_contiguous()):
         raise ValueError("q2, k2, v2 must be contiguous")
-    if rows % N or C % nH or not 0 < N <= 64 or C // nH > 64:
+    if rows % N or not supports(N, C, nH):
         raise ValueError(f"unsupported shape rows={rows} C={C} N={N} nH={nH} "
                          "(N <= 64 and head dim <= 64)")
     if (bias.dtype != torch.float32 or tuple(bias.shape) != (nH, N, N)

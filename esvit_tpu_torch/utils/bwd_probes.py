@@ -112,7 +112,7 @@ def compare(other: Path):
 
 
 def _build_variant(tag: str, edits: dict, names, extra=()):
-    """Builds csrc/<name>.cu for each name from a copy of csrc/ with
+    """Builds each library of `names` (its cuda_build.sources) from a copy of csrc/ with
     `edits` ({file or file#label: (old, new)}) applied, into PROBES/tag;
     returns {name: (library path, ptxas report)}."""
     d = PROBES / tag
@@ -126,8 +126,9 @@ def _build_variant(tag: str, edits: dict, names, extra=()):
         (d / fname).write_text(text.replace(old, new))
     procs = {}
     for name in names:
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *extra, "-I", str(d),
-               "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cu")]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared", *extra,
+               "-I", str(d), "-o", str(d / f"lib{name}.so"),
+               *map(str, cuda_build.sources(name, d))]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     out = {}

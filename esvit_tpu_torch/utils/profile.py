@@ -1,10 +1,11 @@
 """Where the port's train step spends its time on the card.
 
     python -m esvit_tpu_torch.utils.profile
-        [--model swin_tiny|vil_tiny|cvt_tiny|deit_small] [--batch 32]
-        [--steps 3] [--trace step_trace.json]
+        [--model swin_tiny|swin_tiny_w14|vil_tiny|cvt_tiny|deit_small]
+        [--batch 32] [--steps 3] [--trace step_trace.json]
 
-Runs the Swin-T W=7 (config.swin_tiny_multicrop), the ViL-T
+Runs the Swin-T W=7 (config.swin_tiny_multicrop), the Swin-T W=14 (the
+same recipe at window_size=14), the ViL-T
 (config.vil_tiny_multicrop), the CvT-T (config.cvt_tiny_multicrop) or
 the DeiT-S (config.deit_small_multicrop) multi-crop DDINO step: two warm-up steps, ``--steps`` timed steps without the profiler (host
 clock, each ending in a loss fetch), then ``--steps`` steps under
@@ -31,7 +32,13 @@ from esvit_tpu_torch.data.loader import synthetic_batches
 from esvit_tpu_torch.train.step import EsViTTrainer
 
 
+def _swin_tiny_w14_multicrop(batch_size):
+    return config_lib.swin_tiny_multicrop(batch_size).replace(
+        model=config_lib.swin_tiny(window_size=14))
+
+
 MODELS = {"swin_tiny": (config_lib.swin_tiny_multicrop, "Swin-T W=7"),
+          "swin_tiny_w14": (_swin_tiny_w14_multicrop, "Swin-T W=14"),
           "vil_tiny": (config_lib.vil_tiny_multicrop, "ViL-T"),
           "cvt_tiny": (config_lib.cvt_tiny_multicrop, "CvT-T"),
           "deit_small": (config_lib.deit_small_multicrop, "DeiT-S/16")}

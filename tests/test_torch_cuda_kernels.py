@@ -149,6 +149,30 @@ def test_cuda_tile_plan_fits_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_large_tile_plan_fits_the_card(cuda):
+    """The large-window tile (64 < N <= 256): tile_smem_bytes is the
+    kernels' own count (wtile::large_smem_bytes, large_bwd_smem_bytes),
+    and every plan of a window and head dim that large_tile_fits admits
+    fits a block, in both passes and both dtypes."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = wa._lib()
+    counts = {False: lib.esvit_window_attention_tile_smem_bytes,
+              True: lib.esvit_window_attention_bwd_smem_bytes}
+    for N in range(65, 257):
+        for hd in (1, 5, 16, 24, 32, 48, 64):
+            for itemsize in (2, 4):
+                for backward, count in counts.items():
+                    for warps in range(1, 5):
+                        assert (count(N, hd, itemsize, warps)
+                                == wa.tile_smem_bytes(N, hd, itemsize, warps,
+                                                      backward))
+                    if wa.large_tile_fits(N, hd, backward):
+                        plan = wa.tile_plan(64, N, hd, 3, 1, itemsize,
+                                            backward=backward)
+                        assert plan.smem <= limit, (N, hd, itemsize, plan)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(49 * 2, 96, device=cuda, dtype=torch.float16)
     bias = torch.zeros(3, 49, 49, device=cuda)
@@ -157,6 +181,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(49 * 2, 192, device=cuda)[:, ::2]
     with pytest.raises(ValueError):
         wa.window_attention(q, q, q, bias, None, 49, 3, 0.17)
+    # rows 3-4 stay on the small tiles: N > 64 is refused
+    q = torch.zeros(65 * 2, 96, device=cuda)
+    with pytest.raises(ValueError):
+        wa.window_attention(q, q, q, torch.zeros(3, 65, 65, device=cuda),
+                            None, 65, 3, 0.17)
 
 
 # The block-fused kernel pair (ops/fused_block.py) against its plain
@@ -168,6 +197,16 @@ FUSED_CASES = [
     (2, 12, 7, 64, 2, True, True, False),
     (2, 7, 7, 384, 12, False, False, True),
 ]
+# Swin at W=14 on the large-window tile (N = 196): a shifted stage of four
+# windows an image, a padded one (24 -> 28 tokens a side) and a stage-2
+# width of one window an image. Appended to every fused list, so earlier
+# case ids stay.
+W14_FUSED_CASES = [
+    (2, 28, 14, 96, 3, True, False, True),
+    (2, 24, 14, 96, 3, True, True, False),
+    (3, 14, 14, 384, 12, False, False, True),
+]
+FUSED_CASES = FUSED_CASES + W14_FUSED_CASES
 
 
 def _fused_inputs(cuda, B, H, ws, C, nH, shifted, padded, dp, seed=0):
@@ -255,9 +294,21 @@ def test_cuda_fused_block_matches_plain(cuda, case, dtype, tol):
 def test_cuda_fused_block_augmented_window(cuda, dtype, tol):
     """The 96px stage-2 route: one augmented window of 6x6 real tokens plus
     the virtual pad token (pad multiplier 0 on its row), N = 37."""
+    _augmented_window_case(cuda, dtype, tol, 4, 384, 12, 37)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_fused_block_large_augmented_window(cuda, dtype, tol):
+    """W=14's 96 px stage-1 route on the large-window tile: one augmented
+    window of 12x12 real tokens plus the virtual one, N = 145."""
+    _augmented_window_case(cuda, dtype, tol, 4, 192, 6, 145)
+
+
+def _augmented_window_case(cuda, dtype, tol, B, C, nH, N):
     from esvit_tpu_torch.ops import fused_block as fb
 
-    B, C, nH, N = 4, 384, 12, 37
     rng = np.random.RandomState(2)
     x = (0.5 * rng.randn(B, N, C)).astype(np.float32)
     x[:, -1] = 0.0
@@ -271,9 +322,11 @@ def test_cuda_fused_block_augmented_window(cuda, dtype, tol):
     dout[:, -1] = 0.0
     keep = [np.array([1 / 0.9, 0.0, 1 / 0.9, 1 / 0.9], np.float32)] * 2
     got = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
+    again = _fused_run(fb.fused_swin_block, cuda, dtype, x, p, keep, kw, dout)
     ref = _fused_run(fb.fused_swin_block_plain, cuda, dtype, x, p, keep, kw,
                      dout)
     for name, a in got.items():
+        torch.testing.assert_close(a, again[name], rtol=0, atol=0, msg=name)
         s = _fused_scale(ref, name)
         torch.testing.assert_close(a / s, ref[name] / s, rtol=tol, atol=tol,
                                    msg=name)
@@ -302,7 +355,8 @@ NANO_FUSED_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("case", FUSED_STAGE_CASES + NANO_FUSED_CASES)
+@pytest.mark.parametrize("case", FUSED_STAGE_CASES + NANO_FUSED_CASES
+                         + W14_FUSED_CASES)
 def test_cuda_fused_backward_stages_match_plain(cuda, case, dtype, tol):
     """All 19 results within tol of the plain version and bit-identical on
     repeat; each stage kernel within tol of its plain twin on its own
@@ -341,7 +395,7 @@ FUSED_FWD_CASES = FUSED_STAGE_CASES + [
     (3, 6, 7, 96, 3, False, False, True),
     (4, 14, 7, 384, 12, False, False, False),
     (43, 14, 7, 384, 12, True, False, True),
-] + NANO_FUSED_CASES
+] + NANO_FUSED_CASES + W14_FUSED_CASES
 
 
 @pytest.mark.cuda
@@ -445,6 +499,13 @@ def test_cuda_fused_block_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fb.fused_swin_block(torch.tensor(x, device=cuda), pt, None, None,
                             **dict(kw, nH=8))
+    # more tokens than the large-window tile holds
+    N, C, nH = 257, 96, 3
+    p257 = {k: torch.tensor(v, device=cuda) for k, v in _fused_params(
+        np.random.RandomState(0), C, 4 * C, nH, N).items()}
+    with pytest.raises(ValueError, match="unsupported block shape"):
+        fb.fused_swin_block(torch.zeros(1, N, C, device=cuda), p257, None,
+                            None, N=N, nH=nH, nW=1, scale=0.17)
 
 
 # The sliding-chunk kernel pair (ops/sliding_chunk.py) against its plain
@@ -653,6 +714,12 @@ PWA_CASES = [
     (40, 49, 96, 3, 8),
     (6, 49, 20, 2, 2),
     (6, 9, 15, 3, 3),
+    # the large-window tile: Swin at W=14 (N 196, and the augmented 145),
+    # its largest window with head dim 64, and a ragged N with head dim 5
+    (8, 196, 96, 3, 4),
+    (4, 145, 192, 6, 1),
+    (2, 256, 128, 2, 2),
+    (6, 100, 15, 3, 3),
 ]
 
 
@@ -736,3 +803,52 @@ def test_cuda_pallas_window_attention_refuses_what_the_kernel_does_not_take(
     with pytest.raises(ValueError):
         pwa.fused_window_attention(qkv, bias.expand(2, 3, 49, 49).contiguous(),
                                    3, 0.17)
+    # more tokens than the large-window tile holds
+    with pytest.raises(ValueError):
+        pwa.fused_window_attention(torch.zeros(1, 257, 288, device=cuda),
+                                   torch.zeros(1, 3, 257, 257, device=cuda),
+                                   3, 0.17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {}, {"fused_block_stages": ()},
+    {"attention_impl": "pallas", "fused_block_stages": ()}])
+def test_cuda_swin_w14_routes_by_each_kernels_supports(cuda, kw):
+    """Swin-T's widths at W=14 (one block a stage), fp32, 224 and 96 px on
+    the card: every kernel route runs (no kernel is handed a shape its
+    supports() refuses), each kernel launches as the model derives, and
+    the features are within 1e-4 of the plain route's (attention_impl=
+    'xla', no fused stages) from the same weights."""
+    import dataclasses
+
+    from esvit_tpu_torch import config as tcfg
+    from esvit_tpu_torch.models.swin import SwinTransformer
+    from esvit_tpu_torch.ops import fused_block as fb
+    from esvit_tpu_torch.ops import pallas_window_attention as pwa
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def swin(**extra):
+        return dataclasses.replace(tcfg.swin_tiny(
+            window_size=14, drop_path_rate=0.0, **extra), depths=(1, 1, 1, 1))
+
+    model = SwinTransformer(swin(**kw),
+                            generator=torch.Generator().manual_seed(0)).to(cuda)
+    plain = SwinTransformer(swin(attention_impl="xla",
+                                 fused_block_stages=())).to(cuda)
+    plain.load_state_dict(model.state_dict())
+    for size in (224, 96):
+        x = torch.randn(2, size, size, 3,
+                        generator=torch.Generator().manual_seed(size)).to(cuda)
+        counters = (fb.launches, wa.launches, pwa.launches)
+        before = [c["fwd"] for c in counters]
+        with torch.no_grad():
+            got = model.forward_features(x)[1]
+            want = plain.forward_features(x)[1]
+        launched = [c["fwd"] - b for c, b in zip(counters, before)]
+        assert launched == [model.fused_block_calls(size),
+                            model.window_attention_calls(size),
+                            model.pallas_window_attention_calls(size)]
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert torch.isfinite(got).all() and err <= 1e-4, (size, err)

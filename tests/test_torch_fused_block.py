@@ -261,12 +261,16 @@ def test_subwindow_route_priority(kw, route):
     (49, 768, 24, 3072, False),     # stage 3: more channels than C <= 384
     (16, 768, 24, 3072, False),     # more channels than a LayerNorm row holds
     (64, 192, 6, 768, True),        # C <= 192 and head dim 32
-    (64, 384, 12, 1536, False),     # fp32 shared memory: N > 49 and C > 192
+    (64, 384, 12, 1536, True),      # N > 49 and C > 192: no two-of-three rule
     (49, 192, 3, 768, True),        # C <= 192 and N <= 49, head dim 64
-    (64, 192, 3, 768, False),       # fp32 shared memory: N > 49, head dim 64
-    (65, 96, 3, 384, False),        # more tokens than a window tile holds
+    (64, 192, 3, 768, True),        # N > 49, head dim 64
+    (65, 96, 3, 384, True),         # the large-window tile from N = 65
     (49, 96, 4, 384, False),        # head dim 24, not a multiple of 16
     (49, 96, 3, 320, False),        # MLP width not a multiple of the chunk
+    (196, 384, 12, 1536, True),     # Swin-T W=14 stage 2
+    (145, 192, 6, 768, True),       # the 96 px W=14 augmented window
+    (256, 128, 2, 512, False),      # N=256, head dim 64: no fp32 backward block
+    (257, 96, 3, 384, False),       # more tokens than the large tile holds
 ])
 def test_supports_is_a_shape_rule(N, C, nH, M, ok):
     assert tfb.supports(N, C, nH, M) is ok

@@ -96,8 +96,9 @@ def test_gradients_match_jax(nWm):
 
 @pytest.mark.parametrize("shape,ok", [
     ((49, 96, 3), True), ((49, 768, 24), True), ((64, 128, 2), True),
-    ((37, 40, 5), True), ((65, 96, 3), False), ((49, 192, 2), False),
-    ((49, 96, 5), False),
+    ((37, 40, 5), True), ((65, 96, 3), True), ((49, 192, 2), False),
+    ((49, 96, 5), False), ((196, 96, 3), True), ((256, 128, 2), True),
+    ((257, 96, 3), False),
 ])
 def test_supports(shape, ok):
     assert pwa.supports(*shape) == ok

@@ -1,0 +1,464 @@
+"""The large-window tile (csrc/window_attention_tile.cuh, 64 < N <= 256:
+Swin at W=14) on the CPU: a plain-torch model of its arithmetic, both
+passes, both dtypes and both policies, its launch plans, its shared
+memory and its shape rule.
+
+The kernels cannot run here, so this file models what they compute, down
+to the tile padding: query rows in m16 tiles read clamped to row N - 1,
+every score row over 256 keys (32 key tiles of 8) with the keys past N
+read clamped and masked with -inf (p exactly 0), the head dim zero-filled
+to a multiple of 16. The backward's pass 2 zeroes p and ds in the padded
+query columns, so the clamped rows add nothing to dv and dk. bf16 models
+hold exact bf16 values in fp32 tensors (the mma multiplies bf16 operands
+exactly and accumulates in fp32). The tolerances are those of
+tests/test_torch_window_attention_tiles.py and
+tests/test_torch_window_attention_bwd_tiles.py, for the same reasons:
+
+- row 7's policy (ops/pallas_window_attention.py: unscaled q, the score
+  scaled after the product, p split into bf16 hi + lo): within 2^-16
+  max|v| of pallas_window_attention_plain and of JAX's
+  ``_reference_attention`` before the output cast;
+- A1's policy (the fused block's attention half, the packed roundings:
+  qs = bf16(q * bf16(scale)), p rounded to bf16): within one bf16 ulp
+  plus 2^-8 max|v| of window_attention_plain after the cast;
+- fp32 (both): within 1e-5 of both plain versions;
+- A2, the backward (the packed roundings): bf16 dq, dk, dv within one
+  bf16 ulp plus 2^-7 of the output's max-abs of window_attention_bwd_plain,
+  dbias within 1e-5; fp32 within 1e-5 of autograd through
+  window_attention_plain, which is within 2e-5 of esvit_tpu's XLA window
+  attention (its WindowAttention module, attention_impl='xla').
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from esvit_tpu.models.swin import WindowAttention as JWindowAttention
+from esvit_tpu.ops import pallas_window_attention as jpwa
+from esvit_tpu.ops import window as jwops
+from esvit_tpu_torch.ops import fused_block as fb
+from esvit_tpu_torch.ops import pallas_window_attention as pwa
+from esvit_tpu_torch.ops import window as twops
+from esvit_tpu_torch.ops import window_attention as wa
+
+KEYS = 256                 # a score row's keys: kLargeMaxN
+NS = [100, 145, 196, 256]  # 145: the augmented window; 196: W=14
+FP32_TOL = 1e-5
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _pad(t, hd):
+    return torch.nn.functional.pad(t, (0, -(-hd // 16) * 16 - hd))
+
+
+def large_tile_model(q, k, v, bias, scale, *, bf16, round_q=False,
+                     split_p=False):
+    """The forward tile per (window, head): q, k, v (G, N, hd) fp32, bias
+    (G, N, N) fp32 -> (G, N, hd) fp32, before the output's cast. Query rows
+    in m16 tiles (clamped), 256 keys (clamped, masked)."""
+    G, N, hd = q.shape
+    rows = torch.arange(-(-N // 16) * 16).clamp(max=N - 1)
+    keys = torch.arange(KEYS).clamp(max=N - 1)
+    Q, K, V = _pad(q, hd)[:, rows], _pad(k, hd)[:, keys], _pad(v, hd)[:, keys]
+    if not bf16:
+        Q = Q * scale
+    elif round_q:
+        Q = _bf16(Q * _bf16(torch.tensor(scale)))
+    s = Q @ K.transpose(1, 2)
+    if bf16 and not round_q:
+        s = s * scale
+    s = s + bias[:, rows][:, :, keys]
+    s[:, :, N:] = -torch.inf
+    p = torch.softmax(s, dim=-1)
+    if bf16:
+        hi = _bf16(p)
+        o = hi @ V
+        if split_p:
+            o = o + _bf16(p - hi) @ V
+    else:
+        o = p @ V
+    return o[:, :N, :hd]
+
+
+def large_bwd_model(q, k, v, do, bias, scale, *, bf16):
+    """The backward tile per (window, head): dq, dk, dv (G, N, hd) and ds
+    (G, N, N) fp32, rounded where the kernel rounds (bf16). Pass 1 on the
+    query tiles (dP formed a key tile at a time, twice: the same values),
+    pass 2 on the key tiles with p and ds zero in the padded queries."""
+    G, N, hd = q.shape
+    idx = torch.arange(KEYS).clamp(max=N - 1)
+    real = (torch.arange(KEYS) < N).float()[None, :, None]
+    r = _bf16 if bf16 else (lambda t: t)
+    Q, K, V, D = (_pad(t, hd)[:, idx] for t in (q, k, v, do))
+    QS = _bf16(Q * _bf16(torch.tensor(scale))) if bf16 else Q * scale
+    s = QS @ K.transpose(1, 2) + bias[:, idx][:, :, idx]
+    s[:, :, N:] = -torch.inf
+    p = torch.softmax(s, dim=-1)
+    dp = D @ V.transpose(1, 2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = r(r(ds) @ K * scale)
+    pt, dst = p * real, ds * real
+    dv = r(r(pt).transpose(1, 2) @ D)
+    dk = r(r(dst).transpose(1, 2) @ QS)
+    return dq[:, :N, :hd], dk[:, :N, :hd], dv[:, :N, :hd], ds[:, :N, :N]
+
+
+def _shape(N):
+    """(windows B_, C, nH, window types) at N: Swin's head dim 32 over two
+    types, and at N=100 a head dim of 24 (zero-filled to 32)."""
+    return (4, 48, 2, 2) if N == 100 else (4, 96, 3, 2)
+
+
+def _inputs(N, seed=0):
+    B_, C, nH, types = _shape(N)
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_bf16(torch.from_numpy(
+        rng.normal(size=(B_ * N, C)).astype(np.float32))) for _ in range(4))
+    table = torch.from_numpy((0.3 * rng.normal(size=(nH, N, N)))
+                             .astype(np.float32))
+    region = torch.from_numpy(rng.integers(0, 3, size=(types, N))
+                              .astype(np.int32))
+    return q, k, v, do, table, region
+
+
+def _dense(table, region):
+    differ = region[:, :, None] != region[:, None, :]
+    return table[None] + torch.where(differ, -100.0, 0.0)[:, None]
+
+
+def _heads(t, B_, N, nH):
+    hd = t.shape[-1] // nH
+    return t.reshape(B_, N, nH, hd).transpose(1, 2).reshape(B_ * nH, N, hd)
+
+
+def _rows(t, B_, N, nH):
+    hd = t.shape[-1]
+    return t.reshape(B_, nH, N, hd).transpose(1, 2).reshape(B_ * N, nH * hd)
+
+
+def _fwd(q, k, v, table, region, N, scale, **kw):
+    B_ = q.shape[0] // N
+    nH = table.shape[0]
+    dense = _dense(table, region)
+    bias = dense[torch.arange(B_) % dense.shape[0]].reshape(B_ * nH, N, N)
+    o = large_tile_model(*(_heads(t, B_, N, nH) for t in (q, k, v)), bias,
+                         scale, **kw)
+    return _rows(o, B_, N, nH)
+
+
+def _bwd(q, k, v, do, table, region, N, scale, bf16):
+    B_ = q.shape[0] // N
+    nH = table.shape[0]
+    dense = _dense(table, region)
+    bias = dense[torch.arange(B_) % dense.shape[0]].reshape(B_ * nH, N, N)
+    dq, dk, dv, ds = large_bwd_model(
+        *(_heads(t, B_, N, nH) for t in (q, k, v, do)), bias, scale,
+        bf16=bf16)
+    return (*(_rows(t, B_, N, nH) for t in (dq, dk, dv)),
+            ds.reshape(B_, nH, N, N).sum(0))
+
+
+def _qkv(q, k, v, N):
+    return torch.cat([q, k, v], dim=-1).reshape(q.shape[0] // N, N, -1)
+
+
+def _one_ulp(a, b, atol):
+    return ((a - b).abs()
+            <= 2 ** -7 * torch.maximum(a.abs(), b.abs()) + atol).all()
+
+
+@pytest.mark.parametrize("N", NS)
+def test_row7_bf16_model_matches_plain(N):
+    q, k, v, _, table, region = _inputs(N)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    got = _fwd(q, k, v, table, region, N, scale, bf16=True, split_p=True)
+    qkv = _qkv(q, k, v, N)
+    want = pwa.pallas_window_attention_plain(qkv, _dense(table, region), nH,
+                                             scale).reshape(got.shape)
+    bound = 2 ** -16 * v.abs().max()
+    assert (got - want).abs().max() <= bound
+    one = _fwd(q, k, v, table, region, N, scale, bf16=True)
+    assert (one - want).abs().max() > bound      # the split carries p
+    plain_bf16 = pwa.pallas_window_attention_plain(
+        qkv.to(torch.bfloat16), _dense(table, region), nH, scale)
+    assert _one_ulp(_bf16(got), plain_bf16.float().reshape(got.shape), bound)
+
+
+@pytest.mark.parametrize("N", NS)
+def test_a1_bf16_model_is_plain(N):
+    q, k, v, _, table, region = _inputs(N, seed=1)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    got = _bf16(_fwd(q, k, v, table, region, N, scale, bf16=True,
+                     round_q=True))
+    want = wa.window_attention_plain(
+        *(t.to(torch.bfloat16) for t in (q, k, v)), table, region, N, nH,
+        scale).float()
+    assert _one_ulp(got, want, 2 ** -8 * v.abs().max())
+
+
+@pytest.mark.parametrize("N", NS)
+def test_fp32_model_matches_both_plain_versions(N):
+    q, k, v, _, table, region = _inputs(N, seed=2)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    got = _fwd(q, k, v, table, region, N, scale, bf16=False)
+    want7 = pwa.pallas_window_attention_plain(
+        _qkv(q, k, v, N), _dense(table, region), nH, scale).reshape(got.shape)
+    want1 = wa.window_attention_plain(q, k, v, table, region, N, nH, scale)
+    for want in (want7, want1):
+        s = want.abs().max()
+        torch.testing.assert_close(got / s, want / s, rtol=FP32_TOL,
+                                   atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("N", NS)
+def test_a2_bf16_model_matches_plain_backward(N):
+    q, k, v, do, table, region = _inputs(N, seed=3)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    got = _bwd(q, k, v, do, table, region, N, scale, True)
+    want = wa.window_attention_bwd_plain(
+        *(t.to(torch.bfloat16) for t in (q, k, v, do)), table, region, N, nH,
+        scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = b.float()
+        assert _one_ulp(a, b, 2 ** -7 * b.abs().max()), name
+    assert (got[3] - want[3]).abs().max() <= 1e-5 * want[3].abs().max()
+
+
+@pytest.mark.parametrize("N", NS)
+def test_a2_fp32_model_and_plain_backward_match_autograd(N):
+    q, k, v, do, table, region = _inputs(N, seed=4)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    ts = [t.clone().requires_grad_() for t in (q, k, v, table)]
+    out = wa.window_attention_plain(*ts, region, N, nH, scale)
+    want = torch.autograd.grad(out, ts, do)
+    model = _bwd(q, k, v, do, table, region, N, scale, False)
+    plain = wa.window_attention_bwd_plain(q, k, v, do, table, region, N, nH,
+                                          scale)
+    for got in (model, plain):
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            assert (a - b).abs().max() <= FP32_TOL * b.abs().max(), name
+
+
+@pytest.mark.parametrize("N", [145, 196])
+def test_row7_models_match_jax_reference(N):
+    q, k, v, _, table, region = _inputs(N, seed=5)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    dense = _dense(table, region)
+    want = np.asarray(jpwa._reference_attention(
+        jnp.asarray(_qkv(q, k, v, N).numpy()), jnp.asarray(dense.numpy()), nH,
+        scale)).reshape(q.shape)
+    got16 = _fwd(q, k, v, table, region, N, scale, bf16=True, split_p=True)
+    assert np.abs(got16.numpy() - want).max() <= 2 ** -16 * v.abs().max().item()
+    got32 = _fwd(q, k, v, table, region, N, scale, bf16=False).numpy()
+    s = np.abs(want).max()
+    np.testing.assert_allclose(got32 / s, want / s, rtol=FP32_TOL,
+                               atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_a1_plain_matches_jax_xla_window_attention(shifted):
+    """window_attention_plain (A1's function) and its autograd (A2's) at
+    W=14 against esvit_tpu's WindowAttention on its XLA route, fp32, on
+    two 28 x 28 token images: the output, dx and the rel-pos table's
+    gradient (the dense bias's gathered back) within 2e-5."""
+    H, ws, C, nH = 28, 14, 64, 2
+    N, ss = ws * ws, ws // 2 if shifted else 0
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(8, N, C)).astype(np.float32)
+    wqkv = (rng.normal(size=(C, 3 * C)) * C ** -0.5).astype(np.float32)
+    bqkv = (0.1 * rng.normal(size=3 * C)).astype(np.float32)
+    table = (0.3 * rng.normal(size=((2 * ws - 1) ** 2, nH))).astype(np.float32)
+    g = rng.normal(size=(8, N, C)).astype(np.float32)
+    module = JWindowAttention(dim=C, window_size=ws, num_heads=nH,
+                              attention_impl="xla")
+    mask = jwops.shifted_window_mask(H, H, ws, ss) if shifted else None
+
+    def jax_loss(x, table):
+        params = {"relative_position_bias_table": table,
+                  "qkv": {"kernel": jnp.asarray(wqkv), "bias": jnp.asarray(bqkv)},
+                  "proj": {"kernel": jnp.eye(C), "bias": jnp.zeros(C)}}
+        out, _ = module.apply({"params": params}, x, mask=mask)
+        return (out * g).sum(), out
+
+    (_, j_out), (j_dx, j_dt) = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True))(jnp.asarray(x),
+                                                 jnp.asarray(table))
+    tx, tt = (torch.tensor(a, requires_grad=True) for a in (x, table))
+    qkv = tx.reshape(-1, C) @ torch.from_numpy(wqkv) + torch.from_numpy(bqkv)
+    q2, k2, v2 = (t.contiguous() for t in qkv.split(C, dim=-1))
+    idx = torch.from_numpy(twops.relative_position_index(ws, ws)).long()
+    bias = tt[idx].permute(2, 0, 1)
+    region = (torch.from_numpy(twops.window_region_ids(H, H, ws, ss))
+              if shifted else None)
+    out = wa.window_attention_plain(q2, k2, v2, bias, region, N, nH,
+                                    (C // nH) ** -0.5)
+    out.backward(torch.from_numpy(g).reshape(-1, C))
+    for name, a, b in (("out", out.detach().reshape(x.shape), j_out),
+                       ("dx", tx.grad, j_dx), ("dtable", tt.grad, j_dt)):
+        b = np.asarray(b)
+        s = np.abs(b).max()
+        np.testing.assert_allclose(a.numpy() / s, b / s, rtol=2e-5,
+                                   atol=2e-5, err_msg=name)
+
+
+# Launch plans of the large tile: (windows B_, N, hd, heads, window types,
+# itemsize, SMs). Swin-T W=14's 224 px stages 0 (unshifted and shifted),
+# 1 and 2 in bf16, the 96 px augmented stage 1 in fp32, a ragged window
+# count at N=256 with head dim 64, and a small card.
+PLANS = [
+    (1024, 196, 32, 3, 1, 2, 132),
+    (1024, 196, 32, 3, 16, 2, 132),
+    (256, 196, 32, 6, 4, 2, 132),
+    (64, 196, 32, 12, 1, 2, 132),
+    (256, 145, 32, 6, 1, 4, 132),
+    (37, 256, 64, 2, 1, 2, 132),
+    (40, 100, 24, 2, 8, 4, 2),
+]
+
+
+def large_blocks(plan, B_, nH, types):
+    """Yields (block x, block y, window, head, partial index within head) as
+    both large-tile kernels map them: block (x, y = h * types + t) takes
+    the windows w = i * types + t for i in [x * run, (x + 1) * run), and
+    the backward's block writes partial t * chunks + x of head h."""
+    per_type = B_ // types
+    for x in range(plan.chunks):
+        for y in range(nH * types):
+            t, h = y % types, y // types
+            for i in range(x * plan.run, min((x + 1) * plan.run, per_type)):
+                yield x, y, i * types + t, h, t * plan.chunks + x
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("case", PLANS)
+def test_large_blocks_cover_each_window_and_head_once(case, backward):
+    B_, N, hd, nH, types, itemsize, sms = case
+    plan = wa.tile_plan(B_, N, hd, nH, types, itemsize, sms, backward)
+    assert 1 <= plan.warps <= 4 and 1 <= plan.run <= 8
+    assert plan.smem == wa.tile_smem_bytes(N, hd, itemsize, plan.warps,
+                                           backward)
+    assert plan.smem <= wa._BLOCK_SMEM_MAX
+    per_type = B_ // types
+    assert (plan.chunks - 1) * plan.run < per_type <= plan.chunks * plan.run
+    seen, parts = {}, set()
+    for _, _, w, h, part in large_blocks(plan, B_, nH, types):
+        seen[w, h] = seen.get((w, h), 0) + 1
+        parts.add((h, part))
+    assert seen == {(w, h): 1 for w in range(B_) for h in range(nH)}
+    assert parts == {(h, c) for h in range(nH)
+                     for c in range(wa.bwd_partials(plan, types))}
+
+
+@pytest.mark.parametrize("N,hd,itemsize,backward,want", [
+    # bf16 forward: three 196 x 40 tiles (47104 with rounding), the
+    # region ids (896); backward: four tiles (62720), the row constants
+    # 3 x 196 floats (2432)
+    (196, 32, 2, False, 47104 + 896),
+    (196, 32, 2, True, 62720 + 2432 + 896),
+    # fp32: 196 x 36 tiles, and each of four warps' 16 x 204 scratch
+    (196, 32, 4, False, 84736 + 896 + 4 * 13056),
+    (145, 32, 4, True, 83584 + 1792 + 640 + 4 * 16 * 156 * 4),
+])
+def test_large_tile_smem_bytes_counts_the_layout(N, hd, itemsize, backward,
+                                                 want):
+    assert wa.tile_smem_bytes(N, hd, itemsize, 4, backward) == want
+
+
+def test_shape_rules_admit_what_fits():
+    """The large tile takes 64 < N <= 256 where a one-warp block of the
+    pass fits in both dtypes: the fused rule asks the backward's, row 7's
+    the forward's; the packed pair stays at N <= 64."""
+    for N in (65, 100, 145, 196, 256, 257):
+        for hd in (16, 32, 48, 64):
+            fits = {bw: N <= 256 and all(
+                wa._large_smem_bytes(N, hd, it, 1, bw) <= wa._BLOCK_SMEM_MAX
+                for it in (2, 4)) for bw in (False, True)}
+            assert fb.supports(N, hd * 4, 4, 16 * hd * 2) == fits[True]
+            assert pwa.supports(N, hd * 4, 4) == fits[False]
+            assert not wa.supports(N, hd * 4, 4)
+    assert fb.supports(196, 96, 3, 384) and not fb.supports(256, 128, 2, 512)
+
+
+def test_dbias_partials_at_swin_w14_shapes():
+    """The backward's dbias partials, one (N, N) fp32 slice per block, stay
+    under 64 MB a launch at every Swin-T W=14 block of the step (B = 64
+    images at 224 px, 256 at 96; the shifted blocks' window types)."""
+    for B_, N, nH, types in ((1024, 196, 3, 1), (1024, 196, 3, 16),
+                             (256, 196, 6, 1), (256, 196, 6, 4),
+                             (64, 196, 12, 1), (1024, 196, 3, 4),
+                             (256, 145, 6, 1)):
+        plan = wa.tile_plan(B_, N, 32, nH, types, 2, backward=True)
+        nbytes = nH * wa.bwd_partials(plan, types) * N * N * 4
+        assert nbytes <= 64 << 20, (B_, N, nH, types, plan, nbytes)
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void wtile::window_attention_large_kernel<__nv_bfloat16, "
+     "(anonymous namespace)::FusedBlockBias>(wtile::Operands<__nv_bfloat16>, "
+     "(anonymous namespace)::FusedBlockBias, wtile::Geometry)", "fused"),
+    ("void wtile::window_attention_large_bwd_kernel<float, "
+     "(anonymous namespace)::FusedBlockBias>(wtile::BwdOperands<float>, "
+     "(anonymous namespace)::FusedBlockBias, wtile::Geometry)", "fused"),
+    ("void wtile::window_attention_large_kernel<float, (anonymous namespace)"
+     "::DenseBias>(wtile::Operands<float>, (anonymous namespace)::DenseBias, "
+     "wtile::Geometry)", "window"),
+])
+def test_profile_files_the_large_tile_by_its_caller(name, group):
+    """utils/profile.py files the large tile's kernels as it files the
+    small ones: the fused block's attention halves (FusedBlockBias) under
+    the fused block, row 7's under window attention."""
+    from esvit_tpu_torch.utils.profile import _kernel_group
+
+    assert _kernel_group(name) == {
+        "fused": "fused block (this repo's CUDA)",
+        "window": "window attention (this repo's CUDA)"}[group]
+
+
+def test_build_compiles_each_source_apart_then_links(tmp_path, monkeypatch):
+    """A library's sources (csrc/<name>.cu, then csrc/<name>_*.cu: the
+    fused block's large-window tile is fused_block_large.cu) each go to an
+    nvcc of their own, all started together, and one link joins the
+    objects; the report holds each source's seconds. A stand-in nvcc here
+    writes its output file and echoes its command."""
+    import stat
+    import sys
+
+    from esvit_tpu_torch.ops import cuda_build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    for name in ("k.cu", "k_large.cu", "kk.cu", "t.cuh"):
+        (csrc / name).write_text(f"// {name}\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys\n"
+                    "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                    "open(out, 'w').write(' '.join(sys.argv[1:]))\n"
+                    "print('ptxas info    : Used 8 registers', ' '.join(sys.argv[1:]))\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD", build)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(fake))
+    assert [p.name for p in cuda_build.sources("k", csrc)] == ["k.cu",
+                                                               "k_large.cu"]
+    built = cuda_build.build_all(["k", "kk"])
+    lib, report = built["k"]
+    assert lib.exists() and lib.name.startswith("libk_")
+    linked = lib.read_text()
+    assert "-shared" in linked and linked.count(".o") == 2
+    for src in ("k.cu", "k_large.cu"):
+        assert f"nvcc {src}: " in report and f"-c -I {csrc} -o" in report
+    assert "k_large.cu" not in built["kk"][1]
+    assert sorted(p.suffix for p in build.iterdir()) == [".so", ".so"]
+    assert cuda_build.build_all(["k"])["k"] == (lib, "")
