@@ -12,16 +12,22 @@ so the script exits non-zero and prints no result line:
    per source, all started together) and print nvcc's -Xptxas -v report; fail if a
    window-attention tile kernel's registers hold fewer warps per SM than
    ops/window_attention.py tile_plan assumes; the same for the
-   large-window tile's six kernels (N > 64, printed with their spills and
-   blocks per SM at N=196); print each source's nvcc seconds and the
+   large-window tile's ten kernels (N > 64: the block-fused pair's, the
+   packed pair's and row 7's; printed with their spills and blocks per SM
+   at N=196); print each source's nvcc seconds, the block-fused pair's
+   token-tile and weight-GEMM kernels' registers, spills and blocks per
+   SM (their LayerNorm rows in registers up to C=512), and the
    sliding-chunk tensor-core kernels' registers, spills and blocks per SM.
 3. Window attention vs plain PyTorch on the card at every full-window
    shape of the Swin-T W=7 B=32 multi-crop step (bf16, plus one fp32
-   case): forward output and the q/k/v/bias gradients within 3e-2 (bf16)
-   or 2e-5 (fp32) after normalising each by its max-abs; dbias
-   bit-identical on repeat; median times over 20 reps of kernel, plain
-   and the library call (scaled_dot_product_attention), with each
-   shape's bound. First, the tile kernels' shared memory (forward and
+   case) and of the Swin-B W=14 B=8 step's packed route (N=196 on the
+   large-window tile, N=49 at C=1024; N=145 and an fp32 case): forward
+   output and the q/k/v/bias gradients within 3e-2 (bf16) or 2e-5 (fp32)
+   after normalising each by its max-abs; all five bit-identical on
+   repeat; where a timed step launches the shape, median times over 20
+   reps of kernel, plain and the library call
+   (scaled_dot_product_attention), with each shape's bound, and the sums
+   per Swin-B W=14 packed-route step. First, the tile kernels' shared memory (forward and
    backward) as the wrapper counts it equals the kernels' own count at
    every N up to 256 (the large tile above 64), head dim and dtype, and
    fits a block wherever the shape rules admit the shape.
@@ -30,17 +36,21 @@ so the script exits non-zero and prints no result line:
    N=196 full and padded windows and the augmented 145, on the
    large-window tile, bf16 and fp32; and the learning gate's nano Swin's
    at W=4: C 32/64/128, N=16 and the augmented window of 5 tokens, bf16,
-   and its fp32 eval), shifted and unshifted, with
+   and its fp32 eval; and Swin-B's at W=14: C 128 / 256 / 512 at N=196,
+   the augmented 145 and 37, with C=512 also at W=7's N=49, on the
+   augmented 145 and in fp32), shifted and unshifted, with
    drop-path scales that drop an image (bf16, plus one fp32 case): the
    output, dx and all 17 parameter gradients within the same tolerances
    (dbk, whose exact value is 0, at the scale of the largest gradient);
    every result bit-identical on repeat; each forward stage kernel (F1,
    A1, F2, F3, F4) and each backward stage kernel (T1, A1, T2, A2, T3)
-   within the same tolerance of its plain twin on its own inputs; median
-   times over 20 reps; both passes' device time split by kernel
+   within the same tolerance of its plain twin on its own inputs; where a
+   timed step launches the shape, median times over 20 reps; both
+   passes' device time split by kernel
    (torch.profiler), per shape and per default step; beside the forward,
    a yardstick: torch.matmul (cuBLAS) of the block's four products at the
-   shape, timed only; the sums per W=7 and per W=14 step. First, both
+   shape, timed only; the sums per Swin-T W=7, Swin-T W=14 and Swin-B
+   W=14 step, and the Swin-B step's C=512 blocks apart. First, both
    passes' token-tile blocks fit the card at every admitted width.
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
    of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case) and
@@ -71,9 +81,8 @@ so the script exits non-zero and prints no result line:
    plain route (attention_impl='xla', no fused stages) agree within 1e-4
    relative, and so does forward_return_n_last_blocks(x, 4) on each of
    them; each kernel's launches equal the model-derived counts; the same
-   at W=14 (stages 0-2 on the large tile on the fused and qkv-layout
-   routes, plain on the window-attention route, whose packed pair takes
-   N <= 64); so do ViL-T's kernel route and its plain route
+   at W=14 (stages 0-2 on the large tile on each kernel route); so do
+   ViL-T's kernel route and its plain route
    (fused_sc='off').
 8. The slices: esvit_tpu_torch.train.train.train() runs 5 steps of Swin-T
    W=7, B=32, 2x224 + 8x96 crops, out_dim 65536, DDINO, bf16, on-device
@@ -84,8 +93,9 @@ so the script exits non-zero and prints no result line:
    ViL-T); each run's launch counts of every kernel must equal the
    per-step counts derived from the model times the steps. Then the
    route order: the default route and fused_block_stages=() alternate for
-   2 rounds of 3 steps each; each route's median ms per step over steps
-   2-3 of its rounds and their spread. Between the two, the data-fed
+   2 rounds of 3 steps each, each on one trainer going on from its
+   train() run's state; each route's median ms per step over steps 2-3 of
+   its rounds and their spread. Between the two, the data-fed
    slice: 6 steps of the Swin-T default route through train() fed by
    data/loader.py MultiCropIterator over ProceduralShapesHard (256 px,
    8B images, 4 host threads, uint8 upload, augmentation on the card),
@@ -102,7 +112,7 @@ so the script exits non-zero and prints no result line:
    features. Features finite and unit-norm, accuracies in [0, 100], and
    the kernel's launches equal to the model-derived count per batch
    times the batches.
-10. The learning canary: 60 steps of esvit_tpu_torch.validate_learning's
+10. The learning canary: 30 steps of esvit_tpu_torch.validate_learning's
    nano Swin leg on shapes_hard (k-NN before and after, no gain gate):
    a finite last loss and centres, and the block-fused launches equal to
    the model's (the steps and the two evals). The full gates are
@@ -235,13 +245,27 @@ so the script exits non-zero and prints no result line:
    tile at stages 0-2; launches as derived, 30 forward and 20 backward a
    step: 22 / 12 at N=196, 2 / 2 at N=145, 6 / 6 at N=37; finite losses,
    state moved), 3 on the plain route (fused_block_stages=(),
-   attention_impl='xla': no kernel), each with its peak memory, then 3
+   attention_impl='xla': no kernel), each with its peak memory, then 2
    alternating rounds of 3 steps on one trainer per route: each route's
    median ms/step and spread, and its device time by kernel group
    (torch.profiler); the fp32 eval forward on the
    qkv-layout route (batch 64 at 224 px: row 7's launches as derived,
    the ms per batch); the k-NN CLI at --window_size 14 in fp32 on noise
    images, the card's features within 1e-4 of the CPU's.
+18. Swin-B at W=14 (``phase_swin_b_w14``, after phase 17): the same
+   recipe with model=swin_base(window_size=14) at B=8 (bench.py's
+   swin_base_w14), on three routes through train(), 3 steps each with the
+   slice's checks (finite losses, state moved, launches as derived): the
+   kernel route (the block-fused pair at C=128/256/512, 66 forward and 44
+   backward launches a step, 54 / 36 at C=512; the packed pair 4 / 2 at
+   stage 3), the packed route (fused_block_stages=(): the packed pair 50
+   / 26, 46 / 24 at N=196 on the large-window tile) and the plain route
+   (also attention_impl='xla': no kernel); each run's ms/step and peak
+   memory; then 2 alternating rounds of 3 steps on one trainer per route:
+   each route's median ms/step and spread, and its device time by kernel
+   group (torch.profiler).
+
+Each phase's seconds are printed after it (``phase <n> ...: <s> s``).
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -256,11 +280,15 @@ over HBM bandwidth and the operations over the peak of their type (bf16
 tensor cores; fp32 CUDA cores for the fp32 eval), summed the same way.
 The ``*_w14_*`` entries are the same for the W=14 cell: the block-fused
 pair per W=14 step (launches from phase 17's kernel-route steps) and row
-7 per W=14 eval batch (launches from phase 17's eval forward).
+7 per W=14 eval batch (launches from phase 17's eval forward). The
+``*_swin_b_w14_*`` entries: the block-fused pair per Swin-B W=14 step
+(launches from phase 18's kernel route) and the packed pair per Swin-B
+W=14 packed-route step (launches from phase 18's packed route).
 The last line is {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -276,6 +304,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
 STEPS = 5
 REPS = 20
+# Calls per torch.profiler session of the block-fused phase's per-shape
+# splits.
+SPLIT_REPS = 10
 # The route order: rounds of the default route and fused_block_stages=()
 # in turns, and steps per round.
 ROUTE_ROUNDS, ROUTE_STEPS = 2, 3
@@ -286,11 +317,15 @@ ROUTE_ROUNDS, ROUTE_STEPS = 2, 3
 DATA_STEPS, DATA_IMAGES, NUM_THREADS = 6, 8, 4
 DATA_MEAN_BAND, DATA_STD_BAND = (-1.5, 1.5), (0.3, 1.5)
 # The nano learning canary's steps.
-CANARY_STEPS = 60
+CANARY_STEPS = 30
 # The kernels line's W=14 rows: the block-fused pair on the large tile
 # (rows 1-2, launches from phase 17's kernel-route steps) and row 7 on it
 # (launches from phase 17's qkv-layout eval forward), beside the W=7 rows.
 KERNELS_W14 = ("fused_block", "pallas_window_attention")
+# The Swin-B W=14 rows: the block-fused pair at C 128-512 (launches from
+# phase 18's kernel route) and the packed pair on the large-window tile
+# (launches from phase 18's packed route).
+KERNELS_B14 = ("fused_block", "window_attention")
 KERNELS = {
     "window_attention": ("esvit_tpu_torch/csrc/window_attention.cu", {
         "fwd": "esvit_tpu/ops/packed_window_attention.py:305",
@@ -453,6 +488,52 @@ PWA_SHAPES = [
     ("96 s1", 1024, 192, 6, 12, False, "bf16", 0),
     ("96 s1 shifted", 1024, 192, 6, 12, True, "bf16", 0),
 ]
+# Rows 3-4 at Swin-B's W=14 shapes (phase 18's packed route,
+# fused_block_stages=(), B=8: the 224 crops 2B = 16 images, the 96 crops
+# 8B = 64): (label, windows B_, C, nH, stage resolution H, shifted, dtype
+# name, calls per Swin-B W=14 step: forward, backward, tokens per window
+# N). N=196 on the large-window tile at stages 0-2 (stage 2 one window an
+# image, unshifted; the 96 px stage 0 padded from 24 to 28 tokens a side);
+# the 224 px stage 3 at W=7 (N=49, C=1024); N=145 (a 12 x 12 window + 1,
+# the augmented window's size, which no packed call of the step gives)
+# and the fp32 case are checked only.
+WA_SHAPES_B14 = [
+    ("b14 224 s0", 256, 128, 4, 56, False, "bf16", 2, 1, 196),
+    ("b14 224 s0 shifted", 256, 128, 4, 56, True, "bf16", 2, 1, 196),
+    ("b14 224 s1", 64, 256, 8, 28, False, "bf16", 2, 1, 196),
+    ("b14 224 s1 shifted", 64, 256, 8, 28, True, "bf16", 2, 1, 196),
+    ("b14 224 s2", 16, 512, 16, 14, False, "bf16", 36, 18, 196),
+    ("b14 224 s3", 16, 1024, 32, 7, False, "bf16", 4, 2, 49),
+    ("b14 96 s0 padded", 256, 128, 4, 24, False, "bf16", 1, 1, 196),
+    ("b14 96 s0 padded shifted", 256, 128, 4, 24, True, "bf16", 1, 1, 196),
+    ("b14 145", 64, 256, 8, 12, False, "bf16", 0, 0, 145),
+    ("b14 224 s1 shifted fp32", 16, 256, 8, 28, True, "fp32", 0, 0, 196),
+]
+# The block-fused pair at Swin-B's shapes (C 128 / 256 / 512, nH 4 / 8 /
+# 16, head dim 32, M = 4C), FUSED_SHAPES' format with the 11th entry the
+# shape's (forward, backward) calls per Swin-B W=14 step (phase 18's
+# kernel route, B=8: 2B = 16 images at 224 px, 8B = 64 at 96 px; stage 2
+# is one 14 x 14 window at 224 px, so its 18 blocks are unshifted, and the
+# augmented 6 x 6 + 1 at 96 px). "b 224 s2" is Swin-B's stage 2 at W=7
+# (N=49, four windows an image), "b 145 augmented" the augmented 12 x 12
+# + 1 at C=512, and the fp32 case: checked only.
+FUSED_SHAPES_B14 = [
+    ("b14 224 s0", 16, 128, 4, 56, False, "bf16", 0, 0, 14, (2, 1)),
+    ("b14 224 s0 shifted", 16, 128, 4, 56, True, "bf16", 0, 0, 14, (2, 1)),
+    ("b14 224 s1", 16, 256, 8, 28, False, "bf16", 0, 0, 14, (2, 1)),
+    ("b14 224 s1 shifted", 16, 256, 8, 28, True, "bf16", 0, 0, 14, (2, 1)),
+    ("b14 224 s2", 16, 512, 16, 14, False, "bf16", 0, 0, 14, (36, 18)),
+    ("b14 96 s0 padded", 64, 128, 4, 24, False, "bf16", 0, 0, 14, (1, 1)),
+    ("b14 96 s0 padded shifted", 64, 128, 4, 24, True, "bf16", 0, 0, 14,
+     (1, 1)),
+    ("b14 96 s1 augmented", 64, 256, 8, 12, False, "bf16", 0, 0, 14, (2, 2)),
+    ("b14 96 s2 augmented", 64, 512, 16, 6, False, "bf16", 0, 0, 14,
+     (18, 18)),
+    ("b 224 s2", 16, 512, 16, 14, False, "bf16", 0, 0, 7),
+    ("b 224 s2 shifted", 16, 512, 16, 14, True, "bf16", 0, 0, 7),
+    ("b 145 augmented", 16, 512, 16, 12, False, "bf16", 0, 0, 14),
+    ("b14 224 s2 fp32", 4, 512, 16, 14, False, "fp32", 0, 0, 14),
+]
 TOL = {"bf16": 3e-2, "fp32": 2e-5}
 # The eval slice: batch, synthetic train / val images, image side, classes.
 EVAL_BATCH = 64
@@ -532,9 +613,9 @@ def ptxas_spills(report):
 
 def large_tile_registers(wa, regs, spills):
     """Lines for the large-window tile's kernels (N > 64: the block-fused
-    pair's forward and backward tiles, each dtype, from
-    csrc/fused_block_large*.cu, and row 7's forward tile, each dtype):
-    registers,
+    pair's and the packed pair's forward and backward tiles, each dtype,
+    from csrc/fused_block_large*.cu and csrc/window_attention_large*.cu,
+    and row 7's forward tile, each dtype): registers,
     spills, the warps an SM holds by registers (held to tile_plan's
     _SM_WARPS_MAX_LARGE, as check_tile_registers holds the small tiles)
     and the blocks it holds by shared memory at Swin's N=196, head dim 32
@@ -557,6 +638,26 @@ def large_tile_registers(wa, regs, spills):
                      f" bytes (stores, loads): {fits} warps/SM >= plan {cap}; "
                      f"{by_smem} blocks of {plan.warps} warps by shared memory "
                      f"at N=196 hd=32 ({plan.smem} bytes)")
+    return sorted(lines)
+
+
+def fused_block_registers(wa, regs, spills):
+    """Lines for the block-fused pair's own kernels (the forward's token
+    tiles F1-F4, the backward's T1-T3, the weight GEMMs; each dtype):
+    registers, spills and the 256-thread blocks an SM holds by registers.
+    The token kernels ask for two blocks per SM (__launch_bounds__(256,
+    2): at most 128 registers a thread), their LayerNorm rows held in
+    registers up to C=512."""
+    lines = []
+    for name, n in regs.items():
+        m = re.search(r"(fused_bwd_t\d_kernel|fused_block_fwd_\w+?_kernel|"
+                      r"wgrad_\w*kernel)(?:(I.*?E)E)?", name)
+        if not m:
+            continue
+        by_regs = wa._SM_REGS // (-(-n // 8) * 8 * 256)
+        lines.append(f"{m.group(1)}{m.group(2) or ''} {n} regs, spills "
+                     f"{spills.get(name, (0, 0))} bytes (stores, loads): "
+                     f"{by_regs} blocks of 256 threads/SM by registers")
     return sorted(lines)
 
 
@@ -602,10 +703,10 @@ def phase_build(cuda_build, wa, sc):
     for line in lines:
         log(f"registers {line}")
     large = large_tile_registers(wa, regs, spills)
-    if regs and len(large) != 6:
+    if regs and len(large) != 10:
         raise AssertionError(f"found {len(large)} large-window tile kernels "
-                             "in the ptxas report, expected 6")
-    for line in large:
+                             "in the ptxas report, expected 10")
+    for line in large + fused_block_registers(wa, regs, spills):
         log(f"registers {line}")
     sc_lines = sliding_chunk_registers(sc, wa, regs)
     if regs and len(sc_lines) != 12:
@@ -722,8 +823,11 @@ def _split_line(split, top=8):
 def phase_window_attention(torch, wa, wops):
     """Kernel vs plain at the slice's shapes, and the library call
     (scaled_dot_product_attention, the bias + shift mask as its float
-    attn_mask; its backward gives dq, dk, dv, not dbias). Returns a Tally
-    per kernel."""
+    attn_mask; its backward gives dq, dk, dv, not dbias) at the shapes
+    with calls on a timed step (others are checked, not timed). Returns
+    two {"fwd", "bwd"} Tallies: per Swin-T W=7 default step (SHAPES) and
+    per Swin-B W=14 packed-route step (WA_SHAPES_B14: N=196 on the
+    large-window tile)."""
     F = torch.nn.functional
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = wa._lib()
@@ -757,15 +861,20 @@ def phase_window_attention(torch, wa, wops):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     tally = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
-    scale = 32 ** -0.5
-    for label, B_, C, nH, H, shifted, dt, n_fwd, n_bwd in SHAPES:
+    tally_b14 = {"fwd": Tally(library=True), "bwd": Tally(library=True)}
+    # (shape, its cell, calls per step of the W=7 cell, of the Swin-B one)
+    cases = ([(s[:7] + (49,), tally, s[7:9], (0, 0)) for s in SHAPES]
+             + [(s[:7] + s[9:], tally_b14, (0, 0), s[7:9])
+                for s in WA_SHAPES_B14])
+    for (label, B_, C, nH, H, shifted, dt, N), own, calls, calls_b14 in cases:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        N = 49
-        region = (torch.as_tensor(wops.window_region_ids(H, H, 7, 3),
+        ws = math.isqrt(N)
+        region = (torch.as_tensor(wops.window_region_ids(H, H, ws, ws // 2),
                                   device=dev) if shifted else None)
         q, k, v, do = (torch.randn(B_ * N, C, generator=gen, device=dev)
                        .to(dtype) for _ in range(4))
         bias = 0.3 * torch.randn(nH, N, N, generator=gen, device=dev)
+        scale = (C // nH) ** -0.5
 
         def grads(fn):
             ts = [t.clone().requires_grad_() for t in (q, k, v, bias)]
@@ -776,18 +885,26 @@ def phase_window_attention(torch, wa, wops):
         got = grads(wa._WindowAttention.apply)
         again = grads(wa._WindowAttention.apply)
         ref = grads(wa.window_attention_plain)
-        if not torch.equal(got[4], again[4]):
-            raise AssertionError(f"{label}: dbias differs between two runs")
         errs = []
-        for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, ref):
+        for name, a, a2, b in zip(("out", "dq", "dk", "dv", "dbias"), got,
+                                  again, ref):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{label}: kernel {name} not finite")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{label}: {name} differs between two "
+                                     "runs")
             s = max(b.float().abs().max().item(), 1e-6)
             errs.append((a.float() - b.float()).abs().max().item() / s)
         if max(errs) > TOL[dt]:
             raise AssertionError(f"{label}: errors {errs} above {TOL[dt]}")
-        tally["fwd"].err = max(tally["fwd"].err, errs[0])
-        tally["bwd"].err = max(tally["bwd"].err, *errs[1:])
+        own["fwd"].err = max(own["fwd"].err, errs[0])
+        own["bwd"].err = max(own["bwd"].err, *errs[1:])
+        log(f"kernel-vs-plain {label:24s} B_={B_:5d} N={N:3d} C={C:4d} "
+            f"nH={nH:2d} {dt}: max err out {errs[0]:.2e} dq {errs[1]:.2e} "
+            f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} "
+            f"(tol {TOL[dt]:.0e}); all five bit-identical on repeat")
+        if not any(calls + calls_b14):
+            continue        # checked; no timed step launches this shape
 
         with torch.no_grad():
             t_fwd = _median_ms(torch, lambda: wa._fwd(q, k, v, bias, region,
@@ -830,20 +947,24 @@ def phase_window_attention(torch, wa, wops):
         work = {"fwd": (4 * rows + tables, 4 * B_ * N * N * C),
                 "bwd": (7 * rows + tables + nH * N * N * 4,
                         10 * B_ * N * N * C)}
-        tally["fwd"].add(n_fwd, t_fwd, p_fwd, *work["fwd"], l_fwd)
-        tally["bwd"].add(n_bwd, t_bwd, p_bwd, *work["bwd"], l_bwd)
+        for cell, (n_fwd, n_bwd) in ((tally, calls), (tally_b14, calls_b14)):
+            cell["fwd"].add(n_fwd, t_fwd, p_fwd, *work["fwd"], l_fwd)
+            cell["bwd"].add(n_bwd, t_bwd, p_bwd, *work["bwd"], l_bwd)
         rate = FP32_FLOP_PER_S if dt == "fp32" else BF16_FLOP_PER_S
         bound = {k: max(b / HBM_BYTES_PER_S, f / rate) * 1e3
                  for k, (b, f) in work.items()}
-        log(f"kernel-vs-plain {label:20s} B_={B_:5d} C={C:3d} nH={nH:2d} "
-            f"{dt}: max err out {errs[0]:.2e} dq {errs[1]:.2e} "
-            f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} "
-            f"(tol {TOL[dt]:.0e}); dbias bit-identical on repeat")
-        log(f"  time {label:20s} fwd kernel {t_fwd:.4f} ms plain "
+        log(f"  time {label:24s} fwd kernel {t_fwd:.4f} ms plain "
             f"{p_fwd:.4f} ms sdpa {l_fwd:.4f} ms bound {bound['fwd']:.4f} ms "
             f"| bwd kernel {t_bwd:.4f} ms plain {p_bwd:.4f} ms sdpa "
             f"{l_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
-    return tally
+    rec = {k: t.record() for k, t in tally_b14.items()}
+    log(f"window attention per Swin-B W=14 packed-route step: fwd kernel "
+        f"{rec['fwd']['ms']:.4f} ms plain {rec['fwd']['plain_ms']:.4f} ms sdpa "
+        f"{rec['fwd']['library_ms']:.4f} ms bound {rec['fwd']['bound_ms']:.4f}"
+        f" ms | bwd kernel {rec['bwd']['ms']:.4f} ms plain "
+        f"{rec['bwd']['plain_ms']:.4f} ms sdpa {rec['bwd']['library_ms']:.4f}"
+        f" ms bound {rec['bwd']['bound_ms']:.4f} ms")
+    return tally, tally_b14
 
 
 def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen, ws=7):
@@ -898,9 +1019,12 @@ def _fused_case(torch, wops, B, C, nH, H, shifted, dtype, gen, ws=7):
 
 def phase_fused(torch, fb, wa, wops):
     """The block-fused pair vs its plain version at the default route's
-    block shapes, W=7's and W=14's. Returns two {"fwd", "bwd"} Tallies,
-    the W=7 step's and the W=14 step's: per-kernel max error and the
-    per-step kernel/plain milliseconds."""
+    block shapes, Swin-T's at W=7 and W=14 and Swin-B's at W=14 (and C=512
+    at W=7), timed where a timed step launches the shape. Returns three
+    {"fwd", "bwd"} Tallies, the Swin-T W=7 step's, the Swin-T W=14 step's
+    and the Swin-B W=14 step's: per-kernel max error and the per-step
+    kernel/plain milliseconds; logs the C=512 blocks' share of the Swin-B
+    step."""
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = fb._lib()
     for C in range(32, fb._MAX_C + 1, 32):
@@ -915,12 +1039,18 @@ def phase_fused(torch, fb, wa, wops):
                         f"the {what}'s token tiles at C={C} need {n} bytes "
                         f"of shared memory (card: {limit})")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tally = {"fwd": Tally(), "bwd": Tally()}
-    tally14 = {"fwd": Tally(), "bwd": Tally()}
+    cells = {name: {"fwd": Tally(), "bwd": Tally()}
+             for name in ("W=7 default", "W=14", "Swin-B W=14",
+                          "Swin-B W=14 C=512")}
+    tally, tally14, tally_b14, tally_b512 = cells.values()
     split_step = {"fwd": {}, "bwd": {}}
-    cublas_step = {7: 0.0, 14: 0.0}
-    for label, B, C, nH, H, shifted, dt, n_fwd, n_bwd, ws, *w14 in FUSED_SHAPES:
-        w14_fwd, w14_bwd = w14[0] if w14 else (0, 0)
+    cublas_step = dict.fromkeys(cells, 0.0)
+    # (shape, the cell its 11th entry counts for)
+    cases = ([(s, "W=14") for s in FUSED_SHAPES]
+             + [(s, "Swin-B W=14") for s in FUSED_SHAPES_B14])
+    for (label, B, C, nH, H, shifted, dt, n_fwd, n_bwd, ws, *extra), other \
+            in cases:
+        e_fwd, e_bwd = extra[0] if extra else (0, 0)
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, params, k1, k2, region, pad, geo, do = _fused_case(
             torch, wops, B, C, nH, H, shifted, dtype, gen, ws)
@@ -952,14 +1082,19 @@ def phase_fused(torch, fb, wa, wops):
         bad = {n: e for n, e in errs.items() if e > TOL[dt]}
         if bad:
             raise AssertionError(f"fused {label}: errors {bad} above {TOL[dt]}")
-        cell = tally14 if ws == 14 else tally
-        cell["fwd"].err = max(cell["fwd"].err, errs["out"])
-        cell["bwd"].err = max(cell["bwd"].err,
-                              *(errs[n] for n in FUSED_GRADS))
-        if w14 and ws != 14:
-            tally14["fwd"].err = max(tally14["fwd"].err, errs["out"])
-            tally14["bwd"].err = max(tally14["bwd"].err,
-                                     *(errs[n] for n in FUSED_GRADS))
+        # the cells whose error this shape counts in: a Swin-T shape's W=7
+        # or W=14 cell by its window, and W=14's where its 11th entry
+        # counts calls there; a Swin-B shape's cell, and its C=512 part
+        if other == "W=14":
+            own = [tally14 if ws == 14 else tally]
+            if extra and ws != 14:
+                own.append(tally14)
+        else:
+            own = [tally_b14] + ([tally_b512] if C == 512 else [])
+        for cell in own:
+            cell["fwd"].err = max(cell["fwd"].err, errs["out"])
+            cell["bwd"].err = max(cell["bwd"].err,
+                                  *(errs[n] for n in FUSED_GRADS))
         del got, again, ref
         for what, stage_errors in (("fwd", fb.fwd_stage_errors),
                                    ("bwd", fb.bwd_stage_errors)):
@@ -969,9 +1104,17 @@ def phase_fused(torch, fb, wa, wops):
             if bad:
                 raise AssertionError(f"fused {label}: {what} stage errors "
                                      f"{bad} above {TOL[dt]}")
-            log(f"fused-stages {label:22s} {dt} {what}: " + ", ".join(
+            log(f"fused-stages {label:24s} {dt} {what}: " + ", ".join(
                 f"{n} {e:.2e}" for n, e in stages.items())
                 + f" (tol {TOL[dt]:.0e})")
+        top = sorted(((n if n == "out" else f"d{n}", e)
+                      for n, e in errs.items()), key=lambda kv: -kv[1])[:3]
+        log(f"fused-vs-plain {label:24s} B={B:3d} W={ws} N={N} nW={nW:2d} "
+            f"C={C:3d} nH={nH:2d} {dt}: max err out {errs['out']:.2e} dx "
+            f"{errs['x']:.2e}, largest {', '.join(f'{n} {e:.2e}' for n, e in top)}"
+            f" (tol {TOL[dt]:.0e}); all 19 results bit-identical on repeat")
+        if not (n_fwd or n_bwd or e_fwd or e_bwd):
+            continue        # checked; no timed step launches this shape
 
         with torch.no_grad():
             t_fwd = _median_ms(torch, lambda: fb._fwd(
@@ -979,14 +1122,14 @@ def phase_fused(torch, fb, wa, wops):
             p_fwd = _median_ms(torch, lambda: fb.fused_swin_block_plain(
                 x, params, k1, k2, **kw))
             t_cublas = _cublas_ms(torch, x, params)
-        cublas_step[7] += n_fwd * t_cublas
-        cublas_step[14] += w14_fwd * t_cublas
         t_bwd = _median_ms(torch, lambda: fb._bwd(
             x, params, k1, k2, region, pad, do, geo))
+        # the split over SPLIT_REPS calls (its total is the events'
+        # median's cross-check, not the number the tallies take)
         splits = {"fwd": kernel_split(torch, lambda: fb._fwd(
-                      x, params, k1, k2, region, pad, geo)),
+                      x, params, k1, k2, region, pad, geo), SPLIT_REPS),
                   "bwd": kernel_split(torch, lambda: fb._bwd(
-                      x, params, k1, k2, region, pad, do, geo))}
+                      x, params, k1, k2, region, pad, do, geo), SPLIT_REPS)}
         for what, calls in (("fwd", n_fwd), ("bwd", n_bwd)):
             for name, ms in splits[what].items():
                 key = _kernel_key(name)
@@ -1008,38 +1151,33 @@ def phase_fused(torch, fb, wa, wops):
         tables = sum(4 * t.numel() for t in (region, pad, k1, k2)
                      if t is not None)
         flops = 2 * T * 12 * C * C + 4 * T * N * C
-        for cell, (c_fwd, c_bwd) in ((tally, (n_fwd, n_bwd)),
-                                     (tally14, (w14_fwd, w14_bwd))):
-            cell["fwd"].add(c_fwd, t_fwd, p_fwd, 2 * rows + pbytes + tables,
-                            flops)
-            cell["bwd"].add(c_bwd, t_bwd, p_bwd,
-                            3 * rows + 2 * pbytes + tables, 3 * flops)
-        top = sorted(((n if n == "out" else f"d{n}", e)
-                      for n, e in errs.items()), key=lambda kv: -kv[1])[:3]
-        log(f"fused-vs-plain {label:22s} B={B:3d} W={ws} N={N} nW={nW:2d} "
-            f"C={C:3d} nH={nH:2d} {dt}: max err out {errs['out']:.2e} dx "
-            f"{errs['x']:.2e}, largest {', '.join(f'{n} {e:.2e}' for n, e in top)}"
-            f" (tol {TOL[dt]:.0e}); all 19 results bit-identical on repeat")
+        counted = [("W=7 default", (n_fwd, n_bwd)), (other, (e_fwd, e_bwd))]
+        if other != "W=14" and C == 512:
+            counted.append(("Swin-B W=14 C=512", (e_fwd, e_bwd)))
+        for name, (c_fwd, c_bwd) in counted:
+            cells[name]["fwd"].add(c_fwd, t_fwd, p_fwd,
+                                   2 * rows + pbytes + tables, flops)
+            cells[name]["bwd"].add(c_bwd, t_bwd, p_bwd,
+                                   3 * rows + 2 * pbytes + tables, 3 * flops)
+            cublas_step[name] += c_fwd * t_cublas
         bound = {k: max(b / HBM_BYTES_PER_S, f / BF16_FLOP_PER_S
                         if dt == "bf16" else f / FP32_FLOP_PER_S) * 1e3
                  for k, (b, f) in (("fwd", (2 * rows + pbytes + tables, flops)),
                                    ("bwd", (3 * rows + 2 * pbytes + tables,
                                             3 * flops)))}
-        log(f"  time {label:22s} fwd kernel {t_fwd:.4f} ms plain "
+        log(f"  time {label:24s} fwd kernel {t_fwd:.4f} ms plain "
             f"{p_fwd:.4f} ms bound {bound['fwd']:.4f} ms cublas four products "
             f"{t_cublas:.4f} ms | bwd kernel {t_bwd:.4f} ms plain "
             f"{p_bwd:.4f} ms bound {bound['bwd']:.4f} ms")
         for what in ("fwd", "bwd"):
-            log(f"  split {label:22s} {what} "
+            log(f"  split {label:24s} {what} "
                 f"{sum(splits[what].values()):.4f} ms: "
                 f"{_split_line(splits[what])}")
     for what in ("fwd", "bwd"):
         log(f"fused {what} split per default step (ms, torch.profiler): "
             + json.dumps({k: round(v, 4) for k, v in sorted(
                 split_step[what].items(), key=lambda kv: -kv[1]) if v}))
-    log(f"fused fwd per default step {tally['fwd'].ms:.4f} ms beside cublas "
-        f"four products {cublas_step[7]:.4f} ms (timed only)")
-    for name, cell in (("W=7 default", tally), ("W=14", tally14)):
+    for name, cell in cells.items():
         rec = {k: t.record() for k, t in cell.items()}
         log(f"fused per {name} step: fwd kernel {rec['fwd']['ms']:.4f} ms "
             f"plain {rec['fwd']['plain_ms']:.4f} ms bound "
@@ -1047,10 +1185,10 @@ def phase_fused(torch, fb, wa, wops):
             f"kernel {rec['bwd']['ms']:.4f} ms plain {rec['bwd']['plain_ms']:.4f}"
             f" ms bound {rec['bwd']['bound_ms']:.4f} ms "
             f"({rec['bwd']['bound_by']}); max err fwd "
-            f"{rec['fwd']['max_abs_err']:.2e} bwd {rec['bwd']['max_abs_err']:.2e}")
-    log(f"fused fwd per W=14 step {tally14['fwd'].ms:.4f} ms beside cublas "
-        f"four products {cublas_step[14]:.4f} ms (timed only)")
-    return tally, tally14
+            f"{rec['fwd']['max_abs_err']:.2e} bwd {rec['bwd']['max_abs_err']:.2e}"
+            f"; beside cublas four products {cublas_step[name]:.4f} ms "
+            "(timed only)")
+    return tally, tally14, tally_b14
 
 
 def _cublas_ms(torch, x, params):
@@ -1183,8 +1321,8 @@ def phase_forward_parity(torch, C, fb, wa, pwa, window_size=7):
     forward_return_n_last_blocks(x, 4) (the probe's features, which every
     route computes in its classic block loop); each kernel's launches
     equal to the model-derived count. At W=14 the window-attention route
-    runs stages 0-2 plain (the packed pair takes N <= 64) and stage 3
-    (N=49) on its kernel."""
+    runs stages 0-2 on the packed pair's large-window tile (N=196) and
+    stage 3 (N=49) on its small tiles."""
     from esvit_tpu_torch.models.swin import SwinTransformer
 
     dev = torch.device("cuda")
@@ -1536,6 +1674,15 @@ def phase_vil_forward_parity(torch, C, sc):
             f"rel err {err:.2e} (tol 1e-4), shape {tuple(a.shape)}")
 
 
+@functools.lru_cache(maxsize=8)
+def _probe(model_cfg):
+    """The backbone of a model config, built once: the launch counts below
+    read its routes, which depend on shapes alone, never its weights."""
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    return build_backbone(model_cfg)
+
+
 def _derived_launches(cfg, steps, modes=None):
     """Per-kernel launches of `steps` train steps, from the model's routing
     (its ``<kernel>_calls``; 0 for a kernel the backbone never calls): the
@@ -1550,10 +1697,9 @@ def _derived_launches(cfg, steps, modes=None):
     (SwinTransformer.frozen_stages)."""
     import inspect
 
-    from esvit_tpu_torch.models.registry import build_backbone
     from esvit_tpu_torch.train.optim import freeze_mask_by_prefix
 
-    probe = build_backbone(cfg.model)
+    probe = _probe(cfg.model)
     g, l = cfg.crops.global_size, cfg.crops.local_size
     remat = getattr(cfg.model, "remat", "none") == "block"
     skip = 0
@@ -1590,13 +1736,15 @@ def _derived_launches(cfg, steps, modes=None):
 
 
 def _slice(torch, cfg, steps, counters, label, card, check_state,
-           check_more=None, **train_kw):
+           check_more=None, keep_state=False, **train_kw):
     """train() for `steps` steps (on ``train_kw``'s data, else synthetic
     crops on the card) with every launch count set to 0 just before and
     read just after: finite losses, the launch counts of every kernel equal
     to the model's, and (check_state) student, teacher and both centers
     changed, and ``check_more(state, init)`` where given. Returns the
-    counts and train()'s per-step records."""
+    counts and train()'s per-step records, and with ``keep_state`` the
+    final TrainState (a route stepper goes on from it). The peak memory it
+    prints is the run's: above what was allocated when it started."""
     import gc
 
     from esvit_tpu_torch.train.train import train
@@ -1606,6 +1754,7 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
         for k in launches:
             launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     # checkpoint.pth only: no run here reads a numbered copy (the entry
     # phase's CLI runs check those)
     state, history = train(cfg.replace(save_every_epochs=0), max_steps=steps,
@@ -1617,13 +1766,15 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
         raise AssertionError(f"{label}: losses {losses}")
     want = _derived_launches(cfg, steps, [h["modes"] for h in history])
     ms = statistics.mean(h["seconds"] for h in history[1:]) * 1e3
-    ips = cfg.crops.ncrops * BATCH / (ms / 1e3)
+    B = cfg.optim.batch_size_per_device
+    ips = cfg.crops.ncrops * B / (ms / 1e3)
     log(f"slice {label}: losses {losses}")
     log(f"slice {label}: launches {got}")
-    log(f"slice {label}: B={BATCH} 2x224+8x96 DDINO out_dim 65536 "
+    log(f"slice {label}: B={B} 2x224+8x96 DDINO out_dim 65536 "
         f"bf16: {ms:.1f} ms/step, {ips:.1f} img/s over steps 2-{steps}, "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB [{card}]")
+        f"peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+        f"[{card}]")
     if got != want:
         raise AssertionError(f"{label}: launches {got}, model-derived {want}")
     if check_state:
@@ -1638,6 +1789,8 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
         log(f"slice {label}: max change {moved}")
     if check_more is not None:
         check_more(state, init)
+    if keep_state:
+        return got, history, state
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1647,16 +1800,23 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
 def phase_slice(torch, C, counters, card, out_dir):
     """Swin-T on the default (fused) route for STEPS steps, then on the
     window-attention route for 3 and on the qkv-layout route for 3 (its
-    backward is autograd of the plain version: forward launches only)."""
+    backward is autograd of the plain version: forward launches only).
+    Returns the default route's launches and ms/step, and the first two
+    routes' {name: (config, final TrainState)} for the route order."""
     cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir)
-    got, history = _slice(torch, cfg, STEPS, counters, "Swin-T fused route",
-                          card, True)
-    _slice(torch, cfg.replace(model=C.swin_tiny(fused_block_stages=())), 3,
-           counters, "Swin-T window-attention route", card, False)
+    wa_cfg = cfg.replace(model=C.swin_tiny(fused_block_stages=()))
+    got, history, state = _slice(torch, cfg, STEPS, counters,
+                                 "Swin-T fused route", card, True,
+                                 keep_state=True)
+    *_, wa_state = _slice(torch, wa_cfg, 3, counters,
+                          "Swin-T window-attention route", card, False,
+                          keep_state=True)
     _slice(torch, cfg.replace(model=C.swin_tiny(attention_impl="pallas",
                                                 fused_block_stages=())), 3,
            counters, "Swin-T qkv-layout route", card, False)
-    return got, statistics.mean(h["seconds"] for h in history[1:]) * 1e3
+    return (got, statistics.mean(h["seconds"] for h in history[1:]) * 1e3,
+            {"default": (cfg, state),
+             "fused_block_stages=()": (wa_cfg, wa_state)})
 
 
 def phase_data_slice(torch, C, counters, card, out_dir, synthetic_ms):
@@ -1764,32 +1924,28 @@ def phase_canary(torch, counters, card):
         raise AssertionError(f"canary: launches {got}, model-derived {want}")
 
 
-def phase_route_order(torch, C, card, out_dir):
+def phase_route_order(torch, card, routes):
     """The Swin-T default route and fused_block_stages=() in turns,
     ROUTE_ROUNDS rounds of ROUTE_STEPS steps each (the second route first
-    in odd rounds), in this process: each route's median ms per step over
-    steps 2..ROUTE_STEPS of its rounds, the spread, and which is faster."""
+    in odd rounds), in this process, each route on one trainer going on
+    from its train() run's state (``routes``: {name: (config, state)}):
+    each route's median ms per step over steps 2..ROUTE_STEPS of its
+    rounds, the spread, and which is faster."""
     import gc
 
-    from esvit_tpu_torch.train.train import train
-
-    cfg = C.swin_tiny_multicrop(BATCH, output_dir=out_dir,
-                                save_every_epochs=0)
-    routes = {"default": cfg,
-              "fused_block_stages=()": cfg.replace(
-                  model=C.swin_tiny(fused_block_stages=()))}
-    ms = {name: [] for name in routes}
+    steppers = {name: _route_stepper(torch, cfg, state)
+                for name, (cfg, state) in routes.items()}
+    routes.clear()          # the steppers hold the states now
+    ms = {name: [] for name in steppers}
     for rnd in range(ROUTE_ROUNDS):
-        for name in list(routes)[::1 if rnd % 2 == 0 else -1]:
-            _, history = train(routes[name], max_steps=ROUTE_STEPS,
-                               device="cuda", resume=False)
-            torch.cuda.synchronize()
-            steps = [h["seconds"] * 1e3 for h in history[1:]]
+        for name in list(steppers)[::1 if rnd % 2 == 0 else -1]:
+            steps = [steppers[name]() for _ in range(ROUTE_STEPS)][1:]
             ms[name] += steps
             log(f"route order round {rnd + 1} {name}: "
                 + ", ".join(f"{t:.1f}" for t in steps) + " ms/step")
-            gc.collect()
-            torch.cuda.empty_cache()
+    del steppers
+    gc.collect()
+    torch.cuda.empty_cache()
     for name, steps in ms.items():
         log(f"route order {name}: median {statistics.median(steps):.1f} "
             f"ms/step, spread {min(steps):.1f}-{max(steps):.1f} over "
@@ -1802,19 +1958,24 @@ def phase_route_order(torch, C, card, out_dir):
 # Swin (BASELINE.md): steps per run, the alternating rounds after the two
 # checked runs, and the k-NN CLI's noise images (two classes).
 W14 = 14
-W14_STEPS, W14_ROUNDS = 3, 3
-W14_KNN_TRAIN, W14_KNN_VAL, W14_KNN_SIZE, W14_KNN_BATCH = 32, 16, 128, 16
+W14_STEPS, W14_ROUNDS = 3, 2
+# Phase 18, Swin-B at W=14 (EsViT's best published model; the root
+# bench.py's swin_base_w14 preset at the reference recipe's per-card batch,
+# 4 nodes x 16 GPUs x 8): the batch, steps per run, and the alternating
+# rounds after the checked runs.
+B14_BATCH = 8
+B14_STEPS, B14_ROUNDS = 3, 2
+W14_KNN_TRAIN, W14_KNN_VAL, W14_KNN_SIZE, W14_KNN_BATCH = 16, 8, 128, 16
 
 
-def _fused_n_split(cfg):
+def _fused_n_split(cfg, by="N"):
     """{"fwd", "bwd"}: {N: launches} of the block-fused kernel in one
-    train step of cfg, by window size, from the model's stage routes (a
-    fused stage's windows are ws^2 tokens, a fused sub-window stage's the
-    augmented H*W + 1); the teacher runs the global crops forward, the
-    student every crop forward and backward."""
-    from esvit_tpu_torch.models.registry import build_backbone
-
-    probe = build_backbone(cfg.model)
+    train step of cfg, by window size (``by="C"``: by the stage's width),
+    from the model's stage routes (a fused stage's windows are ws^2
+    tokens, a fused sub-window stage's the augmented H*W + 1); the teacher
+    runs the global crops forward, the student every crop forward and
+    backward."""
+    probe = _probe(cfg.model)
     out = {"fwd": {}, "bwd": {}}
     sizes = [(cfg.crops.global_size, 2)]
     if cfg.crops.local_crops_number:
@@ -1824,23 +1985,48 @@ def _fused_n_split(cfg):
             if route not in ("fused", "fused_subwindow"):
                 continue
             N = stage.window_size ** 2 if route == "fused" else L + 1
+            key = N if by == "N" else stage.dim
             for kind, times in (("fwd", forwards), ("bwd", 1)):
-                out[kind][N] = out[kind].get(N, 0) + times * len(stage.blocks)
+                out[kind][key] = (out[kind].get(key, 0)
+                                  + times * len(stage.blocks))
     return out
 
 
-def _route_stepper(torch, cfg):
-    """One EsViTTrainer of cfg on the card with its state and one synthetic
-    batch, built once: a function that takes one train step and returns
-    its ms on the host clock, to the loss's fetch (which must be finite)."""
+def _packed_n_split(cfg):
+    """{"fwd", "bwd"}: {N: launches} of the packed window-attention pair
+    (rows 3-4) in one train step of cfg, by window size: the stages that
+    the model's own count (``_attention_calls``) takes, per image size,
+    with the teacher and student as in :func:`_fused_n_split`."""
+    probe = _probe(cfg.model)
+    out = {"fwd": {}, "bwd": {}}
+    sizes = [(cfg.crops.global_size, 2)]
+    if cfg.crops.local_crops_number:
+        sizes.append((cfg.crops.local_size, 1))
+    for size, forwards in sizes:
+        for i, (stage, L, _) in enumerate(probe._stage_routes(size)):
+            calls = (probe.window_attention_calls(size, from_stage=i)
+                     - probe.window_attention_calls(size, from_stage=i + 1))
+            N = stage.window_size ** 2
+            for kind, times in (("fwd", forwards), ("bwd", 1)):
+                if calls:
+                    out[kind][N] = out[kind].get(N, 0) + times * calls
+    return out
+
+
+def _route_stepper(torch, cfg, state):
+    """One EsViTTrainer of cfg on the card, going on from ``state`` (a
+    train() run's, on the card) with one synthetic batch: a function that
+    takes one train step and returns its ms on the host clock, to the
+    loss's fetch (which must be finite)."""
     from esvit_tpu_torch.data.loader import synthetic_batches
     from esvit_tpu_torch.train.step import EsViTTrainer
 
     dev = torch.device("cuda")
-    trainer = EsViTTrainer(cfg, total_batch_size=BATCH, device=dev)
-    holder = [trainer.init_state(torch.Generator().manual_seed(0))]
+    B = cfg.optim.batch_size_per_device
+    trainer = EsViTTrainer(cfg, total_batch_size=B, device=dev)
+    holder = [state]
     gen = torch.Generator(device=dev).manual_seed(1)
-    batch = next(iter(synthetic_batches(cfg.crops, BATCH, steps=1,
+    batch = next(iter(synthetic_batches(cfg.crops, B, steps=1,
                                         device=dev)))
 
     def step():
@@ -1930,8 +2116,9 @@ def phase_swin_w14(torch, C, counters, card, out_dir):
     step, split by N), then on the plain route (fused_block_stages=(),
     attention_impl='xla': no kernel), both through train() (the slices
     print each run's ms/step and peak memory); then W14_ROUNDS
-    alternating rounds of W14_STEPS steps on one trainer per route, built
-    once: each route's median ms/step over steps 2..W14_STEPS of its
+    alternating rounds of W14_STEPS steps on one trainer per route, going
+    on from its train() run's state: each route's median ms/step over
+    steps 2..W14_STEPS of its
     rounds and the spread, and its device time by kernel group
     (torch.profiler, 2 steps). Then the fp32 eval forward on the
     qkv-layout route (attention_impl='pallas', no fused stages, batch
@@ -1957,12 +2144,15 @@ def phase_swin_w14(torch, C, counters, card, out_dir):
             or sum(split["bwd"].values()) != 20):
         raise AssertionError(f"w14: derived block-fused launches "
                              f"{per_step['fused_block']}, by N {split}")
-    got, _ = _slice(torch, routes["kernel"], W14_STEPS, counters,
-                    "Swin-T W=14 kernel route", card, True)
-    _slice(torch, routes["plain"], W14_STEPS, counters,
-           "Swin-T W=14 plain route", card, False)
-    steppers = {name: _route_stepper(torch, cfg)
-                for name, cfg in routes.items()}
+    got, _, state = _slice(torch, routes["kernel"], W14_STEPS, counters,
+                           "Swin-T W=14 kernel route", card, True,
+                           keep_state=True)
+    *_, plain_state = _slice(torch, routes["plain"], W14_STEPS, counters,
+                             "Swin-T W=14 plain route", card, False,
+                             keep_state=True)
+    steppers = {"kernel": _route_stepper(torch, routes["kernel"], state),
+                "plain": _route_stepper(torch, routes["plain"], plain_state)}
+    del state, plain_state
     ms = {name: [] for name in routes}
     for rnd in range(W14_ROUNDS):
         for name in (("plain", "kernel") if rnd % 2 == 0
@@ -2016,6 +2206,88 @@ def phase_swin_w14(torch, C, counters, card, out_dir):
     _w14_knn(C, card, os.path.join(out_dir, "w14_knn"))
     return {"fused_block": got["fused_block"],
             "pallas_window_attention": row7["pallas_window_attention"]}
+
+
+def phase_swin_b_w14(torch, C, counters, card, out_dir):
+    """Swin-B at W=14 (swin_tiny_multicrop's recipe with
+    model=swin_base(window_size=14): B=8, 2x224 + 8x96, 65536-wide heads,
+    DDINO, bf16, seed 0, synthetic crops on the card) on three routes: the
+    kernel route (the default fused stages: the block-fused pair at C
+    128 / 256 / 512 on N=196, 145 and 37, the packed pair at N=49 in stage
+    3), the packed route (fused_block_stages=(): rows 3-4 at N=196 in
+    stages 0-2 at 224 px and the 96 px stage 0, N=49 in stage 3) and the
+    plain route (also attention_impl='xla': no kernel). B14_STEPS steps of
+    each through train() with the slice's checks (finite losses, state
+    moved, every kernel's launches as derived: 66 / 44 block-fused a step
+    on the kernel route, 54 / 36 of them at C=512; 50 / 26 packed on the
+    packed route, 46 / 24 of them at N=196), each run's ms/step and peak
+    memory; then B14_ROUNDS alternating rounds of B14_STEPS steps on one
+    trainer per route, going on from its train() run's state: each route's
+    median ms/step over steps 2..B14_STEPS of its rounds and the spread,
+    and its device time by
+    kernel group (torch.profiler, 2 steps). Returns the launches of the
+    kernel route's block-fused pair and of the packed route's pair."""
+    import gc
+
+    base = C.swin_tiny_multicrop(B14_BATCH, output_dir=out_dir)
+    routes = {
+        "kernel": base.replace(model=C.swin_base(window_size=W14)),
+        "packed": base.replace(model=C.swin_base(window_size=W14,
+                                                 fused_block_stages=())),
+        "plain": base.replace(model=C.swin_base(
+            window_size=W14, fused_block_stages=(), attention_impl="xla"))}
+    per_step = {name: _derived_launches(cfg, 1)
+                for name, cfg in routes.items()}
+    by_n = _fused_n_split(routes["kernel"])
+    by_c = _fused_n_split(routes["kernel"], by="C")
+    packed_n = _packed_n_split(routes["packed"])
+    log(f"swin-b w14 derived launches per step: {per_step}; kernel route "
+        f"block-fused by N {by_n}, by C {by_c}; packed route rows 3-4 by N "
+        f"{packed_n}")
+    none = {"fwd": 0, "bwd": 0}
+    if (per_step["kernel"]["fused_block"] != {"fwd": 66, "bwd": 44}
+            or (by_c["fwd"].get(512), by_c["bwd"].get(512)) != (54, 36)
+            or per_step["kernel"]["window_attention"] != {"fwd": 4, "bwd": 2}
+            or per_step["packed"]["fused_block"] != none
+            or per_step["packed"]["window_attention"] != {"fwd": 50,
+                                                         "bwd": 26}
+            or packed_n != {"fwd": {196: 46, 49: 4}, "bwd": {196: 24, 49: 2}}
+            or any(v for kinds in per_step["plain"].values()
+                   for v in kinds.values())):
+        raise AssertionError(f"swin-b w14: derived launches {per_step}, "
+                             f"block-fused by C {by_c}, packed by N "
+                             f"{packed_n}")
+    got, peak, steppers = {}, {}, {}
+    for name, cfg in routes.items():
+        base = torch.cuda.memory_allocated()
+        got[name], _, state = _slice(torch, cfg, B14_STEPS, counters,
+                                     f"Swin-B W=14 {name} route", card, True,
+                                     keep_state=True)
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        steppers[name] = _route_stepper(torch, cfg, state)
+        del state
+    ms = {name: [] for name in routes}
+    for rnd in range(B14_ROUNDS):
+        for name in list(routes)[::1 if rnd % 2 == 0 else -1]:
+            steps = [steppers[name]() for _ in range(B14_STEPS)][1:]
+            ms[name] += steps
+            log(f"swin-b w14 round {rnd + 1} {name} route: "
+                + ", ".join(f"{t:.1f}" for t in steps) + " ms/step")
+    for name, steps in ms.items():
+        log(f"swin-b w14 {name} route: median {statistics.median(steps):.1f} "
+            f"ms/step, spread {min(steps):.1f}-{max(steps):.1f} over "
+            f"{len(steps)} steps of {B14_ROUNDS} alternating rounds, peak "
+            f"{peak[name]:.2f} GiB in its train() run [{card}]")
+    for name, step in steppers.items():
+        log(f"swin-b w14 {name} route, device ms per step by kernel group "
+            f"(torch.profiler): " + json.dumps(
+                {g: round(v, 3) for g, v in _step_groups(torch, step).items()})
+            + f" [{card}]")
+    del steppers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fused_block": got["kernel"]["fused_block"],
+            "window_attention": got["packed"]["window_attention"]}
 
 
 def phase_vil_slice(torch, C, counters, card, out_dir):
@@ -3852,6 +4124,14 @@ def main():
     import torch
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what):
+        """Logs the seconds since the last lap (the script's time limit is
+        shared by every phase)."""
+        laps.append(time.perf_counter())
+        log(f"phase {what}: {laps[-1] - laps[-2]:.1f} s")
+
     card = phase_device(torch)
     from esvit_tpu_torch import config as C
     from esvit_tpu_torch.ops import cuda_build
@@ -3864,36 +4144,58 @@ def main():
     phase_build(cuda_build, wa, sc)
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}")
-    window_attention = phase_window_attention(torch, wa, wops)
-    fused, fused14 = phase_fused(torch, fb, wa, wops)
+    lap("1-2 device, build")
+    window_attention, window_attention_b14 = phase_window_attention(
+        torch, wa, wops)
+    lap("3 window attention")
+    fused, fused14, fused_b14 = phase_fused(torch, fb, wa, wops)
+    lap("4 block-fused")
     sliding_chunk = phase_sliding_chunk(torch, sc)
+    lap("5 sliding chunk")
     pwa_fwd, pwa_fwd14 = phase_pallas_window_attention(torch, pwa, wops)
+    lap("6 qkv-layout")
     results = {"window_attention": window_attention, "fused_block": fused,
                "sliding_chunk": sliding_chunk,
                "pallas_window_attention": {"fwd": pwa_fwd}}
     results14 = {"fused_block": fused14,
                  "pallas_window_attention": {"fwd": pwa_fwd14}}
+    results_b14 = {"fused_block": fused_b14,
+                   "window_attention": window_attention_b14}
     phase_forward_parity(torch, C, fb, wa, pwa)
     phase_forward_parity(torch, C, fb, wa, pwa, window_size=W14)
     phase_vil_forward_parity(torch, C, sc)
+    lap("7 forward parity")
     counters = {"window_attention": wa.launches, "fused_block": fb.launches,
                 "sliding_chunk": sc.launches,
                 "pallas_window_attention": pwa.launches}
     with tempfile.TemporaryDirectory() as out_dir:
-        swin, synthetic_ms = phase_slice(torch, C, counters, card, out_dir)
+        swin, synthetic_ms, route_states = phase_slice(torch, C, counters,
+                                                        card, out_dir)
         phase_data_slice(torch, C, counters, card, out_dir, synthetic_ms)
-        phase_route_order(torch, C, card, out_dir)
+        phase_route_order(torch, card, route_states)
+        lap("8 slices, route order")
         launches14 = phase_swin_w14(torch, C, counters, card, out_dir)
+        lap("17 Swin-T W=14")
+        launches_b14 = phase_swin_b_w14(torch, C, counters, card, out_dir)
+        lap("18 Swin-B W=14")
         vil = phase_vil_slice(torch, C, counters, card, out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         evals = phase_eval(torch, C, pwa, card, out_dir)
+    lap("8 ViL-T, 9 eval")
     phase_canary(torch, counters, card)
+    lap("10 canary")
     phase_entry(torch, C, card)
+    lap("11 entry")
     phase_real_images(torch, C, counters, card, synthetic_ms)
+    lap("12 real images")
     phase_families(torch, C, counters, card)
+    lap("13 families")
     phase_options(torch, C, counters, card)
+    lap("14 options")
     phase_vil_options(torch, C, counters, card)
+    lap("15 ViL options")
     phase_last_modules(torch, C, counters, card)
+    lap("16 last modules")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)
@@ -3905,7 +4207,11 @@ def main():
         {"name": f"{name}_w14_{k}", "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1][k],
          "launches": launches14[name][k], **results14[name][k].record()}
-        for name in KERNELS_W14 for k in KERNELS[name][1]]}
+        for name in KERNELS_W14 for k in KERNELS[name][1]] + [
+        {"name": f"{name}_swin_b_w14_{k}", "route": "cuda",
+         "source": KERNELS[name][0], "replaces": KERNELS[name][1][k],
+         "launches": launches_b14[name][k], **results_b14[name][k].record()}
+        for name in KERNELS_B14 for k in KERNELS[name][1]]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,7 @@
 // The intermediates (qkv, a, x2, g: 18 C bytes a row in bf16) go through
 // device memory, ~0.85 GB per call at Swin-T's 224 px stage 0, ~0.25 ms
 // at 3.35 TB/s. Measured, neither bound is reached: the epilogues (F3's
-// erf-GELU, the rows' stores) and, at C = 384, one block per SM running
+// erf-GELU, the rows' stores) and, at C >= 384, one block per SM running
 // its phases in turn hold the kernels (the section's notes). For fp32
 // inputs (the parity checks) the token kernels run register-tiled FMAs
 // on the CUDA cores (no TF32) on tiles of 32 rows.
@@ -85,7 +85,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMc = 128;            // the backward's MLP hidden-dimension chunk
 constexpr int kMaxTileRows = 64;    // rows of a backward token tile
-constexpr int kMaxC = 384;          // channels (a LayerNorm row in registers)
+constexpr int kMaxC = 512;          // channels (a LayerNorm row in registers)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
@@ -425,9 +425,10 @@ enum Stat { MU1 = 0, RS1 = 1, MU2 = 2, RS2 = 3 };
 //      the 3C columns), the LN1 backward with the pad rows' dy masked, dx
 //      = round(dx2 + dLN1);
 // each token tile writes one row of fixed-order vector partials (VPART:
-// the bias and LayerNorm gradients). A token tile of R rows (64, or 32 at
-// C=384; the wrapper's plan) crosses window and image boundaries: a row's
-// image is row / (nW N) and its pad multiplier pad[row % (nW N)].
+// the bias and LayerNorm gradients). A token tile of R rows (the wrapper's
+// plan, ops/fused_block.py token_rows: 64 up to C = 96, else 32, 16 for
+// fp32 above C = 256) crosses window and image boundaries: a row's image
+// is row / (nW N) and its pad multiplier pad[row % (nW N)].
 //
 // Why: a per-window row kernel (the earlier design) ran every C-wide product at the
 // window's 49 rows (64 padded), fetched each weight fragment from L2 again
@@ -840,15 +841,17 @@ __global__ void __launch_bounds__(kThreads, 2) fused_bwd_t2_kernel(Table tab, Ge
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) dg[i] = dbe[i] = dbp[i] = make_float2(0.f, 0.f);
     const int lane = threadIdx.x & 31;
+    // do is read where it is added, not held through ln_bwd_row: at
+    // C = 512 the three accumulators and the row's x and dy are already
+    // 80 floats a lane, under the 128 registers of two blocks per SM
     for (int r = threadIdx.x >> 5; r < n; r += kWarps) {
-      float2 xv[kPairs], dy[kPairs], dov[kPairs];
+      float2 xv[kPairs], dy[kPairs];
 #pragma unroll
       for (int i = 0; i < kPairs; ++i) {
         const int c = 64 * i + 2 * lane;
-        xv[i] = dy[i] = dov[i] = make_float2(0.f, 0.f);
+        xv[i] = dy[i] = make_float2(0.f, 0.f);
         if (c >= C) continue;
         xv[i] = load2(sY + r * L.ldC + c);
-        dov[i] = load2(sD + r * L.ldC + c);
         dy[i] = load2(sDY + r * L.ldO + c);
       }
       ln_bwd_row(xv, dy, g2, C, b.stat(MU1)[r], b.stat(RS1)[r], dg, dbe);
@@ -857,7 +860,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_bwd_t2_kernel(Table tab, Ge
       for (int i = 0; i < kPairs; ++i) {
         const int c = 64 * i + 2 * lane;
         if (c >= C) continue;
-        const float2 dx2 = add_f2(dov[i], dy[i]);
+        const float2 dx2 = add_f2(load2(sD + r * L.ldC + c), dy[i]);
         store2(dx32 + (size_t)r * C + c, dx2.x, dx2.y);
         const float2 do1 = make_float2(dx2.x * k1, dx2.y * k1);
         dbp[i] = add_f2(dbp[i], do1);
@@ -940,22 +943,23 @@ __global__ void __launch_bounds__(kThreads, 2) fused_bwd_t3_kernel(Table tab, Ge
     for (int i = 0; i < kPairs; ++i) dg[i] = dbe[i] = make_float2(0.f, 0.f);
     for (int r = threadIdx.x >> 5; r < n; r += kWarps) {
       const float pm = b.pad(r);
-      float2 xv[kPairs], dy[kPairs], d32[kPairs];
+      float2 xv[kPairs], dy[kPairs];
 #pragma unroll
       for (int i = 0; i < kPairs; ++i) {
         const int c = 64 * i + 2 * lane;
-        xv[i] = dy[i] = d32[i] = make_float2(0.f, 0.f);
+        xv[i] = dy[i] = make_float2(0.f, 0.f);
         if (c >= C) continue;
         xv[i] = load2(x + (size_t)r * C + c);
-        d32[i] = load2(dx32 + (size_t)r * C + c);
         const float2 d = load2(sDY + r * L.ldO + c);
         dy[i] = make_float2(d.x * pm, d.y * pm);
       }
       ln_bwd_row(xv, dy, g1, C, b.stat(MU1)[r], b.stat(RS1)[r], dg, dbe);
 #pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
+      for (int i = 0; i < kPairs; ++i) {   // dx2 read where it is added, as T2's do
         const int c = 64 * i + 2 * lane;
-        if (c < C) store2(dx + (size_t)r * C + c, d32[i].x + dy[i].x, d32[i].y + dy[i].y);
+        if (c >= C) continue;
+        const float2 d32 = load2(dx32 + (size_t)r * C + c);
+        store2(dx + (size_t)r * C + c, d32.x + dy[i].x, d32.y + dy[i].y);
       }
     }
     __syncthreads();  // every warp is done with sDY
@@ -1162,8 +1166,9 @@ cudaError_t sum_rows(const float* in, int n, int J, float* out, float* tmp, cuda
 // gridDim.y. What bounds it (PERF.md's findings on the block-fused
 // forward): at C = 96, F3's erf-GELU epilogue (instruction issue) and the
 // output rows' writes, each after the products of its column tile; at C =
-// 384, one 8-warp block per SM (the 96 KB resident A tile) running
-// prologue, products and epilogues in turn. fp32 (the parity checks): tiles of kFwdRows32 = 32 rows, A in
+// 384 and 512 (Swin-B's stage 2, WN = 64), one 8-warp block per SM (the 96
+// / 128 KB resident A tile) running prologue, products and epilogues in
+// turn. fp32 (the parity checks): tiles of kFwdRows32 = 32 rows, A in
 // shared memory (F4's from global memory), the products as for_tiles'
 // register-tiled FMAs on the CUDA cores (no TF32), B from global memory.
 // Every output is written once by one thread: bit-identical on repeat.
@@ -1719,7 +1724,8 @@ wtile::Geometry attn_geometry(const Geo& g, int run, int ld_out) {
 
 template <typename T> int run_bwd(const Table& tab, const Geo& g, cudaStream_t s) {
   void* const* table = tab.p;
-  if (g.R < 16 || g.R > kMaxTileRows || g.R % 16) return (int)cudaErrorInvalidValue;
+  if (g.R < 16 || g.R > kMaxTileRows || g.R % 16 || g.C % 32 || g.C > kMaxC)
+    return (int)cudaErrorInvalidValue;
   T* ws = static_cast<T*>(table[WS]);
   const T* qkv = static_cast<const T*>(table[QKV]);
   FusedBlockBias bias;

@@ -9,14 +9,12 @@
 
 #include "window_attention_tile.cuh"
 
-// The window-attention kernel's policy (wtile::TableBias), under a name of
-// its own so that a profile files the tile kernels it instantiates (A1, A2
-// and their dbias sum) under the fused block and not under row 3 / 4
-// (esvit_tpu_torch/utils/profile.py); it takes the large-window tile (N >
-// 64: Swin at W=14).
-struct FusedBlockBias : wtile::TableBias {
-  static constexpr bool kLarge = true;
-};
+// The window-attention kernel's policy (wtile::TableBias, the large-window
+// tile included: N > 64, Swin at W=14), under a name of its own so that a
+// profile files the tile kernels it instantiates (A1, A2 and their dbias
+// sum) under the fused block and not under row 3 / 4
+// (esvit_tpu_torch/utils/profile.py).
+struct FusedBlockBias : wtile::TableBias {};
 
 // The large-window tile's launches of this policy are instantiated in
 // fused_block_large.cu (forward) and fused_block_large_bwd_{bf16,fp32}.cu

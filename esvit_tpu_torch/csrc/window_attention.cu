@@ -36,6 +36,16 @@
 // partial; a second kernel sums a head's partials in block order. dbias is
 // bit-identical run to run.
 //
+// Windows of 64 < N <= 256 tokens (Swin at W=14: N = 196) run on the
+// tile header's large-window tile with the same policy and roundings: a
+// block of warps per run of windows of one (head, window type), the bias
+// read per score from the table, one dbias partial per block in device
+// memory, summed in block order as above. Its launches for this policy
+// are instantiated in window_attention_large.cu (forward) and
+// window_attention_large_bwd_{bf16,fp32}.cu (backward), which
+// ops/cuda_build.py compiles beside this file; declared below so that this
+// file does not instantiate them again.
+//
 // The TPU-only machinery of the Pallas kernel (zero-expanded head packing,
 // block-diagonal window packing with the -1e9 cross-window mask, 0/1
 // selector matmuls, iota masks, 8-row padding, TW/HG tiling) has no
@@ -52,11 +62,23 @@
 
 #include "window_attention_tile.cuh"
 
+extern template int wtile::launch_large<float, wtile::TableBias>(
+    wtile::Operands<float>, const wtile::TableBias&, const wtile::Geometry&, int, cudaStream_t);
+extern template int wtile::launch_large<__nv_bfloat16, wtile::TableBias>(
+    wtile::Operands<__nv_bfloat16>, const wtile::TableBias&, const wtile::Geometry&, int,
+    cudaStream_t);
+extern template int wtile::launch_bwd_large<float, wtile::TableBias>(
+    wtile::BwdOperands<float>, const wtile::TableBias&, const wtile::Geometry&, int,
+    cudaStream_t);
+extern template int wtile::launch_bwd_large<__nv_bfloat16, wtile::TableBias>(
+    wtile::BwdOperands<__nv_bfloat16>, const wtile::TableBias&, const wtile::Geometry&, int,
+    cudaStream_t);
+
 namespace {
 
 struct Geometry {
   int B_;      // windows
-  int N;       // tokens per window (<= 64: TableBias builds no large tile)
+  int N;       // tokens per window (<= 64 the small tiles, <= 256 the large one)
   int C;       // channels (row stride of q/k/v/o)
   int nH;      // heads
   int hd;      // head dim, C / nH

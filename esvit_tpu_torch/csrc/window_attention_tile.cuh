@@ -261,10 +261,10 @@ struct GlobalRows {
 struct TableBias {
   static constexpr bool kRoundQ = true;
   static constexpr bool kSplitP = false;
-  // Whether a caller takes the large-window tile (N > 64). Rows 3-4 (the
-  // packed pair) do not; the fused block's policy, derived from this one,
-  // does. A policy that does not never instantiates the large kernels.
-  static constexpr bool kLarge = false;
+  // Whether a caller takes the large-window tile (N > 64): rows 3-4 (the
+  // packed pair) and the fused block's policy, derived from this one, do.
+  // A policy that does not never instantiates the large kernels.
+  static constexpr bool kLarge = true;
   const float* table;  // (nH, N, N)
   const int* region;   // (types, N) or null
 
@@ -1394,9 +1394,11 @@ int backward(const BwdOperands<T>& op, const Policy& pol, const Geometry& g, int
 // windows, the augmented 145 = 144 + 1 virtual), both passes, bf16 and
 // fp32. It replaces the N = 196 range of esvit_tpu/ops/fused_block.py
 // _fwd_kernel / _bwd_kernel (attention halves A1 and A2 of
-// csrc/fused_block.cu) and of esvit_tpu/ops/pallas_window_attention.py
-// _attention_kernel (csrc/pallas_window_attention.cu), with the small
-// tile's arithmetic, policies and roundings.
+// csrc/fused_block.cu), of esvit_tpu/ops/packed_window_attention.py
+// _fwd_kernel / _bwd_kernel (csrc/window_attention.cu) and of
+// esvit_tpu/ops/pallas_window_attention.py _attention_kernel
+// (csrc/pallas_window_attention.cu), with the small tile's arithmetic,
+// policies and roundings.
 //
 // Why the small tile does not stretch: one warp per (window, head) kept a
 // window's query tiles in turn over eight n8 key tiles (N <= 64); at
@@ -1439,9 +1441,10 @@ int backward(const BwdOperands<T>& op, const Policy& pol, const Geometry& g, int
 //     stage 0; per block it is nH * parts * N^2 * 4 bytes, parts from the
 //     plan's run. Bit-identical on repeat.
 // Launch plans (warps per block, windows per block): ops/window_attention.py
-// tile_plan. A policy with kLarge instantiates these kernels; the fused
-// block's are compiled in sources of their own (fused_block_large*.cu),
-// so that their builds run beside the rest of fused_block.cu's.
+// tile_plan. A policy with kLarge instantiates these kernels; the packed
+// pair's and the fused block's are compiled in sources of their own
+// (window_attention_large*.cu, fused_block_large*.cu), so that their
+// builds run beside the rest of window_attention.cu's and fused_block.cu's.
 // ---------------------------------------------------------------------------
 
 constexpr int kLargeNT = kLargeMaxN / 8;  // n8 key tiles of a score row

@@ -25,8 +25,8 @@ NHWC inputs, reference checkpoint names (``patch_embed.proj``,
   ``attention_impl='pallas'``, and through the plain torch version when
   ``attention_impl='xla'``. Each kernel route asks its kernel's own
   ``supports()`` first and takes that kernel's plain version for a shape
-  it refuses (``WindowAttention.kernel_takes``): Swin at W=14 (N=196) runs
-  the qkv-layout kernel but the packed pair's plain version.
+  it refuses (``WindowAttention.kernel_takes``); both take Swin at W=14
+  (N=196) on the large-window tile.
 
 Capturing per-block outputs or attention maps (``SwinStage.forward``'s
 ``capture``, used by ``forward_return_n_last_blocks`` and

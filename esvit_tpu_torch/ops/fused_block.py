@@ -63,7 +63,7 @@ _FWD_WEIGHTS = ("WQKV_F", "WP_F", "W1_F", "W2_F")
 _BWD_WEIGHTS = ("WQKV_F", "WP_F", "W1_F",
                 "WQKV_B", "WP_B", "W1_B", "W2_B")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_C = 384                  # kMaxC in the source
+_MAX_C = 512                  # kMaxC in the source
 _MLP_CHUNK = 128              # kMc in the source
 _FWD_ROWS = 128               # kFwdRows: a bf16 forward token tile
 _FWD_ROWS_FP32 = 32           # kFwdRows32: an fp32 forward token tile
@@ -76,7 +76,10 @@ _MAX_PARTIAL = 1 << 24
 # The backward's token tiles: rows per tile (csrc tok_layout): 64 up to
 # this width, 32 above it (a 64-row T2 block at C=128 takes 121 KB of
 # shared memory, one block per SM), 16 for fp32 above 256 (a 32-row fp32
-# T2 block at C=384 would not fit the 227 KB a block may have).
+# T2 block at C=384 would not fit the 227 KB a block may have). At C=512
+# the bf16 T2 block of 32 rows takes 179 KB and the fp32 one of 16 rows
+# 146 KB; neither may shrink further, since T2 sums its three vector
+# partials (8 warps x 3C fp32) in the room of its y, h and dh tiles.
 _TOKEN_ROWS = 64
 _TOKEN_ROWS_WIDE = 32
 _TOKEN_ROWS_MAX_C = 96
@@ -407,10 +410,12 @@ def supports(N: int, C: int, nH: int, M: int) -> bool:
     most 64, and N <= 64 (the small window-attention tiles, A1 and A2) or
     64 < N <= 256 where the large tile's backward block fits the card
     (Swin's head dim 32 at every N up to 256); C a multiple of 32 and at
-    most 384 (a LayerNorm row in registers, the forward's wgmma widths)
-    and M a multiple of 128 (the backward's MLP chunk). The token tiles'
-    shared memory depends on C alone, and chip_smoke.py holds both passes
-    against the card at every admitted width."""
+    most 512 (a LayerNorm row in registers: Swin-S / Swin-B's stage 2 at
+    C=512 is the widest, and their stage 3 at C=768 / 1024 takes the
+    window-attention route) and M a multiple of 128 (the backward's MLP
+    chunk). The token tiles' shared memory depends on C alone, and
+    chip_smoke.py holds both passes against the card at every admitted
+    width."""
     if N <= 0 or C % nH or C % 32 or C > _MAX_C or M % _MLP_CHUNK:
         return False
     hd = C // nH
@@ -430,7 +435,8 @@ def fwd_token_rows(itemsize: int = 2) -> int:
 def token_rows(C: int, itemsize: int = 2) -> int:
     """Rows of one backward token tile (T1, T2, T3): 64 up to C=96, else
     32 (16 for fp32 above C=256), so that two bf16 T2 blocks share an SM
-    up to C=256 and every block fits."""
+    up to C=256 and every block fits up to C=512 (one T1 or T2 block per
+    SM above C=384)."""
     if C <= _TOKEN_ROWS_MAX_C:
         return _TOKEN_ROWS
     if itemsize == 4 and C > 256:
@@ -439,6 +445,10 @@ def token_rows(C: int, itemsize: int = 2) -> int:
 
 
 def _chunks(rows: int, C: int, M: int) -> int:
+    """Row chunks of the weight-gradient partials: one per ~_CHUNK_ROWS
+    rows, at most _MAX_CHUNKS, and few enough that the largest product's
+    partials (q/k/v: 3 C^2, fc1 / fc2: C M floats a chunk) stay within
+    _MAX_PARTIAL floats (16 chunks, 64 MB, at C=512, M=2048)."""
     cap = max(1, _MAX_PARTIAL // max(3 * C * C, C * M))
     return max(1, min(-(-rows // _CHUNK_ROWS), _MAX_CHUNKS, cap))
 

@@ -10,11 +10,12 @@ picks the block's warps and the windows per warp. The fp32 products are
 register-tiled FMAs on the CUDA cores (no TF32). Each backward
 block writes one dbias partial, which a second kernel sums in a fixed
 order, so dbias is deterministic. The sources note what bounds the
-kernels on Hopper. The same header's large-window tile (64 < N <= 256,
-Swin at W=14) serves the block-fused kernels' attention halves and the
-qkv-layout forward; this pair's policy builds no large-window kernel, so
-its :func:`supports` stays at N <= 64, and a caller takes
-:func:`window_attention_plain` for a shape it refuses.
+kernels on Hopper. Windows of 64 < N <= 256 tokens (Swin at W=14) run on
+the same header's large-window tile, which also serves the block-fused
+kernels' attention halves and the qkv-layout forward: a block of warps
+per run of windows, one dbias partial per block (:func:`bwd_partials`).
+A caller takes :func:`window_attention_plain` for a shape
+:func:`supports` refuses.
 
 Layouts are the JAX ones: q2/k2/v2 ``(B_*N, C)`` window-major rows
 (windows batch-major, window type minor), bias ``(nH, N, N)`` fp32,
@@ -221,14 +222,21 @@ def large_tile_fits(N: int, hd: int, backward: bool) -> bool:
 
 def supports(N: int, C: int, nH: int) -> bool:
     """Whether this pair's kernels take windows of N tokens at width C
-    with nH heads: N <= 64 (the small tiles) and a head dim of 1..64."""
-    return (0 < N <= _SMALL_MAX_N and nH > 0 and C % nH == 0
-            and 0 < C // nH <= 64)
+    with nH heads, by shape alone: a head dim of 1..64 and N <= 64 (the
+    small tiles), or 64 < N <= 256 where the large tile's backward block
+    fits the card in both dtypes (every head dim up to 64 at Swin's
+    N = 196), the rule of the block-fused pair's attention halves."""
+    if not (nH > 0 and C % nH == 0 and 0 < C // nH <= 64 and N > 0):
+        return False
+    if N <= _SMALL_MAX_N:
+        return True
+    return N <= _LARGE_MAX_N and large_tile_fits(N, C // nH, backward=True)
 
 
 def bwd_partials(plan: TilePlan, types: int) -> int:
     """dbias partials per head of a backward launch (wtile::bwd_parts):
-    one per block."""
+    one per block, on the small tiles (a run of windows per group of four
+    warps) and on the large one (a run per block) alike."""
     return types * plan.chunks
 
 
@@ -326,7 +334,8 @@ def _check(q2, k2, v2, bias, region, N, nH):
         raise ValueError("q2, k2, v2 must be contiguous")
     if rows % N or not supports(N, C, nH):
         raise ValueError(f"unsupported shape rows={rows} C={C} N={N} nH={nH} "
-                         "(N <= 64 and head dim <= 64)")
+                         "(head dim <= 64; N <= 64, or N <= 256 where the "
+                         "large tile fits)")
     if (bias.dtype != torch.float32 or tuple(bias.shape) != (nH, N, N)
             or not bias.is_contiguous() or bias.device != dev):
         raise ValueError(f"bias must be contiguous fp32 ({nH}, {N}, {N}) on "

@@ -80,6 +80,17 @@ TILE_CASES = [
     (37, 64, 2, 9, 3, 0),
     (64, 128, 4, 20, 4, 1),
 ]
+# Rows 3-4 on the large-window tile (64 < N <= 256, head dim 32): Swin-B's
+# W=14 stage 0 over 4 window types, its stage 2 width (one window type),
+# the augmented window's size N=145 (a run of windows that does not fill a
+# block's), and a base 2 or 4 bytes off 16-byte alignment. Appended, so
+# earlier case ids stay.
+TILE_CASES = TILE_CASES + [
+    (196, 128, 4, 12, 4, 0),
+    (196, 512, 16, 3, 0, 0),
+    (145, 256, 8, 5, 0, 0),
+    (196, 128, 4, 9, 0, 1),
+]
 
 
 def _offset_tensor(a, dtype, cuda, offset):
@@ -181,11 +192,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(49 * 2, 192, device=cuda)[:, ::2]
     with pytest.raises(ValueError):
         wa.window_attention(q, q, q, bias, None, 49, 3, 0.17)
-    # rows 3-4 stay on the small tiles: N > 64 is refused
-    q = torch.zeros(65 * 2, 96, device=cuda)
+    # more tokens than the large-window tile holds
+    q = torch.zeros(257 * 2, 96, device=cuda)
     with pytest.raises(ValueError):
-        wa.window_attention(q, q, q, torch.zeros(3, 65, 65, device=cuda),
-                            None, 65, 3, 0.17)
+        wa.window_attention(q, q, q, torch.zeros(3, 257, 257, device=cuda),
+                            None, 257, 3, 0.17)
 
 
 # The block-fused kernel pair (ops/fused_block.py) against its plain
@@ -206,7 +217,15 @@ W14_FUSED_CASES = [
     (2, 24, 14, 96, 3, True, True, False),
     (3, 14, 14, 384, 12, False, False, True),
 ]
-FUSED_CASES = FUSED_CASES + W14_FUSED_CASES
+# Swin-S / Swin-B's stage 2 width (C=512, 16 heads, M=2048): W=7's N=49,
+# unshifted and shifted, and W=14's N=196 (one window an image).
+# Appended to every fused list, so earlier case ids stay.
+C512_FUSED_CASES = [
+    (2, 14, 7, 512, 16, False, False, False),
+    (2, 14, 7, 512, 16, True, False, True),
+    (2, 14, 14, 512, 16, False, False, True),
+]
+FUSED_CASES = FUSED_CASES + W14_FUSED_CASES + C512_FUSED_CASES
 
 
 def _fused_inputs(cuda, B, H, ws, C, nH, shifted, padded, dp, seed=0):
@@ -306,6 +325,16 @@ def test_cuda_fused_block_large_augmented_window(cuda, dtype, tol):
     _augmented_window_case(cuda, dtype, tol, 4, 192, 6, 145)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("N", [37, 145])
+def test_cuda_fused_block_c512_augmented_window(cuda, dtype, tol, N):
+    """C=512 (Swin-B's stage 2) on the augmented windows: 6x6 + 1 (its 96
+    px route, the small tile) and 12x12 + 1 (the large one)."""
+    _augmented_window_case(cuda, dtype, tol, 4, 512, 16, N)
+
+
 def _augmented_window_case(cuda, dtype, tol, B, C, nH, N):
     from esvit_tpu_torch.ops import fused_block as fb
 
@@ -356,7 +385,7 @@ NANO_FUSED_CASES = [
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("case", FUSED_STAGE_CASES + NANO_FUSED_CASES
-                         + W14_FUSED_CASES)
+                         + W14_FUSED_CASES + C512_FUSED_CASES)
 def test_cuda_fused_backward_stages_match_plain(cuda, case, dtype, tol):
     """All 19 results within tol of the plain version and bit-identical on
     repeat; each stage kernel within tol of its plain twin on its own
@@ -395,7 +424,7 @@ FUSED_FWD_CASES = FUSED_STAGE_CASES + [
     (3, 6, 7, 96, 3, False, False, True),
     (4, 14, 7, 384, 12, False, False, False),
     (43, 14, 7, 384, 12, True, False, True),
-] + NANO_FUSED_CASES + W14_FUSED_CASES
+] + NANO_FUSED_CASES + W14_FUSED_CASES + C512_FUSED_CASES
 
 
 @pytest.mark.cuda
@@ -820,6 +849,21 @@ def test_cuda_swin_w14_routes_by_each_kernels_supports(cuda, kw):
     supports() refuses), each kernel launches as the model derives, and
     the features are within 1e-4 of the plain route's (attention_impl=
     'xla', no fused stages) from the same weights."""
+    _w14_routes(cuda, "swin_tiny", kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {}, {"fused_block_stages": ()},
+    {"attention_impl": "pallas", "fused_block_stages": ()}])
+def test_cuda_swin_b_w14_routes_by_each_kernels_supports(cuda, kw):
+    """The same at Swin-B's widths (C 128 / 256 / 512 / 1024, 4-32 heads):
+    the block-fused pair at C=512 on the default route, the packed pair at
+    N=196 on fused_block_stages=()."""
+    _w14_routes(cuda, "swin_base", kw)
+
+
+def _w14_routes(cuda, arch, kw):
     import dataclasses
 
     from esvit_tpu_torch import config as tcfg
@@ -830,7 +874,7 @@ def test_cuda_swin_w14_routes_by_each_kernels_supports(cuda, kw):
     torch.backends.cudnn.allow_tf32 = False
 
     def swin(**extra):
-        return dataclasses.replace(tcfg.swin_tiny(
+        return dataclasses.replace(getattr(tcfg, arch)(
             window_size=14, drop_path_rate=0.0, **extra), depths=(1, 1, 1, 1))
 
     model = SwinTransformer(swin(**kw),

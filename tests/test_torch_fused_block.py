@@ -258,7 +258,7 @@ def test_subwindow_route_priority(kw, route):
     (49, 192, 6, 768, True),
     (49, 384, 12, 1536, True),
     (37, 384, 12, 1536, True),      # the augmented window
-    (49, 768, 24, 3072, False),     # stage 3: more channels than C <= 384
+    (49, 768, 24, 3072, False),     # stage 3: more channels than C <= 512
     (16, 768, 24, 3072, False),     # more channels than a LayerNorm row holds
     (64, 192, 6, 768, True),        # C <= 192 and head dim 32
     (64, 384, 12, 1536, True),      # N > 49 and C > 192: no two-of-three rule
@@ -271,6 +271,10 @@ def test_subwindow_route_priority(kw, route):
     (145, 192, 6, 768, True),       # the 96 px W=14 augmented window
     (256, 128, 2, 512, False),      # N=256, head dim 64: no fp32 backward block
     (257, 96, 3, 384, False),       # more tokens than the large tile holds
+    (49, 512, 16, 2048, True),      # Swin-S / Swin-B stage 2 at W=7
+    (196, 512, 16, 2048, True),     # Swin-B W=14 stage 2
+    (37, 512, 16, 2048, True),      # its 96 px augmented window
+    (49, 544, 17, 2176, False),     # a LayerNorm row wider than 512
 ])
 def test_supports_is_a_shape_rule(N, C, nH, M, ok):
     assert tfb.supports(N, C, nH, M) is ok

@@ -3,16 +3,16 @@
 What the card's routes rest on, checked here without a card:
 
 - the block-fused kernels' shape rule admits every Swin-T / Swin-S /
-  Swin-B W=14 block that ``esvit_tpu.ops.fused_block.supports`` admits up
-  to C = 384 (the port's LayerNorm rows stop there: Swin-B's C=512 stage
-  2 is queued);
+  Swin-B W=14 block that ``esvit_tpu.ops.fused_block.supports`` admits,
+  Swin-B's C=512 stage 2 included, and every Swin-S / Swin-B block of
+  stages 0-2 at W=7;
 - Swin-T's W=14 routes at 224 and 96 px, and the block-fused launches a
   train step derives (30 forward, 20 backward: 22 / 12 at N=196, 2 / 2 on
   the augmented N=145, 6 / 6 on the augmented N=37), through the same
   helpers chip_smoke.py holds the card's counts with;
-- each attention site asks its kernel's own ``supports()``: the packed
-  route calls the plain version, not the kernel entry, at N=196 (the
-  packed pair takes N <= 64); the qkv-layout route calls its kernel entry;
+- each attention site asks its kernel's own ``supports()``: at N=196 the
+  packed route and the qkv-layout route each call their kernel entry
+  (both take N <= 256 on the large-window tile);
 - fp32 parity with esvit_tpu's XLA route (attention_impl='xla', no fused
   stages) at femto width with W=14 (C 32 / 64, head dim 16, so the fused
   stages take their kernels' shapes): ``forward_features`` at 112 px (4
@@ -61,12 +61,13 @@ FEMTO = dict(img_size=112, embed_dim=32, num_heads=(2, 4), window_size=14,
 HEAD = dict(out_dim=32, hidden_dim=16, bottleneck_dim=8)
 
 
-def _swin_shapes(arch, size):
-    """(stage, N, C, nH, M, nW, L_padded) of each stage of a W=14 Swin at
-    ``size`` px whose windows esvit_tpu's fused rule is asked about: a full
-    window stage (ws x ws windows, nW of them, L = nW * Np) or a single
-    padded window (the augmented H*W + 1 tokens, one window)."""
-    cfg = getattr(tcfg, arch)(window_size=14)
+def _swin_shapes(arch, size, window_size=14):
+    """(stage, N, C, nH, M, nW, L_padded) of each stage of a Swin at
+    ``window_size`` and ``size`` px whose windows esvit_tpu's fused rule is
+    asked about: a full window stage (ws x ws windows, nW of them, L = nW
+    * Np) or a single padded window (the augmented H*W + 1 tokens, one
+    window)."""
+    cfg = getattr(tcfg, arch)(window_size=window_size)
     out = []
     H = size // cfg.patch_size
     for i, nH in enumerate(cfg.num_heads[:3]):
@@ -92,13 +93,28 @@ SHAPE_CASES = [(arch, size, stage)
 @pytest.mark.parametrize("arch,size,stage", SHAPE_CASES)
 def test_fused_rule_admits_what_esvit_tpu_admits(arch, size, stage):
     """esvit_tpu admits every W=14 block of stages 0-2 (B = the step's
-    images at that size); the port admits each of them up to C = 384, and
-    refuses Swin-B's C = 512 stage 2 (queued)."""
+    images at that size); so does the port, Swin-B's C = 512 stage 2
+    included."""
     _, N, C, nH, M, nW, L = _swin_shapes(arch, size)[stage]
     B = 64 if size == 224 else 256
     assert N in (196, 145, 37)
     assert jfb.supports(B, L, N, nH, nW, C=C, M=M)
-    assert tfb.supports(N, C, nH, M) == (C <= tfb._MAX_C)
+    assert tfb.supports(N, C, nH, M)
+
+
+@pytest.mark.parametrize("arch,size,stage", [
+    (arch, size, stage) for arch in ("swin_small", "swin_base")
+    for size in (224, 96) for stage in range(3)])
+def test_fused_rule_admits_what_esvit_tpu_admits_at_w7(arch, size, stage):
+    """The W=7 twin for Swin-S and Swin-B (C = 384 and 512 at stage 2):
+    esvit_tpu admits every block of stages 0-2 at the Swin-T recipe's
+    images and at Swin-B's B=8 (2B at 224 px, 8B at 96), N = 49 windows
+    and the 96 px stage 2's augmented 37; the port admits each."""
+    _, N, C, nH, M, nW, L = _swin_shapes(arch, size, window_size=7)[stage]
+    assert N in (49, 37)
+    for B in ((64, 16) if size == 224 else (256, 64)):
+        assert jfb.supports(B, L, N, nH, nW, C=C, M=M)
+    assert tfb.supports(N, C, nH, M)
 
 
 @pytest.mark.parametrize("size,routes", [
@@ -156,9 +172,9 @@ def _femto(**kw):
 ])
 def test_attention_site_asks_its_kernels_rule(monkeypatch, attention_impl,
                                               entry, plain):
-    """At N=196 the packed route calls the plain version and never the
-    kernel entry (the packed pair takes N <= 64); the qkv-layout route
-    calls its kernel entry (its rule takes N <= 256)."""
+    """At N=196 each route calls its kernel entry and never the plain
+    version: both the packed pair's rule and the qkv-layout kernel's take
+    N <= 256 on the large-window tile."""
     model = TSwin(_femto(attention_impl=attention_impl,
                          fused_block_stages=()),
                   generator=torch.Generator().manual_seed(0))
@@ -168,12 +184,10 @@ def test_attention_site_asks_its_kernels_rule(monkeypatch, attention_impl,
         size=(1, 112, 112, 3)).astype(np.float32))
     with torch.no_grad():
         model.forward_features(x)
-    assert len(kernel_calls) + len(plain_calls) == 4
+    assert len(kernel_calls) == 4 and not plain_calls
     if attention_impl == "packed":
-        assert not kernel_calls
-        assert all(a[5] == 196 for a, _ in plain_calls)      # N
+        assert all(a[5] == 196 for a, _ in kernel_calls)      # N
     else:
-        assert not plain_calls
         assert all(a[0].shape[1] == 196 for a, _ in kernel_calls)
     assert len(kernel_calls) == model.window_attention_calls(112) + \
         model.pallas_window_attention_calls(112)

@@ -377,8 +377,9 @@ def test_large_tile_smem_bytes_counts_the_layout(N, hd, itemsize, backward,
 
 def test_shape_rules_admit_what_fits():
     """The large tile takes 64 < N <= 256 where a one-warp block of the
-    pass fits in both dtypes: the fused rule asks the backward's, row 7's
-    the forward's; the packed pair stays at N <= 64."""
+    pass fits in both dtypes: the fused rule and the packed pair's (rows
+    3-4, trained through) ask the backward's, row 7's (forward only) the
+    forward's."""
     for N in (65, 100, 145, 196, 256, 257):
         for hd in (16, 32, 48, 64):
             fits = {bw: N <= 256 and all(
@@ -386,8 +387,22 @@ def test_shape_rules_admit_what_fits():
                 for it in (2, 4)) for bw in (False, True)}
             assert fb.supports(N, hd * 4, 4, 16 * hd * 2) == fits[True]
             assert pwa.supports(N, hd * 4, 4) == fits[False]
-            assert not wa.supports(N, hd * 4, 4)
+            assert wa.supports(N, hd * 4, 4) == fits[True]
     assert fb.supports(196, 96, 3, 384) and not fb.supports(256, 128, 2, 512)
+
+
+@pytest.mark.parametrize("N", [1, 37, 49, 64, 65, 145, 196, 256, 257])
+def test_packed_pair_rule_is_the_fused_attention_rule(N):
+    """Rows 3-4 take N <= 64 on the small tiles and 64 < N <= 256 where
+    the large tile's backward block fits (the rule of the block-fused
+    pair's attention halves), at every head dim up to 64; a head dim
+    above 64 or not dividing C, never."""
+    for hd in (8, 16, 24, 32, 48, 64):
+        want = N <= wa._SMALL_MAX_N or (N <= wa._LARGE_MAX_N
+                                         and wa.large_tile_fits(N, hd, True))
+        assert wa.supports(N, 4 * hd, 4) == want, hd
+    assert not wa.supports(N, 4 * 80, 4) and not wa.supports(N, 100, 3)
+    assert wa.supports(N, 512, 16) == (N <= 256)        # Swin-B stage 2
 
 
 def test_dbias_partials_at_swin_w14_shapes():
