@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the root of a checkout. Phases, in order; any failure raises,
 so the script exits non-zero and prints no result line:
@@ -12,9 +12,11 @@ so the script exits non-zero and prints no result line:
    per source, all started together) and print nvcc's -Xptxas -v report; fail if a
    window-attention tile kernel's registers hold fewer warps per SM than
    ops/window_attention.py tile_plan assumes; the same for the
-   large-window tile's ten kernels (N > 64: the block-fused pair's, the
-   packed pair's and row 7's; printed with their spills and blocks per SM
-   at N=196); print each source's nvcc seconds, the block-fused pair's
+   large-window tile's forty kernels (N > 64: the block-fused pair's,
+   the packed pair's and row 7's, each at KD = 2 and 4 head-dim steps,
+   with the bias slice staged and not;
+   printed with their spills, blocks and resident warps per SM at N=196);
+   print each source's nvcc seconds, the block-fused pair's
    token-tile and weight-GEMM kernels' registers, spills and blocks per
    SM (their LayerNorm rows in registers up to C=512), and the
    sliding-chunk tensor-core kernels' registers, spills and blocks per SM.
@@ -247,8 +249,9 @@ so the script exits non-zero and prints no result line:
    state moved), 3 on the plain route (fused_block_stages=(),
    attention_impl='xla': no kernel), each with its peak memory, then 2
    alternating rounds of 3 steps on one trainer per route: each route's
-   median ms/step and spread, and its device time by kernel group
-   (torch.profiler); the fp32 eval forward on the
+   median ms/step and spread (the routes side by side on one line), and
+   its device time by kernel group (torch.profiler); the fp32 eval
+   forward on the
    qkv-layout route (batch 64 at 224 px: row 7's launches as derived,
    the ms per batch); the k-NN CLI at --window_size 14 in fp32 on noise
    images, the card's features within 1e-4 of the CPU's.
@@ -262,8 +265,15 @@ so the script exits non-zero and prints no result line:
    / 26, 46 / 24 at N=196 on the large-window tile) and the plain route
    (also attention_impl='xla': no kernel); each run's ms/step and peak
    memory; then 2 alternating rounds of 3 steps on one trainer per route:
-   each route's median ms/step and spread, and its device time by kernel
-   group (torch.profiler).
+   each route's median ms/step and spread (side by side on one line), and
+   its device time by kernel group (torch.profiler).
+19. Only with ``--parent DIR`` (a checkout of an earlier commit, e.g. a
+   ``git archive`` under the gitignored _archive/): the large-window
+   tile's rows (rows 1-2 per Swin-T and Swin-B W=14 step, rows 3-4 per
+   Swin-B W=14 packed-route step, row 7 per W=14 eval batch) timed by
+   utils/fwd_compare.py's large worker in DIR (its kernels built there)
+   and here, side by side; DIR's sums go into the kernels line as
+   ``parent_ms`` (null without DIR, and on the rows of N <= 64).
 
 Each phase's seconds are printed after it (``phase <n> ...: <s> s``).
 
@@ -615,29 +625,37 @@ def large_tile_registers(wa, regs, spills):
     """Lines for the large-window tile's kernels (N > 64: the block-fused
     pair's and the packed pair's forward and backward tiles, each dtype,
     from csrc/fused_block_large*.cu and csrc/window_attention_large*.cu,
-    and row 7's forward tile, each dtype): registers,
-    spills, the warps an SM holds by registers (held to tile_plan's
-    _SM_WARPS_MAX_LARGE, as check_tile_registers holds the small tiles)
-    and the blocks it holds by shared memory at Swin's N=196, head dim 32
-    (the plan's warps)."""
+    and row 7's forward tile, each dtype; each at KD = 2 and 4, with the
+    bias slice staged and not): registers, spills, the warps an SM holds
+    by registers (held to tile_plan's _SM_WARPS_MAX_LARGE, as
+    check_tile_registers holds the small tiles) and, for the instance the
+    plan launches at Swin's N=196 (head dim 16 KD), the blocks and warps
+    an SM holds by shared memory."""
     lines = []
     for name, n in regs.items():
-        m = re.search(r"window_attention_large_(bwd_)?kernelI(13__nv_bfloat16|f)",
-                      name)
+        m = re.search(r"window_attention_large_(bwd_)?kernelI(13__nv_bfloat16|f)"
+                      r".*Li(\d)ELb([01])EEEv", name)
         if not m:
             continue
         backward, itemsize = m.group(1) is not None, 2 if m.group(2) != "f" else 4
+        kd, staged_kernel = int(m.group(3)), m.group(4) == "1"
         fits = wa._SM_REGS // (-(-n // 8) * 8 * 32)
         cap = wa._SM_WARPS_MAX_LARGE[itemsize]
         if fits < cap:
             raise AssertionError(f"{name}: {n} registers hold {fits} warps per "
                                  f"SM, but tile_plan assumes {cap}")
-        plan = wa.tile_plan(64, 196, 32, 12, 1, itemsize, backward=backward)
+        hd = 16 * kd
+        plan = wa.tile_plan(64, 196, hd, 12, 1, itemsize, backward=backward)
         by_smem = SM_SMEM_BYTES // (plan.smem + 1024)
-        lines.append(f"{name[:70]} {n} regs, spills {spills.get(name, (0, 0))}"
-                     f" bytes (stores, loads): {fits} warps/SM >= plan {cap}; "
-                     f"{by_smem} blocks of {plan.warps} warps by shared memory "
-                     f"at N=196 hd=32 ({plan.smem} bytes)")
+        staged = wa.large_bias_staged(196, hd, itemsize, plan.warps, backward)
+        where = (f"the N=196 hd={hd} plan's instance: {by_smem} blocks of "
+                 f"{plan.warps} warps per SM by shared memory ({plan.smem} "
+                 f"bytes), {min(by_smem * plan.warps, fits)} warps resident"
+                 if staged == staged_kernel else
+                 f"not the N=196 hd={hd} plan's instance")
+        lines.append(f"{name[:70]} KD={kd} staged={int(staged_kernel)} {n} "
+                     f"regs, spills {spills.get(name, (0, 0))} bytes (stores, "
+                     f"loads): {fits} warps/SM >= plan {cap}; {where}")
     return sorted(lines)
 
 
@@ -703,9 +721,9 @@ def phase_build(cuda_build, wa, sc):
     for line in lines:
         log(f"registers {line}")
     large = large_tile_registers(wa, regs, spills)
-    if regs and len(large) != 10:
+    if regs and len(large) != 40:
         raise AssertionError(f"found {len(large)} large-window tile kernels "
-                             "in the ptxas report, expected 10")
+                             "in the ptxas report, expected 40")
     for line in large + fused_block_registers(wa, regs, spills):
         log(f"registers {line}")
     sc_lines = sliding_chunk_registers(sc, wa, regs)
@@ -841,7 +859,9 @@ def phase_window_attention(torch, wa, wops):
                     count = (lib.esvit_window_attention_bwd_smem_bytes
                              if backward else
                              lib.esvit_window_attention_tile_smem_bytes)
-                    for warps in range(1, 9):
+                    top = (wa._LARGE_MAX_WARPS if N > wa._SMALL_MAX_N
+                           else 8)
+                    for warps in range(1, top + 1):
                         want = count(N, hd, itemsize, warps)
                         if want != wa.tile_smem_bytes(N, hd, itemsize, warps,
                                                       backward):
@@ -2106,6 +2126,16 @@ def _w14_knn(C, card, root):
         f"card features vs CPU max abs {err:.2e} (tol 1e-4) [{card}]")
 
 
+def _side_by_side(what, ms, card):
+    """One line of the routes' median ms/step and spreads, the kernel
+    route first, and which route is faster by the median."""
+    med = {name: statistics.median(steps) for name, steps in ms.items()}
+    cells = " | ".join(f"{name} {med[name]:.1f} ({min(s):.1f}-{max(s):.1f})"
+                       for name, s in ms.items())
+    return (f"{what} side by side, median ms/step (spread): {cells}; "
+            f"faster: {min(med, key=med.get)} [{card}]")
+
+
 def phase_swin_w14(torch, C, counters, card, out_dir):
     """Swin-T at W=14 (swin_tiny_multicrop's recipe with window_size=14:
     B=32, 2x224 + 8x96, 65536-wide heads, DDINO, bf16, seed 0, synthetic
@@ -2165,6 +2195,7 @@ def phase_swin_w14(torch, C, counters, card, out_dir):
         log(f"w14 {name} route: median {statistics.median(steps):.1f} "
             f"ms/step, spread {min(steps):.1f}-{max(steps):.1f} over "
             f"{len(steps)} steps of {W14_ROUNDS} alternating rounds [{card}]")
+    log(_side_by_side("w14 routes", ms, card))
     for name, step in steppers.items():
         log(f"w14 {name} route, device ms per step by kernel group "
             f"(torch.profiler): " + json.dumps(
@@ -2278,6 +2309,7 @@ def phase_swin_b_w14(torch, C, counters, card, out_dir):
             f"ms/step, spread {min(steps):.1f}-{max(steps):.1f} over "
             f"{len(steps)} steps of {B14_ROUNDS} alternating rounds, peak "
             f"{peak[name]:.2f} GiB in its train() run [{card}]")
+    log(_side_by_side("swin-b w14 routes", ms, card))
     for name, step in steppers.items():
         log(f"swin-b w14 {name} route, device ms per step by kernel group "
             f"(torch.profiler): " + json.dumps(
@@ -4102,6 +4134,51 @@ def _last_flops(torch, C, card):
             f"(products counted on the CPU) [{card}]")
 
 
+def _parent_arg(argv):
+    """``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
+    archive`` under the gitignored _archive/), or None."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--parent" or not os.path.isfile(
+            os.path.join(argv[1], "chip_smoke.py")):
+        raise SystemExit(f"unknown arguments {argv}: the only option is "
+                         "--parent DIR, a checkout holding chip_smoke.py")
+    return os.path.abspath(argv[1])
+
+
+# The kernels line's large-tile rows (N > 64) and the sums of
+# utils/fwd_compare.py's large worker that time them.
+PARENT_ROWS = {
+    "fused_block_w14_fwd": "fused_w14_fwd",
+    "fused_block_w14_bwd": "fused_w14_bwd",
+    "pallas_window_attention_w14_fwd": "pwa_w14_fwd",
+    "fused_block_swin_b_w14_fwd": "fused_b14_fwd",
+    "fused_block_swin_b_w14_bwd": "fused_b14_bwd",
+    "window_attention_swin_b_w14_fwd": "wa_b14_fwd",
+    "window_attention_swin_b_w14_bwd": "wa_b14_bwd",
+}
+
+
+def phase_parent(parent, card):
+    """With ``--parent DIR``: the large-window tile's rows timed in the
+    checkout DIR (its own kernels, built there) and here, by the same
+    worker (utils/fwd_compare.py large_times), in the order DIR, here:
+    each row's sum per step or batch, side by side. Returns {kernels-line
+    row: DIR's ms}; empty without a parent."""
+    if parent is None:
+        return {}
+    from esvit_tpu_torch.utils.fwd_compare import large_times
+
+    times = {"parent": large_times(parent), "this": large_times(ROOT)}
+    for row, key in PARENT_ROWS.items():
+        log(f"large-tile row {row}: this tree {times['this'][key]:.3f} ms, "
+            f"parent {times['parent'][key]:.3f} ms [{card}]")
+    for key in ("fused_c512_fwd", "fused_c512_bwd"):
+        log(f"large-tile {key}: this tree {times['this'][key]:.3f} ms, parent "
+            f"{times['parent'][key]:.3f} ms [{card}]")
+    return {row: times["parent"][key] for row, key in PARENT_ROWS.items()}
+
+
 def _initial_weights(torch, cfg):
     """The student's initial weights, as train() draws them (seed cfg.seed)."""
     from esvit_tpu_torch.train.step import EsViTTrainer
@@ -4142,8 +4219,7 @@ def main():
     from esvit_tpu_torch.ops import window_attention as wa
 
     phase_build(cuda_build, wa, sc)
-    if sys.argv[1:]:
-        raise SystemExit(f"unknown arguments {sys.argv[1:]}")
+    parent = _parent_arg(sys.argv[1:])
     lap("1-2 device, build")
     window_attention, window_attention_b14 = phase_window_attention(
         torch, wa, wops)
@@ -4196,21 +4272,26 @@ def main():
     lap("15 ViL options")
     phase_last_modules(torch, C, counters, card)
     lap("16 last modules")
+    parent_ms = phase_parent(parent, card)
+    if parent is not None:
+        lap("19 the parent's large-tile rows")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)
     record = {"kernels": [
         {"name": f"{name}_{k}", "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1][k], "launches": launches[name][k],
-         **tally[k].record()}
+         **tally[k].record(), "parent_ms": None}
         for name, tally in results.items() for k in KERNELS[name][1]] + [
         {"name": f"{name}_w14_{k}", "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1][k],
-         "launches": launches14[name][k], **results14[name][k].record()}
+         "launches": launches14[name][k], **results14[name][k].record(),
+         "parent_ms": parent_ms.get(f"{name}_w14_{k}")}
         for name in KERNELS_W14 for k in KERNELS[name][1]] + [
         {"name": f"{name}_swin_b_w14_{k}", "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1][k],
-         "launches": launches_b14[name][k], **results_b14[name][k].record()}
+         "launches": launches_b14[name][k], **results_b14[name][k].record(),
+         "parent_ms": parent_ms.get(f"{name}_swin_b_w14_{k}")}
         for name in KERNELS_B14 for k in KERNELS[name][1]]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

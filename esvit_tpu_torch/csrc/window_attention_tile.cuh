@@ -45,7 +45,7 @@
 // No atomics: every output element is written once by one lane, so the
 // result is bit-identical on repeat. Windows of 64 < N <= 256 tokens (Swin
 // at W=14) take the large-window tile at the end of this file, with the
-// same arithmetic.
+// same policies and roundings.
 
 #pragma once
 
@@ -249,7 +249,18 @@ struct GlobalRows {
     if (ids != nullptr) b += (ids[i] != ids[j]) ? -100.f : 0.f;
     return b;
   }
+  // columns c and c + 1 of row i (c even): one 8-byte read where N is
+  // even and the slice 8-byte aligned
   __device__ __forceinline__ float2 pair(int i, int c) const {
+    if ((N & 1) == 0 && c + 1 < N && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+      float2 b = __ldg(reinterpret_cast<const float2*>(src + (size_t)i * N + c));
+      if (ids != nullptr) {
+        const int r = ids[i];
+        b.x += (r != ids[c]) ? -100.f : 0.f;
+        b.y += (r != ids[c + 1]) ? -100.f : 0.f;
+      }
+      return b;
+    }
     return make_float2(c < N ? at(i, c) : 0.f, c + 1 < N ? at(i, c + 1) : 0.f);
   }
 };
@@ -683,8 +694,8 @@ int launch_large(Operands<T> op, const Policy& pol, const Geometry& g, int warps
 
 template <typename T, class Policy>
 int launch(Operands<T> op, const Policy& pol, Geometry g, int warps, cudaStream_t stream) {
-  if (warps < 1 || warps > kMaxWarps || g.run < 1 || g.types < 1 || g.B_ % g.types ||
-      g.N < 1 || g.N > kLargeMaxN || g.hd < 1 || g.hd > 64)
+  if (g.run < 1 || g.types < 1 || g.B_ % g.types || g.N < 1 || g.N > kLargeMaxN || g.hd < 1 ||
+      g.hd > 64)
     return (int)cudaErrorInvalidValue;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   g.vec = aligned(op.q) && aligned(op.k) && aligned(op.v) &&
@@ -693,6 +704,7 @@ int launch(Operands<T> op, const Policy& pol, Geometry g, int warps, cudaStream_
     if constexpr (Policy::kLarge) return launch_large<T>(op, pol, g, warps, stream);
     return (int)cudaErrorInvalidValue;
   }
+  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(g.N, g.hd, warps);
   auto kernel = window_attention_tile_kernel<T, Policy>;
   if (smem > 48 * 1024) {
@@ -1006,32 +1018,6 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4], const float* sa, int m
     acc[3] = dot4(x1, k1, acc[3]);
   }
 }
-
-// A 16-row operand of the large tile's dP products: bf16 keeps its A
-// fragments in registers, fp32 reads its rows from shared memory.
-template <typename T> struct TileRows;
-template <> struct TileRows<bf16> {
-  uint32_t a[4][4];
-  __device__ __forceinline__ void load(const bf16* sa, int m0, int ld, int N, int kd, int lane) {
-    load_rows<false>(a, sa, m0, ld, N, kd, 0.f, lane);
-  }
-  __device__ __forceinline__ void dot(float (&acc)[4], const bf16* sb, int n0, int ld, int N,
-                                      int kd, int lane) const {
-    dot_tile<false>(acc, a, sb, n0, ld, N, kd, 0.f, lane);
-  }
-};
-template <> struct TileRows<float> {
-  const float* sa;
-  int m0;
-  __device__ __forceinline__ void load(const float* p, int m, int, int, int, int) {
-    sa = p;
-    m0 = m;
-  }
-  __device__ __forceinline__ void dot(float (&acc)[4], const float* sb, int n0, int ld, int N,
-                                      int kd, int lane) const {
-    dot_tile<false, false>(acc, sa, m0, sb, n0, ld, N, kd, 0.f, lane);
-  }
-};
 
 // fp32 out = f . B over the fragments' key columns [0, N), B stored
 // [k][dim] (rows clamped to N - 1; f is 0 past N). f goes through the
@@ -1397,49 +1383,73 @@ int backward(const BwdOperands<T>& op, const Policy& pol, const Geometry& g, int
 // csrc/fused_block.cu), of esvit_tpu/ops/packed_window_attention.py
 // _fwd_kernel / _bwd_kernel (csrc/window_attention.cu) and of
 // esvit_tpu/ops/pallas_window_attention.py _attention_kernel
-// (csrc/pallas_window_attention.cu), with the small tile's arithmetic,
-// policies and roundings.
+// (csrc/pallas_window_attention.cu), with the small tile's policies and
+// roundings.
 //
-// Why the small tile does not stretch: one warp per (window, head) kept a
-// window's query tiles in turn over eight n8 key tiles (N <= 64); at
-// N = 196 a warp would stage 47 KB of q, k, v (bf16) and a (N, N) fp32
-// bias slice of 154 KB per block. What bounds it is the same: a (window,
-// head) is 4 N^2 hd = 4.9 MFLOP on ~38 KB of bf16 operands at N = 196, hd
-// = 32, ~130 FLOP/byte, still under the bf16 ridge (~295), so the chains
-// of fragment loads, mmas and softmax steps and not the tensor cores'
-// rate bound it. The design:
-//   - a block of warps per run of windows of one (head, window type):
-//     the block stages each window's q, k, v (and do) once in shared
-//     memory with cp.async, and its warps take the window's m16 query
-//     tiles (the backward's pass 2: key tiles) in turn, warp k the tiles
-//     k, k + warps, ...;
-//   - one m16 tile's whole score row lives in registers: NT = 32 n8 key
-//     tiles (128 fp32 a lane), so the softmax keeps one max per (window,
-//     head) row, as the small tile and the plain versions do; the tiles
-//     past the keys are skipped, their columns get -inf (p exactly 0);
-//   - the bias is not staged: each score reads its (N, N) fp32 slice entry
-//     from device memory (L2-resident, every window of the (type, head)
-//     reads the same slice) and adds -100 where the region ids, staged
-//     once per block, differ (GlobalRows), the same composite in the
-//     same order as the small tile's staged slice. One (N, N) operand
-//     serves the three callers: the packed table, the qkv-layout dense
-//     bias and the augmented window's slice, whose virtual column holds a
-//     logsumexp of the pad columns that no 729-entry table has;
+// What bounds it: a (window, head) is 4 N^2 hd = 4.9 MFLOP on ~38 KB of
+// bf16 operands at N = 196, hd = 32, ~130 FLOP/byte, under the bf16 ridge
+// (~295): the operands' bytes bound it on paper, and what keeps it there
+// is latency: chains of fragment loads, mmas, bias reads and softmax
+// steps, hidden only by many resident warps. A tile that holds a whole
+// 256-key score row in registers (128 fp32 a lane) builds at ~255
+// registers and spills, so an SM holds 8 warps; a bias read from device
+// memory per score puts an L2 round trip in every chain. The design:
+//   - a block of up to 16 warps per run of windows of one (head, window
+//     type): the block stages each window's q, k, v (and do) once in
+//     shared memory with cp.async, and its warps take the window's m16
+//     query tiles (the backward's pass 2: key tiles) in turn, warp k the
+//     tiles k, k + warps, ...; the plan gives a block at most as many
+//     warps as a window has tiles;
+//   - a warp sweeps its tile's keys in blocks of 64 (kLargeKeys): one
+//     m16 x 64 block of scores, 32 fp32 a lane, lives at a time, and the
+//     build stays under 128 registers (__launch_bounds__(512, 1)), so an
+//     SM holds 16 warps by registers. The kernels are templated on KD,
+//     the head dim's k16 steps (2: hd <= 32, Swin's; 4: hd <= 64), which
+//     sizes the fragments and accumulators, and on whether the block
+//     stages the bias slice (below);
+//   - the softmax keeps one max per (window, head) row: a sweep carries
+//     the running max over the key blocks (the quad's max of each block)
+//     and each lane's share of the row's sum, rescaled by 2^((old - new)
+//     log2e) when the max grows. Where a policy rounds the normalised p
+//     (TableBias and the fused block's FusedBlockBias: p rounded to bf16
+//     before P.V), a first sweep forms the row's max and sum and a second
+//     forms p = 2^(s log2e + off) inv, the formula of the small tile, and
+//     P.V; where it does not (DenseBias in bf16: e split into bf16 hi +
+//     lo; every fp32 path: p in fp32), one sweep rescales the output
+//     accumulator with the sum and divides by the sum at the end. The
+//     key tiles past N get -inf (p exactly 0);
+//   - the composite bias slice of the block's (type, head), the (N, N)
+//     fp32 slice plus -100 where the region ids differ, is staged once
+//     per block in shared memory (stage_bias, as the small tile does)
+//     wherever the block still fits with it (bf16 at N = 196: 154 KB
+//     beside 47 KB of tiles forward, 63 KB backward), and serves every
+//     window of the run; elsewhere (fp32 at N = 196, any N = 256) each
+//     score reads the slice from device memory plus the staged region ids
+//     (GlobalRows), the same composite in the same order. One (N, N)
+//     operand serves the three callers: the packed table, the qkv-layout
+//     dense bias and the augmented window's slice, whose virtual column
+//     holds a logsumexp of the pad columns that no 729-entry table has;
 //   - fp32 (no TF32): the products as register-tiled FMAs in the
-//     accumulator layout (rows_by_rows), P.V through a 16-row scratch per
-//     warp (frags_by_rows), as the small backward's fp32 path;
-//   - the backward's pass 1 (query tiles): S, p, then dP a key tile at a
-//     time, twice (rowsum(p dP), then ds = p (dP - rowsum) in p's
-//     registers), dq; pass 2 (key tiles): S^T, p^T from the saved row
-//     constants, dv, then dP^T a key tile at a time into ds^T, dk;
+//     accumulator layout, each score summed in head-dim order; a product
+//     whose A operand is a fragment goes through a 16 x 64 scratch per
+//     warp (acc_block), as the small backward's fp32 path;
+//   - the backward (TableBias only): the block rounds each staged q tile
+//     to qs = bf16(q * bf16(scale)) in place (fp32: q * scale), the one
+//     form every product reads. Pass 1 on the query tiles sweeps the
+//     key blocks once for the row's max, sum and rowsum(p dP) together
+//     (the rowsum's terms rescaled with the sum: rowsum = (sum of e dP) /
+//     sum), then once more forming p, dP and ds = p (dP - rowsum) a key
+//     tile at a time, ds into the dbias partial and dq accumulated; the
+//     rows' constants go to shared memory. Pass 2 on the key tiles sweeps
+//     the query blocks: S^T, p^T from the constants, dv, dP^T a tile at a
+//     time into ds^T, dk, both accumulated. Nine products of 2 N^2 hd a
+//     (window, head): S three times, dP twice, dq, dv, dP^T, dk;
 //   - dbias without atomics: each block owns one (N, N) fp32 partial in
 //     device memory; its first window stores ds, later ones add, and each
 //     element has one owning lane (the lane that holds it in pass 1, the
 //     same for every window of the run), so the run is summed in window
 //     order; dbias_reduce_kernel then sums a head's partials in block
-//     order. A per-window partial would be ~0.5 GB at Swin-T's 224 px
-//     stage 0; per block it is nH * parts * N^2 * 4 bytes, parts from the
-//     plan's run. Bit-identical on repeat.
+//     order. Bit-identical on repeat.
 // Launch plans (warps per block, windows per block): ops/window_attention.py
 // tile_plan. A policy with kLarge instantiates these kernels; the packed
 // pair's and the fused block's are compiled in sources of their own
@@ -1447,7 +1457,11 @@ int backward(const BwdOperands<T>& op, const Policy& pol, const Geometry& g, int
 // builds run beside the rest of window_attention.cu's and fused_block.cu's.
 // ---------------------------------------------------------------------------
 
-constexpr int kLargeNT = kLargeMaxN / 8;  // n8 key tiles of a score row
+constexpr int kLargeKeys = 64;              // keys (pass 2: queries) per block of a sweep
+constexpr int kLargeNT = kLargeKeys / 8;    // its n8 tiles
+constexpr int kLargeMaxWarps = 16;
+constexpr int kScratchLd = kLargeKeys + 4;  // the fp32 scratch's row stride
+constexpr size_t kBlockSmemMax = 232448;    // an H100 block's dynamic shared memory
 
 template <typename T>
 __host__ __device__ inline size_t large_tiles_bytes(int N, int hd, int tiles) {
@@ -1459,25 +1473,130 @@ __host__ __device__ inline size_t large_ids_bytes(int N) {
 __host__ __device__ inline size_t large_stats_bytes(int N) {
   return round_up_bytes((size_t)3 * N * sizeof(float));
 }
-// fp32 only: a 16-row scratch per warp at the stride of the fp32 p tile.
-template <typename T> __host__ __device__ inline size_t large_scratch_bytes(int N, int warps) {
-  return sizeof(T) == 2 ? 0 : (size_t)warps * 16 * Layout<float>::p_ld(N) * sizeof(float);
+// fp32 only: per warp a 16-row scratch of one key block.
+template <typename T> __host__ __device__ inline size_t large_scratch_bytes(int warps) {
+  return sizeof(T) == 2 ? 0 : (size_t)warps * 16 * kScratchLd * sizeof(float);
 }
 
-// Dynamic shared memory of a large-tile block of `warps` warps (ops/
-// window_attention.py tile_smem_bytes mirrors both): the forward's q, k, v
-// tiles (N rows at Layout<T>::ld(hd)), the region ids and the fp32
-// scratch; the backward's q, k, v, do tiles, the row constants (3 N
-// floats), the ids and the scratch. The ids and constants follow the
-// tiles, so the ldmatrix x4 that half-reads past the last tile's last row
-// (kd odd) stays inside the block's memory.
+// A large-tile block of `warps` warps without the bias slice: the forward's
+// q, k, v tiles (N rows at Layout<T>::ld(hd)) or the backward's q, k, v, do
+// tiles and row constants (3 N floats), the region ids and the fp32
+// scratch.
+template <typename T>
+__host__ __device__ inline size_t large_base_bytes(int N, int hd, int warps, bool backward) {
+  return large_tiles_bytes<T>(N, hd, backward ? 4 : 3) + (backward ? large_stats_bytes(N) : 0) +
+         large_ids_bytes(N) + large_scratch_bytes<T>(warps);
+}
+
+// Whether the block stages the composite bias slice: wherever it still fits.
+template <typename T>
+__host__ __device__ inline bool large_bias_staged(int N, int hd, int warps, bool backward) {
+  return large_base_bytes<T>(N, hd, warps, backward) + bias_bytes(N) <= kBlockSmemMax;
+}
+
+// Dynamic shared memory of a large-tile block (ops/window_attention.py
+// tile_smem_bytes mirrors it), in this order: the tiles, the staged bias
+// slice (where it fits), the row constants (backward), the region ids, the
+// scratch. Something always follows the tiles, so the ldmatrix x4 that
+// half-reads past the last tile's last row (kd odd) stays inside the
+// block's memory.
+template <typename T>
+__host__ __device__ inline size_t large_block_bytes(int N, int hd, int warps, bool backward) {
+  const size_t base = large_base_bytes<T>(N, hd, warps, backward);
+  return large_bias_staged<T>(N, hd, warps, backward) ? base + bias_bytes(N) : base;
+}
 template <typename T> __host__ __device__ inline size_t large_smem_bytes(int N, int hd, int warps) {
-  return large_tiles_bytes<T>(N, hd, 3) + large_ids_bytes(N) + large_scratch_bytes<T>(N, warps);
+  return large_block_bytes<T>(N, hd, warps, false);
 }
 template <typename T>
 __host__ __device__ inline size_t large_bwd_smem_bytes(int N, int hd, int warps) {
-  return large_tiles_bytes<T>(N, hd, 4) + large_stats_bytes(N) + large_ids_bytes(N) +
-         large_scratch_bytes<T>(N, warps);
+  return large_block_bytes<T>(N, hd, warps, true);
+}
+
+struct LargeSmem {
+  unsigned char* tiles;
+  float* bias;  // the staged slice, or null
+  float* stats;
+  int* ids;
+  float* scratch;
+};
+
+template <typename T>
+__device__ inline LargeSmem large_smem(unsigned char* smem, int N, int hd, int warps,
+                                       bool backward) {
+  LargeSmem s;
+  s.tiles = smem;
+  unsigned char* p = smem + large_tiles_bytes<T>(N, hd, backward ? 4 : 3);
+  s.bias = nullptr;
+  if (large_bias_staged<T>(N, hd, warps, backward)) {
+    s.bias = reinterpret_cast<float*>(p);
+    p += bias_bytes(N);
+  }
+  s.stats = reinterpret_cast<float*>(p);
+  if (backward) p += large_stats_bytes(N);
+  s.ids = reinterpret_cast<int*>(p);
+  p += large_ids_bytes(N);
+  s.scratch = reinterpret_cast<float*>(p);
+  return s;
+}
+
+// The composite bias as the large tile reads it: the staged slice (row
+// stride bs) where the block holds one (kStaged, a template parameter of
+// the kernels, so no read branches), else the slice in device memory plus
+// the region ids' -100 (GlobalRows).
+template <bool kStaged> struct LargeRows;
+template <> struct LargeRows<true> {
+  const float* s;
+  int bs;
+  __device__ __forceinline__ float at(int i, int j) const { return s[i * bs + j]; }
+  __device__ __forceinline__ float2 pair(int i, int c) const {
+    return *reinterpret_cast<const float2*>(s + i * bs + c);
+  }
+};
+template <> struct LargeRows<false> {
+  GlobalRows gl;
+  __device__ __forceinline__ float at(int i, int j) const { return gl.at(i, j); }
+  __device__ __forceinline__ float2 pair(int i, int c) const { return gl.pair(i, c); }
+};
+
+// The block's bias of (t, h). Where the block holds a slice, it stages
+// the composite into `sbias`: the (N, N) fp32 slice by 16-byte cp.async
+// where its rows are 16-byte aligned (else element copies), then -100
+// added where the region ids differ, the two values and the order of
+// stage_bias. The policy's rows (GlobalRows) otherwise; either way the
+// block copies the region ids into `ids`. The caller syncs before the
+// first read.
+template <bool kStaged, class Policy>
+__device__ inline LargeRows<kStaged> large_rows(const Policy& pol, const Geometry& g, int t,
+                                                int h, float* sbias, int* ids) {
+  const GlobalRows gl = pol.rows(g, t, h, ids);
+  if constexpr (!kStaged) {
+    return LargeRows<false>{gl};
+  } else {
+    const int N = g.N, bs = bias_ld(N);
+    if (N % 4 == 0 && (reinterpret_cast<uintptr_t>(gl.src) & 15) == 0) {
+      const int cpr = N / 4;
+      for (int e = threadIdx.x; e < N * cpr; e += blockDim.x) {
+        const int r = e / cpr, c = (e - r * cpr) * 4;
+        cp_async16(sbias + r * bs + c, gl.src + (size_t)r * N + c);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
+        const int r = e / N;
+        sbias[r * bs + e - r * N] = __ldg(gl.src + e);
+      }
+    }
+    __syncthreads();  // the slice and the ids are in
+    if (gl.ids != nullptr)
+      for (int e = threadIdx.x; e < N * N; e += blockDim.x) {
+        const int r = e / N, c = e - r * N;
+        sbias[r * bs + c] += (gl.ids[r] != gl.ids[c]) ? -100.f : 0.f;
+      }
+    return LargeRows<true>{sbias, bs};
+  }
 }
 
 // The block zeroes head columns [hd, head_pad(hd)) of `rows` tile rows:
@@ -1517,42 +1636,434 @@ __device__ __forceinline__ void stage_block(const T* const (&src)[kM], const int
   }
 }
 
-// fp32: one m16 query tile on the CUDA cores (no TF32): S = (q * scale) k^T
-// in the accumulator layout, its softmax, O = P V through the warp's
-// scratch. Both policies scale q first in fp32 and keep p in fp32, as
-// their plain versions do.
-template <class Policy, int NT, class Bias>
-__device__ __forceinline__ void attend_tile(const float* sq, const float* sk, const float* sv,
-                                            int ld, const Bias& bias, const Geometry& g, int w,
-                                            int h, int m0, float* __restrict__ out,
-                                            float* scratch, int lane) {
+// The A operand of a 16-row product at m0 (rows clamped to N - 1): bf16
+// keeps its fragments over KD k16 steps in registers (with kScale each
+// pair becomes bf16(x * qscale)); fp32 reads its rows from shared memory
+// (x * qscale with kScale). The B operands are never scaled: the
+// backward stages qs = round(q * scale) in place (scale_tile).
+template <typename T, int KD, bool kScale> struct LargeA;
+template <int KD, bool kScale> struct LargeA<bf16, KD, kScale> {
+  uint32_t a[KD][4];
+  __device__ __forceinline__ void load(const bf16* sa, int m0, int ld, int N, int kd,
+                                       float qscale, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      if (kk >= kd) continue;
+      ldsm_x4(a[kk], sa + min(m0 + (lane & 15), N - 1) * ld + 16 * kk + ((lane >> 4) << 3));
+      if (kScale)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[kk][r] = scale_pair(a[kk][r], qscale);
+    }
+  }
+  // acc = A . B[rows n0..n0 + 7]^T over the head dim (B rows clamped to
+  // N - 1), two k16 steps an ldmatrix x4.
+  __device__ __forceinline__ void dot(float (&acc)[4], const bf16* sb, int n0, int ld, int N,
+                                      int kd, int lane) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = 0.f;
+    const bf16* brow = sb + min(n0 + (lane & 7), N - 1) * ld + ((lane >> 3) << 3);
+#pragma unroll
+    for (int kk = 0; kk < KD; kk += 2) {
+      if (kk >= kd) continue;
+      uint32_t b[4];
+      ldsm_x4(b, brow + 16 * kk);
+      mma_bf16(acc, a[kk], {b[0], b[1]});
+      if (kk + 1 < kd) mma_bf16(acc, a[kk + 1], {b[2], b[3]});
+    }
+  }
+};
+template <int KD, bool kScale> struct LargeA<float, KD, kScale> {
+  const float* sa;
+  int m0;
+  float qscale;
+  __device__ __forceinline__ void load(const float* p, int m, int, int, int, float sc, int) {
+    sa = p;
+    m0 = m;
+    qscale = sc;
+  }
+  __device__ __forceinline__ void dot(float (&acc)[4], const float* sb, int n0, int ld, int N,
+                                      int kd, int lane) const {
+    dot_tile<kScale, false>(acc, sa, m0, sb, n0, ld, N, kd, qscale, lane);
+  }
+};
+
+// s[nt] = A . B[rows key0 + 8 nt..]^T for the block's key tiles below N
+// (0 past them).
+template <int KD, bool kScaleA>
+__device__ __forceinline__ void scores_block(float (&s)[kLargeNT][4],
+                                             const LargeA<bf16, KD, kScaleA>& a, const bf16* sb,
+                                             int key0, int ld, int N, int kd, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt) {
+    if (key0 + 8 * nt >= N) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      continue;
+    }
+    a.dot(s[nt], sb, key0 + 8 * nt, ld, N, kd, lane);
+  }
+}
+
+// fp32: lane (g, t) builds rows m0 + g and m0 + g + 8 by the block's 16
+// columns key0 + 8 nt + 2 t + {0, 1} from float4 reads (B rows clamped to
+// N - 1), each score summed in head-dim order (rows_by_rows' order, so
+// S^T in pass 2 equals S in pass 1 bit for bit).
+template <int KD, bool kScaleA>
+__device__ __forceinline__ void scores_block(float (&s)[kLargeNT][4],
+                                             const LargeA<float, KD, kScaleA>& a, const float* sb,
+                                             int key0, int ld, int N, int kd, int lane) {
+  const float qscale = a.qscale;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  const float* a0 = a.sa + min(a.m0 + gq, N - 1) * ld;
+  const float* a1 = a.sa + min(a.m0 + gq + 8, N - 1) * ld;
+  for (int d = 0; d < 16 * kd; d += 4) {
+    float4 x0 = ld4(a0 + d), x1 = ld4(a1 + d);
+    if (kScaleA) {
+      x0 = make_float4(x0.x * qscale, x0.y * qscale, x0.z * qscale, x0.w * qscale);
+      x1 = make_float4(x1.x * qscale, x1.y * qscale, x1.z * qscale, x1.w * qscale);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kLargeNT; ++nt) {
+      if (key0 + 8 * nt >= N) continue;
+      const int c = key0 + 8 * nt + 2 * tq;
+      const float4 k0 = ld4(sb + min(c, N - 1) * ld + d);
+      const float4 k1 = ld4(sb + min(c + 1, N - 1) * ld + d);
+      s[nt][0] = dot4(x0, k0, s[nt][0]);
+      s[nt][1] = dot4(x0, k1, s[nt][1]);
+      s[nt][2] = dot4(x1, k0, s[nt][2]);
+      s[nt][3] = dot4(x1, k1, s[nt][3]);
+    }
+  }
+}
+
+// Adds the composite bias to a block of scores (row m0 + g (+ 8), key
+// key0 + 8 nt + 2 t + e; padded rows read the bias of row N - 1), after
+// the scale if kPostScale, and puts -inf at the keys >= N: softmax_frag's
+// arithmetic.
+template <bool kPostScale, class Bias>
+__device__ __forceinline__ void bias_block(float (&s)[kLargeNT][4], int m0, int key0,
+                                           const Bias& bias, int N, float scale, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  const int i0 = min(m0 + gq, N - 1), i1 = min(m0 + gq + 8, N - 1);
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt) {
+    const int c = key0 + 8 * nt + 2 * tq;
+    if (key0 + 8 * nt >= N) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = -INFINITY;
+      continue;
+    }
+    const float2 x0 = bias.pair(i0, c);
+    const float2 x1 = bias.pair(i1, c);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a = -INFINITY, b = -INFINITY;
+      if (c + e < N) {
+        a = kPostScale ? s[nt][e] * scale : s[nt][e];
+        b = kPostScale ? s[nt][2 + e] * scale : s[nt][2 + e];
+        a += e ? x0.y : x0.x;
+        b += e ? x1.y : x1.x;
+      }
+      s[nt][e] = a;
+      s[nt][2 + e] = b;
+    }
+  }
+}
+
+// A lane's two rows (g and g + 8 of its m16 tile) over a sweep so far: the
+// running max, common to the quad, and the lane's share of the sum of
+// e^(s - max).
+struct RowRun {
+  float m0, m1, l0, l1;
+};
+
+// Folds a block of biased scores into the run: the block's max over the
+// quad joins the running max, the lane's sum is rescaled by 2^((old - new)
+// log2e) where the max grew, and e = 2^(s log2e - max log2e) replaces s (0
+// at -inf) and joins the sum. Returns the two rows' rescale factors.
+__device__ __forceinline__ float2 online_block(float (&s)[kLargeNT][4], RowRun& r, int lane) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float b0 = -INFINITY, b1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      b0 = fmaxf(b0, s[nt][e]);
+      b1 = fmaxf(b1, s[nt][2 + e]);
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    b0 = fmaxf(b0, __shfl_xor_sync(kFull, b0, o));
+    b1 = fmaxf(b1, __shfl_xor_sync(kFull, b1, o));
+  }
+  const float n0 = fmaxf(r.m0, b0), n1 = fmaxf(r.m1, b1);
+  const float a0 = n0 == r.m0 ? 1.f : exp2f((r.m0 - n0) * kLog2e);
+  const float a1 = n1 == r.m1 ? 1.f : exp2f((r.m1 - n1) * kLog2e);
+  const float o0 = n0 == -INFINITY ? 0.f : -n0 * kLog2e;
+  const float o1 = n1 == -INFINITY ? 0.f : -n1 * kLog2e;
+  float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = exp2f(fmaf(s[nt][e], kLog2e, o0));
+      s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], kLog2e, o1));
+      x0 += s[nt][e];
+      x1 += s[nt][2 + e];
+    }
+  r.l0 = r.l0 * a0 + x0;
+  r.l1 = r.l1 * a1 + x1;
+  r.m0 = n0;
+  r.m1 = n1;
+  return make_float2(a0, a1);
+}
+
+// The run's row constants: off = -max log2e and inv = 1 / sum, the lanes'
+// sums added over the quad.
+__device__ __forceinline__ RowStats run_stats(RowRun r) {
+  constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    r.l0 += __shfl_xor_sync(kFull, r.l0, o);
+    r.l1 += __shfl_xor_sync(kFull, r.l1, o);
+  }
+  return RowStats{-r.m0 * kLog2e, -r.m1 * kLog2e, 1.f / r.l0, 1.f / r.l1};
+}
+
+// p = 2^(s log2e + off) inv over a block of biased scores (0 at -inf).
+__device__ __forceinline__ void p_block(float (&s)[kLargeNT][4], const RowStats& st) {
+  constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = exp2f(fmaf(s[nt][e], kLog2e, st.off0)) * st.inv0;
+      s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], kLog2e, st.off1)) * st.inv1;
+    }
+}
+
+// bf16: out += bf16(f) . B over the block's keys key0.. below N, B stored
+// [key][dim] (ldmatrix x4.trans, rows clamped to N - 1; f is 0 past N).
+// kSplit: f = bf16(f) + bf16(f - bf16(f)), two mmas. Accumulator layout:
+// out[dt][e], row
+// g (e < 2) or g + 8, column 8 dt + 2 t + e % 2.
+template <bool kSplit, int ND>
+__device__ __forceinline__ void acc_block(float (&out)[ND][4], const float (&f)[kLargeNT][4],
+                                          const bf16* sb, int key0, int ld, int N, int nd,
+                                          float*, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kLargeNT / 2; ++kk) {
+    if (key0 + 16 * kk >= N) continue;
+    uint32_t a[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = f[2 * kk + (r >> 1)][2 * (r & 1)];
+      const float y = f[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+      a[r] = pack_bf16(x, y);
+      if (kSplit) al[r] = pack_bf16(x - bf16_lo(a[r]), y - bf16_hi(a[r]));
+    }
+    const bf16* brow = sb + min(key0 + 16 * kk + (lane & 15), N - 1) * ld + ((lane >> 4) << 3);
+#pragma unroll
+    for (int dt = 0; dt < ND; dt += 2) {
+      if (dt >= nd) continue;
+      uint32_t b[4];
+      ldsm_x4_t(b, brow + 8 * dt);
+      mma_bf16(out[dt], a, {b[0], b[1]});
+      mma_bf16(out[dt + 1], a, {b[2], b[3]});
+      if (kSplit) {
+        mma_bf16(out[dt], al, {b[0], b[1]});
+        mma_bf16(out[dt + 1], al, {b[2], b[3]});
+      }
+    }
+  }
+}
+
+// fp32: out += f . B over the block's keys key0.. below N, B stored
+// [key][dim] (rows clamped to N - 1; f is 0 past N). f goes through the
+// warp's 16 x 64 scratch; lane (g, t) then adds into out[2 c + half][e] at
+// row g + 8 half, column 16 c + 4 t + e (c < nd / 2), from float4 reads.
+template <bool kSplit, int ND>
+__device__ __forceinline__ void acc_block(float (&out)[ND][4], const float (&f)[kLargeNT][4],
+                                          const float* sb, int key0, int ld, int N, int nd,
+                                          float* scratch, int lane) {
+  const int gq = lane >> 2, tq = lane & 3, nc = nd / 2;
+  const int n4 = round_up(min(kLargeKeys, N - key0), 4);
+#pragma unroll
+  for (int nt = 0; nt < kLargeNT; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(scratch + (gq + 8 * half) * kScratchLd + 8 * nt + 2 * tq) =
+          make_float2(f[nt][2 * half], f[nt][2 * half + 1]);
+  __syncwarp();
+  for (int j = 0; j < n4; j += 4) {
+    const float4 p0 = ld4(scratch + gq * kScratchLd + j);
+    const float4 p1 = ld4(scratch + (gq + 8) * kScratchLd + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* br = sb + min(key0 + j + jj, N - 1) * ld + 4 * tq;
+      const float a0 = comp(p0, jj), a1 = comp(p1, jj);
+#pragma unroll
+      for (int c = 0; c < ND / 2; ++c) {
+        if (c >= nc) continue;
+        const float4 v = ld4(br + 16 * c);
+        out[2 * c][0] = fmaf(a0, v.x, out[2 * c][0]);
+        out[2 * c][1] = fmaf(a0, v.y, out[2 * c][1]);
+        out[2 * c][2] = fmaf(a0, v.z, out[2 * c][2]);
+        out[2 * c][3] = fmaf(a0, v.w, out[2 * c][3]);
+        out[2 * c + 1][0] = fmaf(a1, v.x, out[2 * c + 1][0]);
+        out[2 * c + 1][1] = fmaf(a1, v.y, out[2 * c + 1][1]);
+        out[2 * c + 1][2] = fmaf(a1, v.z, out[2 * c + 1][2]);
+        out[2 * c + 1][3] = fmaf(a1, v.w, out[2 * c + 1][3]);
+      }
+    }
+  }
+  __syncwarp();  // the scratch is free for the next block
+}
+
+// Multiplies the accumulator's rows g and g + 8 by (x, y): bf16's
+// fragment layout, then fp32's (acc_block's).
+template <int ND>
+__device__ __forceinline__ void scale_rows(float (&o)[ND][4], float2 a, const bf16*) {
+#pragma unroll
+  for (int dt = 0; dt < ND; ++dt) {
+    o[dt][0] *= a.x;
+    o[dt][1] *= a.x;
+    o[dt][2] *= a.y;
+    o[dt][3] *= a.y;
+  }
+}
+template <int ND>
+__device__ __forceinline__ void scale_rows(float (&o)[ND][4], float2 a, const float*) {
+#pragma unroll
+  for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] *= (dt & 1) ? a.y : a.x;
+}
+
+// Stores rows m0 + g (+ 8) < N of an (m16, head dim) accumulator, times
+// `mul`, at dst[row * ld + col0 + column]: bf16 rounded from the fragment
+// layout, fp32 from acc_block's.
+template <int ND>
+__device__ __forceinline__ void store_tile(bf16* dst, size_t ld, size_t row0, size_t col0,
+                                           const float (&o)[ND][4], int m0, int N, int hd,
+                                           int nd, float mul, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (r >= N) continue;
+    bf16* row = dst + (row0 + r) * ld + col0;
+#pragma unroll
+    for (int dt = 0; dt < ND; ++dt) {
+      if (dt >= nd) continue;
+      const int c = 8 * dt + 2 * tq;
+      const float a = o[dt][2 * half] * mul, b = o[dt][2 * half + 1] * mul;
+      if (c + 1 < hd && (reinterpret_cast<uintptr_t>(row + c) & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(a, b);
+      } else {
+        if (c < hd) row[c] = __float2bfloat16(a);
+        if (c + 1 < hd) row[c + 1] = __float2bfloat16(b);
+      }
+    }
+  }
+}
+template <int ND>
+__device__ __forceinline__ void store_tile(float* dst, size_t ld, size_t row0, size_t col0,
+                                           const float (&o)[ND][4], int m0, int N, int hd,
+                                           int nd, float mul, int lane) {
+  const int gq = lane >> 2, tq = lane & 3, nc = nd / 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (r >= N) continue;
+    float* row = dst + (row0 + r) * ld + col0;
+#pragma unroll
+    for (int c = 0; c < ND / 2; ++c) {
+      if (c >= nc) continue;
+      const int col = 16 * c + 4 * tq;
+      const float* v = o[2 * c + half];
+      if (col + 3 < hd && (reinterpret_cast<uintptr_t>(row + col) & 15) == 0) {
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < hd) row[col + e] = v[e] * mul;
+      }
+    }
+  }
+}
+
+// The forward of one m16 query tile at m0. bf16: the A operand is
+// bf16(q * bf16(scale)) with Policy::kRoundQ, else q unscaled and the fp32
+// score scaled after the product; fp32: q * scale in fp32 (both policies,
+// as their plain versions). A policy that rounds the normalised p
+// (kRoundQ and not kSplitP) takes two sweeps: the rows' max and sum, then
+// p and O. Otherwise one sweep: O accumulates e (bf16: split into hi +
+// lo; fp32: e itself), rescaled as the max grows, and is divided by the
+// sum at the end.
+template <class Policy, int KD, typename T, class Bias>
+__device__ __forceinline__ void large_fwd_tile(const T* sq, const T* sk, const T* sv, int ld,
+                                               const Bias& bias, const Geometry& g, int w, int h,
+                                               int m0, T* __restrict__ out, float* scratch,
+                                               int lane) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr bool kTwoSweeps = kBf16 && !Policy::kSplitP;
+  constexpr bool kPostScale = kBf16 && !Policy::kRoundQ;
   const int N = g.N, hd = g.hd, kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
-  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
-  float s[NT][4];
-  rows_by_rows<true, false>(s, sq, m0, sk, ld, N, kd, nn, g.scale, lane);
-  softmax_frag<false>(s, m0, bias, N, g.scale, lane);
-  float o[8][4];
-  frags_by_rows<false>(o, s, sv, ld, N, kp, nd, 0.f, scratch, lane);
-  store_rows(out, g.ld_out, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, 1.f, lane);
+  const float qscale = kBf16 ? __bfloat162float(__float2bfloat16(g.scale)) : g.scale;
+  LargeA<T, KD, !kPostScale> qa;
+  qa.load(sq, m0, ld, N, kd, qscale, lane);
+  float o[2 * KD][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * KD; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  RowRun run{-INFINITY, -INFINITY, 0.f, 0.f};
+  for (int key0 = 0; key0 < N; key0 += kLargeKeys) {
+    float s[kLargeNT][4];
+    scores_block(s, qa, sk, key0, ld, N, kd, lane);
+    bias_block<kPostScale>(s, m0, key0, bias, N, g.scale, lane);
+    const float2 a = online_block(s, run, lane);
+    if (!kTwoSweeps) {
+      scale_rows(o, a, sq);
+      acc_block<kBf16 && Policy::kSplitP>(o, s, sv, key0, ld, N, nd, scratch, lane);
+    }
+  }
+  const RowStats st = run_stats(run);
+  if (kTwoSweeps) {
+    for (int key0 = 0; key0 < N; key0 += kLargeKeys) {
+      float s[kLargeNT][4];
+      scores_block(s, qa, sk, key0, ld, N, kd, lane);
+      bias_block<kPostScale>(s, m0, key0, bias, N, g.scale, lane);
+      p_block(s, st);
+      acc_block<false>(o, s, sv, key0, ld, N, nd, scratch, lane);
+    }
+  } else {
+    scale_rows(o, make_float2(st.inv0, st.inv1), sq);
+  }
+  store_tile(out, g.ld_out, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, 1.f, lane);
 }
 
 // Block (x, y = h * types + t) runs windows w = i * types + t of head h for
 // i in [x * run, (x + 1) * run), one at a time; warp k takes query tiles
 // 16 k, 16 (k + warps), ... of each.
-template <typename T, class Policy>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+template <typename T, class Policy, int KD, bool kStaged>
+__global__ void __launch_bounds__(kLargeMaxWarps * 32, 1)
 window_attention_large_kernel(Operands<T> op, Policy pol, Geometry g) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = g.N, ld = Layout<T>::ld(g.hd);
   const int t = blockIdx.y % g.types, h = blockIdx.y / g.types;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t tb = large_tiles_bytes<T>(N, g.hd, 3);
-  T* tiles = reinterpret_cast<T*>(smem);
+  const LargeSmem sm = large_smem<T>(smem, N, g.hd, warps, false);
+  T* tiles = reinterpret_cast<T*>(sm.tiles);
   T* const tile[3] = {tiles, tiles + (size_t)N * ld, tiles + (size_t)2 * N * ld};
-  int* ids = reinterpret_cast<int*>(smem + tb);
-  float* scratch = reinterpret_cast<float*>(smem + tb + large_ids_bytes(N)) +
-                   (size_t)warp * 16 * Layout<float>::p_ld(N);
-  const GlobalRows bias = pol.rows(g, t, h, ids);
+  float* scratch = sm.scratch + (size_t)warp * 16 * kScratchLd;
+  const LargeRows<kStaged> bias = large_rows<kStaged>(pol, g, t, h, sm.bias, sm.ids);
   zero_cols(tiles, 3 * N, ld, g.hd);
   __syncthreads();
 
@@ -1567,17 +2078,30 @@ window_attention_large_kernel(Operands<T> op, Policy pol, Geometry g) {
     cp_async_wait<0>();
     __syncthreads();  // the window is staged
     for (int m0 = 16 * warp; m0 < N; m0 += 16 * warps)
-      attend_tile<Policy, kLargeNT>(tile[0], tile[1], tile[2], ld, bias, g, w, h, m0, op.out,
-                                    scratch, lane);
+      large_fwd_tile<Policy, KD>(tile[0], tile[1], tile[2], ld, bias, g, w, h, m0, op.out,
+                                 scratch, lane);
     __syncthreads();  // the tiles are free
   }
+}
+
+// The instantiation a launch takes: KD = 2 k16 steps up to hd = 32, else 4;
+// kStaged where the block holds the bias slice.
+template <typename K>
+K large_instance(int hd, bool staged, K kd2_staged, K kd2, K kd4_staged, K kd4) {
+  if (head_pad(hd) <= 32) return staged ? kd2_staged : kd2;
+  return staged ? kd4_staged : kd4;
 }
 
 template <typename T, class Policy>
 int launch_large(Operands<T> op, const Policy& pol, const Geometry& g, int warps,
                  cudaStream_t stream) {
+  if (warps < 1 || warps > kLargeMaxWarps) return (int)cudaErrorInvalidValue;
   const size_t smem = large_smem_bytes<T>(g.N, g.hd, warps);
-  auto kernel = window_attention_large_kernel<T, Policy>;
+  auto kernel = large_instance(g.hd, large_bias_staged<T>(g.N, g.hd, warps, false),
+                               window_attention_large_kernel<T, Policy, 2, true>,
+                               window_attention_large_kernel<T, Policy, 2, false>,
+                               window_attention_large_kernel<T, Policy, 4, true>,
+                               window_attention_large_kernel<T, Policy, 4, false>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1587,69 +2111,66 @@ int launch_large(Operands<T> op, const Policy& pol, const Geometry& g, int warps
   return (int)cudaGetLastError();
 }
 
-// Pass 1 of (window w, head h) for the query tile at m0: S and its softmax,
-// rowsum(p dP) and ds = p (dP - rowsum) with dP = do v^T formed a key tile
-// at a time (twice: the rowsum needs every tile first), ds into the block's
-// dbias partial (stored by the run's first window, added after), the rows'
-// softmax constants and rowsums into `stats` (3 N floats), dq.
-template <typename T, int NT, class Bias>
+// The block rounds a staged q tile to qs in place: bf16(q * bf16(scale))
+// (scale_pair's rounding) in bf16, q * scale in fp32. Every product of the
+// backward that reads q reads qs.
+__device__ inline void scale_tile(bf16* t, int N, int ld, int hd, float qscale) {
+  for (int e = threadIdx.x; e < N * hd; e += blockDim.x) {
+    bf16* x = t + (size_t)(e / hd) * ld + e % hd;
+    *x = __float2bfloat16(__bfloat162float(*x) * qscale);
+  }
+}
+__device__ inline void scale_tile(float* t, int N, int ld, int hd, float qscale) {
+  for (int e = threadIdx.x; e < N * hd; e += blockDim.x) t[(size_t)(e / hd) * ld + e % hd] *= qscale;
+}
+
+// Pass 1 of (window w, head h) for the query tile at m0. Sweep 1: S, its
+// running max and sum, and dP = do v^T a key tile at a time, whose terms e
+// dP are summed and rescaled with the sum, so rowsum(p dP) = (sum of e dP)
+// / sum. The rows' constants (off, inv, rowsum) go to `stats` (3 N
+// floats). Sweep 2: S and p, dP again a tile at a time into ds = p (dP -
+// rowsum), ds into the block's dbias partial (stored by the run's first
+// window, added after), dq = round(round(ds) k * scale) accumulated.
+template <int KD, typename T, class Bias>
 __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
                             const Bias& bias, float* stats, float* part, bool first,
                             float* scratch, const Geometry& g, int w, int h, int m0,
                             const BwdOperands<T>& op, int lane) {
   const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
   const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
-  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
-  const float qscale = operand_scale<T>(g.scale);
-  float s[NT][4];
-  rows_by_rows<true, false>(s, sq, m0, sk, ld, N, kd, nn, qscale, lane);
-  const RowStats st = softmax_frag<false>(s, m0, bias, N, g.scale, lane);
-  TileRows<T> dor;
-  dor.load(sdo, m0, ld, N, kd, lane);
-  float rs0 = 0.f, rs1 = 0.f;
+  LargeA<T, KD, false> qa, da;
+  RowRun run{-INFINITY, -INFINITY, 0.f, 0.f};
+  float d0 = 0.f, d1 = 0.f;
+  for (int key0 = 0; key0 < N; key0 += kLargeKeys) {
+    float s[kLargeNT][4];
+    qa.load(sq, m0, ld, N, kd, 0.f, lane);
+    scores_block(s, qa, sk, key0, ld, N, kd, lane);
+    bias_block<false>(s, m0, key0, bias, N, g.scale, lane);
+    const float2 a = online_block(s, run, lane);
+    da.load(sdo, m0, ld, N, kd, 0.f, lane);
+    float x0 = 0.f, x1 = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (nt >= nn) continue;
-    float dp[4];
-    dor.dot(dp, sv, 8 * nt, ld, N, kd, lane);
+    for (int nt = 0; nt < kLargeNT; ++nt) {
+      if (key0 + 8 * nt >= N) continue;
+      float dp[4];
+      da.dot(dp, sv, key0 + 8 * nt, ld, N, kd, lane);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      rs0 += s[nt][e] * dp[e];
-      rs1 += s[nt][2 + e] * dp[2 + e];
+      for (int e = 0; e < 2; ++e) {
+        x0 += s[nt][e] * dp[e];
+        x1 += s[nt][2 + e] * dp[2 + e];
+      }
     }
+    d0 = d0 * a.x + x0;
+    d1 = d1 * a.y + x1;
   }
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
-    rs0 += __shfl_xor_sync(kFull, rs0, o);
-    rs1 += __shfl_xor_sync(kFull, rs1, o);
+    d0 += __shfl_xor_sync(kFull, d0, o);
+    d1 += __shfl_xor_sync(kFull, d1, o);
   }
+  const RowStats st = run_stats(run);
+  const float rs0 = d0 * st.inv0, rs1 = d1 * st.inv1;
   const int r0 = m0 + gq, r1 = r0 + 8;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (nt >= nn) continue;
-    float dp[4];
-    dor.dot(dp, sv, 8 * nt, ld, N, kd, lane);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[nt][e] = s[nt][e] * (dp[e] - rs0);
-      s[nt][2 + e] = s[nt][2 + e] * (dp[2 + e] - rs1);
-    }
-    const int c = 8 * nt + 2 * tq;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? r1 : r0;
-      if (r >= N || c >= N) continue;
-      float* a = part + (size_t)r * N + c;
-      const float x = s[nt][2 * half], y = s[nt][2 * half + 1];
-      if (first) {
-        a[0] = x;
-        if (c + 1 < N) a[1] = y;
-      } else {
-        a[0] += x;
-        if (c + 1 < N) a[1] += y;
-      }
-    }
-  }
   if (tq == 0) {
     if (r0 < N) {
       stats[r0] = st.off0;
@@ -1662,17 +2183,55 @@ __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo,
       stats[2 * N + r1] = rs1;
     }
   }
-  // dq = round(round(ds) k * scale)
-  float o[8][4];
-  frags_by_rows<false>(o, s, sk, ld, N, kp, nd, qscale, scratch, lane);
-  store_rows(op.dq, g.ld_dx, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, g.scale, lane);
+  float o[2 * KD][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * KD; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  for (int key0 = 0; key0 < N; key0 += kLargeKeys) {
+    float s[kLargeNT][4];
+    qa.load(sq, m0, ld, N, kd, 0.f, lane);
+    scores_block(s, qa, sk, key0, ld, N, kd, lane);
+    bias_block<false>(s, m0, key0, bias, N, g.scale, lane);
+    p_block(s, st);
+    da.load(sdo, m0, ld, N, kd, 0.f, lane);
+#pragma unroll
+    for (int nt = 0; nt < kLargeNT; ++nt) {
+      if (key0 + 8 * nt >= N) continue;
+      float dp[4];
+      da.dot(dp, sv, key0 + 8 * nt, ld, N, kd, lane);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = s[nt][e] * (dp[e] - rs0);
+        s[nt][2 + e] = s[nt][2 + e] * (dp[2 + e] - rs1);
+      }
+      const int c = key0 + 8 * nt + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= N || c >= N) continue;
+        float* x = part + (size_t)r * N + c;
+        const float u = s[nt][2 * half], v = s[nt][2 * half + 1];
+        if (first) {
+          x[0] = u;
+          if (c + 1 < N) x[1] = v;
+        } else {
+          x[0] += u;
+          if (c + 1 < N) x[1] += v;
+        }
+      }
+    }
+    acc_block<false>(o, s, sk, key0, ld, N, nd, scratch, lane);  // dq
+  }
+  store_tile(op.dq, g.ld_dx, (size_t)w * N, (size_t)h * hd, o, m0, N, hd, nd, g.scale, lane);
 }
 
-// Pass 2 of (window w, head h) for the key tile at j0, from every query
-// row's constants: S^T, p^T (column 8 nt + 2 tq + e of a fragment is query
-// i; padded queries get p = ds = 0), dv, then dP^T = v do^T a key tile at
-// a time into ds^T, dk.
-template <typename T, int NT, class Bias>
+// Pass 2 of (window w, head h) for the key tile at j0, over the query
+// blocks, from every query row's constants: S^T = k qs^T and p^T (column
+// 8 nt + 2 tq + e of a fragment is query i; padded queries get p = ds =
+// 0), dv = round(round(p)^T do) accumulated, dP^T = v do^T a query tile
+// at a time into ds^T, dk = round(round(ds)^T qs) accumulated.
+template <int KD, typename T, class Bias>
 __device__ void large_pass2(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
                             const Bias& bias, const float* stats, float* scratch,
                             const Geometry& g, int w, int h, int j0, const BwdOperands<T>& op,
@@ -1680,50 +2239,53 @@ __device__ void large_pass2(const T* sq, const T* sk, const T* sv, const T* sdo,
   constexpr float kLog2e = 1.4426950408889634f;
   const int N = g.N, hd = g.hd, gq = lane >> 2, tq = lane & 3;
   const int kd = head_pad(hd) / 16, nd = head_pad(hd) / 8;
-  const int nn = (N + 7) / 8, kp = (N + 15) / 16;
-  const float qscale = operand_scale<T>(g.scale);
   const size_t row0 = (size_t)w * N, col0 = (size_t)h * hd;
-  float p[NT][4];
-  rows_by_rows<false, true>(p, sk, j0, sq, ld, N, kd, nn, qscale, lane);
+  LargeA<T, KD, false> ka, va;
+  float dv[2 * KD][4], dk[2 * KD][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (nt >= nn) continue;
+  for (int dt = 0; dt < 2 * KD; ++dt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int i = 8 * nt + 2 * tq + e;
+    for (int e = 0; e < 4; ++e) dv[dt][e] = dk[dt][e] = 0.f;
+  for (int i0 = 0; i0 < N; i0 += kLargeKeys) {
+    float p[kLargeNT][4];
+    ka.load(sk, j0, ld, N, kd, 0.f, lane);
+    scores_block(p, ka, sq, i0, ld, N, kd, lane);  // S^T = k qs^T
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = j0 + gq + 8 * half;
-        float x = 0.f;
-        if (i < N && j < N) {
-          x = p[nt][2 * half + e] + bias.at(i, j);
-          x = exp2f(fmaf(x, kLog2e, stats[i])) * stats[N + i];
+    for (int nt = 0; nt < kLargeNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = i0 + 8 * nt + 2 * tq + e;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = j0 + gq + 8 * half;
+          float x = 0.f;
+          if (i < N && j < N) {
+            x = p[nt][2 * half + e] + bias.at(i, j);
+            x = exp2f(fmaf(x, kLog2e, stats[i])) * stats[N + i];
+          }
+          p[nt][2 * half + e] = x;
         }
-        p[nt][2 * half + e] = x;
+      }
+    acc_block<false>(dv, p, sdo, i0, ld, N, nd, scratch, lane);
+    va.load(sv, j0, ld, N, kd, 0.f, lane);
+#pragma unroll
+    for (int nt = 0; nt < kLargeNT; ++nt) {
+      if (i0 + 8 * nt >= N) continue;
+      float dp[4];
+      va.dot(dp, sdo, i0 + 8 * nt, ld, N, kd, lane);  // dP^T
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = i0 + 8 * nt + 2 * tq + e;
+        const float rs = i < N ? stats[2 * N + i] : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          p[nt][2 * half + e] = i < N ? p[nt][2 * half + e] * (dp[2 * half + e] - rs) : 0.f;
       }
     }
+    acc_block<false>(dk, p, sq, i0, ld, N, nd, scratch, lane);
   }
-  float o[8][4];
-  frags_by_rows<false>(o, p, sdo, ld, N, kp, nd, qscale, scratch, lane);  // dv = round(p^T) do
-  store_rows(op.dv, g.ld_dx, row0, col0, o, j0, N, hd, nd, 1.f, lane);
-  TileRows<T> vr;
-  vr.load(sv, j0, ld, N, kd, lane);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (nt >= nn) continue;
-    float dp[4];
-    vr.dot(dp, sdo, 8 * nt, ld, N, kd, lane);  // dP^T
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int i = 8 * nt + 2 * tq + e;
-      const float rs = i < N ? stats[2 * N + i] : 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        p[nt][2 * half + e] = i < N ? p[nt][2 * half + e] * (dp[2 * half + e] - rs) : 0.f;
-    }
-  }
-  frags_by_rows<true>(o, p, sq, ld, N, kp, nd, qscale, scratch, lane);  // dk = round(ds^T) qs
-  store_rows(op.dk, g.ld_dx, row0, col0, o, j0, N, hd, nd, 1.f, lane);
+  store_tile(op.dv, g.ld_dx, row0, col0, dv, j0, N, hd, nd, 1.f, lane);
+  store_tile(op.dk, g.ld_dx, row0, col0, dk, j0, N, hd, nd, 1.f, lane);
 }
 
 // Block (x, y = h * types + t) runs windows w = i * types + t of head h for
@@ -1731,23 +2293,19 @@ __device__ void large_pass2(const T* sq, const T* sk, const T* sv, const T* sdo,
 // and do, its warps take the query tiles in pass 1 and the key tiles in
 // pass 2 (warp k: tiles k, k + warps, ...), and the block's dbias partial
 // is partial[h][t * chunks + x].
-template <typename T, class Policy>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+template <typename T, class Policy, int KD, bool kStaged>
+__global__ void __launch_bounds__(kLargeMaxWarps * 32, 1)
 window_attention_large_bwd_kernel(BwdOperands<T> op, Policy pol, Geometry g) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = g.N, ld = Layout<T>::ld(g.hd);
   const int t = blockIdx.y % g.types, h = blockIdx.y / g.types;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t tb = large_tiles_bytes<T>(N, g.hd, 4);
-  T* tiles = reinterpret_cast<T*>(smem);
+  const LargeSmem sm = large_smem<T>(smem, N, g.hd, warps, true);
+  T* tiles = reinterpret_cast<T*>(sm.tiles);
   T* const tile[4] = {tiles, tiles + (size_t)N * ld, tiles + (size_t)2 * N * ld,
                       tiles + (size_t)3 * N * ld};
-  float* stats = reinterpret_cast<float*>(smem + tb);
-  int* ids = reinterpret_cast<int*>(smem + tb + large_stats_bytes(N));
-  float* scratch =
-      reinterpret_cast<float*>(smem + tb + large_stats_bytes(N) + large_ids_bytes(N)) +
-      (size_t)warp * 16 * Layout<float>::p_ld(N);
-  const GlobalRows bias = pol.rows(g, t, h, ids);
+  float* scratch = sm.scratch + (size_t)warp * 16 * kScratchLd;
+  const LargeRows<kStaged> bias = large_rows<kStaged>(pol, g, t, h, sm.bias, sm.ids);
   zero_cols(tiles, 4 * N, ld, g.hd);
   __syncthreads();
 
@@ -1762,13 +2320,15 @@ window_attention_large_bwd_kernel(BwdOperands<T> op, Policy pol, Geometry g) {
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();  // the window is staged
+    scale_tile(tile[0], N, ld, g.hd, operand_scale<T>(g.scale));
+    __syncthreads();  // q is qs
     for (int m0 = 16 * warp; m0 < N; m0 += 16 * warps)
-      large_pass1<T, kLargeNT>(tile[0], tile[1], tile[2], tile[3], ld, bias, stats, part,
-                               i == i0, scratch, g, w, h, m0, op, lane);
+      large_pass1<KD>(tile[0], tile[1], tile[2], tile[3], ld, bias, sm.stats, part, i == i0,
+                      scratch, g, w, h, m0, op, lane);
     __syncthreads();  // every query row's constants are in
     for (int j0 = 16 * warp; j0 < N; j0 += 16 * warps)
-      large_pass2<T, kLargeNT>(tile[0], tile[1], tile[2], tile[3], ld, bias, stats, scratch,
-                               g, w, h, j0, op, lane);
+      large_pass2<KD>(tile[0], tile[1], tile[2], tile[3], ld, bias, sm.stats, scratch, g, w, h,
+                      j0, op, lane);
     __syncthreads();  // the tiles and constants are free
   }
 }
@@ -1776,9 +2336,13 @@ window_attention_large_bwd_kernel(BwdOperands<T> op, Policy pol, Geometry g) {
 template <typename T, class Policy>
 int launch_bwd_large(BwdOperands<T> op, const Policy& pol, const Geometry& g, int warps,
                      cudaStream_t stream) {
-  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > kLargeMaxWarps) return (int)cudaErrorInvalidValue;
   const size_t smem = large_bwd_smem_bytes<T>(g.N, g.hd, warps);
-  auto kernel = window_attention_large_bwd_kernel<T, Policy>;
+  auto kernel = large_instance(g.hd, large_bias_staged<T>(g.N, g.hd, warps, true),
+                               window_attention_large_bwd_kernel<T, Policy, 2, true>,
+                               window_attention_large_bwd_kernel<T, Policy, 2, false>,
+                               window_attention_large_bwd_kernel<T, Policy, 4, true>,
+                               window_attention_large_bwd_kernel<T, Policy, 4, false>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -62,17 +62,19 @@ _BWD_GROUP = 4          # warps per (window, head) in the backward
 _BWD_WARPS = (8, 4)
 # The large-window tile (wtile::window_attention_large_kernel and its
 # backward): windows above _SMALL_MAX_N tokens, up to _LARGE_MAX_N; a
-# block of _LARGE_WARPS warps (fewer where its shared memory would not
-# fit) shares each window's staged tiles, its warps taking the m16 row
-# tiles in turn; at most _LARGE_MAX_RUN windows per block. One m16 tile's
-# whole score row lives in registers (up to 255 a thread): the SM holds
-# _SM_WARPS_MAX_LARGE warps by registers (chip_smoke.py holds the build
-# to it).
+# block of up to _LARGE_MAX_WARPS warps (at most a window's m16 tiles)
+# shares each window's staged tiles and, where the block still fits with
+# it, the (type, head)'s staged bias slice; its warps take the m16 tiles
+# in turn, each sweeping 64 keys at a time; at most _LARGE_MAX_RUN windows
+# per block. The kernels build under 128 registers (__launch_bounds__(512,
+# 1)): the SM holds _SM_WARPS_MAX_LARGE warps by registers (chip_smoke.py
+# holds the build to it).
 _SMALL_MAX_N = 64
 _LARGE_MAX_N = 256
-_LARGE_WARPS = (4, 3, 2, 1)
+_LARGE_MAX_WARPS = 16
+_LARGE_KEYS = 64
 _LARGE_MAX_RUN = 8
-_SM_WARPS_MAX_LARGE = {2: 8, 4: 8}
+_SM_WARPS_MAX_LARGE = {2: 16, 4: 16}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -87,19 +89,41 @@ def _bias_bytes(N: int) -> int:
     return _round_up(N * bias_ld * 4, 128)
 
 
-def _large_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
+def _large_base_bytes(N: int, hd: int, itemsize: int, warps: int,
                       backward: bool) -> int:
-    """The large tile's block (wtile::large_smem_bytes,
-    large_bwd_smem_bytes): the q, k, v (and do) tiles, N rows each at
+    """The large tile's block without the bias slice (wtile::
+    large_base_bytes): the q, k, v (and do) tiles, N rows each at
     head_pad(hd) + 8 bf16 / + 4 fp32; the backward's row constants (3 N
-    floats); the region ids (N ints); fp32 only, a 16-row scratch per warp
-    at the stride 8 ceil(N / 8) + 4; each part rounded up to 128 bytes."""
+    floats); the region ids (N ints); fp32 only, a 16 x 64 scratch per
+    warp at the stride 68; each part but the scratch rounded up to 128
+    bytes."""
     ld = _round_up(hd, 16) + (8 if itemsize == 2 else 4)
     tiles = _round_up((4 if backward else 3) * N * ld * itemsize, 128)
     stats = _round_up(3 * N * 4, 128) if backward else 0
     ids = _round_up(N * 4, 128)
-    scratch = 0 if itemsize == 2 else warps * 16 * (8 * -(-N // 8) + 4) * 4
+    scratch = 0 if itemsize == 2 else warps * 16 * (_LARGE_KEYS + 4) * 4
     return tiles + stats + ids + scratch
+
+
+def large_bias_staged(N: int, hd: int, itemsize: int, warps: int,
+                      backward: bool) -> bool:
+    """Whether a large-tile block stages the composite (N, N) fp32 bias
+    slice in shared memory (wtile::large_bias_staged): wherever the block
+    still fits with it. Elsewhere each score reads the slice from device
+    memory."""
+    return (_large_base_bytes(N, hd, itemsize, warps, backward)
+            + _bias_bytes(N) <= _BLOCK_SMEM_MAX)
+
+
+def _large_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
+                      backward: bool) -> int:
+    """The large tile's block (wtile::large_smem_bytes,
+    large_bwd_smem_bytes): :func:`_large_base_bytes` and, where it fits,
+    the staged bias slice (:func:`_bias_bytes`)."""
+    base = _large_base_bytes(N, hd, itemsize, warps, backward)
+    if large_bias_staged(N, hd, itemsize, warps, backward):
+        return base + _bias_bytes(N)
+    return base
 
 
 def tile_smem_bytes(N: int, hd: int, itemsize: int, warps: int,
@@ -185,11 +209,14 @@ def tile_plan(B_: int, N: int, hd: int, nH: int, types: int, itemsize: int,
 
 def _large_plan(B_, N, hd, nH, types, itemsize, sms, backward):
     """The large tile's plan: warps per block the count that keeps the
-    most warps resident (ties: more), among those whose block fits;
-    windows per block the longest run up to _LARGE_MAX_RUN that still
-    gives a whole wave of blocks, else 1. The backward's dbias partials,
-    one (N, N) fp32 slice per block, scale with the blocks: a whole wave
-    and no more keeps them at ~60 MB on Swin-T's W=14 shapes."""
+    most warps resident (ties: more), up to one warp per m16 tile of a
+    window (13 at N = 196) and among those whose block fits; a block that
+    stages the bias slice (bf16 at N = 196) is alone on its SM, so it
+    takes a warp per tile. Windows per block: the longest run up to
+    _LARGE_MAX_RUN that still gives a whole wave of blocks, else 1. The
+    backward's dbias partials, one (N, N) fp32 slice per block, scale with
+    the blocks: a whole wave and no more keeps them at ~60 MB on Swin-T's
+    W=14 shapes."""
     per_type = B_ // types
     cap = _SM_WARPS_MAX_LARGE[itemsize]
 
@@ -200,7 +227,9 @@ def _large_plan(B_, N, hd, nH, types, itemsize, sms, backward):
         return min(_SM_SMEM // (smem + _BLOCK_RESERVED), cap // w,
                    _SM_BLOCKS_MAX)
 
-    warps = max(_LARGE_WARPS, key=lambda w: (resident(w) * w, w))
+    tiles = -(-N // 16)
+    warps = max(range(1, min(_LARGE_MAX_WARPS, tiles) + 1),
+                key=lambda w: (resident(w) * w, w))
 
     def chunks(run):
         return -(-per_type // run)
@@ -214,10 +243,16 @@ def _large_plan(B_, N, hd, nH, types, itemsize, sms, backward):
 
 
 def large_tile_fits(N: int, hd: int, backward: bool) -> bool:
-    """Whether the large tile's block fits the card at this window and
-    head dim in both dtypes (one warp at least), by shape alone."""
-    return all(_large_smem_bytes(N, hd, itemsize, 1, backward)
-               <= _BLOCK_SMEM_MAX for itemsize in (2, 4))
+    """The large tile's shape rule, by shape alone: whether a one-warp
+    block fits the card in both dtypes with a 16-row fp32 scratch of a
+    whole score row (16 x (8 ceil(N / 8) + 4) floats), the rule its callers
+    have been held to since the tile was written. The blocks it launches
+    (:func:`_large_base_bytes`, a scratch of one 64-key block) need no
+    more than that."""
+    row_scratch = 16 * (8 * -(-N // 8) + 4) * 4
+    return all(_large_base_bytes(N, hd, itemsize, 0, backward)
+               + (row_scratch if itemsize == 4 else 0) <= _BLOCK_SMEM_MAX
+               for itemsize in (2, 4))
 
 
 def supports(N: int, C: int, nH: int) -> bool:

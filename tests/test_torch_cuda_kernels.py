@@ -91,6 +91,18 @@ TILE_CASES = TILE_CASES + [
     (145, 256, 8, 5, 0, 0),
     (196, 128, 4, 9, 0, 1),
 ]
+# The large tile's key blocks of 64: N=65 and 129, one key past a block
+# (head dims 5 and 32), N=100 over three window types, N=196 at head dim
+# 64 (the KD=4 kernels, the bias slice in device memory), N=100 at head
+# dim 64 (KD=4 with the slice staged) and N=256 (never staged). Appended.
+TILE_CASES = TILE_CASES + [
+    (65, 10, 2, 7, 0, 0),
+    (129, 64, 2, 6, 3, 0),
+    (100, 96, 3, 6, 3, 0),
+    (196, 128, 2, 4, 2, 0),
+    (256, 64, 2, 3, 0, 0),
+    (100, 128, 2, 4, 2, 0),
+]
 
 
 def _offset_tensor(a, dtype, cuda, offset):
@@ -173,7 +185,7 @@ def test_cuda_large_tile_plan_fits_the_card(cuda):
         for hd in (1, 5, 16, 24, 32, 48, 64):
             for itemsize in (2, 4):
                 for backward, count in counts.items():
-                    for warps in range(1, 5):
+                    for warps in range(1, wa._LARGE_MAX_WARPS + 1):
                         assert (count(N, hd, itemsize, warps)
                                 == wa.tile_smem_bytes(N, hd, itemsize, warps,
                                                       backward))
@@ -225,7 +237,16 @@ C512_FUSED_CASES = [
     (2, 14, 7, 512, 16, True, False, True),
     (2, 14, 14, 512, 16, False, False, True),
 ]
-FUSED_CASES = FUSED_CASES + W14_FUSED_CASES + C512_FUSED_CASES
+# The large tile's other instances under the fused block's policy: W=14
+# at head dim 64 (C=128, 2 heads: KD=4, the bias slice in device
+# memory), W=10 at head dim 64 (N=100: KD=4, staged) and W=16 (N=256,
+# never staged). Appended.
+LARGE_FUSED_CASES = [
+    (2, 14, 14, 128, 2, True, False, False),
+    (2, 20, 10, 128, 2, True, False, False),
+    (2, 16, 16, 64, 2, False, False, True),
+]
+FUSED_CASES = FUSED_CASES + W14_FUSED_CASES + C512_FUSED_CASES + LARGE_FUSED_CASES
 
 
 def _fused_inputs(cuda, B, H, ws, C, nH, shifted, padded, dp, seed=0):
@@ -749,6 +770,13 @@ PWA_CASES = [
     (4, 145, 192, 6, 1),
     (2, 256, 128, 2, 2),
     (6, 100, 15, 3, 3),
+    # the large tile's key blocks: N=65 and 129, one key past a block
+    # (head dims 5 and 32), N=196 at head dim 64 (KD=4, the bias slice in
+    # device memory) and N=100 at head dim 64 (KD=4, staged)
+    (4, 65, 15, 3, 1),
+    (3, 129, 96, 3, 1),
+    (4, 196, 192, 3, 2),
+    (4, 100, 128, 2, 2),
 ]
 
 

@@ -1,17 +1,30 @@
 """The large-window tile (csrc/window_attention_tile.cuh, 64 < N <= 256:
 Swin at W=14) on the CPU: a plain-torch model of its arithmetic, both
-passes, both dtypes and both policies, its launch plans, its shared
+passes, both dtypes and all three policies, its launch plans, its shared
 memory and its shape rule.
 
 The kernels cannot run here, so this file models what they compute, down
 to the tile padding: query rows in m16 tiles read clamped to row N - 1,
-every score row over 256 keys (32 key tiles of 8) with the keys past N
-read clamped and masked with -inf (p exactly 0), the head dim zero-filled
-to a multiple of 16. The backward's pass 2 zeroes p and ds in the padded
-query columns, so the clamped rows add nothing to dv and dk. bf16 models
-hold exact bf16 values in fp32 tensors (the mma multiplies bf16 operands
-exactly and accumulates in fp32). The tolerances are those of
-tests/test_torch_window_attention_tiles.py and
+keys swept in blocks of 64 (the keys past N read clamped and masked with
+-inf, p exactly 0), the head dim zero-filled to a multiple of 16. The
+softmax keeps one max per row: a sweep carries the running max over the
+key blocks and rescales the sum (and, in one-sweep forms, the output) by
+2^((old - new) log2e) when it grows. The forms, per policy:
+
+- the packed roundings (TableBias; A1, rows 3-4): two sweeps, the rows'
+  max and sum, then p = 2^(s log2e + off) inv rounded to bf16 and P.V;
+- row 7's policy (DenseBias) in bf16: one sweep, e split into bf16 hi +
+  lo, the output rescaled and divided by the sum at the end;
+- fp32 (every policy): one sweep, e in fp32, the same rescaling;
+- the backward: pass 1 sweeps the key blocks once for the max, the sum
+  and rowsum(p dP) = (sum of e dP) / sum, then again for p, dP and ds
+  (ds into dbias, dq); pass 2 sweeps the query blocks for p^T, dv, dP^T
+  and dk, with p and ds zero in the padded queries, so the clamped rows
+  add nothing to dv and dk.
+
+bf16 models hold exact bf16 values in fp32 tensors (the mma multiplies
+bf16 operands exactly and accumulates in fp32). The tolerances are those
+of tests/test_torch_window_attention_tiles.py and
 tests/test_torch_window_attention_bwd_tiles.py, for the same reasons:
 
 - row 7's policy (ops/pallas_window_attention.py: unscaled q, the score
@@ -43,9 +56,12 @@ from esvit_tpu_torch.ops import pallas_window_attention as pwa
 from esvit_tpu_torch.ops import window as twops
 from esvit_tpu_torch.ops import window_attention as wa
 
-KEYS = 256                 # a score row's keys: kLargeMaxN
-NS = [100, 145, 196, 256]  # 145: the augmented window; 196: W=14
+KEYS = 256                 # the padded keys: kLargeMaxN
+BLOCK = 64                 # keys per block of a sweep: kLargeKeys
+NS = [65, 100, 129, 145, 196, 256]  # 65, 129: one key past a block;
+                                    # 145: the augmented window; 196: W=14
 FP32_TOL = 1e-5
+LOG2E = float(np.float32(1.4426950408889634))  # the kernels' fp32 log2(e)
 
 
 def _bf16(t):
@@ -56,11 +72,55 @@ def _pad(t, hd):
     return torch.nn.functional.pad(t, (0, -(-hd // 16) * 16 - hd))
 
 
+def _blocks(N):
+    """The key (or query) blocks a sweep takes: slices of 64 below N."""
+    return [slice(j, j + BLOCK) for j in range(0, N, BLOCK)]
+
+
+def _exp(s, off):
+    """2^(s log2e + off) as the kernels form it: one fused multiply-add
+    (the exact product and sum, rounded once to fp32), then exp2."""
+    return torch.exp2((s.double() * LOG2E + off.double()[..., None]).float())
+
+
+def _step(m, s):
+    """One block of biased scores (G, R, 64) joining a running max m: the
+    new max, the rescale factor 2^((m - new) log2e) of what came before
+    (1 where the max stayed) and e = 2^(s log2e - new log2e) (0 at -inf)."""
+    new = torch.maximum(m, s.amax(-1))
+    alpha = torch.where(new == m, torch.ones_like(m),
+                        torch.exp2((m - new) * LOG2E))
+    return new, alpha, _exp(s, -new * LOG2E)
+
+
+def _run(s_blocks, extra=None):
+    """The running max over a sweep's blocks of biased scores and the sum
+    of e, rescaled as the max grows; with ``extra`` (the blocks' dP) also
+    the sum of e dP, rescaled with it. Returns max, sum and that sum (or
+    None)."""
+    m = torch.full(s_blocks[0].shape[:2], -torch.inf)
+    sm = torch.zeros_like(m)
+    d = torch.zeros_like(m) if extra is not None else None
+    for b, s in enumerate(s_blocks):
+        m, alpha, e = _step(m, s)
+        sm = sm * alpha + e.sum(-1)
+        if extra is not None:
+            d = d * alpha + (e * extra[b]).sum(-1)
+    return m, sm, d
+
+
+def _p(s, m, sm):
+    """p = 2^(s log2e + off) inv, off = -max log2e, inv = 1 / sum."""
+    return _exp(s, -m * LOG2E) * (1 / sm)[..., None]
+
+
 def large_tile_model(q, k, v, bias, scale, *, bf16, round_q=False,
                      split_p=False):
     """The forward tile per (window, head): q, k, v (G, N, hd) fp32, bias
     (G, N, N) fp32 -> (G, N, hd) fp32, before the output's cast. Query rows
-    in m16 tiles (clamped), 256 keys (clamped, masked)."""
+    in m16 tiles (clamped), keys in blocks of 64 over 256 (clamped, masked);
+    two sweeps where p is rounded to bf16 after normalising (bf16 without
+    split_p), else one."""
     G, N, hd = q.shape
     rows = torch.arange(-(-N // 16) * 16).clamp(max=N - 1)
     keys = torch.arange(KEYS).clamp(max=N - 1)
@@ -74,22 +134,29 @@ def large_tile_model(q, k, v, bias, scale, *, bf16, round_q=False,
         s = s * scale
     s = s + bias[:, rows][:, :, keys]
     s[:, :, N:] = -torch.inf
-    p = torch.softmax(s, dim=-1)
-    if bf16:
-        hi = _bf16(p)
-        o = hi @ V
-        if split_p:
-            o = o + _bf16(p - hi) @ V
-    else:
-        o = p @ V
-    return o[:, :N, :hd]
+    blocks = _blocks(N)
+    if bf16 and not split_p:
+        m, sm, _ = _run([s[:, :, b] for b in blocks])
+        o = sum(_bf16(_p(s[:, :, b], m, sm)) @ V[:, b] for b in blocks)
+        return o[:, :N, :hd]
+    m = torch.full(s.shape[:2], -torch.inf)
+    sm = torch.zeros_like(m)
+    o = torch.zeros(G, s.shape[1], V.shape[-1])
+    for b in blocks:
+        m, alpha, e = _step(m, s[:, :, b])
+        pv = (_bf16(e) @ V[:, b] + _bf16(e - _bf16(e)) @ V[:, b] if bf16
+              else e @ V[:, b])
+        o = o * alpha[..., None] + pv
+        sm = sm * alpha + e.sum(-1)
+    return (o / sm[..., None])[:, :N, :hd]
 
 
 def large_bwd_model(q, k, v, do, bias, scale, *, bf16):
     """The backward tile per (window, head): dq, dk, dv (G, N, hd) and ds
     (G, N, N) fp32, rounded where the kernel rounds (bf16). Pass 1 on the
-    query tiles (dP formed a key tile at a time, twice: the same values),
-    pass 2 on the key tiles with p and ds zero in the padded queries."""
+    query tiles: one sweep of the key blocks for the max, the sum and the
+    sum of e dP, then p, dP and ds; pass 2 on the key tiles sweeps the
+    query blocks, with p and ds zero in the padded queries."""
     G, N, hd = q.shape
     idx = torch.arange(KEYS).clamp(max=N - 1)
     real = (torch.arange(KEYS) < N).float()[None, :, None]
@@ -98,13 +165,17 @@ def large_bwd_model(q, k, v, do, bias, scale, *, bf16):
     QS = _bf16(Q * _bf16(torch.tensor(scale))) if bf16 else Q * scale
     s = QS @ K.transpose(1, 2) + bias[:, idx][:, :, idx]
     s[:, :, N:] = -torch.inf
-    p = torch.softmax(s, dim=-1)
     dp = D @ V.transpose(1, 2)
-    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    blocks = _blocks(N)
+    m, sm, d = _run([s[:, :, b] for b in blocks], [dp[:, :, b] for b in blocks])
+    rs = d / sm
+    p = torch.cat([_p(s[:, :, b], m, sm) for b in blocks], -1)
+    p = torch.nn.functional.pad(p, (0, KEYS - p.shape[-1]))
+    ds = p * (dp - rs[..., None])
     dq = r(r(ds) @ K * scale)
     pt, dst = p * real, ds * real
-    dv = r(r(pt).transpose(1, 2) @ D)
-    dk = r(r(dst).transpose(1, 2) @ QS)
+    dv = r(sum(r(pt[:, b]).transpose(1, 2) @ D[:, b] for b in blocks))
+    dk = r(sum(r(dst[:, b]).transpose(1, 2) @ QS[:, b] for b in blocks))
     return dq[:, :N, :hd], dk[:, :N, :hd], dv[:, :N, :hd], ds[:, :N, :N]
 
 
@@ -249,6 +320,54 @@ def test_a2_fp32_model_and_plain_backward_match_autograd(N):
             assert (a - b).abs().max() <= FP32_TOL * b.abs().max(), name
 
 
+@pytest.mark.parametrize("N", [129, 196])
+def test_models_with_the_row_max_in_the_ragged_last_block(N):
+    """Every row's max lies in the last key block (one key at N=129, four
+    at 196), so each sweep's running max grows at its last block and the
+    sums (and the one-sweep outputs) are rescaled there: the three forward
+    forms and the backward stay within their tolerances of the plain
+    versions. (A far larger lift makes dk at that column a sum of N
+    cancellations whose fp32 error depends on the order of the sums, so
+    the sweeps' and the plain version's orders drift apart by about the
+    1e-5 tolerance; a lift of 8 keeps every row's max in the last block
+    with the forms close.)"""
+    q, k, v, do, table, region = _inputs(N, seed=7)
+    table[:, :, N - 1] += 8.0
+    region = None
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    dense = table[None]
+    B_ = q.shape[0] // N
+    s = (_heads(q, B_, N, nH) * scale) @ _heads(k, B_, N, nH).transpose(1, 2)
+    s = s + dense[0].repeat(B_, 1, 1)
+    assert (s.argmax(-1) >= (N - 1) // BLOCK * BLOCK).all()
+    _region = torch.zeros(1, N, dtype=torch.int32)
+
+    got = _fwd(q, k, v, table, _region, N, scale, bf16=True, split_p=True)
+    want = pwa.pallas_window_attention_plain(_qkv(q, k, v, N), dense, nH,
+                                             scale).reshape(got.shape)
+    assert (got - want).abs().max() <= 2 ** -16 * v.abs().max()
+    got = _bf16(_fwd(q, k, v, table, _region, N, scale, bf16=True,
+                     round_q=True))
+    want = wa.window_attention_plain(
+        *(t.to(torch.bfloat16) for t in (q, k, v)), table, region, N, nH,
+        scale).float()
+    assert _one_ulp(got, want, 2 ** -8 * v.abs().max())
+    got = _fwd(q, k, v, table, _region, N, scale, bf16=False)
+    want = wa.window_attention_plain(q, k, v, table, region, N, nH, scale)
+    sc = want.abs().max()
+    torch.testing.assert_close(got / sc, want / sc, rtol=FP32_TOL,
+                               atol=FP32_TOL)
+    got = _bwd(q, k, v, do, table, _region, N, scale, True)
+    want = wa.window_attention_bwd_plain(
+        *(t.to(torch.bfloat16) for t in (q, k, v, do)), table, region, N, nH,
+        scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = b.float()
+        assert _one_ulp(a, b, 2 ** -7 * b.abs().max()), name
+    assert (got[3] - want[3]).abs().max() <= 1e-5 * want[3].abs().max()
+
+
 @pytest.mark.parametrize("N", [145, 196])
 def test_row7_models_match_jax_reference(N):
     q, k, v, _, table, region = _inputs(N, seed=5)
@@ -345,7 +464,7 @@ def large_blocks(plan, B_, nH, types):
 def test_large_blocks_cover_each_window_and_head_once(case, backward):
     B_, N, hd, nH, types, itemsize, sms = case
     plan = wa.tile_plan(B_, N, hd, nH, types, itemsize, sms, backward)
-    assert 1 <= plan.warps <= 4 and 1 <= plan.run <= 8
+    assert 1 <= plan.warps <= min(16, -(-N // 16)) and 1 <= plan.run <= 8
     assert plan.smem == wa.tile_smem_bytes(N, hd, itemsize, plan.warps,
                                            backward)
     assert plan.smem <= wa._BLOCK_SMEM_MAX
@@ -362,32 +481,49 @@ def test_large_blocks_cover_each_window_and_head_once(case, backward):
 
 @pytest.mark.parametrize("N,hd,itemsize,backward,want", [
     # bf16 forward: three 196 x 40 tiles (47104 with rounding), the
-    # region ids (896); backward: four tiles (62720), the row constants
-    # 3 x 196 floats (2432)
-    (196, 32, 2, False, 47104 + 896),
-    (196, 32, 2, True, 62720 + 2432 + 896),
-    # fp32: 196 x 36 tiles, and each of four warps' 16 x 204 scratch
-    (196, 32, 4, False, 84736 + 896 + 4 * 13056),
-    (145, 32, 4, True, 83584 + 1792 + 640 + 4 * 16 * 156 * 4),
+    # region ids (896) and the staged 196 x 196 fp32 bias slice (153728);
+    # backward: four tiles (62720), the row constants 3 x 196 floats
+    # (2432), the ids, the slice
+    (196, 32, 2, False, 47104 + 896 + 153728),
+    (196, 32, 2, True, 62720 + 2432 + 896 + 153728),
+    # fp32: 196 x 36 tiles, the ids and each of four warps' 16 x 68
+    # scratch; the slice does not fit beside them
+    (196, 32, 4, False, 84736 + 896 + 4 * 16 * 68 * 4),
+    # ... at N=145 it does (145 x 148 floats, 85888 with rounding)
+    (145, 32, 4, True, 83584 + 1792 + 640 + 4 * 16 * 68 * 4 + 85888),
+    # N=256: its 256 x 260 slice never fits
+    (256, 64, 2, True, 4 * 256 * 72 * 2 + 3072 + 1024),
 ])
 def test_large_tile_smem_bytes_counts_the_layout(N, hd, itemsize, backward,
                                                  want):
     assert wa.tile_smem_bytes(N, hd, itemsize, 4, backward) == want
+    staged = wa.large_bias_staged(N, hd, itemsize, 4, backward)
+    assert staged == (N < 256 and (itemsize == 2 or N == 145))
 
 
 def test_shape_rules_admit_what_fits():
     """The large tile takes 64 < N <= 256 where a one-warp block of the
-    pass fits in both dtypes: the fused rule and the packed pair's (rows
-    3-4, trained through) ask the backward's, row 7's (forward only) the
-    forward's."""
+    pass fits in both dtypes with a whole score row's fp32 scratch (the
+    rule since the tile was written; the block it launches needs less):
+    the fused rule and the packed pair's (rows 3-4, trained through) ask
+    the backward's, row 7's (forward only) the forward's. Every plan of an
+    admitted shape fits."""
     for N in (65, 100, 145, 196, 256, 257):
         for hd in (16, 32, 48, 64):
             fits = {bw: N <= 256 and all(
-                wa._large_smem_bytes(N, hd, it, 1, bw) <= wa._BLOCK_SMEM_MAX
-                for it in (2, 4)) for bw in (False, True)}
+                wa._large_base_bytes(N, hd, it, 0, bw)
+                + (16 * (8 * -(-N // 8) + 4) * 4 if it == 4 else 0)
+                <= wa._BLOCK_SMEM_MAX for it in (2, 4))
+                for bw in (False, True)}
             assert fb.supports(N, hd * 4, 4, 16 * hd * 2) == fits[True]
             assert pwa.supports(N, hd * 4, 4) == fits[False]
             assert wa.supports(N, hd * 4, 4) == fits[True]
+            for bw in (False, True):
+                if fits[bw]:
+                    for itemsize in (2, 4):
+                        plan = wa.tile_plan(64, N, hd, 4, 1, itemsize,
+                                            backward=bw)
+                        assert plan.smem <= wa._BLOCK_SMEM_MAX
     assert fb.supports(196, 96, 3, 384) and not fb.supports(256, 128, 2, 512)
 
 
@@ -420,14 +556,14 @@ def test_dbias_partials_at_swin_w14_shapes():
 
 @pytest.mark.parametrize("name,group", [
     ("void wtile::window_attention_large_kernel<__nv_bfloat16, "
-     "(anonymous namespace)::FusedBlockBias>(wtile::Operands<__nv_bfloat16>, "
-     "(anonymous namespace)::FusedBlockBias, wtile::Geometry)", "fused"),
+     "FusedBlockBias, 2, true>(wtile::Operands<__nv_bfloat16>, "
+     "FusedBlockBias, wtile::Geometry)", "fused"),
     ("void wtile::window_attention_large_bwd_kernel<float, "
-     "(anonymous namespace)::FusedBlockBias>(wtile::BwdOperands<float>, "
-     "(anonymous namespace)::FusedBlockBias, wtile::Geometry)", "fused"),
+     "FusedBlockBias, 4, false>(wtile::BwdOperands<float>, "
+     "FusedBlockBias, wtile::Geometry)", "fused"),
     ("void wtile::window_attention_large_kernel<float, (anonymous namespace)"
-     "::DenseBias>(wtile::Operands<float>, (anonymous namespace)::DenseBias, "
-     "wtile::Geometry)", "window"),
+     "::DenseBias, 2, false>(wtile::Operands<float>, (anonymous namespace)::"
+     "DenseBias, wtile::Geometry)", "window"),
 ])
 def test_profile_files_the_large_tile_by_its_caller(name, group):
     """utils/profile.py files the large tile's kernels as it files the
