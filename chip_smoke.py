@@ -267,7 +267,27 @@ so the script exits non-zero and prints no result line:
    memory; then 2 alternating rounds of 3 steps on one trainer per route:
    each route's median ms/step and spread (side by side on one line), and
    its device time by kernel group (torch.profiler).
-19. Only with ``--parent DIR`` (a checkout of an earlier commit, e.g. a
+19. The DINO head's tensor parallelism (``phase_head_tp``): the Swin-T
+   W=7 B=32 recipe (one step an epoch, no warm-up, the last layer free,
+   lr 3.2e-5 from step 1) through train() for 1 step and, resumed from
+   its checkpoint, to 3, once in this process at model=1 and once in two
+   spawned processes sharing cuda:0 over gloo at data=1 x model=2
+   (``--mesh_model 2``: each rank half of both heads' last layers, of
+   their moments, of the centers and of the region logits): the losses
+   at every step within 1e-3; after step 1 every parameter within 2e-4
+   / 1e-4 and the centers within 1e-5 / 1e-7; after steps 1 and 3 the
+   student's and the teacher's change from the initial weights and each
+   parameter's AdamW moments within 0.1 of their own norms, every
+   parameter but the pinned weight_g moved; the replicated parameters
+   bit-identical on both ranks, the block-fused and window-attention
+   launches as derived in every run; each rank's peak memory beside the
+   model=1 run's, and the ms/step of two processes sharing one card
+   (not a tensor-parallel speed). Then the two ranks take one step with
+   each of two planted faults (a summing backward of the model group's
+   sum; the replicated gradients unsummed), and each must fail those
+   gates. With two cards or more the same over NCCL; else one line says
+   that leg waits for such a machine.
+20. Only with ``--parent DIR`` (a checkout of an earlier commit, e.g. a
    ``git archive`` under the gitignored _archive/): the large-window
    tile's rows (rows 1-2 per Swin-T and Swin-B W=14 step, rows 3-4 per
    Swin-B W=14 packed-route step, row 7 per W=14 eval batch) timed by
@@ -276,6 +296,10 @@ so the script exits non-zero and prints no result line:
    ``parent_ms`` (null without DIR, and on the rows of N <= 64).
 
 Each phase's seconds are printed after it (``phase <n> ...: <s> s``).
+CLI runs that do not depend on each other (phase 11's plain and NCCL
+runs and its two evals, phase 13's cvt_tiny and deit_small trains and
+its evals, phase 15's evals, phase 16's analysis commands) run at once,
+and say so beside the times they print.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -297,6 +321,7 @@ W=14 packed-route step (launches from phase 18's packed route).
 The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2462,18 +2487,55 @@ def _entry_record(label, text):
 def _entry_run(label, module, args, env=None, want_rc=0):
     """One CLI run through ENTRY_RUN: (output, record), failing on another
     exit code than ``want_rc``."""
+    return _entry_runs([(label, module, args, env, want_rc)])[0]
+
+
+def _entry_runs(runs):
+    """CLI runs through ENTRY_RUN, all started at once, each (label,
+    module, args, env or None, want_rc): their (output, record) in order,
+    failing on another exit code or after ENTRY_TIMEOUT. Runs that go
+    together share the card and the host, so what they time of
+    themselves is not a time of one run alone."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", ENTRY_RUN, module, *args],
-                          cwd=ROOT, env=env or _entry_env(),
-                          capture_output=True, text=True,
-                          timeout=ENTRY_TIMEOUT)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != want_rc:
-        raise AssertionError(f"entry {label}: exit {proc.returncode}, want "
-                             f"{want_rc}:\n{text[-6000:]}")
-    log(f"entry {label}: exit {proc.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return text, _entry_record(label, text)
+    with contextlib.ExitStack() as stack:
+        procs = []
+        for label, module, args, env, _ in runs:
+            out, err = (stack.enter_context(tempfile.TemporaryFile("w+"))
+                        for _ in range(2))
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", ENTRY_RUN, module, *args], cwd=ROOT,
+                env=env or _entry_env(), stdout=out, stderr=err, text=True),
+                out, err))
+        ends = [None] * len(procs)
+        try:
+            while None in ends:
+                if time.perf_counter() - t0 > ENTRY_TIMEOUT:
+                    raise AssertionError(
+                        f"entry {[r[0] for r in runs]}: over "
+                        f"{ENTRY_TIMEOUT} s")
+                for i, (proc, _, _) in enumerate(procs):
+                    if ends[i] is None and proc.poll() is not None:
+                        ends[i] = time.perf_counter()
+                time.sleep(0.05)
+        finally:
+            for proc, _, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+        results = []
+        for (label, _, _, _, want_rc), (proc, out, err), end in zip(
+                runs, procs, ends):
+            out.seek(0)
+            err.seek(0)
+            text = out.read() + err.read()
+            if proc.returncode != want_rc:
+                raise AssertionError(f"entry {label}: exit {proc.returncode}"
+                                     f", want {want_rc}:\n{text[-6000:]}")
+            beside = [r[0] for r in runs if r[0] != label]
+            log(f"entry {label}: exit {proc.returncode} in {end - t0:.1f} s"
+                + (f" (at once with {', '.join(beside)})" if beside else ""))
+            results.append((text, _entry_record(label, text)))
+    return results
 
 
 def _entry_launches(label, got, want):
@@ -2720,16 +2782,18 @@ def phase_entry(torch, C, card):
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = str(sock.getsockname()[1])
-        runs = {}
-        for name, extra, env in (
-                ("plain", [], _entry_env()),
+        legs = (("plain", [], _entry_env()),
                 ("nccl", ["--distributed"], _entry_env(
                     WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
-                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port))):
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port)))
+        done = _entry_runs([
+            (f"{name} 2 steps", TRAIN_MODULE,
+             [*ENTRY_ARGS, "--output_dir", os.path.join(tmp, name),
+              "--max_steps", "2", *extra], env, 0)
+            for name, extra, env in legs])
+        runs = {}
+        for (name, _, _), (text, _) in zip(legs, done):
             d = os.path.join(tmp, name)
-            text, _ = _entry_run(f"{name} 2 steps", TRAIN_MODULE,
-                                 [*ENTRY_ARGS, "--output_dir", d,
-                                  "--max_steps", "2", *extra], env=env)
             loss = json.loads(open(os.path.join(d, "log.txt")).read()
                               .splitlines()[-1])["train_loss"]
             runs[name] = (text, loss, _tree_tensors(
@@ -2771,19 +2835,22 @@ def phase_entry(torch, C, card):
                   os.path.join(tmp, "eval")]
         zero = {name: {k: 0 for k in kinds}
                 for name, (_, kinds) in KERNELS.items()}
-        for label, module, extra, want_fwd, pattern in (
-                ("k-NN", "esvit_tpu_torch.evals.knn",
-                 ["--batch_size", str(EVAL_BATCH)],
-                 {"fused_block": probe.fused_block_calls(224),
-                  "window_attention": probe.window_attention_calls(224)},
-                 r"^10-NN classifier result: Top1: ([0-9.]+)"),
-                ("linear probe", "esvit_tpu_torch.evals.linear",
-                 ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
-                  "--cached_features"],
-                 {"window_attention": probe.window_attention_calls(
-                     224, capture=True)},
-                 r"^Linear probe: Top1 ([0-9.]+)")):
-            text, rec = _entry_run(label, module, [*common, *extra])
+        evals = (
+            ("k-NN", "esvit_tpu_torch.evals.knn",
+             ["--batch_size", str(EVAL_BATCH)],
+             {"fused_block": probe.fused_block_calls(224),
+              "window_attention": probe.window_attention_calls(224)},
+             r"^10-NN classifier result: Top1: ([0-9.]+)"),
+            ("linear probe", "esvit_tpu_torch.evals.linear",
+             ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
+              "--cached_features"],
+             {"window_attention": probe.window_attention_calls(
+                 224, capture=True)},
+             r"^Linear probe: Top1 ([0-9.]+)"))
+        done = _entry_runs([(label, module, [*common, *extra], None, 0)
+                            for label, module, extra, _, _ in evals])
+        for (label, _, _, want_fwd, pattern), (text, rec) in zip(evals,
+                                                                  done):
             want = {name: dict(kinds) for name, kinds in zero.items()}
             for name, calls in want_fwd.items():
                 want[name]["fwd"] = calls * batches
@@ -2795,7 +2862,8 @@ def phase_entry(torch, C, card):
             log(f"entry {label} on the trained checkpoint: top-1 "
                 f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
                 f"{rec['seconds']:.1f} s of main(), {images / rec['seconds']:.1f} "
-                f"img/s (model build and checkpoint load included) [{card}]")
+                f"img/s (model build and checkpoint load included; both "
+                f"evals at once) [{card}]")
 
 
 # Phase 12, the real-image path: JPEGs written once from a seed into the
@@ -3225,12 +3293,18 @@ def phase_families(torch, C, counters, card):
             log(f"slice {label}: no launch of the seven kernels in "
                 f"{FAMILY_STEPS} steps, as derived")
 
-        # The train CLI: cvt_tiny, a checkpoint, its restore, a resume.
-        d_cvt = os.path.join(tmp, "cvt")
+        # The train CLI: cvt_tiny, a checkpoint, its restore, a resume;
+        # deit_small's two steps at once with cvt_tiny's first run.
+        d_cvt, d_vit = os.path.join(tmp, "cvt"), os.path.join(tmp, "deit")
         args = ["--arch", "cvt_tiny", "--data_kind", "synthetic",
                 "--output_dir", d_cvt, "--epochs", "1"]
-        text, rec = _entry_run("cvt_tiny train", TRAIN_MODULE,
-                               [*args, "--max_steps", str(FAMILY_CLI_STEPS)])
+        (text, rec), deit = _entry_runs([
+            ("cvt_tiny train", TRAIN_MODULE,
+             [*args, "--max_steps", str(FAMILY_CLI_STEPS)], None, 0),
+            ("deit_small train", TRAIN_MODULE,
+             ["--arch", "deit_small", "--data_kind", "synthetic",
+              "--output_dir", d_vit, "--epochs", "1", "--max_steps", "2"],
+             None, 0)])
         _entry_launches("cvt_tiny train", rec["launches"], zero)
         ckpt = os.path.join(d_cvt, "checkpoint.pth")
         tree = _load_tree(torch, ckpt)
@@ -3257,7 +3331,8 @@ def phase_families(torch, C, counters, card):
         log(f"entry cvt_tiny: {FAMILY_CLI_STEPS} steps, loss "
             f"{logs[-1]['train_loss']:.4f}, "
             f"{1e3 * images / logs[-1]['train_img_per_sec']:.1f} ms/step "
-            f"from log.txt's img/s (first step included); checkpoint "
+            f"from log.txt's img/s (first step included, beside "
+            f"deit_small's run); checkpoint "
             f"{_checkpoint_lines(text)[-1][2]} bytes; every BatchNorm buffer "
             f"of student and teacher restored on the card equal to the "
             f"file's [{card}]")
@@ -3273,11 +3348,7 @@ def phase_families(torch, C, counters, card):
         log(f"entry cvt_tiny resume: resumed from step {FAMILY_CLI_STEPS}, "
             f"ended at step {step}")
 
-        d_vit = os.path.join(tmp, "deit")
-        text, rec = _entry_run("deit_small train", TRAIN_MODULE,
-                               ["--arch", "deit_small", "--data_kind",
-                                "synthetic", "--output_dir", d_vit,
-                                "--epochs", "1", "--max_steps", "2"])
+        text, rec = deit
         _entry_launches("deit_small train", rec["launches"], zero)
         logs = [json.loads(x) for x in
                 open(os.path.join(d_vit, "log.txt")).read().splitlines()]
@@ -3286,7 +3357,8 @@ def phase_families(torch, C, counters, card):
             raise AssertionError(f"deit_small CLI: {logs}\n{text[-3000:]}")
         log(f"entry deit_small: 2 steps, loss {logs[-1]['train_loss']:.4f}, "
             f"{1e3 * images / logs[-1]['train_img_per_sec']:.1f} ms/step "
-            f"from log.txt's img/s (first step included) [{card}]")
+            f"from log.txt's img/s (first step included, beside "
+            f"cvt_tiny's run) [{card}]")
 
         # The evals' CLIs on the CvT run's checkpoint.
         train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
@@ -3297,15 +3369,16 @@ def phase_families(torch, C, counters, card):
                   train_dir, "--val_path", val_dir, "--output_dir",
                   os.path.join(tmp, "eval")]
         images = FAMILY_EVAL_TRAIN + FAMILY_EVAL_VAL
-        for label, module, extra, pattern in (
-                ("cvt_tiny k-NN", "esvit_tpu_torch.evals.knn",
-                 ["--batch_size", str(EVAL_BATCH)],
-                 r"^10-NN classifier result: Top1: ([0-9.]+)"),
-                ("cvt_tiny linear probe", "esvit_tpu_torch.evals.linear",
-                 ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
-                  "--cached_features"],
-                 r"^Linear probe: Top1 ([0-9.]+)")):
-            text, rec = _entry_run(label, module, [*common, *extra])
+        evals = (("cvt_tiny k-NN", "esvit_tpu_torch.evals.knn",
+                  ["--batch_size", str(EVAL_BATCH)],
+                  r"^10-NN classifier result: Top1: ([0-9.]+)"),
+                 ("cvt_tiny linear probe", "esvit_tpu_torch.evals.linear",
+                  ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
+                   "--cached_features"],
+                  r"^Linear probe: Top1 ([0-9.]+)"))
+        done = _entry_runs([(label, module, [*common, *extra], None, 0)
+                            for label, module, extra, _ in evals])
+        for (label, _, _, pattern), (text, rec) in zip(evals, done):
             _entry_launches(label, rec["launches"], zero)
             m = re.search(pattern, text, re.M)
             if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
@@ -3314,7 +3387,8 @@ def phase_families(torch, C, counters, card):
             log(f"entry {label} on the CLI run's checkpoint: top-1 "
                 f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
                 f"{rec['seconds']:.1f} s of main(), "
-                f"{images / rec['seconds']:.1f} img/s [{card}]")
+                f"{images / rec['seconds']:.1f} img/s (both evals at once) "
+                f"[{card}]")
 
 
 # Phase 14, the training options. Steps of each full-width train() run,
@@ -3814,15 +3888,16 @@ def _vil_evals(torch, C, ckpt, tmp, card):
               train_dir, "--val_path", val_dir, "--output_dir",
               os.path.join(tmp, "eval")]
     images = FAMILY_EVAL_TRAIN + FAMILY_EVAL_VAL
-    for label, module, extra, pattern in (
-            ("vil_tiny k-NN", "esvit_tpu_torch.evals.knn",
-             ["--batch_size", str(EVAL_BATCH)],
-             r"^10-NN classifier result: Top1: ([0-9.]+)"),
-            ("vil_tiny linear probe", "esvit_tpu_torch.evals.linear",
-             ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
-              "--cached_features"],
-             r"^Linear probe: Top1 ([0-9.]+)")):
-        text, rec = _entry_run(label, module, [*common, *extra])
+    evals = (("vil_tiny k-NN", "esvit_tpu_torch.evals.knn",
+              ["--batch_size", str(EVAL_BATCH)],
+              r"^10-NN classifier result: Top1: ([0-9.]+)"),
+             ("vil_tiny linear probe", "esvit_tpu_torch.evals.linear",
+              ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
+               "--cached_features"],
+              r"^Linear probe: Top1 ([0-9.]+)"))
+    done = _entry_runs([(label, module, [*common, *extra], None, 0)
+                        for label, module, extra, _ in evals])
+    for (label, _, _, pattern), (text, rec) in zip(evals, done):
         _entry_launches(label, rec["launches"], want)
         m = re.search(pattern, text, re.M)
         if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
@@ -3830,7 +3905,8 @@ def _vil_evals(torch, C, ckpt, tmp, card):
                                  f"{text[-3000:]}")
         log(f"entry {label} on the schedule leg's checkpoint: top-1 "
             f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
-            f"{rec['seconds']:.1f} s of main() [{card}]")
+            f"{rec['seconds']:.1f} s of main() (both evals at once) "
+            f"[{card}]")
 
 
 # Phase 16, the last modules: the analysis CLI on a folder of PNGs in two
@@ -3926,18 +4002,23 @@ def _last_analysis(torch, C, counters, card, tmp):
         runs.append(("swin_tiny vis_attention (2 images)", "vis_attention",
                      swin + ["--num_images", "2"],
                      _launch_want(2 * fused, 2 * wa_maps)))
-    for label, command, args, want in runs:
-        out = os.path.join(tmp, label.replace(" ", "_"))
-        text, rec = _entry_run(label, ANALYSIS_MODULE, [
+    outs = [os.path.join(tmp, label.replace(" ", "_"))
+            for label, _, _, _ in runs]
+    done = _entry_runs([
+        (label, ANALYSIS_MODULE, [
             command, "--data_path", data, "--num_images", str(LAST_IMAGES),
-            *args, "--output_dir", out, "--device", "cuda"])
+            *args, "--output_dir", out, "--device", "cuda"], None, 0)
+        for (label, command, args, _), out in zip(runs, outs)])
+    for (label, command, args, want), out, (text, rec) in zip(runs, outs,
+                                                              done):
         _entry_launches(label, rec["launches"], want)
         if command == "vis_attention":
             pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
             if len(pngs) != 2:
                 raise AssertionError(f"{label}: wrote {pngs}")
             log(f"last modules {label}: ran, wrote {pngs} in "
-                f"{rec['seconds']:.1f} s of main() [{card}]")
+                f"{rec['seconds']:.1f} s of main(), the runs at once "
+                f"[{card}]")
             continue
         with open(os.path.join(out, "log.txt")) as f:
             record = json.loads(f.read().splitlines()[-1])
@@ -3947,7 +4028,8 @@ def _last_analysis(torch, C, counters, card, tmp):
                 0.0 <= record.get("correspondence_acc", 0.0) <= 100.0):
             raise AssertionError(f"{label}: log.txt record {record}")
         log(f"last modules {label}: {json.dumps(record)} over {LAST_IMAGES} "
-            f"images in {rec['seconds']:.1f} s of main() [{card}]")
+            f"images in {rec['seconds']:.1f} s of main(), the runs at once "
+            f"[{card}]")
 
     ds = datasets_lib.build_dataset("folder", root=data)
     x = np.stack([eval_transform(ds[i][0], 224)
@@ -4134,6 +4216,391 @@ def _last_flops(torch, C, card):
             f"(products counted on the CPU) [{card}]")
 
 
+# Phase 19: the DINO head's tensor parallelism, two model ranks on one
+# card, on the recipe with no warm-up and the last layer free from step 1,
+# so that step 1 moves every parameter, the heads' rows included (only the
+# pinned weight_g stay). The tolerances: the losses within TP_LOSS_RTOL of
+# one process's; after step 1 every parameter within esvit_tpu's bf16
+# sharded-step tolerance (tests/test_train_step.py:123-130) and the
+# centers within its centre tolerance; after step 1 and after TP_STEPS,
+# the student's and the teacher's change from the initial state, and each
+# parameter's AdamW moments (its gradient's traces), within TP_STATE_RTOL
+# of their own norms. Two planted faults must fail them. The learning
+# rate is TP_LR: AdamW's first step is lr sign(g), so an entry whose
+# gradient is under the bf16 noise steps either way on the two grids, 2 lr
+# apart, which TP_ATOL holds at this lr (any other difference is at most
+# lr: TP_ATOL cannot see a wrong step; the relative gates can).
+TP_STEPS = 3
+TP_LOSS_RTOL = 1e-3
+TP_RTOL, TP_ATOL = 2e-4, 1e-4
+TP_CENTER_RTOL, TP_CENTER_ATOL = 1e-5, 1e-7
+TP_STATE_RTOL = 0.1
+TP_LR = 3.2e-5
+TP_TIMEOUT = 600
+# The planted faults: 'summing_backward', the model group's sum with the
+# summing backward of torch.distributed.nn (every rank gets model times
+# its gradient); 'unsummed', the replicated gradients left unsummed over
+# the model group (each rank keeps its rows' share).
+TP_PLANTS = ("summing_backward", "unsummed")
+
+
+def _tp_cfg(C, out_dir, model):
+    """The Swin-T W=7 B=32 multi-crop recipe (2x224 + 8x96, 65536-wide
+    heads, DDINO, bf16, the default block-fused route, seed 0) on a
+    (data=1, model) grid, at one step an epoch, with no warm-up and the
+    last layer free: TP_LR from step 1."""
+    cfg = C.swin_tiny_multicrop(
+        BATCH, output_dir=out_dir, save_every_epochs=0,
+        mesh=C.MeshConfig(model=model)).replace(steps_per_epoch=1)
+    return cfg.replace(optim=dataclasses.replace(
+        cfg.optim, lr=TP_LR * 256 / BATCH, warmup_epochs=0,
+        freeze_last_layer_epochs=0))
+
+
+def _tp_runs(torch, cfg, barrier):
+    """train() for one step, then resumed from its checkpoint (restored at
+    the grid) to TP_STEPS: the losses, the resumed run's host seconds per
+    step, the hash of each rank's replicated tensors after each run, and
+    the whole checkpoint after step 1 kept as step1.pth."""
+    import hashlib
+
+    from esvit_tpu_torch.parallel.mesh import is_head_shard
+    from esvit_tpu_torch.train.train import train
+
+    def replicas(state):
+        h = hashlib.sha256()
+        for net in (state.student, state.teacher):
+            for k, v in net.state_dict().items():
+                if not is_head_shard(k):
+                    h.update(v.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    state, first = train(cfg, max_steps=1, device="cuda", resume=False)
+    hashes = [replicas(state)]
+    del state
+    barrier()                       # rank 0 has written checkpoint.pth
+    ckpt = os.path.join(cfg.output_dir, "checkpoint.pth")
+    if not torch.distributed.is_initialized() or \
+            torch.distributed.get_rank() == 0:
+        shutil.copyfile(ckpt, os.path.join(cfg.output_dir, "step1.pth"))
+    state, rest = train(cfg, max_steps=TP_STEPS, device="cuda", resume=True)
+    hashes.append(replicas(state))
+    del state
+    torch.cuda.synchronize()
+    return {"losses": [h["loss"] for h in first + rest],
+            "seconds": [h["seconds"] for h in rest[1:]],
+            "hashes": hashes}
+
+
+def _tp_plant(fault):
+    """Plants ``fault`` (TP_PLANTS) in this process's port; returns the
+    function that takes it out."""
+    from esvit_tpu_torch.parallel import mesh as mesh_lib
+
+    if fault == "summing_backward":
+        cls, name = mesh_lib._ModelSum, "backward"
+        planted = staticmethod(
+            lambda ctx, *grads: (None, *(g * 2 for g in grads)))
+    else:
+        cls, name = mesh_lib.Mesh, "all_reduce_sum"
+        reduce = cls.all_reduce_sum
+
+        def planted(self, tensors, *, over):
+            return reduce(self, tensors,
+                          over="data" if over == "world" else over)
+    saved = cls.__dict__[name]
+    setattr(cls, name, planted)
+    return lambda: setattr(cls, name, saved)
+
+
+def _tp_worker(rank, world, backend, store, out_dir, result, plants=()):
+    """One rank of the (data=1, model=world) grid: _tp_runs, its peak
+    memory and its kernels' launches saved to ``result``.rank; then one
+    train() step with each of ``plants`` planted, into
+    ``out_dir``_<fault>."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from esvit_tpu_torch import config as C
+    from esvit_tpu_torch.ops import fused_block as fb
+    from esvit_tpu_torch.ops import window_attention as wa
+    from esvit_tpu_torch.train.train import train
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = _tp_runs(torch, _tp_cfg(C, out_dir, world), dist.barrier)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["launches"] = {"fused_block": dict(fb.launches),
+                           "window_attention": dict(wa.launches)}
+        for fault in plants:
+            remove = _tp_plant(fault)
+            try:
+                train(_tp_cfg(C, f"{out_dir}_{fault}", world), max_steps=1,
+                      device="cuda", resume=False)
+            finally:
+                remove()
+        torch.save(out, f"{result}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_spawn(torch, backend, tmp, world=2, plants=()):
+    """_tp_worker in ``world`` processes (spawned; every join has a
+    timeout): their results by rank, and the run's directory."""
+    import multiprocessing
+
+    out_dir = os.path.join(tmp, f"model{world}_{backend}")
+    result = os.path.join(tmp, f"result_{backend}")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_worker, args=(
+        r, world, backend, os.path.join(tmp, f"store_{backend}"), out_dir,
+        result, plants)) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(TP_TIMEOUT)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"head tp {backend}: exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return ([torch.load(f"{result}.{r}", weights_only=False)
+             for r in range(world)], out_dir)
+
+
+def _norm_rel(torch, got, want):
+    """||got - want|| / ||want||; where want is 0, 0 if got is too, else
+    inf."""
+    n = torch.linalg.vector_norm(want).item()
+    if n == 0:
+        return 0.0 if not got.any() else math.inf
+    return torch.linalg.vector_norm(got - want).item() / n
+
+
+def _tp_tree(torch, path):
+    """A whole checkpoint, its tensors mapped from the file."""
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def _tp_errors(torch, got, want, init):
+    """Two whole checkpoint trees of one step and the initial student:
+    {kind: (worst error, where)}. 'abs': the worst |got - want| -
+    (TP_ATOL + TP_RTOL |want|) over the student and teacher (> 0 is
+    outside), 'abs_max' their worst |got - want|; 'centers' and
+    'centers_max' the same at the centre tolerance; 'delta': the worst
+    of the student's and the teacher's _norm_rel of the change from
+    ``init`` over all their parameters, 'delta_leaf' (logged only) that
+    of the worst parameter; 'mu', 'nu': the worst parameter's _norm_rel
+    of AdamW's moments. Also 'flips': the share of the student's entries
+    that the two stepped opposite ways; 'moved' / 'unmoved': the
+    parameters that the reference moved or left (a left one must be
+    left in ``got`` too: its 'delta_leaf' is inf otherwise)."""
+    if got["step"] != want["step"]:
+        raise AssertionError(f"head tp: step {got['step']} != "
+                             f"{want['step']}")
+    errs = {}
+
+    def worst(kind, err, name):
+        if kind not in errs or err > errs[kind][0]:
+            errs[kind] = (err, name)
+
+    params = set(want["mu"])
+    unmoved, flips, entries = [], 0, 0
+
+    def dev(t):
+        return t.to("cuda").float()
+
+    for part in ("student", "teacher"):
+        off = norm = 0.0
+        for name, w in want[part].items():
+            g = got[part].get(name)
+            if g is None or g.shape != w.shape:
+                raise AssertionError(f"head tp: {part}.{name} missing or "
+                                     "of another shape")
+            if not w.is_floating_point():
+                continue
+            g, w = dev(g), dev(w)
+            d = (g - w).abs()
+            worst("abs", (d - (TP_ATOL + TP_RTOL * w.abs())).max().item(),
+                  f"{part}.{name}")
+            worst("abs_max", d.max().item(), f"{part}.{name}")
+            if name not in params:
+                continue
+            i = dev(init[name])
+            dg, dw = g - i, w - i
+            worst("delta_leaf", _norm_rel(torch, dg, dw), f"{part}.{name}")
+            off += torch.linalg.vector_norm(dg - dw).item() ** 2
+            norm += torch.linalg.vector_norm(dw).item() ** 2
+            if part == "student":
+                flips += int((dg * dw < 0).sum())
+                entries += dw.numel()
+                if not dw.any():
+                    unmoved.append(name)
+        worst("delta", math.sqrt(off / norm), part)
+    for part in ("mu", "nu"):
+        for name, w in want[part].items():
+            worst(part, _norm_rel(torch, dev(got[part][name]), dev(w)),
+                  f"{part}.{name}")
+    for name, w in want["centers"].items():
+        w = dev(w)
+        d = (dev(got["centers"][name]) - w).abs()
+        worst("centers", (d - (TP_CENTER_ATOL + TP_CENTER_RTOL
+                               * w.abs())).max().item(), name)
+        worst("centers_max", d.max().item(), name)
+    errs["flips"] = flips / entries
+    errs["moved"] = len(params) - len(unmoved)
+    errs["unmoved"] = unmoved
+    return errs
+
+
+def _tp_failures(errs, step1):
+    """The gates that ``errs`` (_tp_errors) fails: the change and the
+    moments always, the absolute ones after step 1, and no parameter
+    left unmoved but the pinned weight_g."""
+    limits = {"delta": TP_STATE_RTOL, "mu": TP_STATE_RTOL,
+              "nu": TP_STATE_RTOL}
+    if step1:
+        limits.update(abs=0.0, centers=0.0)
+    fails = [f"{kind} {errs[kind][1]} {errs[kind][0]:.3e} > {limit}"
+             for kind, limit in limits.items() if errs[kind][0] > limit]
+    unmoved = [n for n in errs["unmoved"]
+               if not n.endswith("last_layer.weight_g")]
+    if unmoved:
+        fails.append(f"unmoved {unmoved}")
+    if math.isinf(errs["delta_leaf"][0]):
+        fails.append(f"{errs['delta_leaf'][1]} moved, the reference's not")
+    return fails
+
+
+def _tp_line(errs):
+    return (f"change from the initial state {errs['delta'][0]:.3e} "
+            f"({errs['delta'][1]}; worst parameter "
+            f"{errs['delta_leaf'][0]:.3e}, {errs['delta_leaf'][1]}), "
+            f"entries stepped the other way {errs['flips']:.3e}, mu "
+            f"{errs['mu'][0]:.3e} ({errs['mu'][1]}), nu {errs['nu'][0]:.3e}"
+            f" ({errs['nu'][1]}), max abs error {errs['abs_max'][0]:.3e} "
+            f"({errs['abs_max'][1]}), centers {errs['centers_max'][0]:.3e}")
+
+
+def phase_head_tp(torch, C, counters, card):
+    """The DINO head's tensor parallelism on the card: the Swin-T W=7 B=32
+    recipe (_tp_cfg) through train() for 1 step and, resumed from its
+    checkpoint, to TP_STEPS, once in this process at model=1 (launches
+    as derived for TP_STEPS steps) and once in two processes sharing
+    cuda:0 over gloo at data=1 x model=2 (each holding half of both
+    heads' last layers, of their moments, of the centers and of the
+    region logits): the losses at every step within TP_LOSS_RTOL; the
+    whole checkpoints after step 1 and after TP_STEPS by _tp_errors'
+    gates (_tp_failures), step 1 moving every parameter but the pinned
+    weight_g; the replicated parameters bit-identical across the two
+    ranks; both ranks' block-fused and window-attention launches as
+    derived; each rank's peak memory beside the model=1 run's, and the
+    ms/step (rank 0's). Then the gloo ranks take one step with each of
+    TP_PLANTS, which the same gates must fail. With two cards or more,
+    the same (without the plants) over NCCL, one rank per card."""
+    import gc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _tp_cfg(C, os.path.join(tmp, "model1"), 1)
+        init = _initial_weights(torch, cfg)
+        for launches in counters.values():
+            for k in launches:
+                launches[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one = _tp_runs(torch, cfg, lambda: None)
+        one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = _derived_launches(cfg, TP_STEPS)
+        got = {name: dict(launches) for name, launches in counters.items()}
+        if got != want:
+            raise AssertionError(f"head tp model=1: launches {got}, "
+                                 f"model-derived {want}")
+        log(f"head tp model=1: losses {one['losses']}, launches {got}, peak "
+            f"{one_peak:.2f} GiB, {statistics.mean(one['seconds']) * 1e3:.1f}"
+            f" ms/step [{card}]")
+        want1 = _tp_tree(torch, os.path.join(tmp, "model1", "step1.pth"))
+        want3 = _tp_tree(torch, os.path.join(tmp, "model1", "checkpoint.pth"))
+        legs = [("gloo", "two processes sharing one card")]
+        if torch.cuda.device_count() >= 2:
+            legs.append(("nccl", "two processes on two cards"))
+        else:
+            log("head tp: the NCCL leg (one rank per card) waits for a "
+                "machine with two cards: this one has "
+                f"{torch.cuda.device_count()}")
+        for backend, where in legs:
+            ranks, out_dir = _tp_spawn(
+                torch, backend, tmp,
+                plants=TP_PLANTS if backend == "gloo" else ())
+            if backend == "gloo":
+                planted = out_dir
+            label = f"model=2 {backend}"
+            for r, res in enumerate(ranks):
+                for name in ("fused_block", "window_attention"):
+                    if res["launches"][name] != want[name]:
+                        raise AssertionError(
+                            f"head tp {label} rank {r}: {name} launches "
+                            f"{res['launches'][name]}, derived {want[name]}")
+                rel = [abs(a - b) / abs(b)
+                       for a, b in zip(res["losses"], one["losses"])]
+                if len(rel) != TP_STEPS or max(rel) > TP_LOSS_RTOL:
+                    raise AssertionError(
+                        f"head tp {label} rank {r}: losses {res['losses']}"
+                        f", model=1 {one['losses']}")
+            if ranks[0]["hashes"] != ranks[1]["hashes"]:
+                raise AssertionError(f"head tp {label}: the replicated "
+                                     "parameters differ between the ranks")
+            errs1 = _tp_errors(torch, _tp_tree(torch, os.path.join(
+                out_dir, "step1.pth")), want1, init)
+            errs = _tp_errors(torch, _tp_tree(torch, os.path.join(
+                out_dir, "checkpoint.pth")), want3, init)
+            log(f"head tp {label} after step 1: {_tp_line(errs1)}; "
+                f"{errs1['moved']} parameters moved, unmoved "
+                f"{errs1['unmoved']}")
+            log(f"head tp {label} after step {TP_STEPS}: {_tp_line(errs)}")
+            fails = (_tp_failures(errs1, step1=True)
+                     + _tp_failures(errs, step1=False))
+            if fails:
+                raise AssertionError(f"head tp {label}: {fails}")
+            # Rank 0's clock: rank 1's also holds rank 0's checkpoint
+            # write (one step an epoch), which it waits for in the next
+            # step's collectives.
+            ms = statistics.mean(ranks[0]["seconds"]) * 1e3
+            log(f"head tp {label}: losses {ranks[0]['losses']} (max "
+                f"relative difference {max(rel):.2e}); the whole state "
+                f"within the gates after step 1 and step {TP_STEPS}; "
+                "replicated parameters bit-identical on both ranks; "
+                "launches as derived on both ranks")
+            log(f"head tp {label}: peak GiB per rank "
+                + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+                + f" against model=1's {one_peak:.2f} [{card}]")
+            log(f"head tp {label}: {ms:.1f} ms/step on rank 0 over steps "
+                f"3-{TP_STEPS} ({where}"
+                + (": not a tensor-parallel speed)" if backend == "gloo"
+                   else ")") + f" [{card}]")
+        for fault in TP_PLANTS:
+            errs = _tp_errors(torch, _tp_tree(torch, os.path.join(
+                f"{planted}_{fault}", "checkpoint.pth")), want1, init)
+            fails = _tp_failures(errs, step1=True)
+            log(f"head tp planted {fault} after step 1: {_tp_line(errs)}; "
+                f"fails {fails}")
+            if not fails:
+                raise AssertionError(f"head tp: the planted fault {fault} "
+                                     "passes the gates")
+
+
 def _parent_arg(argv):
     """``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
     archive`` under the gitignored _archive/), or None."""
@@ -4272,9 +4739,11 @@ def main():
     lap("15 ViL options")
     phase_last_modules(torch, C, counters, card)
     lap("16 last modules")
+    phase_head_tp(torch, C, counters, card)
+    lap("19 the head's tensor parallelism")
     parent_ms = phase_parent(parent, card)
     if parent is not None:
-        lap("19 the parent's large-tile rows")
+        lap("20 the parent's large-tile rows")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     launches = dict(swin, sliding_chunk=vil["sliding_chunk"],
                     pallas_window_attention=evals)

@@ -285,8 +285,10 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The data axis spans every process (parallel/mesh.py); ``model`` >
-    1, the DINO head's tensor parallelism, is refused."""
+    """The (data, model) process grid (parallel/mesh.py): ``model`` > 1
+    splits the DINO heads' last layers over that many processes (the
+    head's tensor parallelism); the data axis spans the rest, world =
+    data x model."""
 
     data: int = -1                  # -1: all processes
     model: int = 1
@@ -480,14 +482,26 @@ def get_model_config(name: str, **kw):
     return PRESETS[name](**kw)
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def check_mesh(mesh: MeshConfig, world: int) -> None:
+    """ValueError unless ``world`` processes make the (data, model) grid:
+    the model axis divides the world, and a data axis that is given
+    (> 0) times the model axis is the world (esvit_tpu/parallel/mesh.py
+    make_mesh's rule over devices)."""
+    model = max(mesh.model, 1)
+    if world % model:
+        raise ValueError(
+            f"mesh model axis {model} does not divide the {world} "
+            "processes: run data x model processes (--mesh_model divides "
+            "the world size)")
+    if mesh.data > 0 and mesh.data * model != world:
+        raise ValueError(f"mesh data axis {mesh.data} x model axis {model} "
+                         f"= {mesh.data * model} != {world} processes")
 
 
-def check_supported(cfg: TrainConfig) -> None:
+def check_supported(cfg: TrainConfig, world: int | None = None) -> None:
     """Raise NotImplementedError for reference options the port lacks
-    (the DINO head's tensor parallelism, and ViL's Pallas interpreter),
-    ValueError for values no package takes."""
+    (ViL's Pallas interpreter), ValueError for values no package takes;
+    with ``world``, the process grid's (``check_mesh``)."""
     m = cfg.model
     name = getattr(m, "name", None)
     if name == "swin":
@@ -504,9 +518,12 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(f"no backbone for {name!r}")
     if cfg.optim.optimizer not in ("adamw", "sgd", "lars"):
         raise ValueError(f"unknown optimizer {cfg.optim.optimizer!r}")
-    if cfg.mesh.model > 1:
-        _refuse(f"mesh model axis {cfg.mesh.model} (the DINO head's tensor "
-                "parallelism)", "queue 1 item 12")
+    model = max(cfg.mesh.model, 1)
+    if cfg.head.out_dim % model:
+        raise ValueError(f"out_dim {cfg.head.out_dim} does not split over "
+                         f"the mesh model axis {model}")
+    if world is not None:
+        check_mesh(cfg.mesh, world)
 
 
 VIL_ATTN_TYPES = ("longformer", "longformerhand", "longformerauto",

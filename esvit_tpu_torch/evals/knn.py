@@ -195,7 +195,8 @@ def load_backbone_variables(backbone, model_cfg, pretrained: str,
     reference checkpoint, or the port's own checkpoint*.pth
     (io/checkpoint.py), which keeps the reference's names and layout. As
     initialised when ``pretrained`` is empty. esvit_tpu's orbax
-    directories are not read."""
+    directories are turned into such a file by scripts/orbax_to_torch.py
+    (on a machine with jax and orbax)."""
     del model_cfg  # the backbone carries its config
     if not pretrained:
         print("no pretrained weights — random features", flush=True)
@@ -204,7 +205,9 @@ def load_backbone_variables(backbone, model_cfg, pretrained: str,
         return load_backbone_checkpoint(backbone, pretrained, checkpoint_key)
     raise ValueError(f"{pretrained!r}: the evals load .pth/.pt "
                      "checkpoints (the reference's, or checkpoint*.pth of "
-                     "esvit_tpu_torch.train.train)")
+                     "esvit_tpu_torch.train.train); convert an esvit_tpu "
+                     "orbax checkpoint directory with scripts/"
+                     "orbax_to_torch.py, where jax and orbax are installed")
 
 
 def model_from_args(args):

@@ -17,6 +17,13 @@ temporary name and then renamed into place, so a save that dies leaves
 the last good file. Resume restores everything, centers included, into
 the live state's tensors on their device. The step's random draws are
 not saved (esvit_tpu does not save them either).
+
+Under the head's tensor parallelism (parallel/mesh.py) a checkpoint is
+still whole: the model group gathers the heads' last-layer rows, their
+optimizer state and the centers (``Mesh.gather_rows``), so the file is
+the one a run of one process writes, and the evals and
+``--pretrained_weights_ckpt`` read it unchanged. Any grid restores it:
+each rank takes its rows (``Mesh.shard_state``).
 """
 
 from __future__ import annotations
@@ -27,45 +34,76 @@ import shutil
 import torch
 
 from esvit_tpu_torch.losses import DinoCenters
+from esvit_tpu_torch.parallel.mesh import Mesh, is_head_shard
 from esvit_tpu_torch.train.step import TrainState
 
 LATEST = "checkpoint"
+_PARTS = ("student", "teacher", "mu", "nu", "trace")
 
 
 def _host(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def state_to_dict(state: TrainState) -> dict:
-    """The state as a tree of ints and host tensors."""
+def _whole(state: TrainState, mesh: Mesh | None):
+    """The state's tensors by part and name, and the centers, whole where
+    they lie: over a model axis the head's rows and the centers gathered
+    from ``mesh``'s model group, a collective of its ranks."""
+    trees = {"student": state.student.state_dict(),
+             "teacher": state.teacher.state_dict(),
+             "mu": dict(state.mu), "nu": dict(state.nu),
+             "trace": dict(state.trace)}
+    centers = {"center": state.centers.center,
+               "center_grid": state.centers.center_grid}
+    if mesh is not None and mesh.model > 1:
+        keys = [(part, k) for part in _PARTS for k in trees[part]
+                if is_head_shard(k)]
+        whole = mesh.gather_rows([trees[p][k] for p, k in keys]
+                                 + list(centers.values()))
+        for (part, k), t in zip(keys, whole):
+            trees[part][k] = t
+        centers = dict(zip(centers, whole[len(keys):]))
+    return trees, centers
+
+
+def state_to_dict(state: TrainState, mesh: Mesh | None = None) -> dict:
+    """The state as a tree of ints and host tensors, whole: over a model
+    axis every rank of ``mesh``'s model group must call it (they gather
+    the head's rows and the centers)."""
+    trees, centers = _whole(state, mesh)
     return {
         "step": state.step,
         "adam_count": state.adam_count,
-        "student": _host(state.student.state_dict()),
-        "teacher": _host(state.teacher.state_dict()),
+        "student": _host(trees["student"]),
+        "teacher": _host(trees["teacher"]),
         "optimizer": state.optimizer,
-        "mu": _host(state.mu),
-        "nu": _host(state.nu),
-        "trace": _host(state.trace),
-        "centers": {"center": state.centers.center.detach().cpu().clone(),
-                    "center_grid":
-                        state.centers.center_grid.detach().cpu().clone()},
+        "mu": _host(trees["mu"]),
+        "nu": _host(trees["nu"]),
+        "trace": _host(trees["trace"]),
+        "centers": _host(centers),
     }
 
 
-def load_state_dict(like: TrainState, tree: dict) -> TrainState:
-    """Copy ``tree`` into ``like``'s tensors, in place and on their
-    device; every tensor must be there with its shape, and the file's
-    optimizer must be the state's (a file without the key is AdamW's)."""
+def load_state_dict(like: TrainState, tree: dict, mesh: Mesh | None = None
+                    ) -> TrainState:
+    """Copy ``tree`` (whole) into ``like``'s tensors, in place and on their
+    device, each rank of ``mesh``'s model axis its rows of the head and
+    the centers; every tensor must be there with its shape, and the
+    file's optimizer must be the state's (a file without the key is
+    AdamW's)."""
+    mesh = mesh or Mesh()
     saved_opt = tree.get("optimizer", "adamw")
     if saved_opt != like.optimizer:
         raise ValueError(f"checkpoint of optimizer {saved_opt!r} restored "
                          f"into a {like.optimizer!r} run")
-    like.student.load_state_dict(tree["student"], strict=True)
-    like.teacher.load_state_dict(tree["teacher"], strict=True)
+    like.student.load_state_dict(mesh.shard_state(tree["student"]),
+                                 strict=True)
+    like.teacher.load_state_dict(mesh.shard_state(tree["teacher"]),
+                                 strict=True)
     with torch.no_grad():
         for part in ("mu", "nu", "trace"):
-            live, saved = getattr(like, part), tree.get(part, {})
+            live = getattr(like, part)
+            saved = mesh.shard_state(tree.get(part, {}))
             if set(live) != set(saved):
                 raise KeyError(f"checkpoint {part} names differ from the "
                                f"model's: {sorted(set(live) ^ set(saved))}")
@@ -73,8 +111,9 @@ def load_state_dict(like: TrainState, tree: dict) -> TrainState:
                 t.copy_(saved[name])
     c = like.centers
     like.centers = DinoCenters(
-        center=tree["centers"]["center"].to(c.center.device),
-        center_grid=tree["centers"]["center_grid"].to(c.center_grid.device))
+        center=mesh.rows(tree["centers"]["center"]).to(c.center.device),
+        center_grid=mesh.rows(tree["centers"]["center_grid"]).to(
+            c.center_grid.device))
     like.step = int(tree["step"])
     like.adam_count = int(tree["adam_count"])
     return like
@@ -93,11 +132,20 @@ class CheckpointManager:
         return os.path.join(self.directory, name)
 
     def save(self, state: TrainState, *, epoch: int,
-             save_every_epochs: int = 0, force_named: bool = False
-             ) -> list[str]:
+             save_every_epochs: int = 0, force_named: bool = False,
+             mesh: Mesh | None = None) -> list[str]:
         """Write checkpoint.pth and, every ``save_every_epochs`` epochs or
         with ``force_named``, checkpoint{epoch:04d}.pth; returns the paths
-        written."""
+        written. Every rank of ``mesh`` calls it: rank 0 writes, the other
+        ranks of the first data index give it their rows of the head (no
+        host copy), and the rest return at once; all but rank 0 return
+        []."""
+        mesh = mesh or Mesh()
+        if mesh.rank != 0:
+            if mesh.data_index == 0:
+                _whole(state, mesh)
+            return []
+        tree = state_to_dict(state, mesh)
         tmp = self._path(LATEST) + f".{os.getpid()}.tmp"
         named = None
         if force_named or (save_every_epochs
@@ -105,7 +153,7 @@ class CheckpointManager:
             named = self._path(f"{LATEST}{epoch:04d}")
         named_tmp = f"{named}.{os.getpid()}.tmp"
         try:
-            torch.save(state_to_dict(state), tmp)
+            torch.save(tree, tmp)
             if named is not None:
                 shutil.copyfile(tmp, named_tmp)
                 os.replace(named_tmp, named)
@@ -116,15 +164,16 @@ class CheckpointManager:
                     os.remove(left)
         return [self._path(LATEST)] + ([named] if named else [])
 
-    def restore(self, like: TrainState, name: str = LATEST
-                ) -> TrainState | None:
-        """``like`` with checkpoint ``name`` loaded into it (in place), or
-        None when there is no such file."""
+    def restore(self, like: TrainState, name: str = LATEST,
+                mesh: Mesh | None = None) -> TrainState | None:
+        """``like`` with checkpoint ``name`` loaded into it (in place; this
+        rank's rows of the head under ``mesh``), or None when there is no
+        such file."""
         path = self._path(name)
         if not os.path.isfile(path):
             return None
         tree = torch.load(path, map_location="cpu", weights_only=True)
-        return load_state_dict(like, tree)
+        return load_state_dict(like, tree, mesh)
 
     def has_checkpoint(self) -> bool:
         return os.path.isfile(self._path(LATEST))

@@ -194,26 +194,33 @@ def _trace_state(opt_state):
 
 
 def train_state_from_jax(jax_state, trainer):
-    """esvit_tpu TrainState (numpy leaves) -> the port's TrainState on
-    ``trainer.device``: student and teacher with their BatchNorm state
-    (``student_state`` / ``teacher_state``) and their Performer
-    projections (the ``performer`` collection there), the optimizer's
-    state (AdamW
-    moments and count, or the SGD / LARS trace), step and centers."""
+    """esvit_tpu TrainState (numpy leaves, whole arrays) -> the port's
+    TrainState on ``trainer.device``: student and teacher with their
+    BatchNorm state (``student_state`` / ``teacher_state``) and their
+    Performer projections (the ``performer`` collection there), the
+    optimizer's state (AdamW moments and count, or the SGD / LARS trace),
+    step and centers. Under ``trainer.mesh``'s model axis the heads'
+    ``kernel_v`` / ``scale_g``, their optimizer state and the centers are
+    this rank's rows (parallel/mesh.py ``Mesh.shard_state``)."""
     from esvit_tpu_torch.losses import DinoCenters
     from esvit_tpu_torch.train.step import TrainState
 
     dev = trainer.device
+    mesh = trainer.mesh
 
     def model(params, extra):
         m = trainer.build_model()
         extra = extra or {}
-        m.load_state_dict(state_dict_from_flax(
-            params, extra.get("batch_stats"), extra.get("performer")))
+        m.load_state_dict(mesh.shard_state(state_dict_from_flax(
+            params, extra.get("batch_stats"), extra.get("performer"))))
         return m.to(dev)
 
     def by_name(tree):
-        return {k: v.to(dev) for k, v in state_dict_from_flax(tree).items()}
+        return {k: v.to(dev) for k, v in
+                mesh.shard_state(state_dict_from_flax(tree)).items()}
+
+    def rows(x):
+        return mesh.rows(torch.tensor(np.asarray(x))).to(dev)
 
     opt = trainer.cfg.optim.optimizer
     if opt == "adamw":
@@ -230,6 +237,5 @@ def train_state_from_jax(jax_state, trainer):
         step=int(jax_state.step),
         student=model(jax_state.student, jax_state.student_state),
         teacher=teacher, optimizer=opt, **moments,
-        centers=DinoCenters(center=torch.tensor(np.asarray(c.center)).to(dev),
-                            center_grid=torch.tensor(
-                                np.asarray(c.center_grid)).to(dev)))
+        centers=DinoCenters(center=rows(c.center),
+                            center_grid=rows(c.center_grid)))

@@ -11,6 +11,17 @@ each loss returns ``(loss, new_center(s))``. All math is fp32.
 layers folded in, walking the K outputs in chunks so that no (rows, K)
 tensor outlives a chunk, in the forward or in what backward keeps
 (esvit_tpu/losses.py:217-392).
+
+Under the head's tensor parallelism (parallel/mesh.py, ``mesh.model`` >
+1) each rank holds a K / model slice of every logit tensor and of the
+centers, and every reduction over K is combined over the model group:
+the teacher softmax's and the student's log-normalisers (each rank's
+logsumexp over its slice, then the group's max and the sum of
+exp(lse - max), ``_lse``), and the contractions over K (``_ksum``). Both
+sums carry ``Mesh.model_sum``'s identity backward, so each rank's
+logits get their gradient once. Everything after them is K-free and the
+same on every model rank. The centers move toward their slice's mean
+over the data group.
 """
 
 from __future__ import annotations
@@ -19,6 +30,10 @@ from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from esvit_tpu_torch.parallel.mesh import Mesh
+
+_ONE = Mesh()
 
 
 class DinoCenters(NamedTuple):
@@ -40,18 +55,43 @@ def _chunk_views(x: torch.Tensor, nviews: int) -> torch.Tensor:
 
 def _update_centers(olds, batches, momentum: float, mesh=None):
     """Each center's EMA toward its batch's mean over the global batch
-    (main_esvit.py:650-660, :760-766): under a mesh of several processes
-    (parallel/mesh.py) the local sums are all-reduced in one collective
-    and divided by the global row count; one process's batch is the
-    global batch."""
+    (main_esvit.py:650-660, :760-766): over several data ranks
+    (parallel/mesh.py) the local sums are all-reduced over the data group
+    in one collective and divided by the global row count; one data
+    rank's batch is the global batch."""
+    mesh = mesh or _ONE
     rows = [b.reshape(-1, b.shape[-1]).float() for b in batches]
-    if mesh is None or mesh.world == 1:
+    if mesh.data == 1:
         means = [r.mean(dim=0) for r in rows]
     else:
-        sums = mesh.all_reduce_sum([r.sum(dim=0) for r in rows])
-        means = [s / (r.shape[0] * mesh.world) for s, r in zip(sums, rows)]
+        sums = mesh.all_reduce_sum([r.sum(dim=0) for r in rows], over="data")
+        means = [s / (r.shape[0] * mesh.data) for s, r in zip(sums, rows)]
     return [old * momentum + m * (1.0 - momentum)
             for old, m in zip(olds, means)]
+
+
+def _lse(locals_, mesh):
+    """The logsumexp over the whole K of each tensor whose logsumexp over
+    this rank's K-slice is in ``locals_``: the model group's max (no
+    gradient) m and sum of exp(lse - m), two collectives for the list."""
+    tops = mesh.model_max(locals_)
+    sums = mesh.model_sum([torch.exp(x - m) for x, m in zip(locals_, tops)])
+    return [m + torch.log(s) for m, s in zip(tops, sums)]
+
+
+def _softmax_lse(teacher, student, mesh):
+    """(teacher softmaxes, student logsumexps) over the last axis, the
+    whole K: on one model rank torch's own, else from ``_lse`` of every
+    rank's slices (the teacher's without gradient)."""
+    if mesh.model == 1:
+        return ([torch.softmax(t, dim=-1) for t in teacher],
+                [torch.logsumexp(s, dim=-1) for s in student])
+    lses = _lse([torch.logsumexp(x, dim=-1) for x in (*teacher, *student)],
+                mesh)
+    n = len(teacher)
+    q = [torch.exp(t - lse.detach()[..., None])
+         for t, lse in zip(teacher, lses[:n])]
+    return q, lses[n:]
 
 
 def dino_loss(student_cls, teacher_cls, center, teacher_temp, *, ncrops: int,
@@ -64,28 +104,33 @@ def dino_loss(student_cls, teacher_cls, center, teacher_temp, *, ncrops: int,
     against student row b weighted by T[a, b].
     Uses sum(-q * log_softmax(s)) = logsumexp(s) - q . s (sum q == 1).
     The loss is over this process's batch; the center moves toward the
-    mean over ``mesh``'s global batch."""
+    mean over ``mesh``'s global batch. Over a model axis the logits and
+    the center are this rank's K-slice (module docstring)."""
+    mesh = mesh or _ONE
     s = _chunk_views(student_cls.float() / student_temp, ncrops)
     t_logits = (teacher_cls.float() - center[None]) / teacher_temp
-    q = _chunk_views(torch.softmax(t_logits, dim=-1).detach(), 2)
-    lse = torch.logsumexp(s, dim=-1)                    # (ncrops, B)
-    total, n_terms = 0.0, 0
-    for iq in range(2):
-        for v in range(ncrops):
-            if v == iq:
-                continue
-            if targets_mixup is not None:
-                # -sum_b T[a,b] (q[a] . logp[b]), logp = s - lse.
-                qs = q[iq] @ s[v].T
-                term = (-(targets_mixup[v] * qs).sum(-1)
-                        + targets_mixup[v] @ lse[v])
-            else:
-                term = lse[v] - (q[iq] * s[v]).sum(-1)
-            total = total + term.mean()
-            n_terms += 1
+    (q,), (lse,) = _softmax_lse([t_logits.detach()], [s], mesh)
+    q = _chunk_views(q.detach(), 2)                     # lse (ncrops, B)
+    pairs = [(iq, v) for iq in range(2) for v in range(ncrops) if v != iq]
+    # The contractions over K: q[a] . s[b] for every (a, b) of a pair's
+    # rows under mixup, its matched rows' otherwise.
+    if targets_mixup is not None:
+        dots = [q[iq] @ s[v].T for iq, v in pairs]
+    else:
+        dots = [(q[iq] * s[v]).sum(-1) for iq, v in pairs]
+    dots = mesh.model_sum(dots)
+    total = 0.0
+    for (iq, v), qs in zip(pairs, dots):
+        if targets_mixup is not None:
+            # -sum_b T[a,b] (q[a] . logp[b]), logp = s - lse.
+            term = (-(targets_mixup[v] * qs).sum(-1)
+                    + targets_mixup[v] @ lse[v])
+        else:
+            term = lse[v] - qs
+        total = total + term.mean()
     (new_center,) = _update_centers([center], [teacher_cls.detach()],
                                     center_momentum, mesh)
-    return total / n_terms, new_center
+    return total / len(pairs), new_center
 
 
 def _l2n(x):
@@ -134,12 +179,11 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
         t_region_out = _to_batch_major(t_region_out, [N_t, N_t])
         t_fea = _to_batch_major(t_fea, [N_t, N_t])
 
+    mesh = mesh or _ONE
     with torch.no_grad():
-        t_cls = _chunk_views(torch.softmax(
-            (t_cls_out.float() - centers.center[None]) / teacher_temp, dim=-1), 2)
-        t_region = torch.softmax(
-            (t_region_out.float() - centers.center_grid[None]) / teacher_temp,
-            dim=-1)                                              # (B, 2Nt, K)
+        t_cls_x = (t_cls_out.float() - centers.center[None]) / teacher_temp
+        t_reg_x = ((t_region_out.float() - centers.center_grid[None])
+                   / teacher_temp)                               # (B, 2Nt, K)
         t_fea_v = t_fea.float()                                  # (B, 2Nt, C)
 
     # Student logits are stored in the compute dtype; the upcast is exact
@@ -147,10 +191,13 @@ def ddino_loss(student_out, teacher_out, centers: DinoCenters, teacher_temp,
     s_cls = _chunk_views(s_cls_out, ncrops).float()
     s_reg = s_region_out.float()
     inv_t = 1.0 / student_temp
-    lse_cls = torch.logsumexp(s_cls * inv_t, dim=-1)             # (ncrops, B)
-    qs_cls = torch.einsum("qbk,vbk->qvb", t_cls, s_cls) * inv_t
-    lse_reg = torch.logsumexp(s_reg * inv_t, dim=-1)             # (B, S)
-    M = torch.einsum("bjk,btk->bjt", t_region, s_reg) * inv_t    # (B, 2Nt, S)
+    (t_cls, t_region), (lse_cls, lse_reg) = _softmax_lse(
+        [t_cls_x, t_reg_x], [s_cls * inv_t, s_reg * inv_t], mesh)
+    t_cls = _chunk_views(t_cls.detach(), 2)           # lse_cls (ncrops, B)
+    t_region = t_region.detach()                      # lse_reg (B, S)
+    qs_cls, M = mesh.model_sum([
+        torch.einsum("qbk,vbk->qvb", t_cls, s_cls) * inv_t,
+        torch.einsum("bjk,btk->bjt", t_region, s_reg) * inv_t])  # M (B,2Nt,S)
     loss = _assemble(lse_cls, qs_cls, lse_reg, M, t_fea_v, s_fea, B, N_t,
                      ncrops, view_patches)
     new_centers = DinoCenters(*_update_centers(
@@ -242,9 +289,14 @@ def ddino_loss_streamed(s_cls_z, s_reg_z, s_fea, t_cls_z, t_reg_z, t_fea,
     Passes 1 and 2 run each chunk under ``torch.utils.checkpoint``, so
     backward recomputes a chunk's logits instead of keeping them. The
     matching and CE assembly are the dense loss's. The centres move
-    toward the global batch's means: over several processes the two sums
-    go through ``mesh``'s all-reduce, as ``ddino_loss``'s do.
+    toward the global batch's means: over several data ranks the two sums
+    go through ``mesh``'s all-reduce, as ``ddino_loss``'s do. Over a model
+    axis the weights and centers are this rank's K-slice, walked in its
+    chunks: the four online logsumexp states are combined over the model
+    group between passes 1 and 2, and the contractions after pass 2
+    (module docstring).
     Returns (loss, new DinoCenters)."""
+    mesh = mesh or _ONE
     w_t = w_s if w_t is None else w_t
     w_s_dense = w_s if w_s_dense is None else w_s_dense
     w_t_dense = w_t if w_t_dense is None else w_t_dense
@@ -283,7 +335,6 @@ def ddino_loss_streamed(s_cls_z, s_reg_z, s_fea, t_cls_z, t_reg_z, t_fea,
             sum_tc.append(raw_tc.sum(dim=0))
             sum_tr.append(raw_tr.sum(dim=(0, 1)))
             del raw_tc, raw_tr
-        lse_tc, lse_tr = lse(mtc, ltc), lse(mtr, ltr)
         sum_tc, sum_tr = torch.cat(sum_tc), torch.cat(sum_tr)
 
     # Pass 1: the student's normalisers.
@@ -296,7 +347,12 @@ def ddino_loss_streamed(s_cls_z, s_reg_z, s_fea, t_cls_z, t_reg_z, t_fea,
     for c in chunks:
         mc, lc, mr, lr = checkpoint(pass1, mc, lc, mr, lr, w_s[c],
                                     w_s_dense[c], use_reentrant=False)
+    lse_tc, lse_tr = lse(mtc, ltc), lse(mtr, ltr)
     lse_cls, lse_reg = lse(mc, lc), lse(mr, lr)
+    if mesh.model > 1:
+        lse_tc, lse_tr, lse_cls, lse_reg = _lse(
+            [lse_tc, lse_tr, lse_cls, lse_reg], mesh)
+        lse_tc, lse_tr = lse_tc.detach(), lse_tr.detach()
 
     # Pass 2: the teacher-softmax-weighted contractions.
     def pass2(w, wd, wt, wtd, cc, cr):
@@ -315,16 +371,17 @@ def ddino_loss_streamed(s_cls_z, s_reg_z, s_fea, t_cls_z, t_reg_z, t_fea,
                            c_cls[c], c_reg[c], use_reentrant=False)
         qs_cls = qs_cls + qs
         M = M + m
+    qs_cls, M = mesh.model_sum([qs_cls, M])
     qs_cls = qs_cls * inv_ts
     M = M * inv_ts
 
     loss = _assemble(lse_cls, qs_cls, lse_reg, M, t_fea.detach(), s_fea, B,
                      N_t, ncrops, _view_patches(npatch, ncrops))
-    if mesh is not None and mesh.world > 1:
-        sum_tc, sum_tr = mesh.all_reduce_sum([sum_tc, sum_tr])
-    world = mesh.world if mesh is not None else 1
+    if mesh.data > 1:
+        sum_tc, sum_tr = mesh.all_reduce_sum([sum_tc, sum_tr], over="data")
+    data = mesh.data
     m = center_momentum
     new_centers = DinoCenters(
-        center=c_cls * m + (sum_tc / (2 * B * world)) * (1.0 - m),
-        center_grid=c_reg * m + (sum_tr / (2 * N_t * B * world)) * (1.0 - m))
+        center=c_cls * m + (sum_tc / (2 * B * data)) * (1.0 - m),
+        center_grid=c_reg * m + (sum_tr / (2 * N_t * B * data)) * (1.0 - m))
     return loss, new_centers

@@ -15,8 +15,10 @@ esvit_tpu/models/cvt.py:58 uses it), on channels-last input.
   default 0.99 (esvit_tpu/models/heads.py:71-80). Each forward call updates the buffers
   once, so the student's two resolution groups update them one after the
   other, as flax's mutable ``batch_stats`` do.
-- The batch statistics are global over the process group
-  (parallel/mesh.py ``Mesh.batch_norm``), with a gradient through them.
+- The batch statistics are global over the data axis of the process
+  grid (parallel/mesh.py ``Mesh.batch_norm``), with a gradient through
+  them: the grid is ``mesh``, which the trainer sets (the model ranks of
+  a data index hold the same samples), else ``make_mesh()``'s.
 
 The names are ``torch.nn.BatchNorm2d``'s (``weight``, ``bias``,
 ``running_mean``, ``running_var``); there is no ``num_batches_tracked``,
@@ -42,6 +44,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, bn_train: bool,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -49,8 +52,8 @@ class BatchNorm(nn.Module):
         C = x.shape[-1]
         xf = x.float().reshape(-1, C)
         if bn_train:
-            y, mean, var = make_mesh().batch_norm(xf, self.weight, self.bias,
-                                                  self.eps)
+            y, mean, var = (self.mesh or make_mesh()).batch_norm(
+                xf, self.weight, self.bias, self.eps)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean

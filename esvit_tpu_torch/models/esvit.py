@@ -21,6 +21,10 @@ esvit.py:55-107) the heads stop before their last layer: ``(cls_z,
 region_z, region_fea, npatch, w_cls, w_dense)``, the L2-normalised
 bottleneck features and the two heads' effective (K, D) last-layer
 matrices, so no K-wide tensor is made here.
+
+``head_shard = (index, count)`` builds both heads' last layers with that
+slice of their rows (models/heads.py; the head's tensor parallelism,
+parallel/mesh.py): every K above is then K / count, this rank's slice.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ class EsViTModel(nn.Module):
 
     def __init__(self, backbone_cfg, head_cfg: HeadConfig,
                  use_dense_prediction: bool = True, dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 head_shard: tuple[int, int] = (0, 1)):
         super().__init__()
         backbone = build_backbone(backbone_cfg, dtype=dtype,
                                   generator=generator)
@@ -50,9 +55,10 @@ class EsViTModel(nn.Module):
         self.__dict__["backbone"] = backbone
         self.use_dense_prediction = use_dense_prediction
         in_dim = backbone_cfg.num_features
-        self.head = DINOHead(head_cfg, in_dim, dtype, generator)
+        self.head = DINOHead(head_cfg, in_dim, dtype, generator, head_shard)
         if use_dense_prediction:
-            self.head_dense = DINOHead(head_cfg, in_dim, dtype, generator)
+            self.head_dense = DINOHead(head_cfg, in_dim, dtype, generator,
+                                       head_shard)
 
     def forward(self, crops: Sequence[torch.Tensor], deterministic=True,
                 generator: torch.Generator | None = None,

@@ -19,6 +19,12 @@ batch and updates its buffers, the teacher's (deterministic) by its
 running buffers, which therefore never move. The statistics are global
 over the process group (parallel/mesh.py ``Mesh.batch_norm``).
 
+Under the head's tensor parallelism (parallel/mesh.py) the last layer
+holds ``shard = (index, count)``'s rows of the whole (out, in) matrix,
+drawn whole from the generator so that every grid starts from the
+weights of one process, and the head emits that slice of the logits; the
+weight norm is per output row, so it stays within the slice.
+
 ``bottleneck`` and ``last_weight`` are the head's two halves, for the
 K-streamed loss (losses.ddino_loss_streamed), which contracts the
 bottleneck with the last layer chunk by chunk.
@@ -42,16 +48,25 @@ class _GELU(nn.Module):
 
 
 class WeightNormDense(nn.Module):
-    """x @ (g * v / ||v||)^T, rows of v normalised, no bias."""
+    """x @ (g * v / ||v||)^T, rows of v normalised, no bias; with
+    ``shard = (index, count)``, rows ``index`` of ``count`` equal slices
+    of the dout rows."""
 
     def __init__(self, din: int, dout: int, norm_last_layer: bool = True,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None,
+                 shard: tuple[int, int] = (0, 1)):
         super().__init__()
         self.norm_last_layer = norm_last_layer
         self.dtype = dtype
-        self.weight_v = nn.Parameter(trunc_normal_(torch.empty(dout, din),
-                                                   generator=generator))
-        self.weight_g = nn.Parameter(torch.ones(dout, 1))
+        v = trunc_normal_(torch.empty(dout, din), generator=generator)
+        index, count = shard
+        if count > 1:
+            if dout % count:
+                raise ValueError(f"{dout} rows do not split {count} ways")
+            rows = dout // count
+            v = v[index * rows:(index + 1) * rows].clone()
+        self.weight_v = nn.Parameter(v)
+        self.weight_g = nn.Parameter(torch.ones(v.shape[0], 1))
 
     def weight(self) -> torch.Tensor:
         """Effective (out, in) matrix in the compute dtype."""
@@ -66,7 +81,7 @@ class WeightNormDense(nn.Module):
 class DINOHead(nn.Module):
 
     def __init__(self, cfg: HeadConfig, in_dim: int, dtype=torch.float32,
-                 generator=None):
+                 generator=None, shard: tuple[int, int] = (0, 1)):
         super().__init__()
         nlayers = max(cfg.nlayers, 1)
         if nlayers == 1:
@@ -86,7 +101,8 @@ class DINOHead(nn.Module):
                                 dtype=dtype, generator=generator))
             self.mlp = nn.Sequential(*layers)
         self.last_layer = WeightNormDense(cfg.bottleneck_dim, cfg.out_dim,
-                                          cfg.norm_last_layer, dtype, generator)
+                                          cfg.norm_last_layer, dtype, generator,
+                                          shard)
         self.dtype = dtype
 
     def bottleneck(self, x, deterministic: bool = True):
@@ -105,8 +121,8 @@ class DINOHead(nn.Module):
         return (x32 / torch.clamp(norm, min=1e-12)).to(self.dtype)
 
     def last_weight(self) -> torch.Tensor:
-        """The last layer's effective (out_dim, bottleneck) matrix in the
-        compute dtype."""
+        """The last layer's effective (out_dim, bottleneck) matrix (this
+        shard's rows) in the compute dtype."""
         return self.last_layer.weight()
 
     def forward(self, x, deterministic: bool = True):

@@ -27,6 +27,13 @@ so the LARS trace holds lr-scaled updates. ``frozen_layers``
 (``freeze_mask_by_prefix``) zero a subtree's gradient and update for the
 whole run, as torch's ``requires_grad=False`` leaves it out of the
 optimizer.
+
+Under the head's tensor parallelism (parallel/mesh.py) the leaves marked
+``sharded`` hold this rank's rows of a whole tensor. The clip's and
+LARS's norms are the whole tensor's, as esvit_tpu takes them on the
+global array (esvit_tpu/train/optim.py:57-71): the shards' sums of
+squares are all-reduced over the model group (``global_norms``).
+Everything else here is element-wise and stays local.
 """
 
 from __future__ import annotations
@@ -55,9 +62,28 @@ def last_layer_mask(named_params: Mapping[str, torch.Tensor]) -> dict[str, bool]
     return {n: "last_layer" in n.split(".") for n in named_params}
 
 
-def per_param_clip_(grads: list[torch.Tensor], clip: float) -> None:
-    """In place: g *= min(clip / (||g|| + 1e-6), 1) for each g."""
-    norms = torch._foreach_norm(grads)
+def global_norms(tensors: list[torch.Tensor],
+                 sharded: list[bool] | None = None, mesh=None
+                 ) -> list[torch.Tensor]:
+    """Each tensor's L2 norm; those marked ``sharded`` over ``mesh``'s
+    model group the whole tensor's, from the shards' sums of squares in
+    one collective."""
+    norms = list(torch._foreach_norm(tensors))
+    idx = [i for i, s in enumerate(sharded or ()) if s]
+    if mesh is None or not idx:
+        return norms
+    (sq,) = mesh.all_reduce_sum([torch.stack([norms[i] for i in idx]) ** 2],
+                                over="model")
+    for j, i in enumerate(idx):
+        norms[i] = sq[j].sqrt()
+    return norms
+
+
+def per_param_clip_(grads: list[torch.Tensor], clip: float,
+                    sharded: list[bool] | None = None, mesh=None) -> None:
+    """In place: g *= min(clip / (||g|| + 1e-6), 1) for each g, ||g|| the
+    whole tensor's (``global_norms``)."""
+    norms = global_norms(grads, sharded, mesh)
     coefs = [torch.clamp(clip / (n + 1e-6), max=1.0) for n in norms]
     torch._foreach_mul_(grads, coefs)
 
@@ -81,6 +107,7 @@ def fused_adamw_ema_apply(grads: list[torch.Tensor], params: list[torch.Tensor],
                           clip: float | None, decay_mask: list[bool],
                           ll_mask: list[bool], frozen: bool,
                           f_mask: list[bool] | None = None,
+                          sharded: list[bool] | None = None, mesh=None,
                           b1: float = 0.9, b2: float = 0.999,
                           eps: float = 1e-8) -> None:
     """One clip + AdamW + freeze + apply + teacher-EMA step, in place.
@@ -88,11 +115,12 @@ def fused_adamw_ema_apply(grads: list[torch.Tensor], params: list[torch.Tensor],
     ``count`` is the Adam step count before this update (bias correction
     uses count + 1). ``grads`` are consumed (overwritten). ``f_mask``
     marks the frozen_layers leaves: their gradient and update are zero,
-    as the last layer's are while ``frozen``."""
+    as the last layer's are while ``frozen``. ``sharded`` / ``mesh``:
+    the leaves split over the model axis (module docstring)."""
     held = held_mask(ll_mask, frozen, f_mask)
     _zero_(grads, held)
     if clip is not None and clip > 0:
-        per_param_clip_(grads, clip)
+        per_param_clip_(grads, clip, sharded, mesh)
     n = np.float32(count + 1)
     bc1 = float(np.float32(1.0) - np.power(np.float32(b1), n, dtype=np.float32))
     bc2 = float(np.float32(1.0) - np.power(np.float32(b2), n, dtype=np.float32))
@@ -128,20 +156,22 @@ def sgd_lars_ema_apply(optimizer: str, grads: list[torch.Tensor],
                        ema_m: float, clip: float | None,
                        decay_mask: list[bool], ll_mask: list[bool],
                        frozen: bool, f_mask: list[bool] | None = None,
+                       sharded: list[bool] | None = None, mesh=None,
                        momentum: float = 0.9,
                        trust_coefficient: float = 0.001) -> None:
     """One SGD or LARS step with esvit_tpu's unfused chain
     (train/step.py:242-257): the freezes zero the gradients, the
     per-parameter clip, the optimizer (module docstring; its trace
     updated in place), the freezes zero the updates, apply, teacher EMA.
-    ``grads`` are consumed."""
+    ``grads`` are consumed. The clip's and the trust ratio's norms are
+    the whole tensors' (``sharded`` / ``mesh``)."""
     if optimizer not in ("sgd", "lars"):
         raise ValueError(f"sgd_lars_ema_apply takes sgd or lars, not "
                          f"{optimizer!r}")
     held = held_mask(ll_mask, frozen, f_mask)
     _zero_(grads, held)
     if clip is not None and clip > 0:
-        per_param_clip_(grads, clip)
+        per_param_clip_(grads, clip, sharded, mesh)
     decayed = [i for i, d in enumerate(decay_mask) if d]
 
     def add_decay(u):
@@ -160,8 +190,8 @@ def sgd_lars_ema_apply(optimizer: str, grads: list[torch.Tensor],
     else:
         u = grads
         add_decay(u)
-        pn = torch._foreach_norm(params)
-        un = torch._foreach_norm(u)
+        pn = global_norms(params, sharded, mesh)
+        un = global_norms(u, sharded, mesh)
         ratios = [torch.where((p == 0) | (n == 0), torch.ones_like(p),
                               trust_coefficient * p / n)
                   for p, n in zip(pn, un)]

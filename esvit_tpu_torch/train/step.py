@@ -12,6 +12,18 @@ Schedules are evaluated from the step counter. Over several processes
 averaged in one coalesced all-reduce before the clip, and the centers
 move toward the global batch's means.
 
+Over a (data, model) grid the heads' last layers hold this rank's rows
+(``parallel.mesh.is_head_shard``), the loss combines its reductions over
+K across the model group (losses.py) and comes out the same on every
+model rank. Each rank's backward reaches the replicated parameters
+through its own rows only, so their gradients are shares of a sum over
+the model group: one all-reduce over the world sums them with the loss,
+and divides by the data axis (the model group's sum, the data group's
+mean); the shards' gradients are averaged over the data group. So a
+replicated parameter gets the same gradient, and the same update, on
+every model rank. The norms of the clip, of LARS and of the logged
+``grad_norm`` are the whole tensors' (train/optim.py ``global_norms``).
+
 Compute is bf16 by explicit casts inside each module, as the JAX modules
 do; parameters, gradients and optimizer moments stay fp32. There is no
 GradScaler and no autocast (autocast would round in other places). The
@@ -37,8 +49,9 @@ import torch
 from esvit_tpu_torch import losses
 from esvit_tpu_torch.config import TrainConfig, check_supported
 from esvit_tpu_torch.data import mixup as mixup_lib
+from esvit_tpu_torch.models.batchnorm import BatchNorm
 from esvit_tpu_torch.models.esvit import EsViTModel
-from esvit_tpu_torch.parallel.mesh import Mesh
+from esvit_tpu_torch.parallel.mesh import Mesh, is_head_shard
 from esvit_tpu_torch.train import optim as optim_lib
 from esvit_tpu_torch.utils import schedules
 
@@ -70,7 +83,7 @@ class EsViTTrainer:
     def __init__(self, cfg: TrainConfig, total_batch_size: int | None = None,
                  device: torch.device | str = "cuda", mesh: Mesh | None = None):
         """total_batch_size: the global per-view batch, which scales the
-        LR; mesh: the processes the batch is split over (one: none)."""
+        LR; mesh: the process grid (one process: none)."""
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -99,10 +112,17 @@ class EsViTTrainer:
             warmup_teacher_temp_epochs=cfg.loss.warmup_teacher_temp_epochs)
 
     def build_model(self, generator: torch.Generator | None = None) -> EsViTModel:
+        """The model with this rank's rows of the heads' last layers, its
+        BatchNorms' statistics over the mesh's data group."""
         cfg = self.cfg
-        return EsViTModel(cfg.model, cfg.head,
-                          use_dense_prediction=cfg.loss.use_dense_prediction,
-                          dtype=cfg.dtype, generator=generator)
+        model = EsViTModel(cfg.model, cfg.head,
+                           use_dense_prediction=cfg.loss.use_dense_prediction,
+                           dtype=cfg.dtype, generator=generator,
+                           head_shard=(self.mesh.model_index, self.mesh.model))
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.mesh = self.mesh
+        return model
 
     def init_state(self, generator: torch.Generator) -> TrainState:
         """Random weights from ``generator`` (a CPU generator, so a seed
@@ -120,8 +140,8 @@ class EsViTTrainer:
             step=0, student=student, teacher=teacher,
             mu=zeros(opt == "adamw"), nu=zeros(opt == "adamw"),
             adam_count=0,
-            centers=losses.DinoCenters.zeros(self.cfg.loss.out_dim,
-                                              self.device),
+            centers=losses.DinoCenters.zeros(
+                self.cfg.loss.out_dim // self.mesh.model, self.device),
             optimizer=opt, trace=zeros(opt != "adamw"))
 
     def train_step(self, state: TrainState, batch,
@@ -201,9 +221,10 @@ class EsViTTrainer:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         loss = loss.detach()
+        sharded = [self.mesh.model > 1 and is_head_shard(n) for n in names]
         if self.mesh.distributed:
             with _span("all_reduce"):
-                loss, *grads = self.mesh.all_reduce_mean([loss, *grads])
+                loss, grads = self._all_reduce(loss, grads, sharded)
 
         ll = optim_lib.last_layer_mask(named)
         ll_mask = [ll[n] for n in names]
@@ -215,11 +236,13 @@ class EsViTTrainer:
         lr, wd = self.lr_fn(step), self.wd_fn(step)
         common = dict(lr=lr, wd=wd, ema_m=m, clip=cfg.optim.clip_grad,
                       decay_mask=[decay[n] for n in names], ll_mask=ll_mask,
-                      frozen=frozen, f_mask=f_mask)
+                      frozen=frozen, f_mask=f_mask, sharded=sharded,
+                      mesh=self.mesh)
         with torch.no_grad(), _span("optimizer"):
             held = optim_lib.held_mask(ll_mask, frozen, f_mask)
-            norms = torch._foreach_norm([g for g, h in zip(grads, held)
-                                         if not h])
+            norms = optim_lib.global_norms(
+                [g for g, h in zip(grads, held) if not h],
+                [s for s, h in zip(sharded, held) if not h], self.mesh)
             grad_norm = (torch.linalg.vector_norm(torch.stack(norms))
                          if norms else torch.zeros((), device=self.device))
             if state.optimizer == "adamw":
@@ -240,6 +263,25 @@ class EsViTTrainer:
                    "teacher_momentum": m, "teacher_temp": t_temp,
                    "grad_norm": grad_norm}
         return state, metrics
+
+    def _all_reduce(self, loss, grads, sharded):
+        """(the loss's mean over the data ranks, the gradients of the
+        global batch's mean loss): one all-reduce over the world, and over
+        a grid a second one of the head shards over the data group
+        (module docstring)."""
+        mesh = self.mesh
+        rep = [i for i, s in enumerate(sharded) if not s]
+        shards = [i for i, s in enumerate(sharded) if s]
+        out = list(grads)
+        loss, *summed = mesh.all_reduce_sum([loss, *(grads[i] for i in rep)],
+                                            over="world")
+        for i, g in zip(rep, summed):
+            out[i] = g / mesh.data
+        if shards:
+            for i, g in zip(shards, mesh.all_reduce_mean(
+                    [grads[i] for i in shards], over="data")):
+                out[i] = g
+        return loss / mesh.world, out
 
     def _loss(self, state, s_out, t_out, t_temp, ncrops, B, targets_mixup):
         cfg = self.cfg

@@ -4,16 +4,25 @@
     python -m esvit_tpu_torch.train.train --arch swin_tiny --data_kind synthetic
     python -m esvit_tpu_torch.train.train --arch swin_femto --device cpu ...
 
-Flow (ref: main_esvit.py:210-496 train_esvit): the data axis over the
-process group (parallel/mesh.py) -> data -> trainer (model, optimizer,
+Flow (ref: main_esvit.py:210-496 train_esvit): the (data, model) grid
+over the process group (parallel/mesh.py) -> data -> trainer (model, optimizer,
 schedules) -> an optional initialisation from a checkpoint, then local
 auto-resume -> the epoch loop, with the NaN guard (a named debug
 checkpoint, then exit 1; main_esvit.py:546-562), the SIGTERM save (a
-checkpoint at the next step boundary, then exit 0), a checkpoint after
+checkpoint at the next step boundary, then exit 0; the ranks agree on a
+signal that any of them got, so all save and exit), a checkpoint after
 every epoch and the JSON-lines log, both written by rank 0. Several
 processes: ``--distributed`` (launch.py), one process per card, each
-feeding its ``1 / world`` share of every batch. The run is on the card
-unless the caller asks for the CPU (``--device cpu``).
+data index feeding its ``1 / data`` share of every batch. With
+``--mesh_model`` m > 1 (the DINO head's tensor parallelism) the world is
+data x m: the m ranks of a data index take the same crops, the same
+drop-path and mixup draws (seeded by the data index, so the replicated
+backbone stays one), and each holds 1 / m of the heads' last layers; the
+global batch and the LR scale with the data axis, as esvit_tpu's
+(esvit_tpu/train/train.py:75-83). A checkpoint is whole: the first data
+index's model ranks gather the head's rows, and rank 0 writes the file
+that a run of one process writes; any grid restores it. The run is on
+the card unless the caller asks for the CPU (``--device cpu``).
 
 The data: ``--data_kind`` synthetic (random noise images), folder
 (``--data_path``), zip (``--data_path`` and ``--zip_map_file``) or tsv
@@ -29,8 +38,7 @@ cuDNN's TF32 off for its process (models/common.py
 ``--use_bn_in_head`` and ``--frozen_layers`` run as esvit_tpu's; the
 ResNet family has no preset (esvit_tpu's CLI has none either) and is
 trained from Python, ``train(TrainConfig(model=ResNetConfig(depth=50),
-...))``. The tensor-parallel head (``--mesh_model`` > 1) is ROADMAP
-queue 1 item 12 and refused with NotImplementedError.
+...))``.
 """
 
 from __future__ import annotations
@@ -73,11 +81,14 @@ def git_sha() -> str:
     return sha + (" (dirty)" if dirty else "")
 
 
-def save_checkpoint(ckpt: CheckpointManager, state: TrainState, **kw) -> None:
-    """``ckpt.save`` with one line saying what was written, its size and
-    the seconds it took."""
+def save_checkpoint(ckpt: CheckpointManager, state: TrainState,
+                    mesh: mesh_lib.Mesh, **kw) -> None:
+    """``ckpt.save`` (rank 0 writes), with one line saying what was
+    written, its size and the seconds it took. Every rank calls it."""
     t0 = time.perf_counter()
-    paths = ckpt.save(state, **kw)
+    paths = ckpt.save(state, mesh=mesh, **kw)
+    if not paths:
+        return
     seconds = time.perf_counter() - t0
     size = os.path.getsize(paths[0])
     print(f"checkpoint: {', '.join(map(os.path.basename, paths))} at step "
@@ -148,15 +159,15 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
     receives a torch.profiler trace of the first epoch (trace.json)."""
     print(f"git: {git_sha()}", flush=True)
     mesh = mesh_lib.make_mesh(cfg.mesh)
-    B = cfg.optim.batch_size_per_device * mesh.world   # global per-view batch
-    B_local = B // mesh.world                          # this process's share
+    B = cfg.optim.batch_size_per_device * mesh.data    # global per-view batch
+    B_local = B // mesh.data                           # this process's share
     if dataset is None and data_kind != "synthetic_device":
         dataset = datasets_lib.build_dataset(data_kind, **(data_kwargs or {}))
     device = torch.device(device)
     if cfg.dtype == torch.float32:
         exact_fp32_convolutions()
-    # Every process walks a disjoint 1 / world shard of B_local samples per
-    # step, so all agree on len // B steps (DistributedSampler semantics).
+    # Every data index walks a disjoint 1 / data shard of B_local samples
+    # per step, so all agree on len // B steps (DistributedSampler semantics).
     steps_per_epoch = (len(dataset) // B
                        if dataset is not None and len(dataset) >= B
                        else cfg.steps_per_epoch)
@@ -168,20 +179,21 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
     ckpt = CheckpointManager(cfg.output_dir)
     if init_from:
         init = CheckpointManager(os.path.dirname(os.path.abspath(init_from)))
-        if init.restore(state, os.path.basename(init_from)) is not None:
+        if init.restore(state, os.path.basename(init_from),
+                        mesh=mesh) is not None:
             print(f"initialized from {init_from} (step {state.step})",
                   flush=True)
         else:
             print(f"WARNING: init_from {init_from} not found", flush=True)
-    if resume and ckpt.restore(state) is not None:
+    if resume and ckpt.restore(state, mesh=mesh) is not None:
         print(f"resumed from step {state.step}", flush=True)
     # Drop-path masks (and ViL's per-layer neighbour draws): one stream
-    # per process.
+    # per data index, so the model ranks of one draw alike.
     drop_gen = torch.Generator(device=device).manual_seed(
-        cfg.seed + 1 + mesh.rank)
+        cfg.seed + 1 + mesh.data_index)
     modes_for = vil_mode_schedule(cfg, steps_per_epoch)
     mix = cfg.mixup if cfg.mixup is not None and cfg.mixup.enabled else None
-    mix_gen = torch.Generator().manual_seed(cfg.seed + 2 + mesh.rank)
+    mix_gen = torch.Generator().manual_seed(cfg.seed + 2 + mesh.data_index)
     c = cfg.crops
     view_sizes = ([(c.global_size, c.global_size)] * 2
                   + [(c.local_size, c.local_size)] * c.local_crops_number)
@@ -220,8 +232,8 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                 feed = build_train_iterator(
                     dataset, cfg.crops, B_local, epoch=epoch, seed=cfg.seed,
                     host_aug=host_aug, native_decode=native_decode,
-                    process_index=mesh.rank,
-                    process_count=mesh.world, device=device)
+                    process_index=mesh.data_index,
+                    process_count=mesh.data, device=device)
                 source = iter(feed)
                 decoded = (0, 0)
             else:
@@ -250,9 +262,8 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                         # checkpoint, exit.
                         print(f"Loss is {loss}, stopping training",
                               flush=True)
-                        if mesh.rank == 0:
-                            save_checkpoint(ckpt, state, epoch=epoch,
-                                            force_named=True)
+                        save_checkpoint(ckpt, state, mesh, epoch=epoch,
+                                        force_named=True)
                         sys.exit(1)
                     now = time.perf_counter()
                     rec = {"step": state.step, "loss": loss,
@@ -272,9 +283,10 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                                   img_per_sec=images_per_step
                                   / max(rec["seconds"], 1e-9))
                     step_t0 = now
-                    if preempted:
-                        if mesh.rank == 0:
-                            save_checkpoint(ckpt, state, epoch=epoch)
+                    # Every rank acts on a SIGTERM that any rank got:
+                    # the save is a collective over the model group.
+                    if mesh.any(bool(preempted), device):
+                        save_checkpoint(ckpt, state, mesh, epoch=epoch)
                         print(f"checkpointed at step {state.step}; exiting "
                               "for preemption", flush=True)
                         sys.exit(0)
@@ -290,9 +302,8 @@ def train(cfg: config_lib.TrainConfig, *, data_kind: str = "synthetic_device",
                 profiler = None
                 print(f"profiler trace written to {trace}", flush=True)
             print(f"Averaged stats: {logger}", flush=True)
-            if mesh.rank == 0:
-                save_checkpoint(ckpt, state, epoch=epoch,
-                                save_every_epochs=cfg.save_every_epochs)
+            save_checkpoint(ckpt, state, mesh, epoch=epoch,
+                            save_every_epochs=cfg.save_every_epochs)
             append_log(cfg.output_dir,
                        {"epoch": epoch,
                         **{f"train_{k}": v
@@ -408,8 +419,9 @@ def get_args_parser():
     p.add_argument("--saveckp_freq", default=5, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--mesh_model", default=1, type=int,
-                   help="tensor-parallel axis size for the DINO head: only "
-                        "1 is ported (ROADMAP queue 1 item 12)")
+                   help="tensor-parallel axis size for the DINO head: the "
+                        "heads' last layers split over this many processes "
+                        "(it divides the world size; world = data x model)")
     p.add_argument("--bf16", default=True, action=argparse.BooleanOptionalAction)
     p.add_argument("--max_steps", default=None, type=int)
     p.add_argument("--profile_dir", default="",
@@ -497,7 +509,9 @@ def data_kwargs_from_args(args) -> dict[str, Any]:
 def main(argv=None):
     args = get_args_parser().parse_args(argv)
     cfg = config_from_args(args)
-    config_lib.check_supported(cfg)      # refuse before any setup
+    # Refuse before any setup (a grid's world is known here without
+    # --distributed: one process).
+    config_lib.check_supported(cfg, world=None if args.distributed else 1)
     data_kwargs = data_kwargs_from_args(args)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)

@@ -111,10 +111,15 @@ def test_shards_match_esvit_tpu(n, pc):
 def test_mesh_without_a_group_and_its_refusals():
     mesh = make_mesh()
     assert (mesh.world, mesh.rank) == (1, 0)
+    assert (mesh.data, mesh.model, mesh.data_index, mesh.model_index) == \
+        (1, 1, 0, 0)
     t = [torch.ones(3), torch.tensor(2.0)]
-    assert mesh.all_reduce_mean(t)[1] is t[1]
+    for over in ("world", "data", "model"):
+        assert mesh.all_reduce_mean(t, over=over)[1] is t[1]
+    assert mesh.model_sum(t)[1] is t[1]
     assert mesh.all_gather(np.arange(3)).shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    # One process makes no model axis of 2.
+    with pytest.raises(ValueError, match="does not divide the 1 processes"):
         make_mesh(tcfg.MeshConfig(model=2))
     with pytest.raises(ValueError, match="2 != 1 processes"):
         make_mesh(tcfg.MeshConfig(data=2))

@@ -5,9 +5,9 @@ on the CPU at femto size.
   esvit_tpu's field by field (every field the port keeps), for several
   argv sets; the parsers have the same flags and defaults (the port adds
   ``--device``); the options that once were refused (SGD, LARS,
-  BatchNorm heads, frozen layers) give esvit_tpu's config and pass
-  ``check_supported``, and the one the port lacks (``--mesh_model`` > 1)
-  is refused naming its ROADMAP item.
+  BatchNorm heads, frozen layers, ``--mesh_model`` > 1) give esvit_tpu's
+  config and pass ``check_supported`` (the model axis where it divides
+  the world).
 - Resume: 2 epochs, then 1 more from the checkpoint, equal 3 epochs at
   once bit for bit (drop-path 0: the step's random draws are not
   checkpointed, as in esvit_tpu); ``init_from`` loads a checkpoint as the
@@ -124,18 +124,21 @@ def test_cli_flags_and_defaults_match_esvit_tpu():
     (["--mesh_model", "2"], "item 12"),
 ])
 def test_unported_options_are_refused(tmp_path, argv, item):
-    """The DINO head's tensor parallelism is refused before any setup;
-    the other flags of this list are ported now: their config equals
-    esvit_tpu's and check_supported admits it (no training run here)."""
-    if "--mesh_model" not in argv:
-        port = ttrain.config_from_args(ttrain.get_args_parser().parse_args(argv))
-        ref = jtrain.config_from_args(jtrain.get_args_parser().parse_args(argv))
-        _same(port, ref)
-        tcfg.check_supported(port)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        ttrain.main([*FEMTO, "--output_dir", str(tmp_path), *argv])
-    assert not os.path.exists(tmp_path / "checkpoint.pth")
+    """Every flag of this list was once refused (ROADMAP queue 1 ``item``)
+    and is ported now: its config equals esvit_tpu's and check_supported
+    admits it (no training run here); the model axis where it divides
+    the world, and a world it does not divide is refused before any
+    setup."""
+    port = ttrain.config_from_args(ttrain.get_args_parser().parse_args(argv))
+    ref = jtrain.config_from_args(jtrain.get_args_parser().parse_args(argv))
+    _same(port, ref)
+    tcfg.check_supported(port)
+    if "--mesh_model" in argv:
+        assert port.mesh.model == 2
+        tcfg.check_supported(port, world=2)
+        with pytest.raises(ValueError, match="does not divide"):
+            ttrain.main([*FEMTO, "--output_dir", str(tmp_path), *argv])
+        assert not os.path.exists(tmp_path / "checkpoint.pth")
 
 
 @pytest.mark.parametrize("kind", ["composite_tsv", "openimages_tsv"])

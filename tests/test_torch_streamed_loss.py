@@ -13,6 +13,8 @@ loss, on the same random bottlenecks and last layers (K = 64).
   shares) the centres are the global batch's, as the dense loss's.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 
 from esvit_tpu import losses as jlosses
 from esvit_tpu_torch import losses as tlosses
+from esvit_tpu_torch.parallel.mesh import Mesh
 
 TOL = 1e-5
 B, D, K, C = 3, 16, 64, 8
@@ -181,14 +184,15 @@ def test_backward_keeps_no_k_wide_tensor():
     assert torch.isfinite(ws.grad).all()
 
 
-class _TwoEqualShares:
-    """A stand-in mesh of two processes holding the same batch: its
+@dataclasses.dataclass(frozen=True)
+class _TwoEqualShares(Mesh):
+    """A stand-in mesh of two data processes holding the same batch: its
     all-reduce doubles every sum."""
-    world = 2
-    distributed = True
+    world: int = 2
+    distributed: bool = True
 
-    def all_reduce_sum(self, tensors):
-        return [t * 2 for t in tensors]
+    def _reduce_(self, flat, over, op):
+        flat.mul_(2)
 
 
 def test_centres_are_global_over_processes(case):

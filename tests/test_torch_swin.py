@@ -189,8 +189,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown remat mode"):
         tcfg.check_supported(tcfg.TrainConfig(
             model=tcfg.swin_tiny(remat="stage")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tcfg.check_supported(tcfg.TrainConfig(mesh=tcfg.MeshConfig(model=2)))
+    # The head's tensor parallelism: admitted where the world splits into
+    # data x model processes.
+    tp = tcfg.TrainConfig(mesh=tcfg.MeshConfig(model=2))
+    tcfg.check_supported(tp)
+    tcfg.check_supported(tp, world=4)
+    with pytest.raises(ValueError, match="does not divide the 3 processes"):
+        tcfg.check_supported(tp, world=3)
     assert type(build_backbone(tcfg.ResNetConfig(depth=50))).__name__ == \
         "ResNet"
     tcfg.check_supported(tcfg.TrainConfig())

@@ -181,9 +181,10 @@ def test_vit_is_built_and_admitted():
     tcfg.check_supported(tcfg.deit_small_multicrop())
     tcfg.check_supported(tcfg.TrainConfig(
         model=tcfg.deit_small(attn_drop_rate=0.1, drop_rate=0.1)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tcfg.check_supported(tcfg.deit_small_multicrop(
-            mesh=tcfg.MeshConfig(model=2)))
+    tp = tcfg.deit_small_multicrop(mesh=tcfg.MeshConfig(model=2))
+    tcfg.check_supported(tp, world=2)
+    with pytest.raises(ValueError, match="does not divide the 1 processes"):
+        tcfg.check_supported(tp, world=1)
 
 
 def test_vit_block_draws_one_drop_path_twice():
