@@ -126,10 +126,10 @@ so the script exits non-zero and prints no result line:
    subprocesses, each kernel's launches read from the subprocess: 2
    epochs with per-epoch checkpoints, a resume to step 24, the SIGTERM
    save and a resume from it, the checkpoint restored on the card bit for
-   bit, a world-size-1 NCCL run against the plain one, then k-NN and the
-   linear probe with ``--pretrained`` on the run's checkpoint (see
-   ``phase_entry``). The slices above call train() with resume=False:
-   each starts from its own initial weights.
+   bit, a world-size-1 NCCL run against the plain one, and k-NN and the
+   linear probe with ``--pretrained`` on the run's checkpoint, in two
+   waves of runs at once (see ``phase_entry``). The slices above call
+   train() with resume=False: each starts from its own initial weights.
 12. The real-image path (``phase_real_images``): 512 JPEGs of 500x375
    and 375x500 (quality 90, 16 classes, 8 of them grayscale) and 2 PNGs,
    drawn from seed 0 and written as a zip with its map file, a TSV with
@@ -156,8 +156,9 @@ so the script exits non-zero and prints no result line:
 13. The CvT and ViT families (``phase_families``): cvt_tiny (CvT-T,
    BatchNorm in every block's q/k/v projection) and deit_small (DeiT-S/16)
    at full width, plain PyTorch (esvit_tpu runs their attention as plain
-   XLA: no TPU kernel lies on this path). The fp32 forward on the card
-   (TF32 off) against the CPU on the same seeded weights, at 224 px (4
+   XLA: no TPU kernel lies on this path). The train CLI's runs below
+   start first, and the parity runs beside them: the fp32 forward on the
+   card (TF32 off) against the CPU on the same seeded weights, at 224 px (4
    images) and 96 px (8), features within 1e-4 of the largest |feature|,
    CvT's on running and on batch statistics, its running buffers after
    each bn_train forward within 1e-4 of the largest |buffer|; then
@@ -166,11 +167,12 @@ so the script exits non-zero and prints no result line:
    the card) for 6 steps each: finite losses, student, teacher and centres
    moved, for CvT every BatchNorm's running mean and variance moved in
    both nets and the teacher's apart from the student's, and no launch of
-   the seven kernels; ms/step (steps 2-6) and peak memory. Then the train
-   CLI in subprocesses: cvt_tiny 4 steps, its checkpoint restored on the
-   card with every BatchNorm buffer equal to the file's, a resume for a
-   fifth step; deit_small 2 steps; the k-NN and linear-probe CLIs on the
-   CvT run's checkpoint; no kernel launches.
+   the seven kernels; ms/step (steps 2-6) and peak memory. The train
+   CLI in subprocesses: cvt_tiny 4 steps and deit_small 2 at once, the
+   CvT checkpoint restored on the card with every BatchNorm buffer equal
+   to the file's; then at once a resume for a fifth step and the k-NN and
+   linear-probe CLIs on a copy of the step-4 checkpoint; no kernel
+   launches.
 14. The training options (``phase_options``): (a) the K-streamed DDINO
    loss: fp32 (TF32 off) Swin-T at B=4, one batch and one set of
    weights, the streamed loss, both centres and the heads' gradients
@@ -296,10 +298,21 @@ so the script exits non-zero and prints no result line:
    ``parent_ms`` (null without DIR, and on the rows of N <= 64).
 
 Each phase's seconds are printed after it (``phase <n> ...: <s> s``).
-CLI runs that do not depend on each other (phase 11's plain and NCCL
-runs and its two evals, phase 13's cvt_tiny and deit_small trains and
-its evals, phase 15's evals, phase 16's analysis commands) run at once,
-and say so beside the times they print.
+The script's time is bounded (the card's check stops it at 1200 s), so
+from phase 11 on, subprocesses that do not depend on each other run at
+once, and beside this process's work where it does not need their
+results: phase 11's two waves; phase 12's two train CLIs beside its
+k-NN eval; phase 13's two train CLIs beside its parity, its resume with
+its evals; phase 14's LARS CLI beside (c)-(d) and its resume beside
+(e); phase 15's evals beside legs (b)-(d); phase 16's analysis commands
+beside its in-process checks; phase 17's two k-NN runs; phase 19's gloo
+ranks beside the model=1 runs. A run's line says which runs went with
+it, and a time this process prints while subprocesses run names them
+("beside ..."). Phases 1-10 and the timed rounds of 8, 17 and 18 run
+alone. The in-process train() slices check that train() asked for its
+checkpoint after the last step and do not write it (``_slice``), except
+phase 15's schedule leg, whose checkpoint its evals read: the CLI runs
+and phase 19 write checkpoints and check what they read back.
 
 The line before the last is the per-kernel JSON record: ``launches`` from
 the Swin-T default route's 5 steps (ViL-T's 5 for sliding_chunk, the eval
@@ -1781,7 +1794,8 @@ def _derived_launches(cfg, steps, modes=None):
 
 
 def _slice(torch, cfg, steps, counters, label, card, check_state,
-           check_more=None, keep_state=False, **train_kw):
+           check_more=None, keep_state=False, write_checkpoint=False,
+           **train_kw):
     """train() for `steps` steps (on ``train_kw``'s data, else synthetic
     crops on the card) with every launch count set to 0 just before and
     read just after: finite losses, the launch counts of every kernel equal
@@ -1789,10 +1803,16 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
     changed, and ``check_more(state, init)`` where given. Returns the
     counts and train()'s per-step records, and with ``keep_state`` the
     final TrainState (a route stepper goes on from it). The peak memory it
-    prints is the run's: above what was allocated when it started."""
+    prints is the run's: above what was allocated when it started.
+
+    train() saves checkpoint.pth at each epoch's end. The slice checks
+    that it asked for the save after its last step, and writes the file
+    only with ``write_checkpoint``: a full-width write takes ~2.4 s, no
+    other slice reads it, and the CLI runs of phases 11-15 and phase 19's
+    runs write checkpoints and check what they read back."""
     import gc
 
-    from esvit_tpu_torch.train.train import train
+    from esvit_tpu_torch.train import train as train_lib
 
     init = _initial_weights(torch, cfg) if check_state else None
     for launches in counters.values():
@@ -1800,15 +1820,29 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
             launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    # checkpoint.pth only: no run here reads a numbered copy (the entry
-    # phase's CLI runs check those)
-    state, history = train(cfg.replace(save_every_epochs=0), max_steps=steps,
-                           device="cuda", resume=False, **train_kw)
+    saves, save = [], train_lib.save_checkpoint
+    if not write_checkpoint:
+        train_lib.save_checkpoint = (
+            lambda ckpt, state, mesh, **kw: saves.append(state.step))
+    try:
+        # checkpoint.pth only: no run here reads a numbered copy (the
+        # entry phase's CLI runs check those)
+        state, history = train_lib.train(
+            cfg.replace(save_every_epochs=0), max_steps=steps,
+            device="cuda", resume=False, **train_kw)
+    finally:
+        train_lib.save_checkpoint = save
     torch.cuda.synchronize()
     got = {name: dict(launches) for name, launches in counters.items()}
     losses = [h["loss"] for h in history]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{label}: losses {losses}")
+    if not write_checkpoint:
+        if not saves or saves[-1] != steps:
+            raise AssertionError(f"{label}: saves asked for at steps "
+                                 f"{saves}, want the last at {steps}")
+        log(f"slice {label}: checkpoint.pth asked for at step {steps}, "
+            f"not written")
     want = _derived_launches(cfg, steps, [h["modes"] for h in history])
     ms = statistics.mean(h["seconds"] for h in history[1:]) * 1e3
     B = cfg.optim.batch_size_per_device
@@ -1818,8 +1852,8 @@ def _slice(torch, cfg, steps, counters, label, card, check_state,
     log(f"slice {label}: B={B} 2x224+8x96 DDINO out_dim 65536 "
         f"bf16: {ms:.1f} ms/step, {ips:.1f} img/s over steps 2-{steps}, "
         f"peak device memory "
-        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
-        f"[{card}]")
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB"
+        f"{_beside()} [{card}]")
     if got != want:
         raise AssertionError(f"{label}: launches {got}, model-derived {want}")
     if check_state:
@@ -2086,13 +2120,13 @@ def _route_stepper(torch, cfg, state):
 
 def _step_groups(torch, step):
     """Device ms of one train step by kernel group (utils/profile.py's
-    groups), from kernel_split over 2 steps; the step's esvit/* spans
+    groups), from kernel_split over 1 step; the step's esvit/* spans
     (their GPU-timeline lengths, not kernels) left out, as
     utils/profile.py leaves them."""
     from esvit_tpu_torch.utils.profile import _kernel_group
 
     groups = {}
-    for name, ms in kernel_split(torch, step, reps=2).items():
+    for name, ms in kernel_split(torch, step, reps=1).items():
         if name.startswith("esvit/"):
             continue
         group = _kernel_group(name)
@@ -2102,9 +2136,9 @@ def _step_groups(torch, step):
 
 def _w14_knn(C, card, root):
     """The k-NN CLI at --window_size 14 on seeded noise PNGs, fp32, on the
-    card and on the CPU (subprocesses through ENTRY_RUN): the card's
-    launches as derived from the model (none on the CPU), and the card's
-    dumped features within 1e-4 of the CPU's."""
+    card and on the CPU (subprocesses through ENTRY_RUN, at once): the
+    card's launches as derived from the model (none on the CPU), and the
+    card's dumped features within 1e-4 of the CPU's."""
     import numpy as np
     from PIL import Image
 
@@ -2124,15 +2158,17 @@ def _w14_knn(C, card, root):
     batches = (-(-W14_KNN_TRAIN // W14_KNN_BATCH)
                + -(-W14_KNN_VAL // W14_KNN_BATCH))
     feats = {}
-    for device in ("cuda", "cpu"):
+    devices = ("cuda", "cpu")
+    done = _entry_runs([
+        (f"w14 k-NN --device {device}", "esvit_tpu_torch.evals.knn",
+         ["--arch", "swin_tiny", "--window_size", str(W14),
+          "--train_path", dirs["train"], "--val_path", dirs["val"],
+          "--batch_size", str(W14_KNN_BATCH), "--nb_knn", "5",
+          "--dump_features", os.path.join(root, f"features_{device}"),
+          "--output_dir", os.path.join(root, f"out_{device}"), "--device",
+          device], None, 0) for device in devices])
+    for device, (_, rec) in zip(devices, done):
         dump = os.path.join(root, f"features_{device}")
-        _, rec = _entry_run(
-            f"w14 k-NN --device {device}", "esvit_tpu_torch.evals.knn",
-            ["--arch", "swin_tiny", "--window_size", str(W14),
-             "--train_path", dirs["train"], "--val_path", dirs["val"],
-             "--batch_size", str(W14_KNN_BATCH), "--nb_knn", "5",
-             "--dump_features", dump, "--output_dir",
-             os.path.join(root, f"out_{device}"), "--device", device])
         want = {name: {k: 0 for k in kinds}
                 for name, (_, kinds) in KERNELS.items()}
         if device == "cuda":
@@ -2175,7 +2211,7 @@ def phase_swin_w14(torch, C, counters, card, out_dir):
     on from its train() run's state: each route's median ms/step over
     steps 2..W14_STEPS of its
     rounds and the spread, and its device time by kernel group
-    (torch.profiler, 2 steps). Then the fp32 eval forward on the
+    (torch.profiler, 1 step). Then the fp32 eval forward on the
     qkv-layout route (attention_impl='pallas', no fused stages, batch
     EVAL_BATCH at 224 px): row 7's launches as derived, finite features,
     the ms per batch; then the k-NN CLI at --window_size 14, card against
@@ -2281,7 +2317,7 @@ def phase_swin_b_w14(torch, C, counters, card, out_dir):
     trainer per route, going on from its train() run's state: each route's
     median ms/step over steps 2..B14_STEPS of its rounds and the spread,
     and its device time by
-    kernel group (torch.profiler, 2 steps). Returns the launches of the
+    kernel group (torch.profiler, 1 step). Returns the launches of the
     kernel route's block-fused pair and of the packed route's pair."""
     import gc
 
@@ -2491,51 +2527,101 @@ def _entry_run(label, module, args, env=None, want_rc=0):
 
 
 def _entry_runs(runs):
-    """CLI runs through ENTRY_RUN, all started at once, each (label,
-    module, args, env or None, want_rc): their (output, record) in order,
-    failing on another exit code or after ENTRY_TIMEOUT. Runs that go
-    together share the card and the host, so what they time of
-    themselves is not a time of one run alone."""
-    t0 = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        procs = []
-        for label, module, args, env, _ in runs:
-            out, err = (stack.enter_context(tempfile.TemporaryFile("w+"))
-                        for _ in range(2))
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c", ENTRY_RUN, module, *args], cwd=ROOT,
-                env=env or _entry_env(), stdout=out, stderr=err, text=True),
-                out, err))
-        ends = [None] * len(procs)
+    """CLI runs through ENTRY_RUN, all at once (_EntryRuns): their
+    (output, record) in order."""
+    with _EntryRuns(runs) as started:
+        return started.finish()
+
+
+# The labels of the subprocesses going on while this process works: the
+# times this process prints then say so (_beside).
+_BESIDE = []
+
+
+def _beside():
+    """' (beside <labels>)' while subprocesses started in the background
+    run, else ''."""
+    return f" (beside {', '.join(_BESIDE)})" if _BESIDE else ""
+
+
+class _EntryRuns:
+    """CLI runs through ENTRY_RUN, each (label, module, args, env or None,
+    want_rc), all started on entering the block; ``finish()`` waits for
+    them and returns their (output, record) in order, failing on another
+    exit code or after ENTRY_TIMEOUT. Leaving the block kills a run still
+    going. Work this process does between the two goes on beside them
+    (``beside`` names it in the runs' lines; its own times say so through
+    _beside). Runs that go together share the card and the host, so what
+    they time of themselves is not a time of one run alone."""
+
+    def __init__(self, runs, beside=None):
+        self.runs, self.beside = runs, beside
+        self.procs, self.labels = [], []
+        self.stack = contextlib.ExitStack()
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        try:
+            for label, module, args, env, _ in self.runs:
+                out, err = (self.stack.enter_context(
+                    tempfile.TemporaryFile("w+")) for _ in range(2))
+                self.procs.append((subprocess.Popen(
+                    [sys.executable, "-c", ENTRY_RUN, module, *args],
+                    cwd=ROOT, env=env or _entry_env(), stdout=out,
+                    stderr=err, text=True), out, err))
+        except BaseException:
+            self.__exit__()
+            raise
+        self.labels = [r[0] for r in self.runs]
+        _BESIDE.extend(self.labels)
+        return self
+
+    def _stop(self):
+        for proc, _, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        for label in self.labels:
+            _BESIDE.remove(label)
+        self.labels = []
+
+    def __exit__(self, *exc):
+        try:
+            self._stop()
+        finally:
+            self.stack.close()
+
+    def finish(self):
+        ends = [None] * len(self.procs)
         try:
             while None in ends:
-                if time.perf_counter() - t0 > ENTRY_TIMEOUT:
+                if time.perf_counter() - self.t0 > ENTRY_TIMEOUT:
                     raise AssertionError(
-                        f"entry {[r[0] for r in runs]}: over "
+                        f"entry {[r[0] for r in self.runs]}: over "
                         f"{ENTRY_TIMEOUT} s")
-                for i, (proc, _, _) in enumerate(procs):
+                for i, (proc, _, _) in enumerate(self.procs):
                     if ends[i] is None and proc.poll() is not None:
                         ends[i] = time.perf_counter()
                 time.sleep(0.05)
         finally:
-            for proc, _, _ in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait(30)
+            self._stop()
         results = []
         for (label, _, _, _, want_rc), (proc, out, err), end in zip(
-                runs, procs, ends):
+                self.runs, self.procs, ends):
             out.seek(0)
             err.seek(0)
             text = out.read() + err.read()
             if proc.returncode != want_rc:
                 raise AssertionError(f"entry {label}: exit {proc.returncode}"
                                      f", want {want_rc}:\n{text[-6000:]}")
-            beside = [r[0] for r in runs if r[0] != label]
-            log(f"entry {label}: exit {proc.returncode} in {end - t0:.1f} s"
-                + (f" (at once with {', '.join(beside)})" if beside else ""))
+            others = [r[0] for r in self.runs if r[0] != label]
+            log(f"entry {label}: exit {proc.returncode} in "
+                f"{end - self.t0:.1f} s"
+                + (f" (at once with {', '.join(others)})" if others else "")
+                + (f" (beside {self.beside} in this process)"
+                   if self.beside else ""))
             results.append((text, _entry_record(label, text)))
-    return results
+        return results
 
 
 def _entry_launches(label, got, want):
@@ -2580,11 +2666,68 @@ def _eval_folder(root, n, seed):
     return root
 
 
+class _SigtermRun:
+    """The train CLI through ENTRY_RUN with ``args``, sent SIGTERM from a
+    reader thread once it prints ``first`` (its first step's log line),
+    started on entering the block; ``finish()`` waits for its exit and
+    returns (exit code, output), failing if it ended before that line or
+    ran past ENTRY_TIMEOUT. Leaving the block kills it if it still
+    runs."""
+
+    def __init__(self, args, first):
+        self.args, self.first = args, first
+        self.lines, self.sent = [], False
+
+    def __enter__(self):
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", ENTRY_RUN, TRAIN_MODULE, *self.args],
+            cwd=ROOT, env=_entry_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        _BESIDE.append("sigterm")
+        return self
+
+    def _read(self):
+        import signal
+
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if not self.sent and line.startswith(self.first):
+                self.sent = True
+                self.proc.send_signal(signal.SIGTERM)
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+        if "sigterm" in _BESIDE:
+            _BESIDE.remove("sigterm")
+
+    def finish(self):
+        try:
+            self.proc.wait(ENTRY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"entry sigterm: over {ENTRY_TIMEOUT} s")
+        finally:
+            self.__exit__()
+        self.reader.join(60)
+        text = "".join(self.lines)
+        if not self.sent:
+            raise AssertionError("entry sigterm: exited before its first "
+                                 "step:\n" + "".join(self.lines[-50:]))
+        return self.proc.returncode, text
+
+
 def phase_entry(torch, C, card):
     """The pre-training entry point and the evals on its checkpoint, as a
     user runs them (``python -m ...`` in subprocesses, through ENTRY_RUN),
     at Swin-T's full width on the default route, in a temporary directory
-    removed at the end:
+    removed at the end. The runs go in two waves, each wave's runs at
+    once: (1) train, SIGTERM, plain and NCCL; (2) resume, the SIGTERM
+    rerun, k-NN and the linear probe.
 
     - train: 2 epochs of 8 steps (--saveckp_freq 2): exit 0,
       checkpoint.pth and checkpoint0000.pth, two finite log.txt lines,
@@ -2592,23 +2735,21 @@ def phase_entry(torch, C, card):
       step from the log, each checkpoint's size and save time; the
       checkpoint's counts of parameters (student = backbone + two heads;
       student, teacher, mu and nu);
-    - resume to --epochs 3: 'resumed from step 16', 8 more steps to 24,
-      checkpoint0002.pth;
     - SIGTERM after the first step's log line: exit 0 and checkpoint.pth
       at the step it names; a rerun resumes from it;
-    - the round trip: the checkpoint restored into a state on the card
-      (drawn from another seed) equals the file bit for bit, every tensor,
-      and a save of that state writes the same tensors;
     - NCCL: two runs of --max_steps 2, one under --distributed with
       WORLD_SIZE=1 RANK=0 (NCCL runs the step's all-reduce, which gives
       back its input), one without: their losses within ENTRY_LOSS_RTOL,
       and the largest difference of the two checkpoints;
-    - the k-NN and linear-probe CLIs with --pretrained on the train run's
-      checkpoint.pth over a PNG ImageFolder of procedural shapes: top-1,
-      img/s over the CLI's main, and the launches as derived."""
-    import signal
+    - the round trip: train's checkpoint restored into a state on the
+      card (drawn from another seed) equals the file bit for bit, every
+      tensor, and a save of that state writes the same tensors;
+    - resume to --epochs 3: 'resumed from step 16', 8 more steps to 24,
+      checkpoint0002.pth;
+    - the k-NN and linear-probe CLIs with --pretrained on a copy of
+      train's checkpoint.pth over a PNG ImageFolder of procedural shapes:
+      top-1, img/s over the CLI's main, and the launches as derived."""
     import socket
-    import threading
 
     from esvit_tpu_torch.train import train as train_cli
 
@@ -2619,11 +2760,41 @@ def phase_entry(torch, C, card):
         cfg = train_cli.config_from_args(
             train_cli.get_args_parser().parse_args(args))
         spe = ENTRY_IMAGES // cfg.optim.batch_size_per_device
+        d_term = os.path.join(tmp, "sigterm")
+        term_args = [*ENTRY_ARGS, "--output_dir", d_term]
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        legs = (("plain", [], _entry_env()),
+                ("nccl", ["--distributed"], _entry_env(
+                    WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port)))
+
+        # Wave 1: train for 2 epochs, the run that gets SIGTERM, and the
+        # plain and NCCL 2-step runs, at once; the evals' PNGs are
+        # written meanwhile.
+        wave = [("train", TRAIN_MODULE,
+                 [*args, "--epochs", "2", "--saveckp_freq", "2"], None, 0)]
+        wave += [(f"{name} 2 steps", TRAIN_MODULE,
+                  [*ENTRY_ARGS, "--output_dir", os.path.join(tmp, name),
+                   "--max_steps", "2", *extra], env, 0)
+                 for name, extra, env in legs]
+        first = f"Epoch: [0/{cfg.optim.epochs}] [0]"
+        with _SigtermRun(term_args, first) as term, _EntryRuns(
+                wave, beside="the sigterm run and the evals' PNGs being "
+                "written") as started:
+            t0 = time.perf_counter()
+            train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
+                                     ENTRY_EVAL_TRAIN, seed=7)
+            val_dir = _eval_folder(os.path.join(tmp, "eval_val"),
+                                   ENTRY_EVAL_VAL, seed=13)
+            log(f"entry evals: {ENTRY_EVAL_TRAIN} + {ENTRY_EVAL_VAL} PNGs of "
+                f"{ENTRY_EVAL_SIZE} px written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            (text, rec), *done = started.finish()
+            term_rc, term_text = term.finish()
 
         # Train: 2 epochs.
-        text, rec = _entry_run("train", TRAIN_MODULE,
-                               [*args, "--epochs", "2", "--saveckp_freq",
-                                "2"])
         if not text.startswith("git: "):
             raise AssertionError(f"entry train: no git line: {text[:200]}")
         _entry_launches("train", rec["launches"],
@@ -2642,11 +2813,11 @@ def phase_entry(torch, C, card):
         log(f"entry train: log.txt losses "
             f"{[round(r['train_loss'], 4) for r in logs]}; ms/step from the "
             f"log's img/s: epoch 0 {ms[0]:.1f} (first step included), "
-            f"epoch 1 {ms[1]:.1f} [{card}]")
+            f"epoch 1 {ms[1]:.1f}, the wave's runs at once [{card}]")
         for files_, step, size, secs in saves:
             log(f"entry train: checkpoint {files_} at step {step}: {size} "
-                f"bytes ({size / 2**30:.3f} GiB), saved in {secs:.3f} s "
-                f"[{card}]")
+                f"bytes ({size / 2**30:.3f} GiB), saved in {secs:.3f} s, "
+                f"the wave's runs at once [{card}]")
         if [s[1] for s in saves] != [spe, 2 * spe]:
             raise AssertionError(f"entry train: saves {saves}")
         from esvit_tpu_torch.train.step import EsViTTrainer
@@ -2675,81 +2846,49 @@ def phase_entry(torch, C, card):
                                  f"model's {params} parameters, {entries} "
                                  f"state entries, step {tree['step']}")
 
-        # Resume: a third epoch.
-        text, rec = _entry_run("resume", TRAIN_MODULE,
-                               [*args, "--epochs", "3", "--saveckp_freq",
-                                "2"])
-        _entry_launches("resume", rec["launches"],
-                        _derived_launches(cfg, spe))
-        step = _load_tree(torch, os.path.join(d_train, "checkpoint.pth"))[
-            "step"]
-        if (f"resumed from step {2 * spe}" not in text or step != 3 * spe
-                or not os.path.exists(os.path.join(d_train,
-                                                   "checkpoint0002.pth"))):
-            raise AssertionError(f"entry resume: step {step}:\n"
-                                 f"{text[-3000:]}")
-        log(f"entry resume: resumed from step {2 * spe}, ended at step "
-            f"{step}, checkpoint0002.pth written")
-
         # SIGTERM after the first step's log line.
-        d_term = os.path.join(tmp, "sigterm")
-        term_args = [*ENTRY_ARGS, "--output_dir", d_term]
-        proc = subprocess.Popen(
-            [sys.executable, "-c", ENTRY_RUN, TRAIN_MODULE, *term_args],
-            cwd=ROOT, env=_entry_env(), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        lines, seen = [], threading.Event()
-
-        def read():
-            for line in proc.stdout:
-                lines.append(line)
-                if line.startswith(f"Epoch: [0/{cfg.optim.epochs}] [0]"):
-                    seen.set()
-            seen.set()
-
-        reader = threading.Thread(target=read, daemon=True)
-        reader.start()
-        try:
-            seen.wait(ENTRY_TIMEOUT)
-            if proc.poll() is not None:
-                raise AssertionError("entry sigterm: exited before its "
-                                     "first step:\n" + "".join(lines[-50:]))
-            proc.send_signal(signal.SIGTERM)
-            proc.wait(ENTRY_TIMEOUT)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(60)
-        reader.join(60)
-        text = "".join(lines)
-        m = re.search(r"checkpointed at step (\d+)", text)
-        if proc.returncode != 0 or m is None:
-            raise AssertionError(f"entry sigterm: exit {proc.returncode}:\n"
-                                 f"{text[-4000:]}")
+        m = re.search(r"checkpointed at step (\d+)", term_text)
+        if term_rc != 0 or m is None:
+            raise AssertionError(f"entry sigterm: exit {term_rc}:\n"
+                                 f"{term_text[-4000:]}")
         term_step = int(m.group(1))
         tree_t = _load_tree(torch, os.path.join(d_term, "checkpoint.pth"))
         if tree_t["step"] != term_step:
             raise AssertionError(f"entry sigterm: checkpoint at step "
                                  f"{tree_t['step']}, printed {term_step}")
         log(f"entry sigterm: exit 0, checkpoint.pth at step {term_step}")
-        text, _ = _entry_run("sigterm rerun", TRAIN_MODULE,
-                             [*term_args, "--max_steps",
-                              str(term_step + 1)])
-        step = _load_tree(torch, os.path.join(d_term, "checkpoint.pth"))[
-            "step"]
-        if f"resumed from step {term_step}" not in text or \
-                step != term_step + 1:
-            raise AssertionError(f"entry sigterm rerun: step {step}:\n"
-                                 f"{text[-3000:]}")
-        log(f"entry sigterm rerun: resumed from step {term_step}, ended at "
-            f"step {step}")
 
-        # Round trip on the card.
+        # NCCL at world size 1 against the plain run.
+        runs = {}
+        for (name, _, _), (text_, _) in zip(legs, done):
+            d = os.path.join(tmp, name)
+            loss = json.loads(open(os.path.join(d, "log.txt")).read()
+                              .splitlines()[-1])["train_loss"]
+            runs[name] = (text_, loss, _tree_tensors(
+                _load_tree(torch, os.path.join(d, "checkpoint.pth"))))
+        backend = ("nccl on cuda:0" if ENTRY_DEVICE == "cuda"
+                   else "gloo on cpu")
+        if f"torch.distributed: process 0/1, {backend}" not in \
+                runs["nccl"][0]:
+            raise AssertionError("entry nccl: no NCCL group line:\n"
+                                 + runs["nccl"][0][-3000:])
+        (_, loss_a, ta), (_, loss_b, tb) = runs["plain"], runs["nccl"]
+        diff = max((ta[k].float() - tb[k].float()).abs().max().item()
+                   for k in ta if ta[k].numel())
+        log(f"entry nccl: world size 1 on NCCL, mean loss of 2 steps "
+            f"{loss_b!r} vs {loss_a!r} without --distributed (difference "
+            f"{abs(loss_a - loss_b):.3e}); largest difference of the two "
+            f"checkpoints {diff:.3e}. NCCL takes one rank per card: a run "
+            f"of two or more ranks needs a machine with that many cards")
+        if abs(loss_a - loss_b) > ENTRY_LOSS_RTOL * abs(loss_a):
+            raise AssertionError(f"entry nccl: losses {loss_b} vs {loss_a}")
+        del runs, ta, tb
+
+        # Round trip on the card, of train's checkpoint.
         from esvit_tpu_torch.io.checkpoint import (CheckpointManager,
                                                    state_to_dict)
 
-        saved = _tree_tensors(_load_tree(
-            torch, os.path.join(d_train, "checkpoint.pth")))
+        saved = _tree_tensors(tree)
         trainer = EsViTTrainer(cfg.replace(steps_per_epoch=spe),
                                device=ENTRY_DEVICE)
         state = trainer.init_state(torch.Generator().manual_seed(1))
@@ -2775,62 +2914,21 @@ def phase_entry(torch, C, card):
                                  "state differs")
         log(f"entry round trip: {len(saved)} tensors restored on the card "
             f"bit for bit in {restore_s:.2f} s; saved again bit for bit")
-        del state, trainer, live
+        del state, trainer, live, saved, again, tree
         torch.cuda.empty_cache()
 
-        # NCCL at world size 1 against the plain run.
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = str(sock.getsockname()[1])
-        legs = (("plain", [], _entry_env()),
-                ("nccl", ["--distributed"], _entry_env(
-                    WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
-                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port)))
-        done = _entry_runs([
-            (f"{name} 2 steps", TRAIN_MODULE,
-             [*ENTRY_ARGS, "--output_dir", os.path.join(tmp, name),
-              "--max_steps", "2", *extra], env, 0)
-            for name, extra, env in legs])
-        runs = {}
-        for (name, _, _), (text, _) in zip(legs, done):
-            d = os.path.join(tmp, name)
-            loss = json.loads(open(os.path.join(d, "log.txt")).read()
-                              .splitlines()[-1])["train_loss"]
-            runs[name] = (text, loss, _tree_tensors(
-                _load_tree(torch, os.path.join(d, "checkpoint.pth"))))
-        backend = ("nccl on cuda:0" if ENTRY_DEVICE == "cuda"
-                   else "gloo on cpu")
-        if f"torch.distributed: process 0/1, {backend}" not in \
-                runs["nccl"][0]:
-            raise AssertionError("entry nccl: no NCCL group line:\n"
-                                 + runs["nccl"][0][-3000:])
-        (_, loss_a, ta), (_, loss_b, tb) = runs["plain"], runs["nccl"]
-        diff = max((ta[k].float() - tb[k].float()).abs().max().item()
-                   for k in ta if ta[k].numel())
-        log(f"entry nccl: world size 1 on NCCL, mean loss of 2 steps "
-            f"{loss_b!r} vs {loss_a!r} without --distributed (difference "
-            f"{abs(loss_a - loss_b):.3e}); largest difference of the two "
-            f"checkpoints {diff:.3e}. NCCL takes one rank per card: a run "
-            f"of two or more ranks needs a machine with that many cards")
-        if abs(loss_a - loss_b) > ENTRY_LOSS_RTOL * abs(loss_a):
-            raise AssertionError(f"entry nccl: losses {loss_b} vs {loss_a}")
-
-        # The evals on the train run's checkpoint.
-        t0 = time.perf_counter()
-        train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
-                                 ENTRY_EVAL_TRAIN, seed=7)
-        val_dir = _eval_folder(os.path.join(tmp, "eval_val"),
-                               ENTRY_EVAL_VAL, seed=13)
-        log(f"entry evals: {ENTRY_EVAL_TRAIN} + {ENTRY_EVAL_VAL} PNGs of "
-            f"{ENTRY_EVAL_SIZE} px written in {time.perf_counter() - t0:.1f} s")
+        # Wave 2: the resume, the rerun from the SIGTERM save and the two
+        # evals on a copy of train's checkpoint (the resume rewrites
+        # checkpoint.pth), at once.
+        trained = os.path.join(tmp, "trained.pth")
+        shutil.copyfile(os.path.join(d_train, "checkpoint.pth"), trained)
         from esvit_tpu_torch.models.registry import build_backbone
 
         probe = build_backbone(cfg.model)
         batches = (-(-ENTRY_EVAL_TRAIN // EVAL_BATCH)
                    + -(-ENTRY_EVAL_VAL // EVAL_BATCH))
         images = ENTRY_EVAL_TRAIN + ENTRY_EVAL_VAL
-        common = [*ENTRY_EVAL_ARGS, "--pretrained",
-                  os.path.join(d_train, "checkpoint.pth"), "--train_path",
+        common = [*ENTRY_EVAL_ARGS, "--pretrained", trained, "--train_path",
                   train_dir, "--val_path", val_dir, "--output_dir",
                   os.path.join(tmp, "eval")]
         zero = {name: {k: 0 for k in kinds}
@@ -2847,8 +2945,39 @@ def phase_entry(torch, C, card):
              {"window_attention": probe.window_attention_calls(
                  224, capture=True)},
              r"^Linear probe: Top1 ([0-9.]+)"))
-        done = _entry_runs([(label, module, [*common, *extra], None, 0)
-                            for label, module, extra, _, _ in evals])
+        del probe
+        (text, rec), (rerun_text, _), *done = _entry_runs([
+            ("resume", TRAIN_MODULE,
+             [*args, "--epochs", "3", "--saveckp_freq", "2"], None, 0),
+            ("sigterm rerun", TRAIN_MODULE,
+             [*term_args, "--max_steps", str(term_step + 1)], None, 0),
+            *((label, module, [*common, *extra], None, 0)
+              for label, module, extra, _, _ in evals)])
+
+        # Resume: a third epoch.
+        _entry_launches("resume", rec["launches"],
+                        _derived_launches(cfg, spe))
+        step = _load_tree(torch, os.path.join(d_train, "checkpoint.pth"))[
+            "step"]
+        if (f"resumed from step {2 * spe}" not in text or step != 3 * spe
+                or not os.path.exists(os.path.join(d_train,
+                                                   "checkpoint0002.pth"))):
+            raise AssertionError(f"entry resume: step {step}:\n"
+                                 f"{text[-3000:]}")
+        log(f"entry resume: resumed from step {2 * spe}, ended at step "
+            f"{step}, checkpoint0002.pth written")
+
+        # The rerun from the SIGTERM save.
+        step = _load_tree(torch, os.path.join(d_term, "checkpoint.pth"))[
+            "step"]
+        if f"resumed from step {term_step}" not in rerun_text or \
+                step != term_step + 1:
+            raise AssertionError(f"entry sigterm rerun: step {step}:\n"
+                                 f"{rerun_text[-3000:]}")
+        log(f"entry sigterm rerun: resumed from step {term_step}, ended at "
+            f"step {step}")
+
+        # The evals on train's checkpoint.
         for (label, _, _, want_fwd, pattern), (text, rec) in zip(evals,
                                                                   done):
             want = {name: dict(kinds) for name, kinds in zero.items()}
@@ -2862,8 +2991,8 @@ def phase_entry(torch, C, card):
             log(f"entry {label} on the trained checkpoint: top-1 "
                 f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
                 f"{rec['seconds']:.1f} s of main(), {images / rec['seconds']:.1f} "
-                f"img/s (model build and checkpoint load included; both "
-                f"evals at once) [{card}]")
+                f"img/s (model build and checkpoint load included; the "
+                f"wave's four runs at once) [{card}]")
 
 
 # Phase 12, the real-image path: JPEGs written once from a seed into the
@@ -3089,7 +3218,9 @@ def phase_real_images(torch, C, counters, card, synthetic_ms):
                 f"the feed alone {rate:.2f} host batches/s ({NUM_THREADS} "
                 f"threads, {fed} batches, the first included) [{card}]")
 
-        # The train CLI in subprocesses, from the zip and from the TSV.
+        # The train CLI in subprocesses, from the zip and from the TSV, at
+        # once, while this process runs the k-NN eval.
+        clis = []
         for label, extra in (
                 ("zip", ["--data_kind", "zip", "--data_path",
                          os.path.join(tmp, "images.zip"), "--zip_map_file",
@@ -3099,9 +3230,50 @@ def phase_real_images(torch, C, counters, card, synthetic_ms):
                     os.path.join(tmp, "images.tsv"), "--host_aug",
                     "--use_mixup", "--num_mixup_views", "2"])):
             out = os.path.join(tmp, "cli-" + label.split()[0])
-            args = ["--arch", "swin_tiny", "--output_dir", out, "--epochs",
-                    "1", "--max_steps", str(REAL_CLI_STEPS), *extra]
-            text, rec = _entry_run(f"real {label}", TRAIN_MODULE, args)
+            clis.append((label, out, [
+                "--arch", "swin_tiny", "--output_dir", out, "--epochs", "1",
+                "--max_steps", str(REAL_CLI_STEPS), *extra]))
+        with _EntryRuns([(f"real {label}", TRAIN_MODULE, args, None, 0)
+                         for label, _, args in clis],
+                        beside="the k-NN eval") as started:
+            # k-NN through the native eval transform: the zip against the
+            # file list (the same images: the decode paths are what is
+            # checked).
+            model = C.swin_tiny(attention_impl="pallas",
+                                fused_block_stages=())
+            backbone = build_backbone(
+                model, generator=torch.Generator().manual_seed(0)).to("cuda")
+            counts = {}
+            counters["pallas_window_attention"]["fwd"] = 0
+            t0 = time.perf_counter()
+            res = knn.run_knn_eval(backbone, ds["zip"], ds["filelist"],
+                                   ks=(10, 20), batch_size=EVAL_BATCH,
+                                   device="cuda", counts=counts)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            beside = _beside()
+            batches = 2 * -(-REAL_IMAGES // EVAL_BATCH)
+            want = backbone.pallas_window_attention_calls(224) * batches
+            got = counters["pallas_window_attention"]["fwd"]
+            n_jpg = 2 * (REAL_IMAGES - len(REAL_PNG))
+            if (counts != {"native": n_jpg, "pil": 2 * len(REAL_PNG)}
+                    or got != want or sorted(res) != [10, 20]
+                    or not all(0.0 <= a <= 100.0 for acc in res.values()
+                               for a in acc)):
+                raise AssertionError(f"real k-NN: counts {counts}, launches "
+                                     f"{got} (derived {want}), results "
+                                     f"{res}")
+            log(f"real k-NN (random weights, {REAL_CLASSES} classes; the "
+                f"val set is the same images through the file list: a check "
+                f"of the decode path, not an accuracy): {res}; "
+                f"{2 * REAL_IMAGES} images in {seconds:.2f} s "
+                f"({2 * REAL_IMAGES / seconds:.1f} img/s{beside}), decoded "
+                f"native {counts['native']}, PIL {counts['pil']}; launches "
+                f"{got} [{card}]")
+            del backbone
+            torch.cuda.empty_cache()
+            done = started.finish()
+        for (label, out, args), (text, rec) in zip(clis, done):
             run_cfg = train_cli.config_from_args(
                 train_cli.get_args_parser().parse_args(args))
             _entry_launches(f"real {label}", rec["launches"],
@@ -3118,43 +3290,9 @@ def phase_real_images(torch, C, counters, card, synthetic_ms):
             images = run_cfg.crops.ncrops * run_cfg.optim.batch_size_per_device
             log(f"real CLI {label}: loss {logs[0]['train_loss']:.4f}, "
                 f"{1e3 * images / logs[0]['train_img_per_sec']:.1f} ms/step "
-                f"from the log's img/s (first step included), checkpoint at "
-                f"step {saves[0][1]} [{card}]")
-            shutil.rmtree(out)
-
-        # k-NN through the native eval transform: the zip against the
-        # file list (the same images: the decode paths are what is
-        # checked).
-        model = C.swin_tiny(attention_impl="pallas", fused_block_stages=())
-        backbone = build_backbone(
-            model, generator=torch.Generator().manual_seed(0)).to("cuda")
-        counts = {}
-        counters["pallas_window_attention"]["fwd"] = 0
-        t0 = time.perf_counter()
-        res = knn.run_knn_eval(backbone, ds["zip"], ds["filelist"],
-                               ks=(10, 20), batch_size=EVAL_BATCH,
-                               device="cuda", counts=counts)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        batches = 2 * -(-REAL_IMAGES // EVAL_BATCH)
-        want = backbone.pallas_window_attention_calls(224) * batches
-        got = counters["pallas_window_attention"]["fwd"]
-        n_jpg = 2 * (REAL_IMAGES - len(REAL_PNG))
-        if (counts != {"native": n_jpg, "pil": 2 * len(REAL_PNG)}
-                or got != want or sorted(res) != [10, 20]
-                or not all(0.0 <= a <= 100.0 for acc in res.values()
-                           for a in acc)):
-            raise AssertionError(f"real k-NN: counts {counts}, launches "
-                                 f"{got} (derived {want}), results {res}")
-        log(f"real k-NN (random weights, {REAL_CLASSES} classes; the val "
-            f"set is the same images through the file list: a check of the "
-            f"decode path, not an accuracy): {res}; "
-            f"{2 * REAL_IMAGES} images in {seconds:.2f} s "
-            f"({2 * REAL_IMAGES / seconds:.1f} img/s), decoded native "
-            f"{counts['native']}, PIL {counts['pil']}; launches {got} "
-            f"[{card}]")
-        del backbone
-        torch.cuda.empty_cache()
+                f"from the log's img/s (first step included; both CLI runs "
+                f"at once, beside the k-NN eval), checkpoint at step "
+                f"{saves[0][1]} [{card}]")
 
 
 # Phase 13, the CvT and ViT families at full width: the fp32 parity of the
@@ -3274,15 +3412,35 @@ def phase_families(torch, C, counters, card):
     from esvit_tpu_torch.train import train as train_cli
     from esvit_tpu_torch.train.step import EsViTTrainer
 
-    for name in ("cvt_tiny", "deit_small"):
-        _family_parity(torch, C, name, card)
-    torch.cuda.empty_cache()
     zero = {name: {k: 0 for k in kinds}
             for name, (_, kinds) in KERNELS.items()}
     with tempfile.TemporaryDirectory() as tmp:
+        # The train CLI: cvt_tiny and deit_small at once, while this
+        # process holds both families' forwards on the card to the CPU's
+        # and writes the evals' PNGs.
+        d_cvt, d_vit = os.path.join(tmp, "cvt"), os.path.join(tmp, "deit")
+        args = ["--arch", "cvt_tiny", "--data_kind", "synthetic",
+                "--output_dir", d_cvt, "--epochs", "1"]
+        with _EntryRuns([
+                ("cvt_tiny train", TRAIN_MODULE,
+                 [*args, "--max_steps", str(FAMILY_CLI_STEPS)], None, 0),
+                ("deit_small train", TRAIN_MODULE,
+                 ["--arch", "deit_small", "--data_kind", "synthetic",
+                  "--output_dir", d_vit, "--epochs", "1", "--max_steps",
+                  "2"], None, 0)],
+                beside="the families' card-vs-CPU parity") as started:
+            for name in ("cvt_tiny", "deit_small"):
+                _family_parity(torch, C, name, card)
+            torch.cuda.empty_cache()
+            train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
+                                     FAMILY_EVAL_TRAIN, seed=7)
+            val_dir = _eval_folder(os.path.join(tmp, "eval_val"),
+                                   FAMILY_EVAL_VAL, seed=13)
+            (text, rec), deit = started.finish()
+
         for label, make in (("CvT-T (cvt_tiny)", C.cvt_tiny_multicrop),
                             ("DeiT-S (deit_small)", C.deit_small_multicrop)):
-            cfg = make(BATCH, output_dir=tmp)
+            cfg = make(BATCH, output_dir=os.path.join(tmp, "slice"))
             bn = cfg.model.name == "cvt"
             _slice(torch, cfg, FAMILY_STEPS, counters, label, card, True,
                    check_more=(lambda state, init, label=label:
@@ -3293,18 +3451,6 @@ def phase_families(torch, C, counters, card):
             log(f"slice {label}: no launch of the seven kernels in "
                 f"{FAMILY_STEPS} steps, as derived")
 
-        # The train CLI: cvt_tiny, a checkpoint, its restore, a resume;
-        # deit_small's two steps at once with cvt_tiny's first run.
-        d_cvt, d_vit = os.path.join(tmp, "cvt"), os.path.join(tmp, "deit")
-        args = ["--arch", "cvt_tiny", "--data_kind", "synthetic",
-                "--output_dir", d_cvt, "--epochs", "1"]
-        (text, rec), deit = _entry_runs([
-            ("cvt_tiny train", TRAIN_MODULE,
-             [*args, "--max_steps", str(FAMILY_CLI_STEPS)], None, 0),
-            ("deit_small train", TRAIN_MODULE,
-             ["--arch", "deit_small", "--data_kind", "synthetic",
-              "--output_dir", d_vit, "--epochs", "1", "--max_steps", "2"],
-             None, 0)])
         _entry_launches("cvt_tiny train", rec["launches"], zero)
         ckpt = os.path.join(d_cvt, "checkpoint.pth")
         tree = _load_tree(torch, ckpt)
@@ -3323,7 +3469,7 @@ def phase_families(torch, C, counters, card):
             for k, v in _bn_buffers(tree[part]).items():
                 if not torch.equal(live[k].cpu(), v):
                     raise AssertionError(f"cvt_tiny restore: {part} {k}")
-        del state
+        del state, tree
         torch.cuda.empty_cache()
         logs = [json.loads(x) for x in
                 open(os.path.join(d_cvt, "log.txt")).read().splitlines()]
@@ -3332,21 +3478,10 @@ def phase_families(torch, C, counters, card):
             f"{logs[-1]['train_loss']:.4f}, "
             f"{1e3 * images / logs[-1]['train_img_per_sec']:.1f} ms/step "
             f"from log.txt's img/s (first step included, beside "
-            f"deit_small's run); checkpoint "
+            f"deit_small's run and the parity); checkpoint "
             f"{_checkpoint_lines(text)[-1][2]} bytes; every BatchNorm buffer "
             f"of student and teacher restored on the card equal to the "
             f"file's [{card}]")
-        text, rec = _entry_run("cvt_tiny resume", TRAIN_MODULE,
-                               [*args, "--max_steps",
-                                str(FAMILY_CLI_STEPS + 1)])
-        _entry_launches("cvt_tiny resume", rec["launches"], zero)
-        step = _load_tree(torch, ckpt)["step"]
-        if (f"resumed from step {FAMILY_CLI_STEPS}" not in text
-                or step != FAMILY_CLI_STEPS + 1):
-            raise AssertionError(f"cvt_tiny resume: step {step}:\n"
-                                 f"{text[-3000:]}")
-        log(f"entry cvt_tiny resume: resumed from step {FAMILY_CLI_STEPS}, "
-            f"ended at step {step}")
 
         text, rec = deit
         _entry_launches("deit_small train", rec["launches"], zero)
@@ -3358,16 +3493,15 @@ def phase_families(torch, C, counters, card):
         log(f"entry deit_small: 2 steps, loss {logs[-1]['train_loss']:.4f}, "
             f"{1e3 * images / logs[-1]['train_img_per_sec']:.1f} ms/step "
             f"from log.txt's img/s (first step included, beside "
-            f"cvt_tiny's run) [{card}]")
+            f"cvt_tiny's run and the parity) [{card}]")
 
-        # The evals' CLIs on the CvT run's checkpoint.
-        train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
-                                 FAMILY_EVAL_TRAIN, seed=7)
-        val_dir = _eval_folder(os.path.join(tmp, "eval_val"),
-                               FAMILY_EVAL_VAL, seed=13)
-        common = ["--arch", "cvt_tiny", "--pretrained", ckpt, "--train_path",
-                  train_dir, "--val_path", val_dir, "--output_dir",
-                  os.path.join(tmp, "eval")]
+        # The CvT run's resume and the evals' CLIs on a copy of its
+        # checkpoint (the resume rewrites checkpoint.pth), at once.
+        trained = os.path.join(tmp, "cvt_trained.pth")
+        shutil.copyfile(ckpt, trained)
+        common = ["--arch", "cvt_tiny", "--pretrained", trained,
+                  "--train_path", train_dir, "--val_path", val_dir,
+                  "--output_dir", os.path.join(tmp, "eval")]
         images = FAMILY_EVAL_TRAIN + FAMILY_EVAL_VAL
         evals = (("cvt_tiny k-NN", "esvit_tpu_torch.evals.knn",
                   ["--batch_size", str(EVAL_BATCH)],
@@ -3376,19 +3510,30 @@ def phase_families(torch, C, counters, card):
                   ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
                    "--cached_features"],
                   r"^Linear probe: Top1 ([0-9.]+)"))
-        done = _entry_runs([(label, module, [*common, *extra], None, 0)
-                            for label, module, extra, _ in evals])
+        (text, rec), *done = _entry_runs([
+            ("cvt_tiny resume", TRAIN_MODULE,
+             [*args, "--max_steps", str(FAMILY_CLI_STEPS + 1)], None, 0),
+            *((label, module, [*common, *extra], None, 0)
+              for label, module, extra, _ in evals)])
+        _entry_launches("cvt_tiny resume", rec["launches"], zero)
+        step = _load_tree(torch, ckpt)["step"]
+        if (f"resumed from step {FAMILY_CLI_STEPS}" not in text
+                or step != FAMILY_CLI_STEPS + 1):
+            raise AssertionError(f"cvt_tiny resume: step {step}:\n"
+                                 f"{text[-3000:]}")
+        log(f"entry cvt_tiny resume: resumed from step {FAMILY_CLI_STEPS}, "
+            f"ended at step {step}")
         for (label, _, _, pattern), (text, rec) in zip(evals, done):
             _entry_launches(label, rec["launches"], zero)
             m = re.search(pattern, text, re.M)
             if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
                 raise AssertionError(f"entry {label}: no result:\n"
                                      f"{text[-3000:]}")
-            log(f"entry {label} on the CLI run's checkpoint: top-1 "
-                f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
-                f"{rec['seconds']:.1f} s of main(), "
-                f"{images / rec['seconds']:.1f} img/s (both evals at once) "
-                f"[{card}]")
+            log(f"entry {label} on the CLI run's step-{FAMILY_CLI_STEPS} "
+                f"checkpoint: top-1 {float(m.group(1)):.2f}% (16 classes), "
+                f"{images} images in {rec['seconds']:.1f} s of main(), "
+                f"{images / rec['seconds']:.1f} img/s (the resume and both "
+                f"evals at once) [{card}]")
 
 
 # Phase 14, the training options. Steps of each full-width train() run,
@@ -3537,9 +3682,24 @@ def phase_options(torch, C, counters, card):
     """Phase 14 (see the module docstring)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        for part in (_options_streamed, _options_remat, _options_dropout,
-                     _options_frozen, _options_resnet, _options_cli):
-            part(torch, C, counters, card, tmp)
+        _options_streamed(torch, C, counters, card, tmp)
+        _options_remat(torch, C, counters, card, tmp)
+        # (f)'s two CLI runs go beside (c)-(d) and (e).
+        d, args, cfg = _options_cli_args(C, tmp)
+        with _EntryRuns([("lars cli", TRAIN_MODULE,
+                          [*args, "--max_steps", "2"], None, 0)],
+                        beside="the dropout and frozen_layers slices"
+                        ) as started:
+            _options_dropout(torch, C, counters, card, tmp)
+            _options_frozen(torch, C, counters, card, tmp)
+            (_, rec), = started.finish()
+        n = _options_cli_checkpoint(torch, cfg, d, rec)
+        with _EntryRuns([("lars cli resume", TRAIN_MODULE,
+                          [*args, "--max_steps", "3"], None, 0)],
+                        beside="the ResNet-50 part") as started:
+            _options_resnet(torch, C, counters, card, tmp)
+            (text, rec), = started.finish()
+        _options_cli_resume(torch, cfg, d, text, rec, n, card)
     log(f"options phase: {time.perf_counter() - t0:.1f} s")
 
 
@@ -3640,8 +3800,8 @@ def _options_resnet(torch, C, counters, card, tmp):
         ms, peak = _timed_slice(torch, cfg, steps, counters, label, card,
                                 True, _check_resnet_buffers(label))
         log(f"options {label} B={BATCH} 2x224+8x96 bf16: {ms:.1f} "
-            f"ms/step over steps 2-{steps}, peak {peak:.2f} GiB, no "
-            f"launch of the seven kernels [{card}]")
+            f"ms/step over steps 2-{steps}{_beside()}, peak {peak:.2f} GiB, "
+            f"no launch of the seven kernels [{card}]")
     backbone = build_backbone(
         C.ResNetConfig(depth=50),
         generator=torch.Generator().manual_seed(0)).cuda()
@@ -3672,24 +3832,28 @@ def _options_resnet(torch, C, counters, card, tmp):
     torch.cuda.empty_cache()
 
 
-def _options_cli(torch, C, counters, card, tmp):
+def _options_cli_args(C, tmp):
     """(f) The CLI with LARS, BatchNorm heads and a frozen patch
-    embedding: its checkpoint's trace restored bit for bit, a resume."""
-    from esvit_tpu_torch.io.checkpoint import CheckpointManager
+    embedding: its output directory, arguments and config."""
     from esvit_tpu_torch.train import train as train_cli
-    from esvit_tpu_torch.train.step import EsViTTrainer
 
     d = os.path.join(tmp, "cli")
     args = [*ENTRY_ARGS, "--optimizer", "lars", "--use_bn_in_head",
             "--frozen_layers", "patch_embed", "--output_dir", d,
             "--epochs", "1"]
-    cfg = train_cli.config_from_args(
+    return d, args, train_cli.config_from_args(
         train_cli.get_args_parser().parse_args(args))
-    _, rec = _entry_run("lars cli", TRAIN_MODULE,
-                        [*args, "--max_steps", "2"])
+
+
+def _options_cli_checkpoint(torch, cfg, d, rec):
+    """(f) The 2-step run's launches and checkpoint: the patch embedding
+    bit-identical to its start, the LARS trace restored on the card bit
+    for bit. Returns the trace's values."""
+    from esvit_tpu_torch.io.checkpoint import CheckpointManager
+    from esvit_tpu_torch.train.step import EsViTTrainer
+
     _entry_launches("lars cli", rec["launches"], _derived_launches(cfg, 2))
-    ckpt = os.path.join(d, "checkpoint.pth")
-    tree = _load_tree(torch, ckpt)
+    tree = _load_tree(torch, os.path.join(d, "checkpoint.pth"))
     init = _initial_weights(torch, cfg)
     frozen = [k for k in tree["student"] if k.startswith("patch_embed.")]
     if (tree["optimizer"] != "lars" or tree["step"] != 2 or tree["mu"]
@@ -3703,15 +3867,18 @@ def _options_cli(torch, C, counters, card, tmp):
     for k, v in tree["trace"].items():
         if not torch.equal(state.trace[k].cpu(), v):
             raise AssertionError(f"lars cli restore: trace {k}")
-    n = sum(v.numel() for v in tree["trace"].values())
     del state
     torch.cuda.empty_cache()
-    text, rec = _entry_run("lars cli resume", TRAIN_MODULE,
-                           [*args, "--max_steps", "3"])
+    return sum(v.numel() for v in tree["trace"].values())
+
+
+def _options_cli_resume(torch, cfg, d, text, rec, n, card):
+    """(f) The resume for a third step."""
     _entry_launches("lars cli resume", rec["launches"],
                     _derived_launches(cfg, 1))
     if ("resumed from step 2" not in text
-            or _load_tree(torch, ckpt)["step"] != 3):
+            or _load_tree(torch, os.path.join(d, "checkpoint.pth"))["step"]
+            != 3):
         raise AssertionError(f"lars cli resume:\n{text[-3000:]}")
     log(f"options CLI --optimizer lars --use_bn_in_head --frozen_layers "
         f"patch_embed: 2 steps, the patch embedding bit-identical to its "
@@ -3775,7 +3942,8 @@ def _vil_leg(torch, C, cfg, steps, counters, label, card):
         raise AssertionError(f"{label}: sliding-chunk launches "
                              f"{counters['sliding_chunk']}")
     log(f"vil {label} B={BATCH} bf16: {ms:.1f} ms/step over steps "
-        f"2-{steps}, peak {peak:.2f} GiB, no sliding-chunk launch [{card}]")
+        f"2-{steps}{_beside()}, peak {peak:.2f} GiB, no sliding-chunk "
+        f"launch [{card}]")
 
 
 def phase_vil_options(torch, C, counters, card):
@@ -3801,12 +3969,25 @@ def phase_vil_options(torch, C, counters, card):
                 crops=dataclasses.replace(base.crops, local_crops_number=0))),
         )
         d = os.path.join(tmp, "legs")
-        for label, cfg in legs:
-            if label == "rpe":
-                _vil_rpe_parity(torch, C, card)
-            _vil_leg(torch, C, cfg.replace(output_dir=d), VIL_LEG_STEPS,
-                     counters, label, card)
-        _vil_evals(torch, C, ckpt, tmp, card)
+        # (e)'s CLIs on leg (a)'s checkpoint go beside legs (b)-(d).
+        evals, runs, want, images = _vil_evals(torch, C, ckpt, tmp)
+        with _EntryRuns(runs, beside="the ViL legs") as started:
+            for label, cfg in legs:
+                if label == "rpe":
+                    _vil_rpe_parity(torch, C, card)
+                _vil_leg(torch, C, cfg.replace(output_dir=d), VIL_LEG_STEPS,
+                         counters, label, card)
+            done = started.finish()
+        for (label, _, _, pattern), (text, rec) in zip(evals, done):
+            _entry_launches(label, rec["launches"], want)
+            m = re.search(pattern, text, re.M)
+            if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
+                raise AssertionError(f"entry {label}: no result:\n"
+                                     f"{text[-3000:]}")
+            log(f"entry {label} on the schedule leg's checkpoint: top-1 "
+                f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
+                f"{rec['seconds']:.1f} s of main() (both evals at once, "
+                f"beside the ViL legs) [{card}]")
     log(f"vil options phase: {time.perf_counter() - t0:.1f} s")
 
 
@@ -3819,7 +4000,8 @@ def _vil_schedule_leg(torch, C, base, counters, card):
     half = VIL_SWITCH_STEPS // 2
     with _StepRecorder(torch, counters, half) as rec:
         _, history = _slice(torch, cfg, VIL_SWITCH_STEPS, counters,
-                            "ViL-T mode 1 switching at step 4", card, True)
+                            "ViL-T mode 1 switching at step 4", card, True,
+                            write_checkpoint=True)
     mode0 = _derived_launches(cfg, 1)["sliding_chunk"]
     for i, step in enumerate(rec.steps):
         sampled = i < half
@@ -3868,10 +4050,12 @@ def _vil_rpe_parity(torch, C, card):
     del dev
 
 
-def _vil_evals(torch, C, ckpt, tmp, card):
+def _vil_evals(torch, C, ckpt, tmp):
     """(e) The k-NN and linear-probe CLIs on the schedule leg's
     checkpoint: fp32 forwards at 224 px, each batch launching the
-    sliding-chunk forward once per kernel-route layer."""
+    sliding-chunk forward once per kernel-route layer. Writes their
+    PNGs; returns (evals, their _EntryRuns runs, the launches each must
+    show, the images each reads)."""
     from esvit_tpu_torch.models.vil import MsViT
 
     train_dir = _eval_folder(os.path.join(tmp, "eval_train"),
@@ -3895,18 +4079,9 @@ def _vil_evals(torch, C, ckpt, tmp, card):
               ["--batch_size", str(EVAL_BATCH), "--epochs", "10",
                "--cached_features"],
               r"^Linear probe: Top1 ([0-9.]+)"))
-    done = _entry_runs([(label, module, [*common, *extra], None, 0)
-                        for label, module, extra, _ in evals])
-    for (label, _, _, pattern), (text, rec) in zip(evals, done):
-        _entry_launches(label, rec["launches"], want)
-        m = re.search(pattern, text, re.M)
-        if m is None or not 0.0 <= float(m.group(1)) <= 100.0:
-            raise AssertionError(f"entry {label}: no result:\n"
-                                 f"{text[-3000:]}")
-        log(f"entry {label} on the schedule leg's checkpoint: top-1 "
-            f"{float(m.group(1)):.2f}% (16 classes), {images} images in "
-            f"{rec['seconds']:.1f} s of main() (both evals at once) "
-            f"[{card}]")
+    runs = [(label, module, [*common, *extra], None, 0)
+            for label, module, extra, _ in evals]
+    return evals, runs, want, images
 
 
 # Phase 16, the last modules: the analysis CLI on a folder of PNGs in two
@@ -4004,11 +4179,55 @@ def _last_analysis(torch, C, counters, card, tmp):
                      _launch_want(2 * fused, 2 * wa_maps)))
     outs = [os.path.join(tmp, label.replace(" ", "_"))
             for label, _, _, _ in runs]
-    done = _entry_runs([
-        (label, ANALYSIS_MODULE, [
-            command, "--data_path", data, "--num_images", str(LAST_IMAGES),
-            *args, "--output_dir", out, "--device", "cuda"], None, 0)
-        for (label, command, args, _), out in zip(runs, outs)])
+    # The runs go beside the in-process card-vs-CPU checks.
+    with _EntryRuns([
+            (label, ANALYSIS_MODULE, [
+                command, "--data_path", data, "--num_images",
+                str(LAST_IMAGES), *args, "--output_dir", out, "--device",
+                "cuda"], None, 0)
+            for (label, command, args, _), out in zip(runs, outs)],
+            beside="the in-process card-vs-CPU checks") as started:
+        ds = datasets_lib.build_dataset("folder", root=data)
+        x = np.stack([eval_transform(ds[i][0], 224)
+                      for i in range(LAST_PARITY_IMAGES)])
+        cpu = load_backbone_checkpoint(SwinTransformer(C.swin_tiny()), ckpt)
+        vil_cpu = MsViT(C.vil_tiny(),
+                        generator=torch.Generator().manual_seed(0))
+        dev = copy.deepcopy(cpu).cuda()
+        vil_dev = copy.deepcopy(vil_cpu).cuda()
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        got = {"maps": attn_lib.attention_maps(dev,
+                                               torch.from_numpy(x).cuda()),
+               "swin flip features": corr_lib.flip_features(dev, x),
+               "vil flip features": corr_lib.flip_features(vil_dev, x)}
+        launches = {n: dict(c) for n, c in counters.items()}
+        want = _launch_want(fused + 2 * fused, wa_maps + 2 * wa, 2 * sc)
+        if launches != want:
+            raise AssertionError(f"last modules in-process: launches "
+                                 f"{launches}, model-derived {want}")
+        ref = {"maps": attn_lib.attention_maps(cpu, torch.from_numpy(x)),
+               "swin flip features": corr_lib.flip_features(cpu, x),
+               "vil flip features": corr_lib.flip_features(vil_cpu, x)}
+        for what, g in got.items():
+            pairs = (zip(g, ref[what]) if isinstance(g, tuple)
+                     else [(g.cpu().numpy(), ref[what].numpy())])
+            errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in pairs]
+            if not max(errs) <= LAST_TOL:
+                raise AssertionError(f"last modules {what}: card vs CPU "
+                                     f"{errs}")
+            log(f"last modules {what} fp32 {LAST_PARITY_IMAGES}x224px: card "
+                f"vs CPU rel err {', '.join(f'{e:.2e}' for e in errs)} (tol "
+                f"{LAST_TOL}) [{card}]")
+        log(f"last modules in-process: launches fused block "
+            f"{launches['fused_block']['fwd']}, window attention "
+            f"{launches['window_attention']['fwd']}, sliding chunk "
+            f"{launches['sliding_chunk']['fwd']}, as derived from the "
+            f"models [{card}]")
+        del dev, vil_dev
+        done = started.finish()
     for (label, command, args, want), out, (text, rec) in zip(runs, outs,
                                                               done):
         _entry_launches(label, rec["launches"], want)
@@ -4030,42 +4249,6 @@ def _last_analysis(torch, C, counters, card, tmp):
         log(f"last modules {label}: {json.dumps(record)} over {LAST_IMAGES} "
             f"images in {rec['seconds']:.1f} s of main(), the runs at once "
             f"[{card}]")
-
-    ds = datasets_lib.build_dataset("folder", root=data)
-    x = np.stack([eval_transform(ds[i][0], 224)
-                  for i in range(LAST_PARITY_IMAGES)])
-    cpu = load_backbone_checkpoint(SwinTransformer(C.swin_tiny()), ckpt)
-    vil_cpu = MsViT(C.vil_tiny(), generator=torch.Generator().manual_seed(0))
-    dev, vil_dev = copy.deepcopy(cpu).cuda(), copy.deepcopy(vil_cpu).cuda()
-    for c in counters.values():
-        for k in c:
-            c[k] = 0
-    got = {"maps": attn_lib.attention_maps(dev, torch.from_numpy(x).cuda()),
-           "swin flip features": corr_lib.flip_features(dev, x),
-           "vil flip features": corr_lib.flip_features(vil_dev, x)}
-    launches = {n: dict(c) for n, c in counters.items()}
-    want = _launch_want(fused + 2 * fused, wa_maps + 2 * wa, 2 * sc)
-    if launches != want:
-        raise AssertionError(f"last modules in-process: launches {launches}, "
-                             f"model-derived {want}")
-    ref = {"maps": attn_lib.attention_maps(cpu, torch.from_numpy(x)),
-           "swin flip features": corr_lib.flip_features(cpu, x),
-           "vil flip features": corr_lib.flip_features(vil_cpu, x)}
-    for what, g in got.items():
-        pairs = (zip(g, ref[what]) if isinstance(g, tuple)
-                 else [(g.cpu().numpy(), ref[what].numpy())])
-        errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in pairs]
-        if not max(errs) <= LAST_TOL:
-            raise AssertionError(f"last modules {what}: card vs CPU {errs}")
-        log(f"last modules {what} fp32 {LAST_PARITY_IMAGES}x224px: card vs "
-            f"CPU rel err {', '.join(f'{e:.2e}' for e in errs)} (tol "
-            f"{LAST_TOL}) [{card}]")
-    log(f"last modules in-process: launches fused block "
-        f"{launches['fused_block']['fwd']}, window attention "
-        f"{launches['window_attention']['fwd']}, sliding chunk "
-        f"{launches['sliding_chunk']['fwd']}, as derived from the models "
-        f"[{card}]")
-    del dev, vil_dev
 
 
 def _aux_cases(torch):
@@ -4351,32 +4534,57 @@ def _tp_worker(rank, world, backend, store, out_dir, result, plants=()):
         dist.destroy_process_group()
 
 
-def _tp_spawn(torch, backend, tmp, world=2, plants=()):
-    """_tp_worker in ``world`` processes (spawned; every join has a
-    timeout): their results by rank, and the run's directory."""
-    import multiprocessing
+class _TpSpawn:
+    """_tp_worker in ``world`` processes, spawned on entering the block;
+    ``finish()`` joins them (each join with a timeout) and returns their
+    results by rank and the run's directory. Leaving the block kills a
+    process still running. This process's times between the two say so
+    (_beside)."""
 
-    out_dir = os.path.join(tmp, f"model{world}_{backend}")
-    result = os.path.join(tmp, f"result_{backend}")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_tp_worker, args=(
-        r, world, backend, os.path.join(tmp, f"store_{backend}"), out_dir,
-        result, plants)) for r in range(world)]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(TP_TIMEOUT)
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * world:
-            raise AssertionError(f"head tp {backend}: exit codes {codes}")
-    finally:
-        for p in procs:
+    def __init__(self, torch, backend, tmp, world=2, plants=()):
+        self.torch, self.backend, self.world = torch, backend, world
+        self.out_dir = os.path.join(tmp, f"model{world}_{backend}")
+        self.result = os.path.join(tmp, f"result_{backend}")
+        self.store = os.path.join(tmp, f"store_{backend}")
+        self.plants, self.procs, self.label = plants, [], None
+
+    def __enter__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=_tp_worker, args=(
+            r, self.world, self.backend, self.store, self.out_dir,
+            self.result, self.plants)) for r in range(self.world)]
+        try:
+            for p in self.procs:
+                p.start()
+        except BaseException:
+            self.__exit__()
+            raise
+        self.label = f"the {self.backend} ranks"
+        _BESIDE.append(self.label)
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs:
             if p.is_alive():
                 p.kill()
                 p.join(30)
-    return ([torch.load(f"{result}.{r}", weights_only=False)
-             for r in range(world)], out_dir)
+        if self.label in _BESIDE:
+            _BESIDE.remove(self.label)
+
+    def finish(self):
+        try:
+            for p in self.procs:
+                p.join(TP_TIMEOUT)
+            codes = [p.exitcode for p in self.procs]
+            if codes != [0] * self.world:
+                raise AssertionError(f"head tp {self.backend}: exit codes "
+                                     f"{codes}")
+        finally:
+            self.__exit__()
+        return ([self.torch.load(f"{self.result}.{r}", weights_only=False)
+                 for r in range(self.world)], self.out_dir)
 
 
 def _norm_rel(torch, got, want):
@@ -4513,37 +4721,43 @@ def phase_head_tp(torch, C, counters, card):
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = _tp_cfg(C, os.path.join(tmp, "model1"), 1)
-        init = _initial_weights(torch, cfg)
-        for launches in counters.values():
-            for k in launches:
-                launches[k] = 0
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        one = _tp_runs(torch, cfg, lambda: None)
-        one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        gc.collect()
-        torch.cuda.empty_cache()
         want = _derived_launches(cfg, TP_STEPS)
-        got = {name: dict(launches) for name, launches in counters.items()}
-        if got != want:
-            raise AssertionError(f"head tp model=1: launches {got}, "
-                                 f"model-derived {want}")
+        # The gloo ranks run beside this process's model=1 runs.
+        with _TpSpawn(torch, "gloo", tmp, plants=TP_PLANTS) as gloo:
+            init = _initial_weights(torch, cfg)
+            for launches in counters.values():
+                for k in launches:
+                    launches[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            one = _tp_runs(torch, cfg, lambda: None)
+            one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            one_ms = statistics.mean(one["seconds"]) * 1e3
+            one_beside = _beside()
+            gc.collect()
+            torch.cuda.empty_cache()
+            got = {name: dict(launches)
+                   for name, launches in counters.items()}
+            if got != want:
+                raise AssertionError(f"head tp model=1: launches {got}, "
+                                     f"model-derived {want}")
+            spawned = {"gloo": gloo.finish()}
         log(f"head tp model=1: losses {one['losses']}, launches {got}, peak "
-            f"{one_peak:.2f} GiB, {statistics.mean(one['seconds']) * 1e3:.1f}"
-            f" ms/step [{card}]")
+            f"{one_peak:.2f} GiB, {one_ms:.1f} ms/step{one_beside} [{card}]")
         want1 = _tp_tree(torch, os.path.join(tmp, "model1", "step1.pth"))
         want3 = _tp_tree(torch, os.path.join(tmp, "model1", "checkpoint.pth"))
-        legs = [("gloo", "two processes sharing one card")]
+        legs = [("gloo", "two processes sharing one card, started beside "
+                 "the model=1 run")]
         if torch.cuda.device_count() >= 2:
             legs.append(("nccl", "two processes on two cards"))
+            with _TpSpawn(torch, "nccl", tmp) as nccl:
+                spawned["nccl"] = nccl.finish()
         else:
             log("head tp: the NCCL leg (one rank per card) waits for a "
                 "machine with two cards: this one has "
                 f"{torch.cuda.device_count()}")
         for backend, where in legs:
-            ranks, out_dir = _tp_spawn(
-                torch, backend, tmp,
-                plants=TP_PLANTS if backend == "gloo" else ())
+            ranks, out_dir = spawned[backend]
             if backend == "gloo":
                 planted = out_dir
             label = f"model=2 {backend}"

@@ -14,19 +14,31 @@ iterator per pass over the 4096 training images.
         --steps 6000 --backbone swin          # on the card
     python -m esvit_tpu_torch.validate_learning --size femto --steps 20 \\
         --cpu --min_gain -100                 # a CPU smoke run
+    python -m esvit_tpu_torch.validate_learning --task shapes_hard \\
+        --steps 6000 --seeds 0-7 --jobs 3     # a sweep: one leg a seed
 
 Gates (the reference's, from its TPU rounds): shapes_hard at >= 5000
 steps requires +10 k-NN points for Swin and +6 for ViL; shorter runs are
 divergence canaries (+2 Swin, -1 ViL); the CvT leg has no measured
 margin yet and is a canary at every length (-1); shapes requires +5.
 Always: a finite last loss and a final accuracy above 1.25x chance.
+
+A sweep (``--seeds``) runs the single-seed command once a seed, ``--jobs``
+legs at once, and judges the gains by their mean and its standard error:
+met if mean >= bar, fault if mean + 2 SE < bar, else unresolved. It exits
+1 on a fault or on a leg that printed no k-NN gain.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import math
+import os
+import re
+import subprocess
+import sys
 import time
 
 import torch
@@ -216,6 +228,156 @@ def min_gain_for(task: str, steps: int, backbone: str) -> float:
     return 10.0 if steps >= 5000 else 2.0
 
 
+# A leg is this module run as a program: one single-seed gate.
+LEG_COMMAND = (sys.executable, "-m", "esvit_tpu_torch.validate_learning")
+_KNN_LINE = re.compile(r"^\[(random init|trained)\] 10-NN top-1: "
+                       r"([-+0-9.eE]+|nan)%$", re.M)
+
+
+def parse_seeds(text: str) -> list[int]:
+    """``'0-7'``, ``'0,3,5'`` or a mix (``'0-2,9'``) -> the seeds in order.
+    Refuses an empty list, a descending range and a repeated seed."""
+    seeds = []
+    for part in text.split(","):
+        m = re.fullmatch(r"\s*(\d+)\s*(?:-\s*(\d+)\s*)?", part)
+        if m is None:
+            raise ValueError(f"not a seed or a range of seeds: {part!r}")
+        lo = int(m.group(1))
+        hi = lo if m.group(2) is None else int(m.group(2))
+        if hi < lo:
+            raise ValueError(f"descending range {part.strip()!r}")
+        seeds += range(lo, hi + 1)
+    if len(set(seeds)) != len(seeds):
+        raise ValueError(f"a seed is repeated in {text!r}")
+    return seeds
+
+
+def leg_argv(args: argparse.Namespace, seed: int) -> list[str]:
+    """The single-seed command line of one leg of the sweep ``args``."""
+    argv = ["--steps", str(args.steps), "--batch", str(args.batch),
+            "--size", args.size, "--backbone", args.backbone,
+            "--task", args.task, "--eval_every", str(args.eval_every),
+            "--seed", str(seed)]
+    for flag, value in (("--min_gain", args.min_gain),
+                        ("--max_seconds", args.max_seconds),
+                        ("--lr", args.lr)):
+        if value is not None:
+            argv += [flag, repr(value)]
+    for flag, on in (("--no-dense", not args.dense),
+                     ("--host_aug", args.host_aug), ("--hires", args.hires),
+                     ("--cpu", args.cpu), ("--no-fused", not args.fused)):
+        if on:
+            argv.append(flag)
+    return argv
+
+
+def leg_gain(output: str) -> float | None:
+    """after - before from a leg's printed k-NN lines, None if it printed
+    no trained accuracy (the leg crashed before its last eval)."""
+    acc = dict(_KNN_LINE.findall(output))
+    if "random init" not in acc or "trained" not in acc:
+        return None
+    return float(acc["trained"]) - float(acc["random init"])
+
+
+def summarize(gains: list[float], bar: float) -> dict:
+    """The gains' mean, sample SD, SE = SD / sqrt(n) and the verdict:
+    'met' if mean >= bar, 'fault' if mean + 2 SE < bar, else
+    'unresolved' (one gain has no SD, so it is met or unresolved)."""
+    n = len(gains)
+    mean = sum(gains) / n if n else math.nan
+    sd = (math.sqrt(sum((g - mean) ** 2 for g in gains) / (n - 1))
+          if n > 1 else math.nan)
+    se = sd / math.sqrt(n) if n > 1 else math.nan
+    if mean >= bar:
+        verdict = "met"
+    elif mean + 2 * se < bar:
+        verdict = "fault"
+    else:
+        verdict = "unresolved"
+    return {"n": n, "mean": mean, "sd": sd, "se": se, "verdict": verdict}
+
+
+def run_sweep(args: argparse.Namespace, seeds: list[int],
+              bar: float) -> dict:
+    """Runs ``LEG_COMMAND + leg_argv(args, seed)`` for every seed,
+    ``args.jobs`` at once; prints each leg's ``result:`` line as it ends
+    and one summary line. A leg that fails its gate or crashes is
+    recorded, not fatal. With ``args.log_dir`` each leg's output streams
+    to ``<backbone>_seed<s>.log`` there, headed by its command line and
+    ended by its exit code; a finished log of the same command line is
+    read in place of running the leg again, so a sweep cut short (by a
+    time limit) resumes where it stopped. Returns the summary with each
+    seed's gain (None: crashed) and exit code, and the sweep's own exit
+    code."""
+    log_dir = args.log_dir
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+    # Legs at once share the host's cores: each gets its share of intra-op
+    # threads (PyTorch's CPU pool spins, and oversubscribed it crawls).
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS",
+                   str(max(1, (os.cpu_count() or 1) // args.jobs)))
+
+    def leg(seed):
+        argv = [*LEG_COMMAND, *leg_argv(args, seed)]
+        if not log_dir:
+            proc = subprocess.run(argv, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            return proc.returncode, proc.stdout, False
+        head = "[sweep] leg: " + " ".join(argv[len(LEG_COMMAND):])
+        path = os.path.join(log_dir, f"{args.backbone}_seed{seed}.log")
+        if os.path.exists(path):
+            with open(path) as f:
+                text = f.read()
+            end = re.search(r"^\[sweep\] exit (-?\d+)\n\Z", text, re.M)
+            if text.startswith(head + "\n") and end:
+                return int(end.group(1)), text, True
+        with open(path, "w") as f:
+            f.write(head + "\n")
+            f.flush()
+            rc = subprocess.run(argv, env=env, stdout=f,
+                                stderr=subprocess.STDOUT).returncode
+            f.write(f"[sweep] exit {rc}\n")
+        with open(path) as f:
+            return rc, f.read(), False
+
+    legs = {}
+    with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
+        futures = {pool.submit(leg, s): s for s in seeds}
+        for fut in concurrent.futures.as_completed(futures):
+            seed = futures[fut]
+            rc, out, reused = fut.result()
+            gain = leg_gain(out)
+            legs[seed] = {"gain": gain, "rc": rc}
+            lines = [ln for ln in out.strip().splitlines()
+                     if not ln.startswith("[sweep] ")]
+            result = [ln for ln in lines if ln.startswith("result:")]
+            shown = result[-1] if result else "no result line"
+            tail = f"; exit {rc}: {lines[-1] if lines else ''}" if rc else ""
+            gain_text = "none" if gain is None else f"{gain:+.2f}"
+            print(f"[seed {seed}] {shown} gain {gain_text}{tail}"
+                  f"{' (read from its log)' if reused else ''}", flush=True)
+    ordered = sorted(legs)
+    measured = [s for s in ordered if legs[s]["gain"] is not None]
+    crashed = [s for s in ordered if legs[s]["gain"] is None]
+    summary = summarize([legs[s]["gain"] for s in measured], bar)
+    summary.update(legs=legs, bar=bar, crashed=crashed,
+                   cleared=sum(legs[s]["rc"] == 0 for s in ordered))
+    summary["exit_code"] = int(summary["verdict"] == "fault" or
+                               bool(crashed))
+    gains = ",".join(f"{s}:{legs[s]['gain']:+.2f}" for s in measured)
+    print(f"summary: backbone={args.backbone} task={args.task} "
+          f"steps={args.steps} fused={args.fused} "
+          f"device={'cpu' if args.cpu else 'cuda'} gains={gains or '-'} "
+          f"n={summary['n']} mean={summary['mean']:+.2f} "
+          f"sd={summary['sd']:.2f} se={summary['se']:.2f} "
+          f"cleared={summary['cleared']}/{len(ordered)} bar={bar:+.1f} "
+          f"crashed={','.join(map(str, crashed)) or '-'} "
+          f"verdict={summary['verdict']}", flush=True)
+    return summary
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=2000)
@@ -250,13 +412,39 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=None,
                    help="peak learning rate (default 8e-3 shapes, 4e-3 "
                         "shapes_hard)")
-    p.add_argument("--seed", type=int, default=0,
+    p.add_argument("--seed", type=int, default=None,
                    help="seed of the initial weights, the crops and the "
-                        "drop-path draws (the datasets stay fixed)")
+                        "drop-path draws (the datasets stay fixed; "
+                        "default 0)")
+    p.add_argument("--seeds", default=None,
+                   help="a sweep: one leg a seed, e.g. 0-7 or 0,3,5; "
+                        "prints each leg's result and a summary line "
+                        "(mean, SD, SE, verdict)")
+    p.add_argument("--jobs", type=int, default=3,
+                   help="legs of a sweep at once (on one card)")
+    p.add_argument("--log_dir", default=None,
+                   help="a sweep writes each leg's whole output here")
     p.add_argument("--no-fused", dest="fused", action="store_false",
                    help="Swin: fused_block_stages=(); ViL: fused_sc='off'; "
                         "CvT has no kernel route")
     args = p.parse_args(argv)
+    min_gain = (args.min_gain if args.min_gain is not None
+                else min_gain_for(args.task, args.steps, args.backbone))
+    if args.seeds is not None:
+        if args.seed is not None:
+            p.error("--seeds and --seed exclude each other")
+        if args.jobs < 1:
+            p.error("--jobs must be at least 1")
+        try:
+            seeds = parse_seeds(args.seeds)
+        except ValueError as e:
+            p.error(f"--seeds: {e}")
+        summary = run_sweep(args, seeds, min_gain)
+        if summary["exit_code"]:
+            raise SystemExit(summary["exit_code"])
+        return summary
+    if args.seed is None:
+        args.seed = 0
     res = validate(steps=args.steps, batch=args.batch, size=args.size,
                    backbone=args.backbone, dense=args.dense, task=args.task,
                    eval_every=args.eval_every, max_seconds=args.max_seconds,
@@ -271,8 +459,6 @@ def main(argv=None):
           f"backbone={args.backbone}, fused={args.fused}, seed={args.seed}, "
           f"host_aug={args.host_aug}, hires={args.hires})",
           flush=True)
-    min_gain = (args.min_gain if args.min_gain is not None
-                else min_gain_for(args.task, args.steps, args.backbone))
     # Absolute sanity first: the relative gate alone can pass on near-noise
     # gains; a NaN loss or below-chance accuracy is always a bug.
     last_loss = res["last_loss"]

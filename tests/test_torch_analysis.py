@@ -37,6 +37,7 @@ from esvit_tpu_torch.analysis import correspondence as tcorr
 from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models.registry import build_backbone as tbuild
 from tests.test_torch_aux_attention import _variables
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 CLI_TOL = 1e-4

@@ -24,6 +24,7 @@ import torch
 from esvit_tpu.models import aux_attention as J
 from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models import aux_attention as T
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 B, H, C, NH = 2, 4, 16, 2
 TOL = {"fp32": 1e-5, "bf16": 3e-2}

@@ -41,6 +41,7 @@ from esvit_tpu_torch.parallel.mesh import Mesh
 from tests.test_torch_cvt import scaled_close
 from tests.test_torch_distributed import (ADAM_RATIO_TOL, SCALE_TOL,
                                           TINY_GRAD, _close, _spawn)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 BUF_TOL = 1e-6

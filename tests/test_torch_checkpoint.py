@@ -25,6 +25,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.io import checkpoint as ckpt_lib
 from esvit_tpu_torch.io.checkpoint import CheckpointManager
 from esvit_tpu_torch.train.step import EsViTTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cfg(dense=True):

@@ -13,6 +13,7 @@ import pytest
 
 from esvit_tpu import config_yaml as jyaml
 from esvit_tpu_torch import config_yaml as tyaml
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 FILES = {
     "swin_base.yaml": """

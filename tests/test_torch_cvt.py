@@ -33,6 +33,7 @@ from esvit_tpu_torch.models.cvt import CvT as TCvT
 from esvit_tpu_torch.models.registry import build_backbone
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
 from tests.test_torch_step import TINY_GRAD, TINY_GRAD_TOL
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 BUF_TOL = 1e-6

@@ -34,6 +34,7 @@ from esvit_tpu_torch.data import augment_host as taug
 from esvit_tpu_torch.data import datasets as tdata
 from esvit_tpu_torch.data import loader as tloader
 from esvit_tpu_torch.data import sampler as tsampler
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 AUG_TOL = 1e-5
 # The learning gate's nano crops (scripts/validate_learning.py:165-168).

@@ -42,6 +42,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch import launch
 from esvit_tpu_torch.evals import extract as textract
 from esvit_tpu_torch.parallel.mesh import Mesh, make_mesh
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 180

@@ -43,6 +43,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.data.datasets import SyntheticImages
 from esvit_tpu_torch.io.checkpoint import CheckpointManager
 from esvit_tpu_torch.train import train as ttrain
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The CLI at femto size: 224 px global crops (the CLI has no flag for

@@ -35,6 +35,7 @@ from esvit_tpu_torch.evals import linear as tlinear
 from esvit_tpu_torch.io import torch_checkpoint
 from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models.registry import build_backbone as tbuild
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 FEAT_TOL = 1e-4
 PROBE_TOL = 1e-5

@@ -39,6 +39,7 @@ from esvit_tpu_torch.models.esvit import EsViTModel as TEsViT
 from esvit_tpu_torch.models.registry import build_backbone as tbuild
 from esvit_tpu_torch.utils import flops as tflops
 from tests.test_torch_aux_attention import _variables
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEAD = dict(out_dim=32, hidden_dim=16, bottleneck_dim=8)

@@ -46,6 +46,7 @@ from esvit_tpu_torch.models.swin import SwinTransformer as TSwin
 from esvit_tpu_torch.ops import fused_block as tfb
 from esvit_tpu_torch.ops import window as twops
 from esvit_tpu_torch.train.step import EsViTTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 NAMES = ("g1", "be1", "wq", "bq", "wk", "bk", "wv", "bv", "bias", "wp", "bp",
          "g2", "be2", "w1", "b1", "w2", "b2")

@@ -36,6 +36,7 @@ from esvit_tpu_torch.ops.fused_block import _ln as fb_ln
 from tests.test_torch_fused_staged import (CASES, _case, _stage_params,
                                            _torch_kw, kernel_tiles,
                                            tile_columns)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _fp32_order_bound(st, x, p, N, nH, eps=1e-6):

@@ -30,6 +30,7 @@ import torch
 from esvit_tpu.ops import fused_block as jfb
 from esvit_tpu_torch.ops import fused_block as tfb
 from tests.test_torch_fused_block import NAMES, _augmented_case, _window_case
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CASES = [
     # B, H, ws, C, nH, shift, padded (None: augmented), drop-path

@@ -21,6 +21,7 @@ at most 0.1 of their move.
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 STEPS, B, TOTAL_BATCH = 20, 4, 64
 TOL = {"fp32": dict(loss=1e-5, center=1e-5, moved=1e-3),

@@ -22,6 +22,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.data import augment_host as taug
 from esvit_tpu_torch.data import datasets as tdata
 from esvit_tpu_torch.data import loader as tloader
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _image(seed, h=72, w=90, mode="RGB"):

@@ -15,6 +15,7 @@ import torch
 from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch import validate_learning as vl
 from esvit_tpu_torch.train.train import train
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cfg(tmp_path):

@@ -31,6 +31,7 @@ from esvit_tpu_torch.data import mixup as tmix
 from esvit_tpu_torch.io.jax_params import (_adam_state, state_dict_from_flax,
                                            train_state_from_jax)
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-6
 STEP_TOL = 1e-5

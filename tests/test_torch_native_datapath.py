@@ -32,6 +32,7 @@ from esvit_tpu_torch import native
 from esvit_tpu_torch.data import datasets as tdata
 from esvit_tpu_torch.data import loader as tloader
 from esvit_tpu_torch.data import stores
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 LSB = 1.0 / (255.0 * 0.225)           # one uint8 LSB, normalised
 

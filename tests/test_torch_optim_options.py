@@ -26,6 +26,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.io.jax_params import _trace_state, state_dict_from_flax
 from esvit_tpu_torch.models.esvit import EsViTModel as TModel
 from esvit_tpu_torch.train import optim as toptim
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-6
 STEPS = 5

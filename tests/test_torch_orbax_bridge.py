@@ -33,6 +33,7 @@ from esvit_tpu_torch.io.jax_params import train_state_from_jax
 from esvit_tpu_torch.models.registry import build_backbone as tbuild
 from esvit_tpu_torch.train import train as ttrain
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FEAT_TOL = 1e-5

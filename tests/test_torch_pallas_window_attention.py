@@ -28,6 +28,7 @@ from esvit_tpu_torch.io.jax_params import (_adam_state, state_dict_from_flax,
 from esvit_tpu_torch.models.swin import SwinTransformer as TSwin
 from esvit_tpu_torch.ops import pallas_window_attention as pwa
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 MODEL_TOL = 1e-4

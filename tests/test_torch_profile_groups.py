@@ -13,6 +13,7 @@ under "convolutions", not under the fused block or cuBLAS."""
 import pytest
 
 from esvit_tpu_torch.utils.profile import _kernel_group
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 FUSED = "fused block (this repo's CUDA)"
 WINDOW = "window attention (this repo's CUDA)"

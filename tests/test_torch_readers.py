@@ -27,6 +27,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.data import datasets as tdata
 from esvit_tpu_torch.data import loader as tloader
 from esvit_tpu_torch.data import stores
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _items(n, seed, png=(3,)):

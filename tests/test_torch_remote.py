@@ -22,6 +22,7 @@ import pytest
 from esvit_tpu.data import remote as jremote
 from esvit_tpu_torch.data import remote as tremote
 from esvit_tpu_torch.data import stores
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 COPY = ("import shutil, sys\n"
         "open(sys.argv[3], 'a').write(sys.argv[1] + ' ' + sys.argv[2] + '\\n')\n"

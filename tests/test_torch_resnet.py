@@ -26,6 +26,7 @@ from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models.registry import build_backbone
 from esvit_tpu_torch.models.resnet import ResNet as TResNet
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 

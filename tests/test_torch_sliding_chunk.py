@@ -24,6 +24,7 @@ from esvit_tpu.ops.sliding_chunk_fused import \
 from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models.vil_layers import Long2DSCAttention as TAttention
 from esvit_tpu_torch.ops import sliding_chunk as tsc
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 GRAD_TOL = 5e-5

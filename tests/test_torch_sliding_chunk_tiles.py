@@ -24,6 +24,7 @@ import torch
 from esvit_tpu.ops.sliding_chunk_fused import \
     sliding_chunk_attention as jax_sliding_chunk
 from esvit_tpu_torch.ops import sliding_chunk as sc
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 JAX_FWD_TOL, JAX_GRAD_TOL = 2e-5, 5e-5

@@ -26,6 +26,7 @@ from esvit_tpu_torch.io.jax_params import (_adam_state, state_dict_from_flax,
                                            train_state_from_jax)
 from esvit_tpu_torch.models.common import DropPath as TDropPath
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 # Adam's update lr * mu / (sqrt(nu) + eps) is sign-like: it divides by the

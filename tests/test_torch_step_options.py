@@ -42,6 +42,7 @@ from esvit_tpu_torch.io.jax_params import (_trace_state, state_dict_from_flax,
 from esvit_tpu_torch.models.common import Dropout
 from esvit_tpu_torch.models.registry import build_backbone
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 STEPS = 2

@@ -24,6 +24,7 @@ import torch
 from esvit_tpu import losses as jlosses
 from esvit_tpu_torch import losses as tlosses
 from esvit_tpu_torch.parallel.mesh import Mesh
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 B, D, K, C = 3, 16, 64, 8

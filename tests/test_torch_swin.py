@@ -28,6 +28,7 @@ from esvit_tpu_torch.models.esvit import EsViTModel as TEsViT
 from esvit_tpu_torch.models.registry import build_backbone
 from esvit_tpu_torch.models.swin import SwinTransformer as TSwin
 from esvit_tpu_torch.utils import schedules as tsched
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 HEAD = dict(out_dim=32, hidden_dim=16, bottleneck_dim=8)

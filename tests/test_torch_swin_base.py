@@ -40,6 +40,7 @@ from esvit_tpu_torch.models import common as tcommon
 from esvit_tpu_torch.models import swin as tswin
 from esvit_tpu_torch.models.swin import SwinTransformer as TSwin
 from esvit_tpu_torch.ops import fused_block as tfb
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 DEPTHS = (2, 2, 2, 2)

@@ -27,6 +27,7 @@ from esvit_tpu.models.swin import SwinTransformer as JSwin
 from esvit_tpu_torch import config as tcfg
 from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models.swin import SwinTransformer as TSwin
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 ROUTES = {

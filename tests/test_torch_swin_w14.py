@@ -46,6 +46,7 @@ from esvit_tpu_torch.models.swin import SwinTransformer as TSwin
 from esvit_tpu_torch.ops import fused_block as tfb
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
 from tests import test_torch_fused_block as fused_cases
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 STEP_TOL = 1e-5

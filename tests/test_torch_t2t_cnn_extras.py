@@ -23,6 +23,7 @@ from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models import cnn_extras as TC
 from esvit_tpu_torch.models import t2t as TT
 from tests.test_torch_aux_attention import TDT, TOL, _close, _variables
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 

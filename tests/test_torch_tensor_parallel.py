@@ -54,6 +54,7 @@ from esvit_tpu_torch.models.esvit import EsViTModel
 from esvit_tpu_torch.parallel.mesh import Mesh, is_head_shard, make_mesh
 from esvit_tpu_torch.train import optim as toptim
 from esvit_tpu_torch.train.step import EsViTTrainer
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 180

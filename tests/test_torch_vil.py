@@ -34,6 +34,7 @@ from esvit_tpu_torch.models.vil import MsViT as TViL
 from esvit_tpu_torch.ops.resample import torch_interpolate_scale
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
 from tests.test_torch_step import TINY_GRAD, TINY_GRAD_TOL
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 NARROW = ("l1,h1,d16,n1,s1,g1,p4,f7_l2,h2,d32,n1,s1,g1,p2,f7_"

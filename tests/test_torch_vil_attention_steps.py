@@ -10,6 +10,7 @@ either.
 import pytest
 
 from tests.test_torch_vil_steps import check_steps
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("attn_type,local", [("performer", True),

@@ -35,6 +35,7 @@ from esvit_tpu_torch.io.jax_params import state_dict_from_flax
 from esvit_tpu_torch.models import vil_layers as tl
 from esvit_tpu_torch.models.vil import MsViT as TViL
 from esvit_tpu_torch.models.vil import ViLFullAttention as TFull
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 DIM, HEADS = 16, 2

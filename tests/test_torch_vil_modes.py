@@ -33,6 +33,7 @@ from esvit_tpu_torch.models import vil as tvil
 from esvit_tpu_torch.models.vil_layers import Long2DSCAttention as TAttention
 from esvit_tpu_torch.ops import sliding_chunk as tsc
 from esvit_tpu_torch.train import train as ttrain
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 MODES = [-1, 0, 1, 2, 3, 4, 5, 6, 7, 8]

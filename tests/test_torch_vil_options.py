@@ -12,6 +12,7 @@ ops/sliding_chunk.py ``supports`` refuses.
 import pytest
 
 from tests.test_torch_vil_modes import check_attention
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CASES = {
     "exact -1": (dict(exact=-1), 0),

@@ -22,6 +22,7 @@ from esvit_tpu_torch.io.jax_params import (_adam_state, state_dict_from_flax,
                                            train_state_from_jax)
 from esvit_tpu_torch.train.step import EsViTTrainer as TTrainer
 from tests.test_torch_step import TINY_GRAD, TINY_GRAD_TOL
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 STEPS = 2

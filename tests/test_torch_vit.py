@@ -31,6 +31,7 @@ from esvit_tpu_torch.models.vit import VisionTransformer as TViT
 from esvit_tpu_torch.ops.resample import torch_interpolate_scale
 from tests.test_torch_cvt import (check_step, drop_path_draws, run_steps,
                                   scaled_close)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 STEPS = 2

@@ -21,6 +21,7 @@ from esvit_tpu.ops.packed_window_attention import packed_window_attention
 from esvit_tpu_torch.ops import window as twops
 from esvit_tpu_torch.ops import window_attention as twa
 from tests.test_packed_window_attention import CASES
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 FP32_TOL = 2e-5
 

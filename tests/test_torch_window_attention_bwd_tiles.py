@@ -33,6 +33,7 @@ import torch
 from esvit_tpu.ops import window as jwops
 from esvit_tpu.ops.packed_window_attention import packed_window_attention
 from esvit_tpu_torch.ops import window_attention as wa
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 # (windows B_, N, C, nH, window types): N 16, 36, 64, Swin's 49 and the
 # augmented 37; head dims 32, 24, 64, 5 and 10 (zero-filled to 32, 16, 16).

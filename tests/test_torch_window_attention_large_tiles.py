@@ -55,6 +55,7 @@ from esvit_tpu_torch.ops import fused_block as fb
 from esvit_tpu_torch.ops import pallas_window_attention as pwa
 from esvit_tpu_torch.ops import window as twops
 from esvit_tpu_torch.ops import window_attention as wa
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 KEYS = 256                 # the padded keys: kLargeMaxN
 BLOCK = 64                 # keys per block of a sweep: kLargeKeys

@@ -34,6 +34,7 @@ from esvit_tpu.ops import pallas_window_attention as jpwa
 from esvit_tpu_torch.ops import cuda_build
 from esvit_tpu_torch.ops import pallas_window_attention as pwa
 from esvit_tpu_torch.ops import window_attention as wa
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 # (windows B_, N, C, nH, window types): N 16, 36, 64 and Swin's 49; head
 # dims 32, 24 and 5 (zero-filled to 32 and 16), 64; one and several types.
