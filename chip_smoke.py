@@ -53,7 +53,14 @@ so the script exits non-zero and prints no result line:
    a yardstick: torch.matmul (cuBLAS) of the block's four products at the
    shape, timed only; the sums per Swin-T W=7, Swin-T W=14 and Swin-B
    W=14 step, and the Swin-B step's C=512 blocks apart. First, both
-   passes' token-tile blocks fit the card at every admitted width.
+   passes' token-tile blocks fit the card at every admitted width. Last,
+   both fp32 backward kernels of the large-window tile at N=196 with the
+   last key column's bias lifted by 16 (``phase_lifted_bias``: the packed
+   pair, row 4, and the block-fused backward's attention half, A2): dq,
+   dk, dv and dbias against autograd through window_attention_plain in
+   float64 on the kernel's own inputs, each within max(2e-5, 2 x the fp32
+   plain version's own error) of the fp64 gradient's max-abs, and
+   bit-identical on repeat.
 5. The sliding-chunk kernel pair vs its plain version at the four shapes
    of the ViL-T W=7 B=32 multi-crop step (bf16, plus one fp32 case) and
    at the learning gate's nano ViL shapes (W=4, head dim 16): the
@@ -240,7 +247,17 @@ so the script exits non-zero and prints no result line:
    every gradient on the card within 1e-4 of the CPU's (relative to the
    largest value), bf16 finite, the median ms of 5 forward + backward
    passes and the peak GiB. (c) ``utils/flops.py`` ``summarize`` of
-   Swin-T, ViL-T and DeiT-S at 224 px (counted on the CPU).
+   Swin-T, ViL-T and DeiT-S at 224 px (counted on the CPU). (d) The
+   BASELINE runbook (``python -m esvit_tpu_torch.reproduce_baseline
+   --arch swin_tiny --linear_epochs 2``, the gate on) at Swin-T W=7's full
+   width and 224 px, fp32, on a reference-layout .pth of the port's
+   Swin-T init (seed 0) over 256 train / 64 val noise PNGs in 4 classes,
+   and the k-NN CLI on the same files, both at once with (a)'s runs: the
+   runbook exits 1 with its four stages, FAIL and ``gate_pass`` false
+   (random weights sit near chance, far under the published 75.7), its
+   k-NN top-1 at each k equal to the k-NN CLI's, and each run's launches
+   of rows 1 and 3 (k-NN's forwards, the probe's 4-last-block capture
+   forwards) equal to the model-derived counts.
 
 17. Swin-T at W=14 (``phase_swin_w14``, after the route order): the
    Swin-T multi-crop recipe with window_size=14 (B=32, 2x224 + 8x96,
@@ -304,12 +321,12 @@ once, and beside this process's work where it does not need their
 results: phase 11's two waves; phase 12's two train CLIs beside its
 k-NN eval; phase 13's two train CLIs beside its parity, its resume with
 its evals; phase 14's LARS CLI beside (c)-(d) and its resume beside
-(e); phase 15's evals beside legs (b)-(d); phase 16's analysis commands
-beside its in-process checks; phase 17's two k-NN runs; phase 19's gloo
-ranks beside the model=1 runs. A run's line says which runs went with
-it, and a time this process prints while subprocesses run names them
-("beside ..."). Phases 1-10 and the timed rounds of 8, 17 and 18 run
-alone. The in-process train() slices check that train() asked for its
+(e); phase 15's evals beside legs (b)-(d); phase 16's analysis commands,
+the runbook and its k-NN CLI beside its in-process checks; phase 17's
+two k-NN runs; phase 19's gloo ranks beside the model=1 runs. A run's
+line says which runs went with it, and a time this process prints while
+subprocesses run names them ("beside ..."). Phases 1-10 and the timed
+rounds of 8, 17 and 18 run alone. The in-process train() slices check that train() asked for its
 checkpoint after the last step and do not write it (``_slice``), except
 phase 15's schedule leg, whose checkpoint its evals read: the CLI runs
 and phase 19 write checkpoints and check what they read back.
@@ -1265,6 +1282,71 @@ def _cublas_ms(torch, x, params):
           params["wp"], params["w1"], params["w2"]]
     wqkv, wp, w1, w2 = (w.to(x.dtype) for w in ws)
     return _median_ms(torch, lambda: (y @ wqkv, y @ wp, y @ w1, g @ w2))
+
+
+# The fp32 large-tile backward with the last key column's bias lifted by
+# LIFT at N = LIFT_N (tests/test_torch_cuda_kernels.py holds lifts 8-24 at
+# N 145-256): p at that column tends to 1, so its ds is a difference of
+# nearly equal fp32 numbers. Each gradient against autograd through
+# window_attention_plain in float64 on the kernel's own inputs, within
+# max(FP64_GATE, 2 x the fp32 plain version's own error) of the fp64
+# gradient's max-abs.
+LIFT, LIFT_N, FP64_GATE = 16.0, 196, 2e-5
+
+
+def _lift_check(torch, wa, label, runs, args, card):
+    """Holds the first of two runs' (dq, dk, dv, dbias) to the fp64 gate
+    and the second to it bit for bit; logs both errors."""
+    for name, a, b in zip(wa.GRAD_NAMES, *runs):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"lifted bias {label}: {name} not finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"lifted bias {label}: {name} differs "
+                                 "between two runs")
+    kernel = wa.fp64_grad_errors(runs[0], *args)
+    plain = wa.fp64_grad_errors(wa.plain_grads(*args), *args)
+    for name in wa.GRAD_NAMES:
+        gate = max(FP64_GATE, 2 * plain[name])
+        if kernel[name] > gate:
+            raise AssertionError(f"lifted bias {label}: {name} "
+                                 f"{kernel[name]:.3e} against fp64, gate "
+                                 f"{gate:.3e}")
+    log(f"lifted bias {label} fp32 N={LIFT_N} lift {LIFT:g} vs fp64: "
+        + ", ".join(f"{n} kernel {kernel[n]:.3e} plain {plain[n]:.3e}"
+                    for n in wa.GRAD_NAMES)
+        + f" (gate max({FP64_GATE:g}, 2 x plain)); bit-identical on repeat "
+        f"[{card}]")
+
+
+def phase_lifted_bias(torch, fb, wa, wops, card):
+    """Both fp32 backward kernels of the large-window tile at N=196 with
+    the last key column's bias lifted by LIFT, against fp64: the packed
+    pair (row 4) at Swin-B's W=14 stage-1 width over 64 windows, and the
+    block-fused backward's attention half (row 2's A2) at Swin-T's W=14
+    stage 2 (16 images of one window); unshifted, so no -100 mask lowers
+    the lifted column."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B_, C, nH = 64, 256, 8
+    q, k, v, do = (torch.randn(B_ * LIFT_N, C, generator=gen, device=dev)
+                   for _ in range(4))
+    bias = 0.3 * torch.randn(nH, LIFT_N, LIFT_N, generator=gen, device=dev)
+    bias[:, :, -1] += LIFT
+    args = (q, k, v, do, bias, None, LIFT_N, nH, (C // nH) ** -0.5)
+    runs = [wa._bwd(q, k, v, bias, None, do, LIFT_N, nH, args[-1])
+            for _ in range(2)]
+    _lift_check(torch, wa, "packed pair (row 4)", runs, args, card)
+    x, params, keep1, keep2, region, pad, geometry, do = _fused_case(
+        torch, wops, 16, 384, 12, 14, False, torch.float32, gen, ws=14)
+    N, nH, nW, scale, eps = geometry
+    params["bias"][:, :, -1] += LIFT
+    kw = dict(N=N, nH=nH, nW=nW, scale=scale, region=region, pad=pad,
+              eps=eps)
+    io = [fb.attention_bwd_io(x, params, keep1, keep2, do, **kw)
+          for _ in range(2)]
+    args = (*io[0][0], params["bias"], region, N, nH, scale)
+    _lift_check(torch, wa, "block-fused A2 (row 2)", [out for _, out in io],
+                args, card)
 
 
 def phase_pallas_window_attention(torch, pwa, wops):
@@ -4097,11 +4179,25 @@ AUX_REPS = 5
 ANALYSIS_MODULE = "esvit_tpu_torch.analysis.cli"
 
 
+# The BASELINE runbook (phase 16's (d)): ``python -m
+# esvit_tpu_torch.reproduce_baseline`` with the gate on, on a
+# reference-layout .pth of the port's Swin-T init (seed 0) over PNG
+# folders of noise in 4 classes (so k-NN sits near chance, far under the
+# published 75.7), beside the k-NN CLI on the same files at the runbook's
+# batch size and k.
+RUNBOOK_MODULE = "esvit_tpu_torch.reproduce_baseline"
+RUNBOOK_TRAIN, RUNBOOK_VAL, RUNBOOK_CLASSES, RUNBOOK_SIZE = 256, 64, 4, 128
+RUNBOOK_BATCH, RUNBOOK_EPOCHS, RUNBOOK_KS = 128, 2, (10, 20)
+RUNBOOK_FEAT_BATCH = 64     # evals/linear.py run_linear_eval's feat_batch
+
+
 def phase_last_modules(torch, C, counters, card):
     """Phase 16 (see the module docstring)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        _last_analysis(torch, C, counters, card, tmp)
+        runbook, runs = _runbook_runs(torch, C, tmp)
+        done = _last_analysis(torch, C, counters, card, tmp, runs)
+        _runbook_check(runbook, done, card)
     _last_aux(torch, card)
     _last_flops(torch, C, card)
     log(f"last modules phase: {time.perf_counter() - t0:.1f} s [{card}]")
@@ -4119,20 +4215,110 @@ def _last_folder(root):
     return root
 
 
-def _launch_want(fused=0, wa=0, sc=0):
+def _launch_want(fused=0, wa=0, sc=0, pwa=0):
     want = {name: {k: 0 for k in kinds}
             for name, (_, kinds) in KERNELS.items()}
     want["fused_block"]["fwd"] = fused
     want["window_attention"]["fwd"] = wa
     want["sliding_chunk"]["fwd"] = sc
+    want["pallas_window_attention"]["fwd"] = pwa
     return want
 
 
-def _last_analysis(torch, C, counters, card, tmp):
+def _runbook_runs(torch, C, tmp):
+    """(d) Writes the runbook's .pth and PNG folders; returns (what
+    _runbook_check needs, the two _EntryRuns runs: the runbook, exit 1,
+    and the k-NN CLI)."""
+    import numpy as np
+    from PIL import Image
+
+    from esvit_tpu_torch.models.registry import build_backbone
+
+    dirs = {}
+    rng = np.random.default_rng(0)
+    for split, n in (("train", RUNBOOK_TRAIN), ("val", RUNBOOK_VAL)):
+        dirs[split] = os.path.join(tmp, "runbook_data", split)
+        for i in range(n):
+            d = os.path.join(dirs[split], f"class{i % RUNBOOK_CLASSES}")
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(rng.integers(
+                0, 256, (RUNBOOK_SIZE, RUNBOOK_SIZE, 3), dtype=np.uint8)
+            ).save(os.path.join(d, f"{i:04d}.png"))
+    model = build_backbone(C.get_model_config("swin_tiny"),
+                           generator=torch.Generator().manual_seed(0))
+    pth = os.path.join(tmp, "runbook_swin_tiny.pth")
+    torch.save({"teacher": {f"module.{k}": v
+                            for k, v in model.state_dict().items()}}, pth)
+    # Model-derived launches: k-NN's forward_features over the train and
+    # val batches; the probe's 4-last-block capture forwards over the val
+    # features' batches and each epoch's whole train batches.
+    knn = -(-RUNBOOK_TRAIN // RUNBOOK_BATCH) + -(-RUNBOOK_VAL // RUNBOOK_BATCH)
+    probe = (-(-RUNBOOK_VAL // RUNBOOK_FEAT_BATCH)
+             + RUNBOOK_EPOCHS * (RUNBOOK_TRAIN // RUNBOOK_BATCH))
+    knn_want = _launch_want(
+        knn * model.fused_block_calls(224),
+        knn * model.window_attention_calls(224),
+        pwa=knn * model.pallas_window_attention_calls(224))
+    runbook_want = _launch_want(
+        knn * model.fused_block_calls(224),
+        knn * model.window_attention_calls(224)
+        + probe * model.window_attention_calls(224, capture=True),
+        pwa=knn * model.pallas_window_attention_calls(224)
+        + probe * model.pallas_window_attention_calls(224, capture=True))
+    outs = {k: os.path.join(tmp, f"runbook_{k}") for k in ("gate", "knn")}
+    data = ["--train_path", dirs["train"], "--val_path", dirs["val"],
+            "--batch_size", str(RUNBOOK_BATCH), "--nb_knn",
+            *map(str, RUNBOOK_KS)]
+    runs = [("runbook swin_tiny", RUNBOOK_MODULE,
+             ["--pth", pth, "--arch", "swin_tiny", "--linear_epochs",
+              str(RUNBOOK_EPOCHS), *data, "--output_dir", outs["gate"]],
+             None, 1),
+            ("runbook's k-NN CLI", "esvit_tpu_torch.evals.knn",
+             ["--arch", "swin_tiny", "--pretrained", pth, *data,
+              "--output_dir", outs["knn"]], None, 0)]
+    return (outs, runbook_want, knn_want), runs
+
+
+def _runbook_check(runbook, done, card):
+    """(d) The runbook failed its gate (exit 1, FAIL, gate_pass false) with
+    the k-NN CLI's top-1 at every k, each run's launches as derived."""
+    outs, runbook_want, knn_want = runbook
+    (text, rec), (knn_text, knn_rec) = done
+    _entry_launches("runbook swin_tiny", rec["launches"], runbook_want)
+    _entry_launches("runbook's k-NN CLI", knn_rec["launches"], knn_want)
+    with open(os.path.join(outs["gate"], "baseline_report.json")) as f:
+        report = json.load(f)
+    stages = re.findall(r"^\[(\d)/4\]", text, re.M)
+    if (stages != ["1", "2", "3", "4"] or "-> FAIL" not in text
+            or report.get("gate_pass") is not False
+            or report["gate"] != [75.7, 78.0]
+            or not 0.0 <= report["best_knn_top1"] < 75.7 - 0.3
+            or report["linear_top1"] is None):
+        raise AssertionError(f"runbook: report {report}:\n{text[-3000:]}")
+    cli = {int(k): float(v) for k, v in re.findall(
+        r"^(\d+)-NN classifier result: Top1: ([0-9.]+)", knn_text, re.M)}
+    got = {int(k): round(v[0], 2) for k, v in report["knn"].items()}
+    if set(cli) != set(RUNBOOK_KS) or any(
+            got[k] != cli[k] for k in RUNBOOK_KS):
+        raise AssertionError(f"runbook k-NN {got} differs from the k-NN "
+                             f"CLI's {cli}")
+    log(f"runbook swin_tiny (random Swin-T W=7, fp32, 224 px, "
+        f"{RUNBOOK_TRAIN} + {RUNBOOK_VAL} noise PNGs in "
+        f"{RUNBOOK_CLASSES} classes): exit 1, gate FAIL as it must be: "
+        f"k-NN top-1 {report['best_knn_top1']:.2f} against 75.7 - 0.3, "
+        f"linear top-1 {report['linear_top1']:.2f}; k-NN "
+        + ", ".join(f"{k}: {got[k]:.2f}" for k in RUNBOOK_KS)
+        + f" equal to the k-NN CLI's; {rec['seconds']:.1f} s of main() "
+        f"(the phase's runs at once) [{card}]")
+
+
+def _last_analysis(torch, C, counters, card, tmp, extra=()):
     """(a) The analysis CLI in subprocesses on a reference-layout .pth of a
     seeded Swin-T (and a seeded random ViL-T), each run's launches of rows
     1, 3 and 5 as derived from the model; then in-process on the same
-    weights, fp32 attention maps and flip features, card against CPU."""
+    weights, fp32 attention maps and flip features, card against CPU.
+    The ``extra`` _EntryRuns runs go at once with the analysis runs;
+    returns their (output, record)."""
     import copy
     import importlib.util
 
@@ -4185,7 +4371,8 @@ def _last_analysis(torch, C, counters, card, tmp):
                 command, "--data_path", data, "--num_images",
                 str(LAST_IMAGES), *args, "--output_dir", out, "--device",
                 "cuda"], None, 0)
-            for (label, command, args, _), out in zip(runs, outs)],
+            for (label, command, args, _), out in zip(runs, outs)]
+            + list(extra),
             beside="the in-process card-vs-CPU checks") as started:
         ds = datasets_lib.build_dataset("folder", root=data)
         x = np.stack([eval_transform(ds[i][0], 224)
@@ -4249,6 +4436,7 @@ def _last_analysis(torch, C, counters, card, tmp):
         log(f"last modules {label}: {json.dumps(record)} over {LAST_IMAGES} "
             f"images in {rec['seconds']:.1f} s of main(), the runs at once "
             f"[{card}]")
+    return done[len(runs):]
 
 
 def _aux_cases(torch):
@@ -4906,6 +5094,7 @@ def main():
         torch, wa, wops)
     lap("3 window attention")
     fused, fused14, fused_b14 = phase_fused(torch, fb, wa, wops)
+    phase_lifted_bias(torch, fb, wa, wops, card)
     lap("4 block-fused")
     sliding_chunk = phase_sliding_chunk(torch, sc)
     lap("5 sliding chunk")

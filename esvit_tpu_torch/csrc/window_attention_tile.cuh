@@ -337,9 +337,10 @@ __device__ __forceinline__ void stage_window(const Operands<T>& op, const Geomet
   }
 }
 
-// A row's softmax constants: p = 2^(s log2e + off) * inv.
+// A row's softmax constants: p = 2^(s log2e + off) * inv (the large
+// tile's backward: p = 2^((s - off) log2e) * inv, off the max).
 struct RowStats {
-  float off0, off1;  // -max log2e of rows g and g + 8
+  float off0, off1;  // -max log2e of rows g and g + 8 (the backward: max)
   float inv0, inv1;  // 1 / sum of the exponentials
 };
 
@@ -1785,6 +1786,14 @@ struct RowRun {
 // quad joins the running max, the lane's sum is rescaled by 2^((old - new)
 // log2e) where the max grew, and e = 2^(s log2e - max log2e) replaces s (0
 // at -inf) and joins the sum. Returns the two rows' rescale factors.
+// kExact (the backward): e = 2^((s - max) log2e), the difference rounded
+// first, so e is exactly 1 at the row's max. One fma forms s log2e - max
+// log2e from the rounded max log2e, off by up to half its ulp (~2e-6 at a
+// score of 24), so e at the max misses 1 by ~1e-6; where p saturates at 1
+// (a lifted bias column), ds = p (dP - rowsum(p dP)) at that column is
+// then rounding noise of dP's size instead of cancelling to the tiny
+// true value, as plain autograd's softmax backward does.
+template <bool kExact = false>
 __device__ __forceinline__ float2 online_block(float (&s)[kLargeNT][4], RowRun& r, int lane) {
   constexpr float kLog2e = 1.4426950408889634f;
   float b0 = -INFINITY, b1 = -INFINITY;
@@ -1803,15 +1812,20 @@ __device__ __forceinline__ float2 online_block(float (&s)[kLargeNT][4], RowRun& 
   const float n0 = fmaxf(r.m0, b0), n1 = fmaxf(r.m1, b1);
   const float a0 = n0 == r.m0 ? 1.f : exp2f((r.m0 - n0) * kLog2e);
   const float a1 = n1 == r.m1 ? 1.f : exp2f((r.m1 - n1) * kLog2e);
-  const float o0 = n0 == -INFINITY ? 0.f : -n0 * kLog2e;
-  const float o1 = n1 == -INFINITY ? 0.f : -n1 * kLog2e;
+  const float o0 = n0 == -INFINITY ? 0.f : kExact ? n0 : -n0 * kLog2e;
+  const float o1 = n1 == -INFINITY ? 0.f : kExact ? n1 : -n1 * kLog2e;
   float x0 = 0.f, x1 = 0.f;
 #pragma unroll
   for (int nt = 0; nt < kLargeNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[nt][e] = exp2f(fmaf(s[nt][e], kLog2e, o0));
-      s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], kLog2e, o1));
+      if (kExact) {
+        s[nt][e] = exp2f((s[nt][e] - o0) * kLog2e);
+        s[nt][2 + e] = exp2f((s[nt][2 + e] - o1) * kLog2e);
+      } else {
+        s[nt][e] = exp2f(fmaf(s[nt][e], kLog2e, o0));
+        s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], kLog2e, o1));
+      }
       x0 += s[nt][e];
       x1 += s[nt][2 + e];
     }
@@ -1822,8 +1836,9 @@ __device__ __forceinline__ float2 online_block(float (&s)[kLargeNT][4], RowRun& 
   return make_float2(a0, a1);
 }
 
-// The run's row constants: off = -max log2e and inv = 1 / sum, the lanes'
-// sums added over the quad.
+// The run's row constants: off = -max log2e (kExact: the max) and inv =
+// 1 / sum, the lanes' sums added over the quad.
+template <bool kExact = false>
 __device__ __forceinline__ RowStats run_stats(RowRun r) {
   constexpr float kLog2e = 1.4426950408889634f;
 #pragma unroll
@@ -1831,18 +1846,26 @@ __device__ __forceinline__ RowStats run_stats(RowRun r) {
     r.l0 += __shfl_xor_sync(kFull, r.l0, o);
     r.l1 += __shfl_xor_sync(kFull, r.l1, o);
   }
+  if (kExact) return RowStats{r.m0, r.m1, 1.f / r.l0, 1.f / r.l1};
   return RowStats{-r.m0 * kLog2e, -r.m1 * kLog2e, 1.f / r.l0, 1.f / r.l1};
 }
 
-// p = 2^(s log2e + off) inv over a block of biased scores (0 at -inf).
+// p = 2^(s log2e + off) inv over a block of biased scores (0 at -inf);
+// kExact: 2^((s - off) log2e) inv, off the max (online_block).
+template <bool kExact = false>
 __device__ __forceinline__ void p_block(float (&s)[kLargeNT][4], const RowStats& st) {
   constexpr float kLog2e = 1.4426950408889634f;
 #pragma unroll
   for (int nt = 0; nt < kLargeNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[nt][e] = exp2f(fmaf(s[nt][e], kLog2e, st.off0)) * st.inv0;
-      s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], kLog2e, st.off1)) * st.inv1;
+      if (kExact) {
+        s[nt][e] = exp2f((s[nt][e] - st.off0) * kLog2e) * st.inv0;
+        s[nt][2 + e] = exp2f((s[nt][2 + e] - st.off1) * kLog2e) * st.inv1;
+      } else {
+        s[nt][e] = exp2f(fmaf(s[nt][e], kLog2e, st.off0)) * st.inv0;
+        s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], kLog2e, st.off1)) * st.inv1;
+      }
     }
 }
 
@@ -2127,10 +2150,13 @@ __device__ inline void scale_tile(float* t, int N, int ld, int hd, float qscale)
 // Pass 1 of (window w, head h) for the query tile at m0. Sweep 1: S, its
 // running max and sum, and dP = do v^T a key tile at a time, whose terms e
 // dP are summed and rescaled with the sum, so rowsum(p dP) = (sum of e dP)
-// / sum. The rows' constants (off, inv, rowsum) go to `stats` (3 N
-// floats). Sweep 2: S and p, dP again a tile at a time into ds = p (dP -
-// rowsum), ds into the block's dbias partial (stored by the run's first
-// window, added after), dq = round(round(ds) k * scale) accumulated.
+// / sum; e = 2^((s - max) log2e) (online_block<true>: exactly 1 at the
+// max, so where p saturates at 1, rowsum(p dP) is that column's dP and its
+// ds cancels to 0 as autograd's does). The rows' constants (max, inv,
+// rowsum) go to `stats` (3 N floats). Sweep 2: S and p, dP again a tile
+// at a time into ds = p (dP - rowsum), ds into the block's dbias partial
+// (stored by the run's first window, added after), dq = round(round(ds) k
+// * scale) accumulated.
 template <int KD, typename T, class Bias>
 __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
                             const Bias& bias, float* stats, float* part, bool first,
@@ -2146,7 +2172,7 @@ __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo,
     qa.load(sq, m0, ld, N, kd, 0.f, lane);
     scores_block(s, qa, sk, key0, ld, N, kd, lane);
     bias_block<false>(s, m0, key0, bias, N, g.scale, lane);
-    const float2 a = online_block(s, run, lane);
+    const float2 a = online_block<true>(s, run, lane);
     da.load(sdo, m0, ld, N, kd, 0.f, lane);
     float x0 = 0.f, x1 = 0.f;
 #pragma unroll
@@ -2168,7 +2194,7 @@ __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo,
     d0 += __shfl_xor_sync(kFull, d0, o);
     d1 += __shfl_xor_sync(kFull, d1, o);
   }
-  const RowStats st = run_stats(run);
+  const RowStats st = run_stats<true>(run);
   const float rs0 = d0 * st.inv0, rs1 = d1 * st.inv1;
   const int r0 = m0 + gq, r1 = r0 + 8;
   if (tq == 0) {
@@ -2193,7 +2219,7 @@ __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo,
     qa.load(sq, m0, ld, N, kd, 0.f, lane);
     scores_block(s, qa, sk, key0, ld, N, kd, lane);
     bias_block<false>(s, m0, key0, bias, N, g.scale, lane);
-    p_block(s, st);
+    p_block<true>(s, st);
     da.load(sdo, m0, ld, N, kd, 0.f, lane);
 #pragma unroll
     for (int nt = 0; nt < kLargeNT; ++nt) {
@@ -2227,10 +2253,11 @@ __device__ void large_pass1(const T* sq, const T* sk, const T* sv, const T* sdo,
 }
 
 // Pass 2 of (window w, head h) for the key tile at j0, over the query
-// blocks, from every query row's constants: S^T = k qs^T and p^T (column
-// 8 nt + 2 tq + e of a fragment is query i; padded queries get p = ds =
-// 0), dv = round(round(p)^T do) accumulated, dP^T = v do^T a query tile
-// at a time into ds^T, dk = round(round(ds)^T qs) accumulated.
+// blocks, from every query row's constants: S^T = k qs^T and p^T =
+// 2^((s - max) log2e) inv as pass 1 forms p (column 8 nt + 2 tq + e of a
+// fragment is query i; padded queries get p = ds = 0), dv = round(round(
+// p)^T do) accumulated, dP^T = v do^T a query tile at a time into ds^T,
+// dk = round(round(ds)^T qs) accumulated.
 template <int KD, typename T, class Bias>
 __device__ void large_pass2(const T* sq, const T* sk, const T* sv, const T* sdo, int ld,
                             const Bias& bias, const float* stats, float* scratch,
@@ -2261,7 +2288,7 @@ __device__ void large_pass2(const T* sq, const T* sk, const T* sv, const T* sdo,
           float x = 0.f;
           if (i < N && j < N) {
             x = p[nt][2 * half + e] + bias.at(i, j);
-            x = exp2f(fmaf(x, kLog2e, stats[i])) * stats[N + i];
+            x = exp2f((x - stats[i]) * kLog2e) * stats[N + i];
           }
           p[nt][2 * half + e] = x;
         }

@@ -211,11 +211,13 @@ def load_backbone_variables(backbone, model_cfg, pretrained: str,
 
 
 def model_from_args(args):
-    """(model config, backbone with weights) from the eval CLIs' flags; the
-    random init, when no weights are given, is seeded (0)."""
+    """(model config, backbone with weights) from the eval CLIs' flags (a
+    ``window_size`` of None: the preset's); the random init, when no
+    weights are given, is seeded (0)."""
     model_cfg = config_lib.get_model_config(
         args.arch, **({"window_size": args.window_size}
-                      if args.arch.startswith("swin") else {}))
+                      if args.arch.startswith("swin")
+                      and args.window_size is not None else {}))
     backbone = build_backbone(model_cfg,
                               generator=torch.Generator().manual_seed(0))
     return model_cfg, backbone

@@ -354,6 +354,22 @@ def bwd_stage_errors(x, params, keep1, keep2, do, *, N: int, nH: int,
     return _stage_errors(got, want, "backward")
 
 
+def attention_bwd_io(x, params, keep1, keep2, do, *, N: int, nH: int,
+                     nW: int, scale: float, region=None, pad=None,
+                     eps: float = 1e-6):
+    """A2, the backward's attention half, as the kernels ran it (the
+    scratch :func:`_bwd_buffers` returns): its inputs q2, k2, v2 (the
+    backward's QKV) and da (DA), and its outputs dq, dk, dv (the
+    workspace's columns) and dbias. CUDA tensors (the kernels run)."""
+    C = x.shape[-1]
+    _, grads, sc = _bwd_buffers(x, params, keep1, keep2, region, pad, do,
+                                (N, nH, nW, scale, eps))
+    q2, k2, v2 = (t.contiguous() for t in sc["QKV"].split(C, dim=-1))
+    dq, dk, dv = (t.contiguous()
+                  for t in sc["WS"][:, C:4 * C].split(C, dim=-1))
+    return (q2, k2, v2, sc["DA"]), (dq, dk, dv, grads["bias"])
+
+
 def _stage_errors(got, want, what):
     """Each stage output's max-abs difference from its twin over the
     twin's max-abs; raises if a kernel output is not finite."""

@@ -285,13 +285,15 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
                            drop=None):
     """The kernels' function in plain PyTorch (einsum, fp32 softmax,
     autograd), with the same roundings: q*scale and the probabilities are
-    rounded to the input dtype, products accumulate in fp32.
+    rounded to the input dtype, products accumulate in fp32 (in fp64 for
+    fp64 inputs, so that autograd through it is a float64 reference).
 
     bias is the (nH, N, N) table, shifted by ``region``'s -100 mask when
     that is given, or a dense (nWm, nH, N, N) bias that already holds the
     mask (``region`` None). With ``return_probs`` also returns the fp32
     probabilities (B_, nH, N, N)."""
     dtype = q2.dtype
+    acc = torch.promote_types(dtype, torch.float32)
     C = q2.shape[-1]
     B_ = q2.shape[0] // N
     hd = C // nH
@@ -299,8 +301,8 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
     k = k2.reshape(B_, N, nH, hd)
     v = v2.reshape(B_, N, nH, hd)
     qs = q * torch.tensor(scale, dtype=dtype)
-    attn = torch.einsum("bnhd,bmhd->bhnm", qs.float(), k.float())
-    full = bias.float() if bias.dim() == 4 else bias.float()[None]
+    attn = torch.einsum("bnhd,bmhd->bhnm", qs.to(acc), k.to(acc))
+    full = bias.to(acc) if bias.dim() == 4 else bias.to(acc)[None]
     if region is not None:
         differ = region[:, :, None] != region[:, None, :]       # (nW, N, N)
         full = full + torch.where(differ, -100.0, 0.0)[:, None]
@@ -308,7 +310,7 @@ def window_attention_plain(q2, k2, v2, bias, region, N: int, nH: int,
     attn = (attn.reshape(B_ // nWm, nWm, nH, N, N) + full).reshape(B_, nH, N, N)
     probs = torch.softmax(attn, dim=-1)
     kept = probs if drop is None else drop(probs)
-    out = torch.einsum("bhnm,bmhd->bnhd", kept.to(dtype).float(), v.float())
+    out = torch.einsum("bhnm,bmhd->bnhd", kept.to(dtype).to(acc), v.to(acc))
     out = out.to(dtype).reshape(B_ * N, C)
     return (out, probs) if return_probs else out
 
@@ -344,6 +346,30 @@ def window_attention_bwd_plain(q2, k2, v2, do, bias, region, N: int, nH: int,
     dk = torch.einsum("bhnm,bnhd->bmhd", dsr, qs.float())
     return (dq.to(dtype).reshape(B_ * N, C), dk.to(dtype).reshape(B_ * N, C),
             dv.to(dtype).reshape(B_ * N, C), ds.sum(0))
+
+
+GRAD_NAMES = ("dq", "dk", "dv", "dbias")
+
+
+def plain_grads(q2, k2, v2, do, bias, region, N: int, nH: int,
+                scale: float):
+    """dq, dk, dv, dbias by autograd through :func:`window_attention_plain`
+    in the inputs' dtype (bias the (nH, N, N) fp32 table, or fp64 with
+    fp64 inputs)."""
+    ts = [t.detach().clone().requires_grad_() for t in (q2, k2, v2, bias)]
+    out = window_attention_plain(*ts, region, N, nH, scale)
+    return torch.autograd.grad(out, ts, do.to(q2.dtype))
+
+
+def fp64_grad_errors(grads, q2, k2, v2, do, bias, region, N: int, nH: int,
+                     scale: float) -> dict:
+    """dq, dk, dv, dbias (``grads``) against :func:`plain_grads` in float64
+    on the same inputs: each one's max-abs difference over the float64
+    gradient's max-abs, by name (:data:`GRAD_NAMES`)."""
+    want = plain_grads(*(t.double() for t in (q2, k2, v2, do, bias)),
+                       region, N, nH, scale)
+    return {name: ((g.double() - w).abs().max() / w.abs().max()).item()
+            for name, g, w in zip(GRAD_NAMES, grads, want)}
 
 
 def window_attention(q2, k2, v2, bias, region, N: int, nH: int,

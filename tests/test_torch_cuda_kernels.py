@@ -924,3 +924,99 @@ def _w14_routes(cuda, arch, kw):
                             model.pallas_window_attention_calls(size)]
         err = ((got - want).abs().max() / want.abs().max()).item()
         assert torch.isfinite(got).all() and err <= 1e-4, (size, err)
+
+
+# The fp32 large-tile backward with the last key column's bias lifted
+# (tests/test_torch_window_attention_large_tiles.py lifts it by 8 on the
+# CPU): p at that column tends to 1, so its ds is a difference of nearly
+# equal fp32 numbers and dk and dbias there sums of N such differences.
+# Both kernels that run the large tile's backward in fp32: the packed pair
+# (row 4; csrc/window_attention_large_bwd_fp32.cu) at (N, C, nH, windows
+# B_, window types), and the block-fused backward's attention half (row 2,
+# A2; csrc/fused_block_large_bwd_fp32.cu) at (B, H, ws, C, nH, shifted,
+# padded, drop-path) or, at N=145, the augmented 12 x 12 + 1 window (B, C,
+# nH); unshifted, so no -100 mask lowers the lifted column. dq, dk, dv and dbias against autograd through window_attention_plain
+# in float64 on the kernel's own inputs, each within max(2e-5, 2 x the fp32
+# plain version's own error against it) of the fp64 gradient's max-abs;
+# each bit-identical on repeat.
+LIFTS = (8, 12, 16, 24)
+LIFT_PACKED = {145: (145, 256, 8, 5, 0), 196: (196, 128, 4, 12, 0),
+               256: (256, 64, 2, 3, 0)}
+LIFT_FUSED = {145: (4, 192, 6), 196: (2, 28, 14, 96, 3, False, False, True),
+              256: (2, 16, 16, 64, 2, False, False, True)}
+FP64_GATE = 2e-5
+
+
+def _lift_gate(label, got, again, args):
+    """Holds got (dq, dk, dv, dbias) to the fp64 gate; again to got bit
+    for bit. Prints the kernel's and the fp32 plain version's errors."""
+    for name, a, b in zip(wa.GRAD_NAMES, got, again):
+        assert torch.isfinite(a).all(), (label, name)
+        assert torch.equal(a, b), (label, name, "differs on repeat")
+    kernel = wa.fp64_grad_errors(got, *args)
+    plain = wa.fp64_grad_errors(wa.plain_grads(*args), *args)
+    for name in wa.GRAD_NAMES:
+        gate = max(FP64_GATE, 2 * plain[name])
+        print(f"fp64 {label} {name}: kernel {kernel[name]:.3e} plain "
+              f"{plain[name]:.3e} gate {gate:.3e}")
+        assert kernel[name] <= gate, (label, name, kernel[name], gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lift", LIFTS)
+@pytest.mark.parametrize("N", sorted(LIFT_PACKED))
+def test_cuda_large_bwd_fp32_lifted_bias_against_fp64(cuda, N, lift):
+    N, C, nH, B_, nW = LIFT_PACKED[N]
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.tensor(rng.randn(B_ * N, C).astype(np.float32),
+                                device=cuda) for _ in range(4))
+    bias = torch.tensor((0.3 * rng.randn(nH, N, N)).astype(np.float32),
+                        device=cuda)
+    bias[:, :, N - 1] += lift
+    region = (torch.as_tensor(rng.randint(0, 3, size=(nW, N)).astype(np.int32),
+                              device=cuda) if nW else None)
+    args = (q, k, v, do, bias, region, N, nH, (C // nH) ** -0.5)
+    got = wa._bwd(q, k, v, bias, region, do, N, nH, args[-1])
+    again = wa._bwd(q, k, v, bias, region, do, N, nH, args[-1])
+    _lift_gate(f"packed N={N} lift={lift}", got, again, args)
+
+
+def _fused_lift_inputs(cuda, N, lift):
+    """(x, params, keep1, keep2, do, kw) of an fp32 block-fused call on the
+    card at LIFT_FUSED[N], the last key column's bias lifted."""
+    if N == 145:
+        B, C, nH = LIFT_FUSED[N]
+        rng = np.random.RandomState(2)
+        x = (0.5 * rng.randn(B, N, C)).astype(np.float32)
+        x[:, -1] = 0.0
+        p = _fused_params(rng, C, 4 * C, nH, N)
+        p["bias"][:, -1, :] = 0.0
+        pad = torch.ones(N, device=cuda)
+        pad[-1] = 0.0
+        kw = dict(N=N, nH=nH, nW=1, scale=(C // nH) ** -0.5, region=None,
+                  pad=pad, eps=1e-6)
+        keep = [np.array([1 / 0.9, 0.0, 1 / 0.9, 1 / 0.9], np.float32)] * 2
+    else:
+        x, p, keep, kw = _fused_inputs(cuda, *LIFT_FUSED[N], seed=5)
+        keep = keep or (None, None)
+    p["bias"][:, :, N - 1] += lift
+    do = np.random.RandomState(6).randn(*x.shape).astype(np.float32)
+    k1, k2 = (None if k is None else torch.tensor(k, device=cuda)
+              for k in keep)
+    return (torch.tensor(x, device=cuda),
+            {k: torch.tensor(v, device=cuda) for k, v in p.items()}, k1, k2,
+            torch.tensor(do, device=cuda), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lift", LIFTS)
+@pytest.mark.parametrize("N", sorted(LIFT_FUSED))
+def test_cuda_fused_large_bwd_fp32_lifted_bias_against_fp64(cuda, N, lift):
+    from esvit_tpu_torch.ops import fused_block as fb
+
+    x, p, k1, k2, do, kw = _fused_lift_inputs(cuda, N, lift)
+    (q2, k2_, v2, da), got = fb.attention_bwd_io(x, p, k1, k2, do, **kw)
+    _, again = fb.attention_bwd_io(x, p, k1, k2, do, **kw)
+    args = (q2, k2_, v2, da, p["bias"], kw["region"], N, kw["nH"],
+            kw["scale"])
+    _lift_gate(f"fused N={N} lift={lift}", got, again, args)

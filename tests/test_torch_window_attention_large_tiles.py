@@ -17,10 +17,12 @@ key blocks and rescales the sum (and, in one-sweep forms, the output) by
   lo, the output rescaled and divided by the sum at the end;
 - fp32 (every policy): one sweep, e in fp32, the same rescaling;
 - the backward: pass 1 sweeps the key blocks once for the max, the sum
-  and rowsum(p dP) = (sum of e dP) / sum, then again for p, dP and ds
-  (ds into dbias, dq); pass 2 sweeps the query blocks for p^T, dv, dP^T
-  and dk, with p and ds zero in the padded queries, so the clamped rows
-  add nothing to dv and dk.
+  and rowsum(p dP) = (sum of e dP) * (1 / sum), then again for p, dP and
+  ds (ds into dbias, dq); pass 2 sweeps the query blocks for p^T, dv,
+  dP^T and dk, with p and ds zero in the padded queries, so the clamped
+  rows add nothing to dv and dk. Its e is 2^((s - max) log2e), the
+  difference rounded first (the forwards form s log2e - max log2e by one
+  fma), so e is exactly 1 at a row's max.
 
 bf16 models hold exact bf16 values in fp32 tensors (the mma multiplies
 bf16 operands exactly and accumulates in fp32). The tolerances are those
@@ -84,17 +86,26 @@ def _exp(s, off):
     return torch.exp2((s.double() * LOG2E + off.double()[..., None]).float())
 
 
-def _step(m, s):
+def _exp_exact(s, m):
+    """2^((s - m) log2e) as the backward forms it: the difference, then
+    the product, each rounded to fp32, then exp2: exactly 1 at a row's
+    max."""
+    return torch.exp2((s - m[..., None]) * LOG2E)
+
+
+def _step(m, s, exact=False):
     """One block of biased scores (G, R, 64) joining a running max m: the
     new max, the rescale factor 2^((m - new) log2e) of what came before
-    (1 where the max stayed) and e = 2^(s log2e - new log2e) (0 at -inf)."""
+    (1 where the max stayed) and e = 2^(s log2e - new log2e) (0 at -inf;
+    ``exact``: 2^((s - new) log2e))."""
     new = torch.maximum(m, s.amax(-1))
     alpha = torch.where(new == m, torch.ones_like(m),
                         torch.exp2((m - new) * LOG2E))
-    return new, alpha, _exp(s, -new * LOG2E)
+    return new, alpha, (_exp_exact(s, new) if exact
+                        else _exp(s, -new * LOG2E))
 
 
-def _run(s_blocks, extra=None):
+def _run(s_blocks, extra=None, exact=False):
     """The running max over a sweep's blocks of biased scores and the sum
     of e, rescaled as the max grows; with ``extra`` (the blocks' dP) also
     the sum of e dP, rescaled with it. Returns max, sum and that sum (or
@@ -103,16 +114,18 @@ def _run(s_blocks, extra=None):
     sm = torch.zeros_like(m)
     d = torch.zeros_like(m) if extra is not None else None
     for b, s in enumerate(s_blocks):
-        m, alpha, e = _step(m, s)
+        m, alpha, e = _step(m, s, exact)
         sm = sm * alpha + e.sum(-1)
         if extra is not None:
             d = d * alpha + (e * extra[b]).sum(-1)
     return m, sm, d
 
 
-def _p(s, m, sm):
-    """p = 2^(s log2e + off) inv, off = -max log2e, inv = 1 / sum."""
-    return _exp(s, -m * LOG2E) * (1 / sm)[..., None]
+def _p(s, m, sm, exact=False):
+    """p = 2^(s log2e + off) inv, off = -max log2e, inv = 1 / sum
+    (``exact``: 2^((s - max) log2e) inv)."""
+    e = _exp_exact(s, m) if exact else _exp(s, -m * LOG2E)
+    return e * (1 / sm)[..., None]
 
 
 def large_tile_model(q, k, v, bias, scale, *, bf16, round_q=False,
@@ -168,9 +181,10 @@ def large_bwd_model(q, k, v, do, bias, scale, *, bf16):
     s[:, :, N:] = -torch.inf
     dp = D @ V.transpose(1, 2)
     blocks = _blocks(N)
-    m, sm, d = _run([s[:, :, b] for b in blocks], [dp[:, :, b] for b in blocks])
-    rs = d / sm
-    p = torch.cat([_p(s[:, :, b], m, sm) for b in blocks], -1)
+    m, sm, d = _run([s[:, :, b] for b in blocks], [dp[:, :, b] for b in blocks],
+                    exact=True)
+    rs = d * (1 / sm)
+    p = torch.cat([_p(s[:, :, b], m, sm, exact=True) for b in blocks], -1)
     p = torch.nn.functional.pad(p, (0, KEYS - p.shape[-1]))
     ds = p * (dp - rs[..., None])
     dq = r(r(ds) @ K * scale)
@@ -367,6 +381,43 @@ def test_models_with_the_row_max_in_the_ragged_last_block(N):
         b = b.float()
         assert _one_ulp(a, b, 2 ** -7 * b.abs().max()), name
     assert (got[3] - want[3]).abs().max() <= 1e-5 * want[3].abs().max()
+
+
+FP64_GATE = 2e-5      # the cuda tests' fp32 tolerance
+
+
+@pytest.mark.parametrize("lift", [12, 16, 24])
+@pytest.mark.parametrize("N", [145, 196])
+def test_fp32_backward_at_a_lifted_bias_column_against_fp64(N, lift):
+    """The last key column's bias lifted far past lift 8: p at that column
+    tends to 1, so its ds = p (dP - rowsum(p dP)) is a difference of
+    nearly equal fp32 numbers, and dk and dbias there sums of N such
+    differences. The tile's fp32 backward model and
+    window_attention_bwd_plain each hold dq, dk, dv and dbias within
+    max(2e-5, 2 x the fp32 plain version's own error) of autograd through
+    window_attention_plain in float64 (each over the fp64 gradient's
+    max-abs): the card's gate (tests/test_torch_cuda_kernels.py). The
+    fp32 plain version is autograd through window_attention_plain in
+    fp32; its own error grows with the lift (about e^lift times fp32's
+    rounding), which the gate's second term admits."""
+    q, k, v, do, table, _ = _inputs(N, seed=7)
+    table[:, :, N - 1] += float(lift)
+    nH = table.shape[0]
+    scale = (q.shape[1] // nH) ** -0.5
+    args = (q, k, v, do, table, None, N, nH, scale)
+    plain = wa.fp64_grad_errors(wa.plain_grads(*args), *args)
+    model = wa.fp64_grad_errors(
+        _bwd(q, k, v, do, table, torch.zeros(1, N, dtype=torch.int32), N,
+             scale, False), *args)
+    bwd_plain = wa.fp64_grad_errors(wa.window_attention_bwd_plain(*args),
+                                    *args)
+    for name in wa.GRAD_NAMES:
+        gate = max(FP64_GATE, 2 * plain[name])
+        print(f"N={N} lift={lift} {name}: model {model[name]:.3e} "
+              f"bwd_plain {bwd_plain[name]:.3e} plain {plain[name]:.3e} "
+              f"gate {gate:.3e}")
+        assert model[name] <= gate, (name, model[name], gate)
+        assert bwd_plain[name] <= gate, (name, bwd_plain[name], gate)
 
 
 @pytest.mark.parametrize("N", [145, 196])
